@@ -18,23 +18,45 @@ main paths through the public entry points, at full data size:
   way.
 
 Every kernel's launch count is set to 0 just before a path and read just
-after it; a kernel of a path that launched no time in that run fails the
-smoke.  Each path then runs again, warm (WL-VH 5 times, each PM path
-twice; median reported), and once more under ``torch.profiler`` for its
-device busy time, idle share and longest device activities.  Then each
-kernel is held against its plain PyTorch version on the card at the
-shapes the paths gave it (integer inputs exactly; the ragged
-real-valued K1 case to rtol=1e-5, atol=1e-4, the f32 sum order
-differing), and timed with CUDA events beside its bound (the larger of
-bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, NVIDIA's H100
-SXM figures), its plain version and, for K1, ``torch.cdist(p=1)`` as a
-library yardstick (sum_l min(a, b) = (sum a + sum b - |a - b|_1) / 2).
+after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
+CUDA-core K1 (``min_gram``), and labeled PM the tensor-core K1-tc
+(``min_gram_tc``) and no CUDA-core K1.  Each path then runs again, warm
+(WL-VH 5 times, each PM path twice; median reported), and once more
+under ``torch.profiler`` for its device busy time, idle share and
+longest device activities.
 
-Output, on separate lines: the card, the build, a ``{"paths": ...}``
-JSON line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name
-and power limit, and last ``{"ok": true, "device": {...}}``.  Exits
-non-zero, with no result line, without a CUDA card, outside the
-repository, or when any check fails.
+Then each kernel is held against its plain PyTorch version on the card
+at the shapes the paths gave it, and timed beside its bound, its plain
+version and a library yardstick: ``ms``, device time from CUDA events
+with the stream kept busy while the calls are enqueued; ``device_ms``,
+the kernel's own records in torch.profiler; ``wrapper_ms``, the host
+time of a call:
+
+* K1 at the unlabeled levels, integer inputs exactly, and a ragged
+  real-valued case to rtol=1e-5, atol=1e-4 (the f32 sum order differs);
+  also at the labeled levels, square (fit_transform) and at the
+  transform shape of a 10-fold split (411 x 3699), for the break-even
+  ratio of the two routes.  Bound: the larger of bytes over 3.35 TB/s
+  and operations over 67 TFLOP/s fp32; yardstick ``torch.cdist(p=1)``
+  (sum_l min(a, b) = (sum a + sum b - |a - b|_1) / 2);
+* K1-tc at the four labeled levels (symmetric, as PyramidMatch's
+  fit_transform calls it), at their transform shape and a ragged
+  rectangular case, exactly, with the alpha / accumulate epilogue; its
+  expansion timed apart.  Bound: the larger of the products the
+  function needs (2 W' per Gram entry, n (n + 1) / 2 distinct entries
+  when symmetric) over 1979 TOP/s int8 and the int8 inputs plus the f32
+  output over 3.35 TB/s; yardstick ``torch._int_mm`` on the same
+  indicators (the port never calls it; it computes the full square),
+  and ``torch.cdist(p=1)`` for the function;
+* K2 over the NCI1-scale batch's CSR, generations 0-2, keys and the
+  hashes unpacked from them bit-identical to the plain versions; its
+  wrapper's host time per call beside.
+
+NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
+build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
+line, the ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Exits non-zero, with no result line, without a CUDA
+card, outside the repository, or when any check fails.
 """
 
 from __future__ import annotations
@@ -52,6 +74,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_GRAPHS, N_LABELS, SEED, N_HELD = 4110, 37, 1234, 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 REDDIT_B = dict(n_graphs=2000, median=304, mean=429.63, vmax=3782,
                 edge_ratio=1.1585)
 
@@ -115,11 +138,16 @@ class Checks:
 
 
 def cuda_ms(fn, reps, warmup=1):
-    """Mean milliseconds of ``fn()`` on the current stream (CUDA events
-    around ``reps`` back-to-back calls, after ``warmup`` calls)."""
+    """Mean device milliseconds of ``fn()`` on the current stream: CUDA
+    events around ``reps`` back-to-back calls, after ``warmup`` calls.  A
+    sleep kernel (~25 ms) keeps the stream busy while the host enqueues
+    the calls, so a call that does not wait for the device is timed by
+    its device work, not by its host side (:func:`host_ms`)."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -130,10 +158,25 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps):
+    """Mean host milliseconds of ``fn()`` over ``reps`` calls that do not
+    wait for the device (the wrapper's own cost)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def profiled(fn):
     """Run ``fn()`` once under torch.profiler.  Returns (wall s, device
-    busy ms = union of the CUDA activity intervals, {activity name: ms})
-    or (wall s, None, {}) when the profiler saw no CUDA activity."""
+    busy ms = union of the CUDA activity intervals, {activity name: ms},
+    {activity name: count}), or (wall s, None, {}, {}) when the profiler
+    saw no CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -143,20 +186,32 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    spans, by_name = [], {}
+    spans, by_name, counts = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             a, b = e.time_range.start, e.time_range.end
             spans.append((a, b))
             by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+            counts[e.name] = counts.get(e.name, 0) + 1
     if not spans:
-        return wall, None, {}
+        return wall, None, {}, {}
     busy, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return wall, busy / 1e3, by_name
+    return wall, busy / 1e3, by_name, counts
+
+
+def device_ms(fn, reps, kernel):
+    """Milliseconds per launch of the CUDA kernel whose name contains
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn()``: the
+    kernel records' total over their count (None when it saw none)."""
+    fn()
+    _, _, by_name, counts = profiled(lambda: [fn() for _ in range(reps)])
+    hits = [k for k in by_name if kernel in k]
+    n = sum(counts[k] for k in hits)
+    return sum(by_name[k] for k in hits) / n if n else None
 
 
 def warm_runs(fn, reps):
@@ -172,7 +227,7 @@ def warm_runs(fn, reps):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-    wall, busy, by_name = profiled(fn)
+    wall, busy, by_name, _ = profiled(fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"warm_s": walls, "warm_median_s": float(np.median(walls)),
             "profiled": {"wall_s": wall, "device_busy_ms": busy,
@@ -242,6 +297,7 @@ def main():
             print("  " + line.strip(), flush=True)
 
     counters = {"min_gram": intersect.min_gram_cuda,
+                "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda}
 
     def run_path(name, fn):
@@ -315,7 +371,7 @@ def main():
         pm = PyramidMatch(L=4, d=6, **kw)
         return pm, pm.fit_transform(graphs())
 
-    pm_mats = []   # the level matrices the PM paths gave K1
+    pm_mats = {}   # the level matrices each PM path gave K1 / K1-tc
     for key, name, graphs, kw in (
             ("pm_unlabeled_redditb", "pm_unlabeled", reddit,
              {"with_labels": False}),
@@ -326,15 +382,20 @@ def main():
         n = len(graphs())
         paths[key] = {"graphs": n, "wall_s": secs, "launches": launches,
                       "stages_s": dict(pm.timer_.times)}
-        check(launches["min_gram"] > 0, "%s launched K1 (%d)"
-              % (name, launches["min_gram"]))
+        if kw["with_labels"]:
+            check(launches["min_gram_tc"] > 0 and launches["min_gram"] == 0,
+                  "%s launched K1-tc (%d) and no CUDA-core K1 (%d)"
+                  % (name, launches["min_gram_tc"], launches["min_gram"]))
+        else:
+            check(launches["min_gram"] > 0, "%s launched K1 (%d)"
+                  % (name, launches["min_gram"]))
         Kref, mats = level_grams(pm, intersect.min_gram_plain)
         check(Kp.shape == (n, n) and np.isfinite(Kp).all()
               and np.array_equal(Kp, Kref),
               "%s Gram == plain level Grams combined" % name)
         paths[key].update(warm_runs(lambda g=graphs, k=kw: pm_run(g, **k),
                                     2))
-        pm_mats += mats
+        pm_mats[name] = mats
     paths["pm_unlabeled_redditb"]["max_vertices"] = int(max(
         n for n, _, _ in coo))
     print(json.dumps({"paths": paths}), flush=True)
@@ -352,11 +413,17 @@ def main():
         check(ok, "K1 %dx%dx%d %s vs plain, max abs err %g"
               % (n, m, L, "integer" if integer else "real", err))
         big = n * m * L > 1e9
-        t_ops = 2.0 * n * m * L / FP32_OPS_PER_S
-        t_bytes = 4.0 * (n * L + m * L + n * m) / HBM_BYTES_PER_S
+        ops = 2.0 * n * m * L
+        nbytes = 4.0 * (n * L + m * L + n * m)
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         return {"n": n, "m": m, "L": L, "max_abs_err": err,
+                "ops": ops, "bytes": nbytes,
                 "ms": cuda_ms(lambda: intersect.min_gram_cuda(A, B),
                               5 if big else 50),
+                "device_ms": device_ms(lambda: intersect.min_gram_cuda(A, B),
+                                       5 if big else 20, "min_gram_kernel"),
+                "wrapper_ms": host_ms(lambda: intersect.min_gram_cuda(A, B),
+                                      5 if big else 20),
                 "plain_ms": cuda_ms(lambda: intersect.min_gram_plain(A, B),
                                     1 if big else 5),
                 "library_ms": cuda_ms(lambda: torch.cdist(A, B, p=1),
@@ -364,65 +431,189 @@ def main():
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    k1 = [k1_case(A, A, True) for A in pm_mats]
+    k1 = [k1_case(A, A, True) for A in pm_mats["pm_unlabeled"]]
+    k1_labeled = [k1_case(A, A, True) for A in pm_mats["pm_labeled"]]
+    # PyramidMatch's transform shape at the labeled levels: a 10-fold
+    # cross-validation split of the NCI1-scale set, the 411 test graphs'
+    # rows against the 3699 training graphs'
+    n_test = N_GRAPHS // 10
+    rect = [(A[N_GRAPHS - n_test:].clone(), A[:N_GRAPHS - n_test].clone())
+            for A in pm_mats["pm_labeled"]]
+    k1_rect = [k1_case(A, B, True) for A, B in rect]
     rng = np.random.RandomState(SEED)
     ragged = k1_case(torch.from_numpy(rng.rand(37, 333).astype(np.float32))
                      .cuda(),
                      torch.from_numpy(rng.rand(1001, 333).astype(np.float32))
                      .cuda(), False)
 
-    # ---------------- K2 against its plain version ---------------------- #
+    # ---------------- K1-tc against its plain version ------------------- #
+    def tc_case(A, B):
+        sym = B is A
+        n, L = A.shape
+        m = B.shape[0]
+        max_a, max_b, integer = intersect.column_stats(A, B)
+        route = intersect.min_gram_route(max_a, max_b, integer, sym)
+        T = np.minimum(max_a, max_b)
+        cols = torch.from_numpy(intersect.threshold_columns(T)).cuda()
+
+        def expand():
+            EA = intersect.expand_thresholds(A, cols)
+            return EA, (EA if sym else intersect.expand_thresholds(B, cols))
+
+        EA, EB = expand()
+        W, Wp = int(T.sum()), EA.shape[1]
+        K = intersect.min_gram_tc_cuda(EA, EB)
+        R = intersect.min_gram_threshold_plain(A, B)
+        out = K.clone()
+        intersect.min_gram_tc_cuda(EA, EB, out=out, alpha=3.0)
+        torch.cuda.synchronize()
+        err = float((K - R).abs().max()) if K.numel() else 0.0
+        check(torch.equal(K, R) and torch.equal(out, K + 3.0 * R),
+              "K1-tc %dx%dx%d (W' %d, padded %d, %s, route %s) == plain, "
+              "K += 3 I too; max abs err %g"
+              % (n, m, L, W, Wp, "symmetric" if sym else "rect", route, err))
+        # torch._int_mm wants the second operand's columns a multiple of 8;
+        # it computes the full product, where K1-tc computes only the
+        # block tiles on or above the diagonal when B is A
+        EBp = torch.zeros((-(-m // 8) * 8, Wp), dtype=torch.int8,
+                          device=A.device)
+        EBp[:m] = EB
+        reps = 20
+        # the function's own work: a symmetric Gram has n (n + 1) / 2
+        # distinct entries; the indicators read once, the f32 Gram
+        # written once
+        ops = 2.0 * W * (n * (n + 1) / 2 if sym else n * m)
+        nbytes = (n if sym else n + m) * Wp + 4.0 * n * m
+        t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return {"n": n, "m": m, "L": L, "w_expanded": W, "w_padded": Wp,
+                "symmetric": sym, "route": route, "max_abs_err": err,
+                "ops": ops, "bytes": nbytes,
+                "ms": cuda_ms(lambda: intersect.min_gram_tc_cuda(EA, EB),
+                              reps),
+                "device_ms": device_ms(
+                    lambda: intersect.min_gram_tc_cuda(EA, EB), reps,
+                    "min_gram_tc_kernel"),
+                "wrapper_ms": host_ms(
+                    lambda: intersect.min_gram_tc_cuda(EA, EB), reps),
+                "expansion_ms": cuda_ms(expand, reps),
+                "plain_ms": cuda_ms(
+                    lambda: intersect.min_gram_threshold_plain(A, B), 3),
+                "library_ms": cuda_ms(lambda: torch._int_mm(EA, EBp.t()),
+                                      reps),
+                "cdist_ms": cuda_ms(lambda: torch.cdist(A, B, p=1), 3),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    tc = [tc_case(A, A) for A in pm_mats["pm_labeled"]]
+    tc_rect = [tc_case(A, B) for A, B in rect]
+    ia = rng.randint(0, 9, (1000, 333)).astype(np.float32)
+    ib = rng.randint(0, 9, (777, 333)).astype(np.float32)
+    tc_ragged = tc_case(torch.from_numpy(ia).cuda(),
+                        torch.from_numpy(ib).cuda())
+    # the two routes' break-even W' / L at each labeled level, symmetric
+    # (fit_transform) and rectangular (transform): K1's time per original
+    # column over K1-tc's (expansion included) per expanded column
+    for c, s in zip(tc + tc_rect, k1_labeled + k1_rect):
+        c["k1_ms"] = s["ms"]
+        c["break_even_ratio"] = (s["ms"] / c["L"]) / (
+            (c["ms"] + c["expansion_ms"]) / c["w_expanded"])
+    be_sym = min(c["break_even_ratio"] for c in tc)
+    be_rect = min(c["break_even_ratio"] for c in tc_rect)
+    check(all(c["route"] == "min_gram_tc" for c in tc),
+          "labeled levels route to K1-tc (W'/L %s, code limit %g; "
+          "break-even measured now %.2f); at the transform shape W'/L %s "
+          "route to %s (code limit %g; break-even measured now %.2f)"
+          % ([round(c["w_expanded"] / c["L"], 2) for c in tc],
+             intersect._TC_MAX_RATIO_SYM, be_sym,
+             [round(c["w_expanded"] / c["L"], 2) for c in tc_rect],
+             [c["route"] for c in tc_rect], intersect._TC_MAX_RATIO_RECT,
+             be_rect))
+
+    # ---------------- K2 against its plain versions --------------------- #
     batch = GraphBatch.from_graphs(normalize_input(train),
                                    node_label_enum={}, device="cuda")
+    csr = (batch.csr_offsets, batch.csr_targets)
     labs = batch.node_labels
     k2_err = 0
     for gen in range(3):
-        args = (labs, batch.senders, batch.receivers, batch.edge_mask)
-        h = wl_ops.wl_hash_refine_cuda(*args)
-        p = wl_ops.wl_hash_refine_plain(*args)
+        key = wl_ops.wl_hash_refine_cuda(labs, *csr)
+        pkey = wl_ops.wl_hash_refine_csr_plain(labs, *csr)
+        h = torch.stack(wl_ops.key_hashes(key))
+        q = torch.stack(wl_ops.wl_hash_refine_plain(
+            labs, batch.senders, batch.receivers, batch.edge_mask))
         torch.cuda.synchronize()
-        k2_err = max(k2_err, int((h[0] != p[0]).sum() + (h[1] != p[1]).sum()))
-        labs = wl_ops.compact_ids(h[0], h[1], batch.node_mask)[0]
-    check(k2_err == 0, "K2 bit-identical to plain on generations 0-2 "
-          "(%d differing hashes)" % k2_err)
-    N, E = labs.shape[0], batch.senders.shape[0]
-    args = (labs, batch.senders, batch.receivers, batch.edge_mask)
-    k2_bytes = 4 * N + 9 * E + 8 * N   # labels, edges+mask in; h1, h2 out
-    _, busy, _ = profiled(lambda: [wl_ops.wl_hash_refine_cuda(*args)
-                                   for _ in range(50)])
+        k2_err = max(k2_err, int((key != pkey).sum() + (h != q).sum()))
+        labs = wl_ops.compact_key_ids(key, batch.node_mask)[0]
+    check(k2_err == 0, "K2 hashes and keys bit-identical to the plain CSR "
+          "and COO versions on generations 0-2 (%d differing)" % k2_err)
+    N, E = labs.shape[0], batch.csr_targets.shape[0]
+
+    def k2_call():
+        return wl_ops.wl_hash_refine_cuda(labs, *csr)
+
+    # labels, offsets and targets in; the int64 key out
+    k2_bytes = 4 * N + 4 * (N + 1) + 4 * E + 8 * N
     k2 = {"nodes": N, "edges": E,
-          "device_ms": None if busy is None else busy / 50,
-          "ms": cuda_ms(lambda: wl_ops.wl_hash_refine_cuda(*args), 200, 5),
-          "plain_ms": cuda_ms(lambda: wl_ops.wl_hash_refine_plain(*args), 20),
+          "device_ms": device_ms(k2_call, 50, "wl_hash_csr"),
+          "ms": cuda_ms(k2_call, 200, 5), "wrapper_ms": host_ms(k2_call, 200),
+          "plain_ms": cuda_ms(
+              lambda: wl_ops.wl_hash_refine_csr_plain(labs, *csr), 20),
           "bound_ms": 1e3 * k2_bytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
 
-    def total(key):
-        return sum(c[key] for c in k1)
+    def total(cases, key):
+        vals = [c[key] for c in cases]
+        return None if None in vals else sum(vals)
 
-    t_ops = sum(2.0 * c["n"] * c["m"] * c["L"] for c in k1) / FP32_OPS_PER_S
-    t_bytes = sum(4.0 * ((c["n"] + c["m"]) * c["L"] + c["n"] * c["m"])
-                  for c in k1) / HBM_BYTES_PER_S
+    def row_bound_by(cases, ops_rate, op_bytes):
+        t_ops = total(cases, "ops") / ops_rate
+        t_bytes = total(cases, op_bytes) / HBM_BYTES_PER_S
+        return "operations" if t_ops >= t_bytes else "bytes"
+
+    launches = {k: sum(p["launches"][k] for p in paths.values())
+                for k in counters}
     kernels = [
         {"name": "min_gram", "route": "cuda",
          "source": "grakel_torch/csrc/min_gram.cu",
          "replaces": "grakel_tpu/ops/intersect.py:55",
-         "launches": paths["pm_unlabeled_redditb"]["launches"]["min_gram"]
-         + paths["pm_labeled_nci1scale"]["launches"]["min_gram"],
+         "launches": launches["min_gram"],
          "max_abs_err": max(c["max_abs_err"] for c in k1 + [ragged]),
-         "ms": total("ms"), "kernel_ms": total("ms"),
-         "plain_ms": total("plain_ms"),
-         "bound_ms": total("bound_ms"),
-         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-         "library_ms": total("library_ms"),
-         "summed_over": "one call per PM level of both PM paths",
-         "shapes": k1, "ragged_real_check": ragged},
+         "ms": total(k1, "ms"), "device_ms": total(k1, "device_ms"),
+         "wrapper_ms": total(k1, "wrapper_ms"),
+         "plain_ms": total(k1, "plain_ms"),
+         "bound_ms": total(k1, "bound_ms"),
+         "bound_by": row_bound_by(k1, FP32_OPS_PER_S, "bytes"),
+         "library_ms": total(k1, "library_ms"),
+         "summed_over": "one call per unlabeled PM level (the levels K1 "
+                        "runs on the main path)",
+         "shapes": k1, "labeled_levels": k1_labeled,
+         "labeled_levels_rect": k1_rect, "ragged_real_check": ragged},
+        {"name": "min_gram_tc", "route": "cuda",
+         "source": "grakel_torch/csrc/min_gram_tc.cu",
+         "replaces": "grakel_tpu/ops/intersect.py:55",
+         "mirrors": "grakel_tpu/ops/intersect.py:244 (_min_gram_gemm)",
+         "launches": launches["min_gram_tc"],
+         "max_abs_err": max(c["max_abs_err"] for c in tc + [tc_ragged]),
+         "ms": total(tc, "ms"), "device_ms": total(tc, "device_ms"),
+         "wrapper_ms": total(tc, "wrapper_ms"),
+         "expansion_ms": total(tc, "expansion_ms"),
+         "plain_ms": total(tc, "plain_ms"),
+         "bound_ms": total(tc, "bound_ms"),
+         "bound_by": row_bound_by(tc, INT8_OPS_PER_S, "bytes"),
+         "library_ms": total(tc, "library_ms"),
+         "library": "torch._int_mm on the same indicators",
+         "cdist_ms": total(tc, "cdist_ms"),
+         "k1_ms": total(tc, "k1_ms"),
+         "break_even_ratio": be_sym, "break_even_ratio_rect": be_rect,
+         "summed_over": "one call per labeled PM level",
+         "shapes": tc, "transform_shapes": tc_rect,
+         "ragged_rect_check": tc_ragged},
         {"name": "wl_hash_refine", "route": "cuda",
          "source": "grakel_torch/csrc/wl_hash.cu",
          "replaces": "grakel_tpu/ops/wl.py:71",
-         "launches": paths["wl_vh_h5_nci1scale"]["launches"][
-             "wl_hash_refine"],
-         "max_abs_err": k2_err, "ms": k2["ms"], "kernel_ms": k2["ms"],
-         "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
+         "launches": launches["wl_hash_refine"],
+         "max_abs_err": k2_err, "ms": k2["ms"],
+         "device_ms": k2["device_ms"], "wrapper_ms": k2["wrapper_ms"],
+         "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shapes": [k2]},
     ]

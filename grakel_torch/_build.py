@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["load_library", "CSRC", "BUILD_DIR"]
+__all__ = ["load_library", "launch", "CSRC", "BUILD_DIR"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -37,10 +37,12 @@ _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     "grakel_min_gram": [_P, _P, _P, _I, _I, _I, _P],
-    "grakel_wl_hash_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "grakel_min_gram_tc": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "grakel_wl_hash_refine": [_P, _P, _P, _P, _I, _P],
 }
 
 
@@ -128,3 +130,21 @@ def check(err, name):
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError("%s: CUDA error %d at launch" % (name, err))
+
+
+def launch(name, device, *args):
+    """Call the C entry point ``name(*args, stream)`` with ``device``
+    current and its current stream's raw pointer as the last argument,
+    and raise if it returned a CUDA error.  Switches device only when
+    another one is current: the host side of a launch is most of a
+    small kernel's cost."""
+    import torch
+    fn = getattr(load_library(), name)
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    if idx == cur:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check(err, name)

@@ -5,6 +5,8 @@ kernel's feature extraction runs as gather / scatter passes over the
 whole batch at once.  The layout and the pad-size ladder are those of
 ``grakel_tpu/batch.py``, so a node or edge index means the same thing
 in both packages; the tensors live on an explicit ``torch.device``.
+The valid edges are also kept grouped by sender (a CSR, built and its
+endpoints checked on the host at packing) for the WL hash kernel K2.
 
 The dense ``[n_graphs, V_max, V_max]`` layout arrives with the port's
 ShortestPath.
@@ -57,6 +59,22 @@ def enumerate_labels(labels, enum, extend=True):
     return out
 
 
+def _sender_csr(send, recv, n_nodes, n_pad):
+    """The valid edges grouped by sender, in edge order within a sender:
+    int32 (offsets [n_pad + 1], targets [E]).  Raises ValueError when an
+    endpoint lies outside [0, n_nodes), so kernels that index with the
+    CSR (K2) need no check of their own."""
+    for name, x in (("sender", send), ("receiver", recv)):
+        if x.size and (int(x.min()) < 0 or int(x.max()) >= n_nodes):
+            raise ValueError("GraphBatch: an edge %s lies outside the "
+                             "batch's nodes [0, %d)" % (name, n_nodes))
+    offsets = np.zeros(n_pad + 1, np.int32)
+    np.cumsum(np.bincount(send, minlength=n_pad), out=offsets[1:])
+    if send.size and not (send[1:] >= send[:-1]).all():
+        recv = recv[np.argsort(send, kind="stable")]
+    return offsets, np.ascontiguousarray(recv, dtype=np.int32)
+
+
 @dataclasses.dataclass
 class GraphBatch:
     """Padded batch.  Host metadata is numpy; per-item arrays are tensors
@@ -72,6 +90,8 @@ class GraphBatch:
     edge_weights: torch.Tensor     # f32 [E_pad]; 0 on padding
     edge_labels: torch.Tensor      # i32 [E_pad]
     edge_graph_ids: torch.Tensor   # i32 [E_pad]; == n_graphs for padding
+    csr_offsets: torch.Tensor      # i32 [N_pad+1] valid edges by sender
+    csr_targets: torch.Tensor      # i32 [E] their receivers
     n_nodes: np.ndarray            # i64 [n_graphs]
     n_edges: np.ndarray            # i64 [n_graphs]
     node_offsets: np.ndarray       # i64 [n_graphs+1] start of each graph's nodes
@@ -132,6 +152,7 @@ class GraphBatch:
             ew[:E] = np.concatenate([g.weights for g in graphs])
             edge_gid[:E] = np.repeat(np.arange(n, dtype=np.int32), n_edges)
             edge_msk[:E] = True
+        csr_offsets, csr_targets = _sender_csr(send[:E], recv[:E], N, N_pad)
         if node_label_enum is None:
             node_label_enum = {}
         if edge_label_enum is None:
@@ -189,6 +210,8 @@ class GraphBatch:
             edge_weights=conv(ew),
             edge_labels=conv(edge_lab),
             edge_graph_ids=conv(edge_gid),
+            csr_offsets=conv(csr_offsets),
+            csr_targets=conv(csr_targets),
             n_nodes=n_nodes,
             n_edges=n_edges,
             node_offsets=offsets,

@@ -1,4 +1,4 @@
-// K2: one Weisfeiler-Lehman hash refinement step.
+// K2: one Weisfeiler-Lehman hash refinement step, one pass over a CSR.
 //
 // Replaces the XLA program grakel_tpu/ops/wl.py wl_hash_refine (with
 // _fmix32); it is bit-identical to its numpy twin host_hash_refine.
@@ -6,20 +6,25 @@
 //   sum_s(v) = sum over valid edges of fmix32(l(u), seed_s)   (mod 2^32)
 //   h1(v) = fmix32(l(v) * 0x9E3779B9 + sum_1(v), 0x165667B1)
 //   h2(v) = fmix32(l(v) * 0x85EBCA6B + sum_2(v), 0x27D4EB2F)
+// and writes only the compaction key (h1 - 2^31) * 2^32 + h2 as int64,
+// whose signed order is the unsigned order of the pair and which holds
+// both hashes exactly (ops/wl.py key_hashes unpacks them).
 // PyTorch has no uint32 arithmetic for this, hence a kernel.
 //
 // What bounds it on an H100: a few dozen integer operations per edge
-// and per node against 13 bytes read per edge and 12 bytes moved per
-// node, so it is bound by memory bytes; at the sizes WL sees (10^5 to
-// 10^6 nodes) one call is a few microseconds, so launch latency is the
-// real floor.
+// and per node against 8 bytes read per edge and 16 bytes moved per node
+// (label, offset, key), so memory bytes; at the sizes WL sees
+// (10^5 to 10^6 nodes) one launch is a few microseconds, so launch
+// latency and the host side of the call are the real floor.
 //
-// Design: pass 1, one thread per edge, gathers l(receiver), mixes it
-// under both seeds and atomicAdds into sum1/sum2 (unsigned, zeroed by
-// the caller).  Wrap-around addition is commutative and associative, so
-// the sums do not depend on the order the atomics land in.  Pass 2, one
-// thread per node, applies the finalizers and writes the hashes as
-// int32 bit patterns.
+// Design: the caller hands the valid edges grouped by sender (CSR built
+// once per GraphBatch on the host, where the endpoints are checked), so
+// one thread per node gathers its neighbours' labels, sums both mixes in
+// registers and applies both finalizers: one launch, no atomics and no
+// zero-filled scratch.  Wrap-around addition is order-free, so the
+// hashes are those of the edge-order sum.  Degrees on the WL main path
+// are 2-5; a node of very high degree serialises its warp (a warp per
+// such node is later work).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,57 +40,41 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x, uint32_t seed) {
   return x;
 }
 
-__global__ void wl_edge_sums(const int32_t* __restrict__ labels,
-                             const int32_t* __restrict__ senders,
-                             const int32_t* __restrict__ receivers,
-                             const bool* __restrict__ edge_valid,
-                             uint32_t* __restrict__ sum1,
-                             uint32_t* __restrict__ sum2, int n_edges) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_edges || !edge_valid[e]) return;
-  const uint32_t nl = (uint32_t)labels[receivers[e]];
-  const int s = senders[e];
-  atomicAdd(sum1 + s, fmix32(nl, 0x9E3779B9u));
-  atomicAdd(sum2 + s, fmix32(nl, 0x7F4A7C15u));
-}
-
-__global__ void wl_node_hash(const int32_t* __restrict__ labels,
-                             const uint32_t* __restrict__ sum1,
-                             const uint32_t* __restrict__ sum2,
-                             int32_t* __restrict__ h1,
-                             int32_t* __restrict__ h2, int n_nodes) {
+__global__ void __launch_bounds__(256)
+wl_hash_csr(const int32_t* __restrict__ labels,
+            const int32_t* __restrict__ offsets,
+            const int32_t* __restrict__ targets, long long* __restrict__ key,
+            int n_nodes) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_nodes) return;
+  uint32_t s1 = 0u, s2 = 0u;
+  const int end = offsets[v + 1];
+  for (int e = offsets[v]; e < end; ++e) {
+    const uint32_t nl = (uint32_t)__ldg(labels + __ldg(targets + e));
+    s1 += fmix32(nl, 0x9E3779B9u);
+    s2 += fmix32(nl, 0x7F4A7C15u);
+  }
   const uint32_t l = (uint32_t)labels[v];
-  h1[v] = (int32_t)fmix32(l * 0x9E3779B9u + sum1[v], 0x165667B1u);
-  h2[v] = (int32_t)fmix32(l * 0x85EBCA6Bu + sum2[v], 0x27D4EB2Fu);
+  const uint32_t u1 = fmix32(l * 0x9E3779B9u + s1, 0x165667B1u);
+  const uint32_t u2 = fmix32(l * 0x85EBCA6Bu + s2, 0x27D4EB2Fu);
+  key[v] = (long long)(((uint64_t)(u1 ^ 0x80000000u) << 32) | u2);
 }
 
 }  // namespace
 
-// labels [n_nodes] i32; senders, receivers [n_edges] i32 in
-// [0, n_nodes); edge_valid [n_edges] bool; sum1, sum2 [n_nodes] u32
-// zero-filled scratch; h1, h2 [n_nodes] i32 outputs.  Launches both
-// passes on `stream`; returns cudaGetLastError().
+// labels [n_nodes] i32; offsets [n_nodes + 1] i32, non-decreasing, from
+// 0; targets [offsets[n_nodes]] i32 in [0, n_nodes); key [n_nodes] i64
+// output.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int grakel_wl_hash_refine(const int32_t* labels,
-                                     const int32_t* senders,
-                                     const int32_t* receivers,
-                                     const bool* edge_valid,
-                                     uint32_t* sum1, uint32_t* sum2,
-                                     int32_t* h1, int32_t* h2,
-                                     int n_nodes, int n_edges,
+                                     const int32_t* offsets,
+                                     const int32_t* targets,
+                                     long long* key, int n_nodes,
                                      void* stream) {
   const int tpb = 256;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n_edges > 0) {
-    wl_edge_sums<<<(n_edges + tpb - 1) / tpb, tpb, 0, st>>>(
-        labels, senders, receivers, edge_valid, sum1, sum2, n_edges);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   if (n_nodes > 0) {
-    wl_node_hash<<<(n_nodes + tpb - 1) / tpb, tpb, 0, st>>>(
-        labels, sum1, sum2, h1, h2, n_nodes);
+    wl_hash_csr<<<(n_nodes + tpb - 1) / tpb, tpb, 0,
+                  (cudaStream_t)stream>>>(labels, offsets, targets, key,
+                                          n_nodes);
   }
   return (int)cudaGetLastError();
 }

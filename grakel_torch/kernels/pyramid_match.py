@@ -19,9 +19,11 @@ Embeddings of graphs with at least ``_DEVICE_EMBED_MIN_N`` vertices come
 from the slab-batched Lanczos on the kernel's device (ops/spectral.py);
 smaller graphs keep the scipy path.  Every level's all-pairs
 intersection I_p is one :func:`min_intersection_gram` call on the
-kernel's device (the CUDA kernel K1 on a card), and the levels combine
-on the device with the integer weights 2^(L-1) c_p before one division
-by 2^(L-1): integer-valued, exact in f32 below 2^24.
+kernel's device (on a card the tensor-core kernel K1-tc where the
+threshold expansion of the counts stays narrow, as on labeled levels,
+and the CUDA-core kernel K1 elsewhere), which folds the level into the
+sum with its integer weight 2^(L-1) c_p; one division by 2^(L-1)
+follows: integer-valued, exact in f32 below 2^24.
 
 Past ``_DENSE_MAX_W`` (wide label universes) the kernel switches to a
 SPARSE path: histogram entries become unary-expanded 0/1 features
@@ -270,44 +272,40 @@ class PyramidMatch(Kernel):
             out[i, :m] = flat[:m]
         return out
 
-    def _intersections(self, px, py):
-        """Per-level all-pairs intersections I_p [len(py), len(px)] as
-        f32 tensors on the kernel's device (None for an empty level).
+    def _combined_gram(self, px, py):
+        """Dense-path Gram: k = sum_p c_p I_p, the level intersections
+        I_p [len(py), len(px)] computed on the kernel's device.  The c_p
+        are dyadic rationals; scaled by 2^(L-1) every weight is an exact
+        integer, so each level is folded in with its weight by the Gram
+        call itself, exactly in f32, and one division by the scale
+        finishes in f64.  The level matrices are counts built here on
+        the host, so their column maxima go along with them and routing
+        reads nothing back from the device.
 
         Row truncation to the smaller label count (reference :270-277) is
         equivalent to truncating the flattened feature width to the
         smaller of the two, because rows are label-major and each level's
         cell count is shared."""
-        dev = self._device()
-        I = []
-        for j in range(self.L):
-            wx = next((d[j].size for d in px if len(d)), 0)
-            wy = next((d[j].size for d in py if len(d)), 0)
-            w = min(wx, wy) if (wx and wy) else 0
-            if w == 0:
-                I.append(None)
-                continue
-            A = torch.from_numpy(self._level_matrix(py, j, w)).to(dev)
-            B = A if py is px else \
-                torch.from_numpy(self._level_matrix(px, j, w)).to(dev)
-            I.append(min_intersection_gram(A, B))
-        return I
-
-    def _combined_gram(self, px, py):
-        """Dense-path Gram: k = sum_p c_p I_p.  The c_p are dyadic
-        rationals; scaled by 2^(L-1) every weight is an exact integer, so
-        the levels accumulate exactly in f32 on the device and one
-        division by the scale finishes in f64."""
         if self.L == 0:
             return torch.zeros((len(py), len(px)), dtype=torch.float64)
+        dev = self._device()
         cs = self._level_coeffs()
         scale = float(2 ** max(self.L - 1, 0))
         Kacc = None
-        for j, Ij in enumerate(self._intersections(px, py)):
+        for j in range(self.L):
             cj = float(round(cs[j] * scale))
-            if Ij is None or cj == 0.0:
+            wx = next((d[j].size for d in px if len(d)), 0)
+            wy = next((d[j].size for d in py if len(d)), 0)
+            w = min(wx, wy) if (wx and wy) else 0
+            if w == 0 or cj == 0.0:
                 continue
-            Kacc = cj * Ij if Kacc is None else Kacc.add_(Ij, alpha=cj)
+            Ma = self._level_matrix(py, j, w)
+            Mb = Ma if py is px else self._level_matrix(px, j, w)
+            A = torch.from_numpy(Ma).to(dev)
+            B = A if py is px else torch.from_numpy(Mb).to(dev)
+            Kacc = min_intersection_gram(
+                A, B, count_max=(Ma.max(0), Mb.max(0)), out=Kacc,
+                alpha=cj)
         if Kacc is None:
             return torch.zeros((len(py), len(px)), dtype=torch.float64)
         return Kacc.to(torch.float64) / scale

@@ -14,9 +14,11 @@ Two execution paths:
 
 * **fast path** (base kernel is VertexHistogram, the default): the whole
   pipeline stays on the kernel's device.  Refinement = the K2 multiset
-  hash + ``torch.unique`` compaction (ops/wl.py); per-generation Gram =
-  chunked scatter + fp32 GEMM accumulation (ops/gram.py), over the
-  repeated labels only, with singletons folded into the diagonal.
+  hash over the batch's sender CSR, which also gives each node's
+  compaction key, + ``torch.unique`` compaction (ops/wl.py);
+  per-generation Gram = chunked scatter + fp32 GEMM accumulation
+  (ops/gram.py), over the repeated labels only, with singletons folded
+  into the diagonal.
   Transform recomputes WL on the disjoint union of fit and transform
   graphs (refinement is per-graph independent, so fit ids keep their
   meaning) and evaluates only the rectangular block.
@@ -144,10 +146,15 @@ class WeisfeilerLehman(Kernel):
         labels = batch.node_labels
         yield labels, max(batch.num_node_labels, 1)
         for _ in range(self.n_iter):
-            h1, h2 = wl_ops.wl_hash_refine(
-                labels, batch.senders, batch.receivers, batch.edge_mask)
-            labels, nu, _ = wl_ops.compact_ids(h1, h2, batch.node_mask)
+            labels, nu, _ = self._refine(batch, labels)
             yield labels, bucket_size(nu)
+
+    @staticmethod
+    def _refine(batch, labels):
+        """One refinement over the batch's CSR: (ids, n_unique, counts)."""
+        key = wl_ops._wl_hash_refine_csr(
+            labels, batch.csr_offsets, batch.csr_targets)
+        return wl_ops.compact_key_ids(key, batch.node_mask)
 
     def _device_sym(self, graphs):
         """Symmetric fit_transform Gram on the WL fast path: one
@@ -167,9 +174,7 @@ class WeisfeilerLehman(Kernel):
         for _ in range(self.n_iter):
             K = chunked_counts_gram_raw(gids, gram_labels, ones, gram_valid,
                                         n, *chunk_plan(L), K0=K)
-            h1, h2 = wl_ops.wl_hash_refine(
-                labels, batch.senders, batch.receivers, batch.edge_mask)
-            labels, _, counts = wl_ops.compact_ids(h1, h2, valid)
+            labels, _, counts = self._refine(batch, labels)
             gram_labels, gram_valid, n_rep, dc = wl_ops.split_singletons(
                 labels, counts, valid, gids, n)
             diag_corr += dc

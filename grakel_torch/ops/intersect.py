@@ -1,13 +1,27 @@
 """Histogram-intersection Gram: K[i, j] = sum_l min(A[i, l], B[j, l]).
 
 The counterpart of ``grakel_tpu/ops/intersect.py:min_intersection_gram``,
-used by PyramidMatch's level Grams.  min() has no tensor-core mapping,
-so CUDA tensors go to the hand-written CUDA kernel K1
-(``csrc/min_gram.cu``, the port of the Pallas kernel
-``_min_gram_kernel``), which accumulates in f32 as the Pallas kernel
-does: integer-valued histograms come out exact below 2^24.  CPU tensors
-take the plain version, the pair-tiled broadcast-min-reduce of the JAX
-package's ``_min_gram_impl``.
+used by PyramidMatch's level Grams.  Two routes, chosen as the JAX
+package chooses between its threshold GEMM and its Pallas kernel
+(:func:`min_gram_route`):
+
+* **count histograms** (every entry a nonnegative integer, none above
+  ``_GEMM_MAX_T``) whose expanded width ``W' = sum_l T_l``,
+  ``T_l = min(max_i A[i, l], max_j B[j, l])``, is at most
+  ``_TC_MAX_RATIO_SYM`` (``B is A``) or ``_TC_MAX_RATIO_RECT`` times the
+  width: the threshold-indicator identity
+  ``sum_l min(a_l, b_l) = sum_l sum_{t <= T_l} [a_l >= t] [b_l >= t]``
+  turns the Gram into one 0/1 product, computed on the tensor cores by
+  the hand-written kernel K1-tc (``csrc/min_gram_tc.cu``) over int8
+  indicators with s32 sums: exact;
+* **everything else** (real values, large counts, expansions too wide to
+  pay): the CUDA-core kernel K1 (``csrc/min_gram.cu``, the port of the
+  Pallas kernel ``_min_gram_kernel``), accumulating in f32 as the Pallas
+  kernel does: integer-valued histograms come out exact below 2^24.
+
+CPU tensors take each kernel's plain version: :func:`min_gram_plain`,
+the pair-tiled broadcast-min-reduce of the JAX package's
+``_min_gram_impl``, and the threshold expansion with an f64 product.
 
 ``min_intersection_gram_rounds`` and ``jaccard_gram_rounds`` arrive with
 the port's NeighborhoodHash.
@@ -15,9 +29,28 @@ the port's NeighborhoodHash.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["min_intersection_gram", "min_gram_plain", "min_gram_cuda"]
+__all__ = ["min_intersection_gram", "min_gram_route", "min_gram_plain",
+           "min_gram_threshold_plain", "min_gram_cuda", "min_gram_tc_cuda",
+           "column_stats", "threshold_columns", "expand_thresholds"]
+
+# counts above this take K1, as in grakel_tpu/ops/intersect.py
+_GEMM_MAX_T = 2048
+# K1-tc is taken while W' <= ratio * L, one ratio per call form.
+# chip_smoke.py measures the break-even ratio at the labeled NCI1-scale
+# levels on an H100 (PERF.md): the W' / L at which K1-tc, its expansion
+# included, costs as much device time as K1.  Symmetric 4110 x 4110
+# (fit_transform; K1-tc computes half the Gram): 20.7 to 22.5.
+# Rectangular 411 x 3699 (transform of a 10-fold split; K1-tc computes
+# it all and expands A and B): 4.4 to 4.9.  Each limit is the floor of
+# its smallest reading.  They are verified at these shapes only: a
+# smaller transform batch expands B for fewer products and favours K1.
+_TC_MAX_RATIO_SYM = 20.0
+_TC_MAX_RATIO_RECT = 4.0
+# K1-tc's rows are staged in 16-byte copies: W' pads to a multiple
+_TC_K_ALIGN = 16
 
 
 def min_gram_plain(A, B, tile=64):
@@ -33,6 +66,96 @@ def min_gram_plain(A, B, tile=64):
                 a, B[None, j:j + tile, :]).sum(-1)
     return K
 
+
+# --------------------------------------------------------------------- #
+# routing and the threshold expansion
+# --------------------------------------------------------------------- #
+
+def min_gram_route(max_a, max_b, integer, symmetric):
+    """The kernel that computes the Gram of A [n, L] and B [m, L] whose
+    column maxima are ``max_a`` and ``max_b`` (length L), whose entries
+    are all nonnegative integers when ``integer``, and where B is A when
+    ``symmetric``: ``"min_gram_tc"`` (the threshold product on the
+    tensor cores) when the inputs are counts no larger than
+    ``_GEMM_MAX_T`` and ``W' = sum_l min(max_a[l], max_b[l])`` is at most
+    ``_TC_MAX_RATIO_SYM * L`` (symmetric) or ``_TC_MAX_RATIO_RECT * L``;
+    ``"min_gram"`` (K1 on the CUDA cores) otherwise."""
+    if not integer:
+        return "min_gram"
+    max_a = np.asarray(max_a, np.float64)
+    max_b = np.asarray(max_b, np.float64)
+    if max_a.size and max(max_a.max(), max_b.max()) > _GEMM_MAX_T:
+        return "min_gram"
+    width = float(np.minimum(max_a, max_b).sum())
+    ratio = _TC_MAX_RATIO_SYM if symmetric else _TC_MAX_RATIO_RECT
+    return "min_gram_tc" if width <= ratio * max_a.size else "min_gram"
+
+
+def column_stats(A, B):
+    """(column maxima of A, of B, whether every entry of both is a
+    nonnegative integer) for nonempty A [n, L] and B [m, L] on one
+    device: numpy arrays and a bool, in one device-to-host copy."""
+    def part(X):
+        bad = ((X < 0) | (X != torch.floor(X))).any()
+        return torch.cat([X.amax(0), bad.reshape(1).to(X.dtype)])
+    L = A.shape[1]
+    stats = torch.cat([part(A), part(B)]).cpu().numpy()
+    return (stats[:L], stats[L + 1:2 * L + 1],
+            not (stats[L] or stats[2 * L + 1]))
+
+
+def threshold_columns(T, align=_TC_K_ALIGN):
+    """The expanded columns for per-column thresholds ``T`` (nonnegative
+    integers, length L): int32 [2, W'p] of (source column, threshold)
+    with ``E[:, w] = A[:, src[w]] >= thr[w]``, columns ``(l, t)`` for
+    t = 1..T_l in l order, then zero columns (threshold 2^31 - 1) up to
+    a multiple of ``align``."""
+    T = np.asarray(T).astype(np.int64)
+    width = int(T.sum())
+    cols = np.zeros((2, -(-width // align) * align), np.int32)
+    cols[1, width:] = np.iinfo(np.int32).max
+    cols[0, :width] = np.repeat(np.arange(T.size), T)
+    starts = np.cumsum(T) - T
+    cols[1, :width] = np.arange(width) - np.repeat(starts, T) + 1
+    return cols
+
+
+def expand_thresholds(X, cols):
+    """0/1 int8 [n, W'p] indicators ``X[:, cols[0]] >= cols[1]`` of f32
+    X [n, L], with ``cols`` from :func:`threshold_columns` on X's
+    device."""
+    return (X.index_select(1, cols[0]) >= cols[1]).view(torch.int8)
+
+
+def _indicator_product_plain(EA, EB):
+    """Exact E_A E_B^T of 0/1 indicators as f32: an f64 product, exact
+    while W' < 2^53."""
+    return (EA.to(torch.float64) @ EB.to(torch.float64).T).to(torch.float32)
+
+
+def min_gram_threshold_plain(A, B):
+    """Plain PyTorch min-intersection Gram of nonnegative integer-valued
+    A [n, L] and B [m, L] by the threshold expansion K1-tc computes
+    (:func:`threshold_columns`, :func:`expand_thresholds`) and an exact
+    f64 product.  Works on any device; f32 [n, m]."""
+    A = A.to(torch.float32).contiguous()
+    B = B.to(torch.float32).contiguous()
+    if A.shape[0] == 0 or B.shape[0] == 0 or A.shape[1] == 0:
+        return torch.zeros((A.shape[0], B.shape[0]), dtype=torch.float32,
+                           device=A.device)
+    max_a, max_b, integer = column_stats(A, B)
+    if not integer:
+        raise ValueError("min_gram_threshold_plain: inputs must be "
+                         "nonnegative integers")
+    cols = torch.from_numpy(threshold_columns(np.minimum(max_a, max_b)))
+    cols = cols.to(A.device)
+    return _indicator_product_plain(expand_thresholds(A, cols),
+                                    expand_thresholds(B, cols))
+
+
+# --------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------- #
 
 def min_gram_cuda(A, B):
     """Launch K1 (``csrc/min_gram.cu``).  ``A`` [n, L] and ``B`` [m, L]
@@ -58,12 +181,8 @@ def min_gram_cuda(A, B):
     K = torch.empty((n, m), dtype=torch.float32, device=A.device)
     if n == 0 or m == 0:
         return K
-    lib = _build.load_library()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.grakel_min_gram(A.data_ptr(), B.data_ptr(), K.data_ptr(),
-                                  n, m, L, stream)
-    _build.check(err, "grakel_min_gram")
+    _build.launch("grakel_min_gram", A.device, A.data_ptr(), B.data_ptr(),
+                  K.data_ptr(), n, m, L)
     min_gram_cuda.launches += 1
     return K
 
@@ -71,23 +190,118 @@ def min_gram_cuda(A, B):
 min_gram_cuda.launches = 0
 
 
-def min_intersection_gram(A, B=None, tile=64):
+def min_gram_tc_cuda(EA, EB, out=None, alpha=1.0):
+    """Launch K1-tc (``csrc/min_gram_tc.cu``): ``alpha * EA @ EB.T`` as
+    f32 [n, m], added into ``out`` (f32 [n, m], contiguous) when given.
+    ``EA`` [n, k] and ``EB`` [m, k] are contiguous 0/1 int8 CUDA tensors
+    on one device with k a multiple of 16; ``EB is EA`` computes the
+    upper block triangle and mirrors it.  Returns the result tensor."""
+    from .. import _build
+    dev = EA.device
+    if dev.type != "cuda" or EB.device != dev:
+        raise ValueError("min_gram_tc_cuda: EA and EB must be CUDA tensors "
+                         "on one device")
+    for X, name in ((EA, "EA"), (EB, "EB")):
+        if X.dtype != torch.int8 or X.dim() != 2 or not X.is_contiguous():
+            raise ValueError("min_gram_tc_cuda: %s must be a contiguous 2-D "
+                             "int8 tensor" % name)
+    n, k = EA.shape
+    m = EB.shape[0]
+    if EB.shape[1] != k or k % _TC_K_ALIGN:
+        raise ValueError("min_gram_tc_cuda: EA and EB need one width, a "
+                         "multiple of %d (got %d and %d)"
+                         % (_TC_K_ALIGN, k, EB.shape[1]))
+    if max(n, m, k) >= 1 << 31 or (n + 127) // 128 > 65535:
+        raise ValueError("min_gram_tc_cuda: shape (%d, %d, %d) out of range"
+                         % (n, m, k))
+    if out is None:
+        out, accumulate = torch.empty((n, m), dtype=torch.float32,
+                                      device=dev), 0
+    else:
+        if out.shape != (n, m) or out.dtype != torch.float32 \
+                or out.device != dev or not out.is_contiguous():
+            raise ValueError("min_gram_tc_cuda: out must be a contiguous "
+                             "f32 [%d, %d] tensor on %s" % (n, m, dev))
+        accumulate = 1
+    if n == 0 or m == 0:
+        return out
+    _build.launch("grakel_min_gram_tc", dev, EA.data_ptr(), EB.data_ptr(),
+                  out.data_ptr(), n, m, k, float(alpha), accumulate,
+                  int(EB is EA))
+    min_gram_tc_cuda.launches += 1
+    return out
+
+
+min_gram_tc_cuda.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# entry point
+# --------------------------------------------------------------------- #
+
+def _fold(K, out, alpha):
+    """alpha * K, added into ``out`` when given."""
+    if out is not None:
+        return out.add_(K, alpha=alpha)
+    return K if alpha == 1.0 else K.mul_(alpha)
+
+
+def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
+                          out=None, alpha=1.0):
     """K[i, j] = sum_l min(A[i, l], B[j, l]); B defaults to A.
 
-    A: [n, L], B: [m, L] tensors on one device, taken as f32.  CUDA
-    tensors launch K1; CPU tensors take :func:`min_gram_plain`.  Returns
-    an f32 [n, m] tensor on that device."""
+    A: [n, L], B: [m, L] tensors on one device, taken as f32.  Returns
+    ``alpha * K`` as an f32 [n, m] tensor on that device, or adds it into
+    ``out`` (f32 [n, m]) and returns ``out``.
+
+    The route (:func:`min_gram_route`) needs the column maxima and
+    whether every entry is a nonnegative integer; they are read from the
+    device (:func:`column_stats`, one device-to-host copy) unless the
+    caller passes ``count_max=(max_a, max_b)``, numpy column maxima of A
+    and B.  That is a contract, not a hint: it says that A and B hold
+    nonnegative integer counts with these column maxima (PyramidMatch's
+    level matrices, built on the host), and it is not checked against
+    the device data.  Inputs that break it give a wrong Gram.  CUDA
+    tensors launch K1-tc or K1; CPU tensors take their plain versions."""
+    sym = B is None or B is A
     B = A if B is None else B
     if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
         raise ValueError("min_intersection_gram: need [n, L] and [m, L]")
     if A.device != B.device:
         raise ValueError("min_intersection_gram: A and B on different "
                          "devices")
+    dev = A.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("min_intersection_gram: unsupported device %s"
+                         % dev)
     A = A.to(torch.float32).contiguous()
-    B = B.to(torch.float32).contiguous()
-    if A.device.type == "cuda":
-        return min_gram_cuda(A, B)
-    if A.device.type == "cpu":
-        return min_gram_plain(A, B, tile)
-    raise ValueError("min_intersection_gram: unsupported device %s"
-                     % A.device)
+    B = A if sym else B.to(torch.float32).contiguous()
+    n, m = A.shape[0], B.shape[0]
+    if n == 0 or m == 0:
+        K = torch.zeros((n, m), dtype=torch.float32, device=dev)
+        return _fold(K, out, alpha)
+    if count_max is None:
+        max_a, max_b, integer = column_stats(A, B)
+    else:
+        max_a, max_b = (np.asarray(x, np.float64) for x in count_max)
+        integer = True
+        if max_a.shape != (A.shape[1],) or max_b.shape != (A.shape[1],) \
+                or (max_a < 0).any() or (max_b < 0).any() \
+                or (max_a != np.floor(max_a)).any() \
+                or (max_b != np.floor(max_b)).any():
+            raise ValueError("min_intersection_gram: count_max must be two "
+                             "length-%d arrays of nonnegative integers"
+                             % A.shape[1])
+    if min_gram_route(max_a, max_b, integer, sym) == "min_gram_tc":
+        # from pageable memory a non-blocking copy is staged at once and
+        # waits for nothing queued on the card
+        cols = torch.from_numpy(threshold_columns(
+            np.minimum(max_a, max_b))).to(dev, non_blocking=True)
+        EA = expand_thresholds(A, cols)
+        EB = EA if sym else expand_thresholds(B, cols)
+        if dev.type == "cuda":
+            return min_gram_tc_cuda(EA, EB, out, alpha)
+        return _fold(_indicator_product_plain(EA, EB), out, alpha)
+    K = min_gram_cuda(A, B) if dev.type == "cuda" \
+        else min_gram_plain(A, B, tile)
+    return _fold(K, out, alpha)

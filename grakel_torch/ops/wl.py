@@ -5,12 +5,16 @@ The counterpart of ``grakel_tpu/ops/wl.py``.  One refinement step:
 1. hash each node's (own label, neighbour-label multiset) with a pair of
    independent 32-bit commutative multiset hashes (sums of mixed
    neighbour labels wrap mod 2^32, so the hash is order-free and matches
-   the reference's sorted-credential semantics): :func:`wl_hash_refine`,
-   the hand-written CUDA kernel K2 for CUDA tensors and its plain int64
-   version for CPU tensors;
-2. compact hash pairs to dense ids ranked by (h1, h2) as unsigned
-   values, with occurrence counts: :func:`compact_ids`, one
-   ``torch.unique`` on the tensors' device.
+   the reference's sorted-credential semantics), packed into one int64
+   compaction key per node: :func:`_wl_hash_refine_csr` over the valid
+   edges grouped by sender (the CSR a ``GraphBatch`` builds and checks
+   once), the hand-written CUDA kernel K2 for CUDA tensors and a plain
+   int64 version for CPU tensors.  :func:`key_hashes` unpacks the pair.
+   :func:`wl_hash_refine` is the same step on COO edges with a validity
+   mask, the signature of the JAX function, returning the pair;
+2. compact keys to dense ids ranked by (h1, h2) as unsigned values, with
+   occurrence counts: :func:`compact_key_ids`, one ``torch.unique`` on
+   the tensors' device.
 
 Grams are label-permutation invariant, so ids ranked by hash value give
 the reference's Grams.  Two distinct credentials colliding in BOTH
@@ -21,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["wl_hash_refine", "compact_ids", "split_singletons"]
+__all__ = ["wl_hash_refine", "key_hashes", "compact_key_ids",
+           "split_singletons"]
 
 _M32 = 0xFFFFFFFF
 _SEED_E1, _SEED_E2 = 0x9E3779B9, 0x7F4A7C15
@@ -30,7 +35,7 @@ _FIN1, _FIN2 = 0x165667B1, 0x27D4EB2F
 
 
 # --------------------------------------------------------------------- #
-# plain version (CPU tensors; the reference the kernel is held against)
+# plain versions (CPU tensors; the references the kernel is held against)
 # --------------------------------------------------------------------- #
 
 def _mul32(x, c):
@@ -52,6 +57,13 @@ def _fmix32(x, seed):
     return x
 
 
+def _finalize(l, sum1, sum2):
+    """int64 u32 hashes (h1, h2) from labels and neighbour sums."""
+    h1 = _fmix32((_mul32(l, _MUL1) + sum1) & _M32, _FIN1)
+    h2 = _fmix32((_mul32(l, _MUL2) + sum2) & _M32, _FIN2)
+    return h1, h2
+
+
 def wl_hash_refine_plain(labels, senders, receivers, edge_valid):
     """Plain PyTorch WL hash step, in int64 masked to 32 bits (PyTorch's
     uint32 lacks ``>>``, ``+`` and ``index_add_`` on the CPU).  Returns
@@ -68,9 +80,27 @@ def wl_hash_refine_plain(labels, senders, receivers, edge_valid):
     sum2 = torch.zeros(n, dtype=torch.int64, device=l.device)
     sum1.index_add_(0, s, m1)
     sum2.index_add_(0, s, m2)
-    h1 = _fmix32((_mul32(l, _MUL1) + sum1) & _M32, _FIN1)
-    h2 = _fmix32((_mul32(l, _MUL2) + sum2) & _M32, _FIN2)
+    h1, h2 = _finalize(l, sum1, sum2)
     return _as_i32(h1), _as_i32(h2)
+
+
+def wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets):
+    """Plain PyTorch WL hash step over a CSR (node v's out-neighbours are
+    ``csr_targets[csr_offsets[v]:csr_offsets[v + 1]]``), in int64 as
+    :func:`wl_hash_refine_plain`.  Returns the int64 compaction key
+    (:func:`key_hashes` unpacks it)."""
+    l = labels.to(torch.int64) & _M32
+    n = l.shape[0]
+    off = csr_offsets.to(torch.int64)
+    s = torch.repeat_interleave(torch.arange(n, device=l.device),
+                                off[1:n + 1] - off[:n])
+    nl = l[csr_targets[:s.shape[0]].to(torch.int64)]
+    sum1 = torch.zeros(n, dtype=torch.int64, device=l.device)
+    sum2 = torch.zeros(n, dtype=torch.int64, device=l.device)
+    sum1.index_add_(0, s, _fmix32(nl, _SEED_E1))
+    sum2.index_add_(0, s, _fmix32(nl, _SEED_E2))
+    h1, h2 = _finalize(l, sum1, sum2)
+    return _u_key(h1, h2)
 
 
 def _as_i32(u):
@@ -78,53 +108,83 @@ def _as_i32(u):
     return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
 
 
+def _u_key(u1, u2):
+    """The compaction key of the hash pair (u1, u2), int64 holding u32
+    values: ``((u1 << 32) | u2) ^ (1 << 63)`` read as int64, whose signed
+    order is the unsigned order of the packed u64 (PyTorch has no
+    uint64), computed with no overflow."""
+    return (u1 - (1 << 31)) * (1 << 32) + u2
+
+
+def key_hashes(key):
+    """(h1, h2), the int32 bit patterns of the hash pair packed in the
+    int64 compaction key ``key``."""
+    return ((key >> 32).to(torch.int32) ^ torch.iinfo(torch.int32).min,
+            _as_i32(key & _M32))
+
+
 # --------------------------------------------------------------------- #
 # K2 wrapper
 # --------------------------------------------------------------------- #
 
-def wl_hash_refine_cuda(labels, senders, receivers, edge_valid):
-    """Launch K2 (``csrc/wl_hash.cu``).  Every argument must be a
-    contiguous CUDA tensor on one device: labels int32 [N], senders and
-    receivers int32 [E] in [0, N), edge_valid bool [E].  Returns (h1, h2)
-    int32 [N]."""
+def wl_hash_refine_cuda(labels, csr_offsets, csr_targets):
+    """Launch K2 (``csrc/wl_hash.cu``): one pass over a CSR.  Every
+    argument must be a contiguous int32 CUDA tensor on one device: labels
+    [N], csr_offsets [N + 1] non-decreasing from 0, csr_targets in
+    [0, N).  The CSR is not checked here (that would cost a device sync
+    a call): ``GraphBatch`` builds and checks it once, and
+    :func:`csr_from_edges` builds it from checked edges.  Returns the
+    int64 compaction key [N]."""
     from .. import _build
-    args = (labels, senders, receivers, edge_valid)
     dev = labels.device
-    if dev.type != "cuda" or any(a.device != dev for a in args):
-        raise ValueError("wl_hash_refine_cuda: all inputs must be CUDA "
-                         "tensors on one device")
-    for a, dt, name in ((labels, torch.int32, "labels"),
-                        (senders, torch.int32, "senders"),
-                        (receivers, torch.int32, "receivers"),
-                        (edge_valid, torch.bool, "edge_valid")):
-        if a.dtype != dt or a.dim() != 1 or not a.is_contiguous():
-            raise ValueError("wl_hash_refine_cuda: %s must be a contiguous "
-                             "1-D %s tensor" % (name, dt))
-    n, e = labels.shape[0], senders.shape[0]
-    if receivers.shape[0] != e or edge_valid.shape[0] != e:
-        raise ValueError("wl_hash_refine_cuda: edge arrays differ in length")
-    if n >= 1 << 31 or e >= 1 << 31:
-        raise ValueError("wl_hash_refine_cuda: sizes must fit in int32")
-    if e:  # the kernel indexes with them: an out-of-range id faults
-        lo, hi = torch.aminmax(torch.stack([senders, receivers]))
-        if int(lo) < 0 or int(hi) >= n:
-            raise ValueError("wl_hash_refine_cuda: edge endpoints outside "
-                             "[0, %d)" % n)
-    lib = _build.load_library()
-    sums = torch.zeros((2, n), dtype=torch.int32, device=dev)  # u32 scratch
-    h = torch.empty((2, n), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.grakel_wl_hash_refine(
-            labels.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
-            edge_valid.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-            h[0].data_ptr(), h[1].data_ptr(), n, e, stream)
-    _build.check(err, "grakel_wl_hash_refine")
+    n = labels.shape[0]
+    if not (dev.type == "cuda" and csr_offsets.device == dev
+            and csr_targets.device == dev
+            and labels.dtype == csr_offsets.dtype == csr_targets.dtype
+            == torch.int32
+            and labels.dim() == csr_offsets.dim() == csr_targets.dim() == 1
+            and labels.is_contiguous() and csr_offsets.is_contiguous()
+            and csr_targets.is_contiguous()
+            and csr_offsets.shape[0] == n + 1 and n < 1 << 30):
+        raise ValueError("wl_hash_refine_cuda: need contiguous int32 CUDA "
+                         "tensors on one device: labels [N], csr_offsets "
+                         "[N + 1], csr_targets [E], N < 2^30")
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.launch("grakel_wl_hash_refine", dev, labels.data_ptr(),
+                  csr_offsets.data_ptr(), csr_targets.data_ptr(),
+                  key.data_ptr(), n)
     wl_hash_refine_cuda.launches += 1
-    return h[0], h[1]
+    return key
 
 
 wl_hash_refine_cuda.launches = 0
+
+
+def _wl_hash_refine_csr(labels, csr_offsets, csr_targets):
+    """One WL refinement over the valid edges grouped by sender (node v's
+    out-neighbours are ``csr_targets[csr_offsets[v]:csr_offsets[v +
+    1]]``), returning the int64 compaction key of each node's hash pair.
+    The CSR is trusted: a ``GraphBatch``'s, or :func:`csr_from_edges`'s.
+
+    CUDA tensors launch K2; CPU tensors take the plain version."""
+    dev = labels.device
+    if dev.type == "cuda":
+        return wl_hash_refine_cuda(labels, csr_offsets, csr_targets)
+    if dev.type == "cpu":
+        return wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets)
+    raise ValueError("wl_hash_refine_csr: unsupported device %s" % dev)
+
+
+def csr_from_edges(senders, receivers, edge_valid, n):
+    """The valid edges grouped by sender, with device ops only: int32
+    (offsets [n + 1], targets [E]).  Invalid edges sort past
+    ``offsets[n]`` and are never read."""
+    key = torch.where(edge_valid.to(torch.bool), senders.to(torch.int64), n)
+    key, order = torch.sort(key, stable=True)
+    targets = receivers.to(torch.int32)[order].contiguous()
+    offsets = torch.searchsorted(
+        key, torch.arange(n + 1, device=key.device)).to(torch.int32)
+    return offsets, targets
 
 
 def wl_hash_refine(labels, senders, receivers, edge_valid):
@@ -132,14 +192,20 @@ def wl_hash_refine(labels, senders, receivers, edge_valid):
     bit patterns, without id compaction.  Each node aggregates the labels
     of its OUT-neighbours (edge u->v contributes l(v) to u).
 
-    CUDA tensors launch K2; CPU tensors take the plain version."""
+    CUDA tensors are grouped into a CSR on the device
+    (:func:`csr_from_edges`) and launch K2; CPU tensors take the plain
+    version."""
     dev = labels.device
     if dev.type == "cuda":
-        return wl_hash_refine_cuda(
-            labels.to(torch.int32).contiguous(),
-            senders.to(torch.int32).contiguous(),
-            receivers.to(torch.int32).contiguous(),
-            edge_valid.to(torch.bool).contiguous())
+        n = labels.shape[0]
+        if senders.shape[0]:   # K2 indexes with them: a bad id faults
+            lo, hi = torch.aminmax(torch.stack([senders, receivers]))
+            if int(lo) < 0 or int(hi) >= n:
+                raise ValueError("wl_hash_refine: edge endpoints outside "
+                                 "[0, %d)" % n)
+        offsets, targets = csr_from_edges(senders, receivers, edge_valid, n)
+        return key_hashes(wl_hash_refine_cuda(
+            labels.to(torch.int32).contiguous(), offsets, targets))
     if dev.type == "cpu":
         return wl_hash_refine_plain(labels, senders, receivers, edge_valid)
     raise ValueError("wl_hash_refine: unsupported device %s" % dev)
@@ -149,22 +215,15 @@ def wl_hash_refine(labels, senders, receivers, edge_valid):
 # compaction
 # --------------------------------------------------------------------- #
 
-def compact_ids(h1, h2, valid):
-    """Dense ids for equal (h1, h2) pairs, ranked by (h1, h2) as unsigned
-    32-bit values (``np.unique`` order of the packed u64), with counts.
+def compact_key_ids(key, valid):
+    """Dense ids for equal int64 compaction keys, ranked by key (the
+    unsigned order of the hash pairs), with counts.
 
     The counterpart of both ``compact_ids`` and ``host_compact_counts``
-    of ``grakel_tpu/ops/wl.py``.  PyTorch has no uint64, so the pair
-    packs into int64 as ``(h1 << 32 | h2) ^ (1 << 63)``, whose signed
-    order is the unsigned order of the u64.  Invalid rows are masked
-    explicitly: they all get the id after the last valid one and count
-    as one more unique value, as the JAX package's all-ones sentinel
-    does.  Returns (ids int32 [N], n_unique int, counts int64
-    [n_unique])."""
-    u1 = h1.to(torch.int64) & _M32
-    u2 = h2.to(torch.int64) & _M32
-    # == ((u1 << 32) | u2) ^ (1 << 63) read as int64, with no overflow
-    key = (u1 - (1 << 31)) * (1 << 32) + u2
+    of ``grakel_tpu/ops/wl.py``.  Invalid rows are masked explicitly:
+    they all get the id after the last valid one and count as one more
+    unique value, as the JAX package's all-ones sentinel does.  Returns
+    (ids int32 [N], n_unique int, counts int64 [n_unique])."""
     valid = valid.to(torch.bool)
     uniq, inv, counts = torch.unique(key[valid], return_inverse=True,
                                      return_counts=True)

@@ -26,24 +26,93 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,m,L,integer", [
-    (1, 1, 1, True), (64, 64, 32, True), (65, 130, 33, True),
-    (300, 257, 1000, True), (37, 1001, 333, False), (5, 3, 0, True)])
-def test_min_gram_kernel_matches_plain(cuda, n, m, L, integer):
+# counts below 9 give W' ~ 8 L, above the rectangular route limit (4 L):
+# these calls take the CUDA-core K1; counts below 3 (W' <= 2 L) and the
+# 1 x 1 case (W' = 3 L) take K1-tc
+@pytest.mark.parametrize("n,m,L,hi,route", [
+    (1, 1, 1, 9, "min_gram_tc"), (64, 64, 32, 9, "min_gram"),
+    (65, 130, 33, 9, "min_gram"), (300, 257, 1000, 9, "min_gram"),
+    (65, 130, 33, 3, "min_gram_tc"), (300, 257, 1000, 3, "min_gram_tc"),
+    (37, 1001, 333, None, "min_gram"), (5, 3, 0, 9, "min_gram_tc")])
+def test_min_gram_kernel_matches_plain(cuda, n, m, L, hi, route):
+    integer = hi is not None
     rng = np.random.RandomState(n + m + L)
-    A = rng.randint(0, 9, (n, L)) if integer else rng.rand(n, L)
-    B = rng.randint(0, 9, (m, L)) if integer else rng.rand(m, L)
+    A = rng.randint(0, hi, (n, L)) if integer else rng.rand(n, L)
+    B = rng.randint(0, hi, (m, L)) if integer else rng.rand(m, L)
     A = torch.tensor(A, dtype=torch.float32, device=cuda)
     B = torch.tensor(B, dtype=torch.float32, device=cuda)
-    before = intersect.min_gram_cuda.launches
+    counters = {"min_gram": intersect.min_gram_cuda,
+                "min_gram_tc": intersect.min_gram_tc_cuda}
+    before = {k: c.launches for k, c in counters.items()}
     K = intersect.min_intersection_gram(A, B)
     torch.cuda.synchronize()
-    assert intersect.min_gram_cuda.launches == before + 1
+    for k, c in counters.items():
+        assert c.launches == before[k] + (k == route), k
     R = intersect.min_gram_plain(A, B)
     if integer:
         assert torch.equal(K, R)
     else:
         torch.testing.assert_close(K, R, rtol=1e-5, atol=1e-4)
+    if L:   # the CUDA-core kernel on the same inputs, whatever the route
+        K1 = intersect.min_gram_cuda(A, B)
+        assert torch.equal(K1, R) if integer else torch.allclose(
+            K1, R, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m,L,hi,sym", [
+    (1, 1, 3, 9, True), (128, 128, 64, 9, True), (300, 300, 77, 9, True),
+    (129, 257, 50, 20, False), (4, 700, 333, 3, False),
+    (1000, 37, 17, 150, False), (250, 250, 129, 9, True)])
+def test_min_gram_tc_kernel_matches_threshold_plain(cuda, n, m, L, hi, sym):
+    """K1-tc against its plain version exactly: ragged n, m and W', the
+    symmetric block-triangle path, and the alpha / accumulate epilogue."""
+    rng = np.random.RandomState(n * 7 + m + L)
+    A = torch.tensor(rng.randint(0, hi, (n, L)), dtype=torch.float32,
+                     device=cuda)
+    A[: max(1, n // 10)] = 0          # all-zero rows
+    A[:, ::7] = 0                     # all-zero columns
+    B = A if sym else torch.tensor(rng.randint(0, hi, (m, L)),
+                                   dtype=torch.float32, device=cuda)
+    T = np.minimum(A.amax(0).cpu().numpy(), B.amax(0).cpu().numpy())
+    cols = torch.from_numpy(intersect.threshold_columns(T)).to(cuda)
+    EA = intersect.expand_thresholds(A, cols)
+    EB = EA if sym else intersect.expand_thresholds(B, cols)
+    assert EA.shape[1] % 16 == 0 and EA.shape[1] >= T.sum()
+    R = intersect.min_gram_threshold_plain(A, B)
+    assert torch.equal(R, intersect.min_gram_plain(A, B))
+    before = intersect.min_gram_tc_cuda.launches
+    K = intersect.min_gram_tc_cuda(EA, EB)
+    torch.cuda.synchronize()
+    assert intersect.min_gram_tc_cuda.launches == before + 1
+    assert torch.equal(K, R)
+    base = torch.tensor(rng.randint(0, 50, (n, m)), dtype=torch.float32,
+                        device=cuda)
+    out = base.clone()
+    got = intersect.min_gram_tc_cuda(EA, EB, out=out, alpha=3.0)
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(out, base + 3.0 * R)
+    assert torch.equal(intersect.min_gram_tc_cuda(EA, EB, alpha=4.0),
+                       4.0 * R)
+    assert intersect.min_gram_tc_cuda.launches == before + 3
+
+
+def test_pm_levels_route_and_fold_on_card(cuda):
+    """min_intersection_gram with host statistics, as PyramidMatch calls
+    it, accumulating two levels into one result."""
+    rng = np.random.RandomState(3)
+    mats = [rng.randint(0, 9, (301, w)).astype(np.float32)
+            for w in (40, 80)]
+    acc, ref = None, None
+    before = intersect.min_gram_tc_cuda.launches
+    for w, M in zip((4.0, 3.0), mats):
+        A = torch.from_numpy(M).to(cuda)
+        acc = intersect.min_intersection_gram(
+            A, A, count_max=(M.max(0), M.max(0)), out=acc, alpha=w)
+        R = w * intersect.min_gram_plain(A, A)
+        ref = R if ref is None else ref + R
+    torch.cuda.synchronize()
+    assert intersect.min_gram_tc_cuda.launches == before + 2
+    assert torch.equal(acc, ref)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -61,6 +130,29 @@ def test_wl_hash_kernel_bit_identical(cuda, seed):
     assert torch.equal(h[0].cpu(), p[0]) and torch.equal(h[1].cpu(), p[1])
 
 
+def test_wl_hash_csr_kernel_on_graph_batch(cuda):
+    """K2 over a GraphBatch's CSR against the plain CSR version, three
+    generations deep, keys included; one launch per generation."""
+    train, _ = generate_dataset(n_graphs=300, n_graphs_test=2,
+                                r_vertices=(1, 40), random_state=5,
+                                features=("nl", 7))
+    b = grakel_torch.GraphBatch.from_graphs(normalize_input(train),
+                                            device=cuda)
+    labels = b.node_labels
+    for _ in range(3):
+        before = wl.wl_hash_refine_cuda.launches
+        key = wl._wl_hash_refine_csr(labels, b.csr_offsets, b.csr_targets)
+        assert wl.wl_hash_refine_cuda.launches == before + 1
+        pkey = wl.wl_hash_refine_csr_plain(
+            labels.cpu(), b.csr_offsets.cpu(), b.csr_targets.cpu())
+        assert torch.equal(key.cpu(), pkey)
+        h1, h2 = wl.key_hashes(key.cpu())
+        old = wl.wl_hash_refine_plain(labels.cpu(), b.senders.cpu(),
+                                      b.receivers.cpu(), b.edge_mask.cpu())
+        assert torch.equal(h1, old[0]) and torch.equal(h2, old[1])
+        labels = wl.compact_key_ids(key, b.node_mask)[0]
+
+
 def test_wrappers_check_inputs(cuda):
     A = torch.ones((4, 6), device=cuda)
     with pytest.raises(ValueError):
@@ -69,13 +161,26 @@ def test_wrappers_check_inputs(cuda):
         intersect.min_gram_cuda(A.double(), A)          # wrong dtype
     with pytest.raises(ValueError):
         intersect.min_gram_cuda(A, torch.ones((4, 5), device=cuda))
+    E = torch.ones((4, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E.float(), E)        # wrong dtype
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E[:, :24].contiguous(), E[:, :24]
+                                   .contiguous())      # width % 16
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E, E, out=torch.ones((4, 5), device=cuda))
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E.cpu(), E.cpu())
     i = torch.zeros(4, dtype=torch.int32, device=cuda)
+    off = torch.zeros(5, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        wl.wl_hash_refine_cuda(i.long(), i, i, i.bool())
+        wl.wl_hash_refine_cuda(i.long(), off, i)
     with pytest.raises(ValueError):
-        wl.wl_hash_refine_cuda(i, i, i.cpu(), i.bool())
+        wl.wl_hash_refine_cuda(i, off, i.cpu())
     with pytest.raises(ValueError):
-        wl.wl_hash_refine_cuda(i, i, i + 4, i.bool())   # endpoint == N
+        wl.wl_hash_refine_cuda(i, off[:4], i)          # offsets [N]
+    with pytest.raises(ValueError):
+        wl.wl_hash_refine(i, i, i + 4, i.bool())       # endpoint == N
 
 
 @pytest.mark.parametrize("name,kw", [

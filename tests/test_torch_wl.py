@@ -11,6 +11,7 @@ import grakel_tpu
 import grakel_torch
 from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset
+from grakel_torch.kernels.base import normalize_input
 from grakel_torch.ops import wl as t_wl
 from grakel_tpu.ops import wl as j_wl
 
@@ -42,8 +43,114 @@ def test_plain_hash_bit_identical_to_jax_and_numpy(seed, big):
 
 
 def _i32(h):
-    """u32 hashes as the int32 bit patterns K2 returns."""
+    """u32 hashes as int32 bit patterns."""
     return torch.from_numpy(h.view(np.int32))
+
+
+def _pair_key(h1, h2):
+    """The compaction key of u32 hash pairs: the packed u64 ``h1 << 32 |
+    h2`` with its top bit flipped, read as int64 (signed order = unsigned
+    order of the pair)."""
+    u = (h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)
+    return torch.from_numpy((u ^ np.uint64(1 << 63)).view(np.int64))
+
+
+def _compact_pairs(h1, h2, valid):
+    """compact_key_ids of u32 hash pairs."""
+    return t_wl.compact_key_ids(_pair_key(h1, h2), torch.from_numpy(valid))
+
+
+def _csr_inputs(seed, n=200, e=700):
+    """COO edges with invalid ones, edges into the padding nodes' range
+    masked off, self-loops and isolated nodes (the last 20 nodes have no
+    valid edge)."""
+    labels, s, r, ev = _hash_inputs(seed, n=n, e=e)
+    rng = np.random.RandomState(seed + 100)
+    s[:40] = r[:40] = rng.randint(0, n - 20, 40)          # self-loops
+    s[40:] = np.minimum(s[40:], n - 21)
+    r[40:] = np.minimum(r[40:], n - 21)
+    s[-30:] = r[-30:] = n - 1                              # padding edges
+    ev[-30:] = False
+    return labels, s, r, ev
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_csr_plain_hash_bit_identical(seed):
+    labels, s, r, ev = _csr_inputs(seed)
+    t = [torch.from_numpy(x) for x in (labels, s, r, ev)]
+    offsets, targets = t_wl.csr_from_edges(t[1], t[2], t[3], len(labels))
+    assert offsets.dtype == targets.dtype == torch.int32
+    assert int(offsets[-1]) == int(ev.sum())
+    key = t_wl._wl_hash_refine_csr(t[0], offsets, targets)
+    assert key.dtype == torch.int64
+    h1, h2 = t_wl.key_hashes(key)
+    p1, p2 = t_wl.wl_hash_refine_plain(*t)
+    assert torch.equal(h1, p1) and torch.equal(h2, p2)
+    n1, n2 = j_wl.host_hash_refine(labels, s, r, ev)
+    np.testing.assert_array_equal(h1.numpy().view(np.uint32), n1)
+    np.testing.assert_array_equal(h2.numpy().view(np.uint32), n2)
+    assert torch.equal(key, _pair_key(n1, n2))
+    # isolated nodes hash their own label only
+    e1, e2 = t_wl.wl_hash_refine_plain(t[0][-20:], *(x[:0] for x in t[1:]))
+    assert torch.equal(h1[-20:], e1) and torch.equal(h2[-20:], e2)
+
+
+def test_compaction_key_form_matches_pair_form():
+    """Keys rank as the hash pairs do: compact_key_ids gives the ids and
+    counts of a lexicographic np.unique over (h1, h2) as unsigned."""
+    labels, s, r, ev = _hash_inputs(4, n=400, big_labels=False)
+    h1, h2 = j_wl.host_hash_refine(labels, s, r, ev)
+    h1[:50] = h1[50:100]
+    h2[:30] = h2[50:80]
+    h1[100:110] = 0x80000000
+    valid = np.random.RandomState(8).rand(400) < 0.85
+    ids, nu, counts = _compact_pairs(h1, h2, valid)
+    pairs = np.stack([h1[valid], h2[valid]], 1)
+    uniq, inv, cnt = np.unique(pairs, axis=0, return_inverse=True,
+                               return_counts=True)
+    assert nu == len(uniq) + 1                      # + the invalid rows
+    np.testing.assert_array_equal(ids.numpy()[valid], inv.ravel())
+    assert (ids.numpy()[~valid] == len(uniq)).all()
+    np.testing.assert_array_equal(counts.numpy()[:-1], cnt)
+    assert int(counts[-1]) == int((~valid).sum())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_key_hashes_unpack_the_key(seed):
+    rng = np.random.RandomState(seed)
+    h1 = rng.randint(0, 2 ** 32, 500, dtype=np.uint64).astype(np.uint32)
+    h2 = rng.randint(0, 2 ** 32, 500, dtype=np.uint64).astype(np.uint32)
+    h1[:4] = [0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    h2[:4] = [0xFFFFFFFF, 0x80000000, 0, 0x7FFFFFFF]
+    g1, g2 = t_wl.key_hashes(_pair_key(h1, h2))
+    assert g1.dtype == g2.dtype == torch.int32
+    assert torch.equal(g1, _i32(h1)) and torch.equal(g2, _i32(h2))
+
+
+def test_graph_batch_csr_matches_edges_and_checks_endpoints():
+    train, _ = generate_dataset(n_graphs=12, n_graphs_test=2,
+                                r_vertices=(1, 9), random_state=3,
+                                features=("nl", 4))
+    graphs = normalize_input(train)
+    b = grakel_torch.GraphBatch.from_graphs(graphs, device="cpu")
+    N_pad, E = b.node_labels.shape[0], b.total_edges
+    assert b.csr_offsets.shape == (N_pad + 1,)
+    assert b.csr_targets.shape == (E,)
+    off, tgt = t_wl.csr_from_edges(b.senders, b.receivers, b.edge_mask,
+                                   N_pad)
+    assert torch.equal(b.csr_offsets, off)
+    assert torch.equal(b.csr_targets, tgt[:E])
+    Gr = grakel_torch.Graph
+    for bad in ([Gr.from_arrays(3, [0, 3], [1, 0])],        # sender == N
+                [Gr.from_arrays(3, [0, 1], [1, -1])],       # receiver < 0
+                [Gr.from_arrays(3, [], []),                 # past the last
+                 Gr.from_arrays(3, [0, 1], [1, 3])]):
+        with pytest.raises(ValueError, match="outside the batch"):
+            grakel_torch.GraphBatch.from_graphs(bad, device="cpu")
+    empty = grakel_torch.GraphBatch.from_graphs(
+        [Gr.from_arrays(2, [], [])], device="cpu")
+    assert empty.csr_targets.shape == (0,)
+    assert int(empty.csr_offsets.abs().sum()) == 0
 
 
 def test_compaction_matches_host_compact_counts():
@@ -57,8 +164,7 @@ def test_compaction_matches_host_compact_counts():
     h1[100:110] = 0x80000000
     h1[110:120] = 0x7FFFFFFF
     h1[120:125] = 0xFFFFFFFF
-    ids, nu, counts = t_wl.compact_ids(
-        _i32(h1), _i32(h2), torch.from_numpy(valid))
+    ids, nu, counts = _compact_pairs(h1, h2, valid)
     jids, jnu, jcounts = j_wl.host_compact_counts(h1, h2, valid)
     assert nu == jnu
     np.testing.assert_array_equal(ids.numpy(), jids)
@@ -70,8 +176,7 @@ def test_compaction_orders_unsigned():
                   np.uint32)
     h2 = np.array([0, 1, 0xFFFFFFFF, 5, 0], np.uint32)
     valid = np.array([True, True, True, True, False])
-    ids, nu, counts = t_wl.compact_ids(
-        _i32(h1), _i32(h2), torch.from_numpy(valid))
+    ids, nu, counts = _compact_pairs(h1, h2, valid)
     assert ids.tolist() == [3, 2, 1, 0, 4] and nu == 5
     assert counts.tolist() == [1, 1, 1, 1, 1]
 
@@ -84,8 +189,7 @@ def test_split_singletons_matches():
     h1 = rng.randint(0, 60, n).astype(np.uint32)
     h2 = np.zeros(n, np.uint32)
     jids, _, jcounts = j_wl.host_compact_counts(h1, h2, valid)
-    ids, _, counts = t_wl.compact_ids(_i32(h1), _i32(h2),
-                                      torch.from_numpy(valid))
+    ids, _, counts = _compact_pairs(h1, h2, valid)
     got = t_wl.split_singletons(ids, counts, torch.from_numpy(valid),
                                 torch.from_numpy(gids), n_graphs)
     exp = j_wl.split_singletons(jids, jcounts, valid, gids, n_graphs)
