@@ -15,15 +15,24 @@ main paths through the public entry points, at full data size:
   ``tools/full_bench.py``, copied below), and labeled PyramidMatch on the
   NCI1-scale set.  Each Gram must equal the level Grams recomputed with
   the plain min-intersection from the same histograms, combined the same
-  way.
+  way;
+* ShortestPath, the slice of K3: ``GraphKernel(kernel="shortest_path")``
+  ``fit_transform`` on the 4110 NCI1-scale graphs and ``transform`` of
+  the 64 held-out ones (the direct-index route); the same kernel on 1024
+  weighted NCI1-scale graphs (the hash route); WL-SP
+  (``[{"name": "WL", "n_iter": 5}, "shortest_path"]``) and CoreFramework-SP
+  on the 4110 graphs and the 64 held-out ones; SP and CoreFramework-SP on
+  MUTAG read with ``read_data`` from ``tests/data``.
+  Every Gram must equal the same calls under ``use_device("cpu")``.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
-CUDA-core K1 (``min_gram``), and labeled PM the tensor-core K1-tc
-(``min_gram_tc``) and no CUDA-core K1.  Each path then runs again, warm
-(WL-VH 5 times, each PM path twice; median reported), and once more
-under ``torch.profiler`` for its device busy time, idle share and
-longest device activities.
+CUDA-core K1 (``min_gram``), labeled PM the tensor-core K1-tc
+(``min_gram_tc``) and no CUDA-core K1, and every ShortestPath path K3
+(``floyd_warshall``).  WL-VH, the PM paths and SP on the NCI1-scale set
+then run again, warm (WL-VH 5 times, each PM path twice, SP 3 times;
+median reported), and once more under ``torch.profiler`` for their
+device busy time, idle share and longest device activities.
 
 Then each kernel is held against its plain PyTorch version on the card
 at the shapes the paths gave it, and timed beside its bound, its plain
@@ -50,7 +59,14 @@ time of a call:
   and ``torch.cdist(p=1)`` for the function;
 * K2 over the NCI1-scale batch's CSR, generations 0-2, keys and the
   hashes unpacked from them bit-identical to the plain versions; its
-  wrapper's host time per call beside.
+  wrapper's host time per call beside;
+* K3 at each NCI1-scale bucket of the SP fit (route A, one block per
+  graph in shared memory), on a weighted batch (route A) and on large
+  graphs (route B, one launch per k: 4 at V = 512, 1 at V = 1000), each
+  bit-identical to ``floyd_warshall_plain``.  Bound: the larger of
+  2 n V^3 operations over 67 TFLOP/s fp32 and adj, mask and S moved once
+  over 3.35 TB/s.  No single PyTorch call computes APSP: no library
+  time.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -268,11 +284,13 @@ def main():
               "script (%s); run it from the repository" % e,
               file=sys.stderr)
         return 2
-    from grakel_torch import (Graph, PyramidMatch, WeisfeilerLehman,
-                              use_device, _build)
+    from grakel_torch import (Graph, GraphKernel, PyramidMatch,
+                              WeisfeilerLehman, use_device, _build)
     from grakel_torch.batch import GraphBatch
-    from grakel_torch.datasets import generate_dataset
+    from grakel_torch.datasets import generate_dataset, read_data
+    from grakel_torch.kernels import shortest_path as sp_mod
     from grakel_torch.kernels.base import normalize_input
+    from grakel_torch.ops import floyd_warshall as fw_ops
     from grakel_torch.ops import intersect, wl as wl_ops
 
     check = Checks()
@@ -298,7 +316,8 @@ def main():
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
-                "wl_hash_refine": wl_ops.wl_hash_refine_cuda}
+                "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
+                "floyd_warshall": fw_ops.floyd_warshall_cuda}
 
     def run_path(name, fn):
         for c in counters.values():
@@ -398,6 +417,97 @@ def main():
         pm_mats[name] = mats
     paths["pm_unlabeled_redditb"]["max_vertices"] = int(max(
         n for n, _, _ in coo))
+    # ---------------- ShortestPath: the slice of K3 --------------------- #
+    # sparse_counts_gram (WL-SP's late generations) timed where it runs
+    sparse_s = []
+    plain_sparse = sp_mod.sparse_counts_gram
+
+    def timed_sparse(*a, **k):
+        t = time.perf_counter()
+        out = plain_sparse(*a, **k)
+        sparse_s.append(time.perf_counter() - t)
+        return out
+
+    sp_mod.sparse_counts_gram = timed_sparse
+
+    def sp_run(spec, fit, tr, dev=None):
+        """GraphKernel(kernel=spec): fit_transform on ``fit``, transform
+        of ``tr``, both diagonals; on ``dev`` (None: the card)."""
+        gk = GraphKernel(kernel=spec)
+        with use_device(dev):
+            t = time.perf_counter()
+            K = gk.fit_transform(fit)
+            t_fit = time.perf_counter() - t
+            d = gk.diagonal()
+            t = time.perf_counter()
+            Kt = gk.transform(tr)
+            t_tr = time.perf_counter() - t
+            xd, yd = gk.diagonal()
+        return {"out": (K, d, Kt, xd, yd), "fit_transform_s": t_fit,
+                "transform_s": t_tr, "gk": gk}
+
+    def sp_path(key, spec, fit, tr, **info):
+        """Run ``spec`` on the card (a path: counts read around it) and
+        on the CPU; check K3 launched, finite Grams of the right shapes,
+        diag(K) == diagonal(), and every output equal to the CPU's."""
+        del sparse_s[:]
+        r, secs, launches = run_path(key, lambda: sp_run(spec, fit, tr))
+        K, d, Kt = r["out"][:3]
+        paths[key] = dict(info, graphs=len(fit), held_out=len(tr),
+                          wall_s=secs,
+                          fit_transform_s_first=r["fit_transform_s"],
+                          transform_s=r["transform_s"], launches=launches,
+                          sparse_counts_gram_calls=len(sparse_s),
+                          sparse_counts_gram_s=sum(sparse_s))
+        check(launches["floyd_warshall"] > 0, "%s launched K3 (%d)"
+              % (key, launches["floyd_warshall"]))
+        check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
+              and Kt.shape == (len(tr), len(fit)) and np.isfinite(Kt).all(),
+              "%s Grams finite, shapes %s %s" % (key, K.shape, Kt.shape))
+        check(np.array_equal(np.diagonal(K), d),
+              "%s diag(K) == diagonal()" % key)
+        t = time.perf_counter()
+        c = sp_run(spec, fit, tr, "cpu")
+        paths[key]["cpu_s"] = time.perf_counter() - t
+        check(all(np.array_equal(np.asarray(a), np.asarray(b))
+                  for a, b in zip(r["out"], c["out"])),
+              "%s Grams and diagonals == use_device('cpu') ones" % key)
+        return r["gk"]
+
+    # the slice's main path, at full size: the direct-index route
+    sp = sp_path("sp_nci1scale", "shortest_path", train, held)
+    spk = sp.kernel_
+    paths["sp_nci1scale"].update(
+        route=spk._plan(spk.X)[0], stages_s=dict(spk.timer_.times),
+        buckets={int(b[1].shape[1]): len(b[0]) for b in spk.X["buckets"]})
+
+    def sp_fit():
+        gk = GraphKernel(kernel="shortest_path")
+        gk.fit_transform(train)
+        return gk.transform(held)
+
+    paths["sp_nci1scale"].update(warm_runs(sp_fit, 3))
+
+    # weighted graphs: the hash route (f32 distance bits as keys)
+    wtrain, wheld = generate_dataset(
+        n_graphs=1024 + N_HELD, n_graphs_test=N_HELD, r_vertices=(10, 50),
+        r_connectivity=(0.07, 0.15), r_weight_edges=(0.5, 2.0),
+        random_state=SEED, features=("nl", N_LABELS))
+    wsp = sp_path("sp_weighted", "shortest_path", wtrain, wheld).kernel_
+    paths["sp_weighted"]["route"] = wsp._plan(wsp.X)[0]
+    check(paths["sp_weighted"]["route"] == "hash",
+          "weighted SP took the hash route")
+    sp_path("wl_sp_h5", [{"name": "WL", "n_iter": 5}, "shortest_path"],
+            train, held)
+    sp_path("core_sp", [{"name": "core_framework"}, "shortest_path"],
+            train, held)
+    mutag = read_data("MUTAG", path=os.path.join(HERE, "tests", "data")).data
+    for key, spec in (("sp_mutag", "shortest_path"),
+                      ("core_sp_mutag", [{"name": "core_framework"},
+                                         "shortest_path"])):
+        sp_path(key, spec, mutag[:150], mutag[150:],
+                data="MUTAG via read_data, fit 150, transform 38")
+    sp_mod.sparse_counts_gram = plain_sparse
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -560,6 +670,81 @@ def main():
               lambda: wl_ops.wl_hash_refine_csr_plain(labs, *csr), 20),
           "bound_ms": 1e3 * k2_bytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
 
+    # ---------------- K3 against its plain version ---------------------- #
+    def k3_device_ms(fn, reps, V):
+        """Device ms per call of K3 from torch.profiler's kernel records
+        over ``reps`` calls: each kernel's mean record times its launches
+        a call (route A: fw_smem once; route B: fw_init once and fw_step
+        V times), and the number of records seen (None, 0 when none)."""
+        fn()
+        _, _, by_name, counts = profiled(
+            lambda: [fn() for _ in range(reps)])
+        per_call = {"fw_smem": 1, "fw_init": 1, "fw_step": V}
+        ms, seen = 0.0, 0
+        for k, t in by_name.items():
+            for f, times in per_call.items():
+                if f in k:
+                    ms += t / counts[k] * times
+                    seen += counts[k]
+        return (ms if seen else None), seen
+
+    def k3_case(A, M, what):
+        n, V = A.shape[:2]
+        route = "smem" if V <= fw_ops.ROUTE_A_MAX_V else "global"
+        S = fw_ops.floyd_warshall_cuda(A, M)
+        R = fw_ops.floyd_warshall_plain(A, M)
+        torch.cuda.synchronize()
+        differ = int((S.view(torch.int32) != R.view(torch.int32)).sum())
+        err = float((S - R).abs().max())
+        check(differ == 0, "K3 %s, %d graphs at V = %d (route %s) "
+              "bit-identical to plain (%d entries differ)"
+              % (what, n, V, route, differ))
+        big = route == "global"
+
+        def call():
+            return fw_ops.floyd_warshall_cuda(A, M)
+
+        # 2 V^3 min-plus operations a graph; adj and mask read once, S
+        # written once
+        ops = 2.0 * n * V ** 3
+        nbytes = 8.0 * n * V * V + n * V
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        dev_ms, records = k3_device_ms(call, 3 if big else 20, V)
+        return {"what": what, "n": n, "V": V, "route": route,
+                "differing": differ, "max_abs_err": err, "ops": ops,
+                "bytes": nbytes, "ms": cuda_ms(call, 5 if big else 50),
+                "device_ms": dev_ms, "device_records": records,
+                "wrapper_ms": host_ms(call, 5 if big else 50),
+                "plain_ms": cuda_ms(
+                    lambda: fw_ops.floyd_warshall_plain(A, M),
+                    1 if big else 3),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def fw_batch(n, V, density, weighted):
+        A = (rng.rand(n, V, V) < density).astype(np.float32)
+        if weighted:
+            A *= rng.uniform(0.5, 2.0, (n, V, V)).astype(np.float32)
+        A = np.triu(A, 1)
+        A = A + A.transpose(0, 2, 1)
+        M = np.zeros((n, V), bool)
+        for g in range(n):
+            M[g, :rng.randint(V // 2, V + 1)] = True
+        return (torch.from_numpy(A).cuda(), torch.from_numpy(M).cuda())
+
+    def bucket_cases(kernel, what):
+        return [k3_case(torch.from_numpy(A).cuda(),
+                        torch.from_numpy(M).cuda(), what)
+                for _, A, _, M in kernel.X["buckets"]]
+
+    # the main path's shapes: the NCI1-scale fit buckets
+    k3 = bucket_cases(spk, "NCI1-scale fit bucket")
+    k3_other = bucket_cases(wsp, "weighted NCI1-scale fit bucket")
+    k3_other.append(k3_case(*fw_batch(256, 96, 0.04, True),
+                            "weighted random batch"))
+    k3_b = [k3_case(*fw_batch(4, 512, 0.008, True), "weighted, route B"),
+            k3_case(*fw_batch(1, 1000, 0.004, True), "weighted, route B")]
+
     def total(cases, key):
         vals = [c[key] for c in cases]
         return None if None in vals else sum(vals)
@@ -616,6 +801,21 @@ def main():
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shapes": [k2]},
+        {"name": "floyd_warshall", "route": "cuda",
+         "source": "grakel_torch/csrc/floyd_warshall.cu",
+         "replaces": "grakel_tpu/ops/floyd_warshall.py:30",
+         "launches": launches["floyd_warshall"],
+         "max_abs_err": max(c["max_abs_err"] for c in k3 + k3_other + k3_b),
+         "ms": total(k3, "ms"), "device_ms": total(k3, "device_ms"),
+         "wrapper_ms": total(k3, "wrapper_ms"),
+         "plain_ms": total(k3, "plain_ms"),
+         "bound_ms": total(k3, "bound_ms"),
+         "bound_by": row_bound_by(k3, FP32_OPS_PER_S, "bytes"),
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes APSP",
+         "summed_over": "one call per NCI1-scale fit bucket (the calls "
+                        "one fit_transform makes)",
+         "shapes": k3, "other_route_a": k3_other, "route_b": k3_b},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: %s" % smi, flush=True)

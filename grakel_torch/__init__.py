@@ -12,7 +12,9 @@ from .graph import Graph
 from .batch import GraphBatch
 from .kernels import *          # noqa: F401,F403
 from .kernels import __all__ as _kernels_all
+from .graph_kernels import GraphKernel
 
 __version__ = "0.1.0"
 
-__all__ = ["Graph", "GraphBatch", "use_device"] + list(_kernels_all)
+__all__ = ["Graph", "GraphBatch", "GraphKernel", "use_device"] \
+    + list(_kernels_all)

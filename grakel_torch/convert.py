@@ -21,7 +21,11 @@ State layout, by kernel name:
   "embeddings": [U [n, d], ...]}`` — the label enumeration, the path
   chosen at fit, and each fit graph's |top-d eigenvector| embedding
   (which makes the histograms identical even where two eigensolvers
-  would differ in the last float bits).
+  would differ in the last float bits);
+* ``"ShortestPath"``: ``{"enum": {label: id}, "graphs": [(n, senders,
+  receivers, weights, node_labels), ...]}`` — the label enumeration and
+  the fit graphs (the fitted state is their dense buckets, parsed again
+  against the enumeration).
 """
 
 from __future__ import annotations
@@ -29,15 +33,16 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
-from .kernels import (EdgeHistogram, PyramidMatch, VertexHistogram,
-                      WeisfeilerLehman)
+from .kernels import (EdgeHistogram, PyramidMatch, ShortestPath,
+                      VertexHistogram, WeisfeilerLehman)
 
 __all__ = ["kernel_from_state"]
 
 _CLASSES = {"VertexHistogram": VertexHistogram,
             "EdgeHistogram": EdgeHistogram,
             "WeisfeilerLehman": WeisfeilerLehman,
-            "PyramidMatch": PyramidMatch}
+            "PyramidMatch": PyramidMatch,
+            "ShortestPath": ShortestPath}
 
 
 def _graphs(items):
@@ -67,6 +72,12 @@ def kernel_from_state(name, params, state):
                "n_labels": int(X["n_labels"])}
     elif name == "WeisfeilerLehman":
         return k.fit(_graphs(state["graphs"]))
+    elif name == "ShortestPath":
+        k._enum = dict(state["enum"])
+        # parse in transform mode: the carried enumeration is kept and,
+        # every label being in it, not extended
+        k._method_calling = 3
+        k.X = k.parse_input(_graphs(state["graphs"]))
     else:
         graphs = _graphs(state["graphs"])
         ck = "pm_embed_%d" % k.d

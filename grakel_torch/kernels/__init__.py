@@ -3,12 +3,17 @@
 from .base import Kernel
 from .histogram import VertexHistogram, EdgeHistogram
 from .pyramid_match import PyramidMatch
+from .shortest_path import ShortestPath, ShortestPathAttr
 from .weisfeiler_lehman import WeisfeilerLehman
+from .core_framework import CoreFramework
 
 __all__ = [
     "Kernel",
     "VertexHistogram",
     "EdgeHistogram",
     "PyramidMatch",
+    "ShortestPath",
+    "ShortestPathAttr",
     "WeisfeilerLehman",
+    "CoreFramework",
 ]

@@ -7,6 +7,10 @@ universe is large: :func:`coo_counts_gram` streams label chunks through
 a scatter (``index_add_``) -> GEMM-accumulate loop on the tensors'
 device.
 
+:func:`sparse_counts_gram` is the one host function: a multiplicity-split
+Gram in numpy for count matrices too sparse and wide for the chunked
+GEMM.
+
 Every GEMM here runs in full fp32 (TF32 off, set and restored around
 each product): count Grams hold exact integers below 2^24 only in full
 fp32, and TF32 keeps ~10 mantissa bits.
@@ -23,7 +27,8 @@ from ..device import resolve_device
 
 __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
            "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
-           "chunked_counts_gram_raw", "chunk_plan", "full_fp32"]
+           "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
+           "sparse_counts_gram"]
 
 
 @contextlib.contextmanager
@@ -212,3 +217,73 @@ def counts_diag(gids, labels, weights, valid, n_graphs, n_labels,
         C = _densify(*items, n, c * ch, ch)
         d += (C * C).sum(1)
     return d
+
+
+def sparse_counts_gram(gids, labels, n_graphs, weights=None,
+                       dense_col_mult=64):
+    """K[g, g'] = sum_l c[g, l] c[g', l] assembled on the host for very
+    sparse, very wide count matrices (late WL-SP generations mint
+    millions of mostly-singleton triplet columns, where a chunked GEMM
+    over every column is nearly all zeros).
+
+    The multiplicity-split scheme of ``grakel_tpu/ops/gram.py``, after
+    one label-major sort:
+
+    * columns touching <= ``dense_col_mult`` graphs contribute their
+      in-column pair products through one global bincount scatter
+      (cost = sum over those columns of nnz_col^2);
+    * denser columns gather into one [n, n_hot] block, multiplied as a
+      numpy f32 product (exact for integer counts below 2^24).
+
+    ``gids`` / ``labels`` are per-item numpy arrays (or tensors, read to
+    the host); duplicates are allowed and their weights (default 1) sum.
+    Returns float64 numpy [n, n]."""
+    gids = np.asarray(_host(gids), np.int64)
+    labels = np.asarray(_host(labels), np.int64)
+    n = int(n_graphs)
+    K = np.zeros((n, n))
+    if gids.size == 0:
+        return K
+    w = (np.ones(gids.size) if weights is None
+         else np.asarray(_host(weights), np.float64))
+    key = labels * n + gids
+    uk, inv = np.unique(key, return_inverse=True)
+    cw = np.bincount(inv, weights=w)
+    cols = uk // n
+    rows = uk % n
+    starts = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
+    sizes = np.diff(np.r_[starts, len(cols)])
+    singles = sizes == 1
+    if singles.any():
+        r1 = rows[starts[singles]]
+        np.add.at(K, (r1, r1), cw[starts[singles]] ** 2)
+    pair_idx, pair_w, pending = [], [], 0
+    for s in np.unique(sizes):
+        if s < 2 or s > dense_col_mult:
+            continue
+        gs = starts[sizes == s]
+        idx = gs[:, None] + np.arange(s)
+        R = rows[idx]
+        W = cw[idx]
+        flat = (R[:, :, None] * n + R[:, None, :]).ravel()
+        pw = (W[:, :, None] * W[:, None, :]).ravel()
+        pair_idx.append(flat)
+        pair_w.append(pw)
+        pending += flat.size
+        if pending > 20_000_000:   # bound temporaries across groups
+            K += np.bincount(np.concatenate(pair_idx),
+                             weights=np.concatenate(pair_w),
+                             minlength=n * n).reshape(n, n)
+            pair_idx, pair_w, pending = [], [], 0
+    if pair_idx:
+        K += np.bincount(np.concatenate(pair_idx),
+                         weights=np.concatenate(pair_w),
+                         minlength=n * n).reshape(n, n)
+    hot = sizes > dense_col_mult
+    if hot.any():
+        ent = np.repeat(hot, sizes)
+        gcol = np.cumsum(hot) - 1
+        D = np.zeros((n, int(hot.sum())), np.float32)
+        D[rows[ent], np.repeat(gcol[hot], sizes[hot])] = cw[ent]
+        K += (D @ D.T).astype(np.float64)
+    return K

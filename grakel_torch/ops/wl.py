@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["wl_hash_refine", "key_hashes", "compact_key_ids",
-           "split_singletons"]
+           "compact_pairs", "split_singletons"]
 
 _M32 = 0xFFFFFFFF
 _SEED_E1, _SEED_E2 = 0x9E3779B9, 0x7F4A7C15
@@ -235,6 +235,15 @@ def compact_key_ids(key, valid):
         counts = torch.cat([counts, counts.new_tensor([n_invalid])])
         nv += 1
     return ids, nv, counts
+
+
+def compact_pairs(h1, h2, valid):
+    """Dense ids for equal (h1, h2) pairs of u32 values held in int64
+    tensors, ranked by the pair's unsigned order, with counts: the
+    device counterpart of ``host_compact_counts`` in
+    ``grakel_tpu/ops/wl.py`` (ShortestPath's (distance bits, label pair)
+    triplet hashes), through :func:`compact_key_ids`."""
+    return compact_key_ids(_u_key(h1, h2), valid)
 
 
 def split_singletons(ids, counts, valid, gids, n_graphs):

@@ -84,6 +84,23 @@ def test_pm_state_carry_with_large_graphs(data, params):
     np.testing.assert_array_equal(Tt, Tj)
 
 
+@pytest.mark.parametrize("params", [{}, {"normalize": True},
+                                    {"with_labels": False}], ids=str)
+def test_sp_state_carry(data, params):
+    """A JAX-fitted ShortestPath transforms new graphs on the port to the
+    JAX package's transform Gram; the test split holds a label unseen at
+    fit, which extends the carried enumeration."""
+    train, test = data
+    jfit = [JGraph(*it) for it in train]
+    kj = grakel_tpu.ShortestPath(**params).fit(jfit)
+    state = {"enum": dict(kj._enum), "graphs": _graph_arrays(jfit)}
+    Tj = kj.transform(test)
+    with use_device("cpu"):
+        kt = kernel_from_state("ShortestPath", params, state)
+        Tt = kt.transform(test)
+    np.testing.assert_array_equal(Tt, Tj)
+
+
 def test_unknown_kernel_rejected():
     with pytest.raises(ValueError):
-        kernel_from_state("ShortestPath", {}, {})
+        kernel_from_state("RandomWalk", {}, {})

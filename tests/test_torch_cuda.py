@@ -14,6 +14,7 @@ import grakel_torch
 from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset
 from grakel_torch.kernels.base import normalize_input
+from grakel_torch.ops import floyd_warshall as fw
 from grakel_torch.ops import intersect, wl
 
 pytestmark = pytest.mark.cuda
@@ -201,3 +202,81 @@ def test_entry_points_on_card_match_cpu(cuda, name, kw):
         kc = getattr(grakel_torch, name)(**kw)
         Kc, Tc = kc.fit_transform(train), kc.transform(test)
     assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+
+
+def _fw_batch(seed, n, V, weighted):
+    rng = np.random.RandomState(seed)
+    A = (rng.rand(n, V, V) < min(1.0, 3.0 / V)).astype(np.float32)
+    if weighted:
+        A *= rng.uniform(0.5, 2.0, (n, V, V)).astype(np.float32)
+    A = np.triu(A, 1)
+    A = A + A.transpose(0, 2, 1)
+    M = np.zeros((n, V), bool)
+    for g in range(n):
+        M[g, :rng.randint(1, V + 1)] = True
+    A[~(M[:, :, None] & M[:, None, :])] = rng.randint(0, 3)  # padding junk
+    return torch.from_numpy(A), torch.from_numpy(M)
+
+
+# route A (one block per graph in shared memory) up to V = 128, the
+# 64 KB tile past the 48 KB default; route B (a launch per k) above
+@pytest.mark.parametrize("n,V,weighted", [
+    (300, 16, False), (200, 56, True), (7, 8, False), (3, 128, True),
+    (5, 136, True), (4, 512, False), (1, 1000, True), (2, 129, True)])
+def test_floyd_warshall_kernel_bit_identical(cuda, n, V, weighted):
+    """K3 on both routes against the plain version, bit for bit (the
+    ShortestPath hash route keys on the distance bits); one launch a
+    call whatever the route."""
+    A, M = _fw_batch(n * 13 + V, n, V, weighted)
+    A, M = A.to(cuda), M.to(cuda)
+    before = fw.floyd_warshall_cuda.launches
+    S = fw.batched_floyd_warshall(A, M)
+    torch.cuda.synchronize()
+    assert fw.floyd_warshall_cuda.launches == before + 1
+    R = fw.floyd_warshall_plain(A, M)
+    assert torch.equal(S.view(torch.int32), R.view(torch.int32))
+
+
+def test_floyd_warshall_wrapper_checks_inputs(cuda):
+    A = torch.zeros((2, 8, 8), device=cuda)
+    M = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A.double(), M)                  # dtype
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A.transpose(1, 2), M)           # contiguous
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A, M[:, :4])                    # mask shape
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A, M.cpu())                     # device
+
+
+@pytest.mark.parametrize("spec,attrs,weighted", [
+    ("shortest_path", {}, False),
+    ({"name": "SP", "with_labels": False}, {}, False),
+    ("shortest_path", {}, True),
+    ("shortest_path", {"_DIRECT_MAX_WIDTH": 0}, False),
+    ("shortest_path", {"_SPARSE_GRAM_MIN_REP": 0}, True),
+    ([{"name": "WL", "n_iter": 2}, "SP"], {}, False),
+    ([{"name": "CORE"}, "SP"], {}, False)], ids=str)
+def test_shortest_path_on_card_matches_cpu(cuda, spec, attrs, weighted):
+    """ShortestPath's Grams through GraphKernel on the card (K3 launched)
+    equal the same calls on the CPU exactly, on every route."""
+    train, test = generate_dataset(
+        n_graphs=120, n_graphs_test=16, r_vertices=(5, 60),
+        r_connectivity=(0.05, 0.2), random_state=4,
+        r_weight_edges=(0.5, 2.0) if weighted else (1, 1),
+        features=("nl", 9))
+    out = []
+    for dev in ("cuda", "cpu"):
+        gk = grakel_torch.GraphKernel(kernel=spec)
+        gk.initialize()
+        for a, v in attrs.items():
+            setattr(gk.kernel_, a, v)
+        before = fw.floyd_warshall_cuda.launches
+        with use_device(dev):
+            K, T = gk.fit_transform(train), gk.transform(test)
+            out.append((K, T, gk.diagonal()))
+        assert (fw.floyd_warshall_cuda.launches > before) == (dev == "cuda")
+    (K, T, d), (Kc, Tc, dc) = out
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+    assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
