@@ -22,17 +22,21 @@ main paths through the public entry points, at full data size:
   weighted NCI1-scale graphs (the hash route); WL-SP
   (``[{"name": "WL", "n_iter": 5}, "shortest_path"]``) and CoreFramework-SP
   on the 4110 graphs and the 64 held-out ones; SP and CoreFramework-SP on
-  MUTAG read with ``read_data`` from ``tests/data``.
-  Every Gram must equal the same calls under ``use_device("cpu")``.
+  MUTAG read with ``read_data`` from ``tests/data``; unlabeled SP on the
+  REDDIT-B-scale stand-in's graphs of 129-512 vertices (fit 96,
+  transform 16: unit weights past V = 128, K3's blocked route, on every
+  call).  Every Gram must equal the same calls under
+  ``use_device("cpu")``.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
 CUDA-core K1 (``min_gram``), labeled PM the tensor-core K1-tc
 (``min_gram_tc``) and no CUDA-core K1, and every ShortestPath path K3
 (``floyd_warshall``).  WL-VH, the PM paths and SP on the NCI1-scale set
-then run again, warm (WL-VH 5 times, each PM path twice, SP 3 times;
-median reported), and once more under ``torch.profiler`` for their
-device busy time, idle share and longest device activities.
+and on the REDDIT-B-scale graphs then run again, warm (WL-VH 5 times,
+each PM path twice, each SP path 3 times; median reported), and once
+more under ``torch.profiler`` for their device busy time, idle share and
+longest device activities.
 
 Then each kernel is held against its plain PyTorch version on the card
 at the shapes the paths gave it, and timed beside its bound, its plain
@@ -60,13 +64,18 @@ time of a call:
 * K2 over the NCI1-scale batch's CSR, generations 0-2, keys and the
   hashes unpacked from them bit-identical to the plain versions; its
   wrapper's host time per call beside;
-* K3 at each NCI1-scale bucket of the SP fit (route A, one block per
-  graph in shared memory), on a weighted batch (route A) and on large
-  graphs (route B, one launch per k: 4 at V = 512, 1 at V = 1000), each
-  bit-identical to ``floyd_warshall_plain``.  Bound: the larger of
-  2 n V^3 operations over 67 TFLOP/s fp32 and adj, mask and S moved once
-  over 3.35 TB/s.  No single PyTorch call computes APSP: no library
-  time.
+* K3 at each NCI1-scale bucket of the SP fit (route tile: register
+  micro-tiles, several graphs per block; each row names the route and
+  the instantiation T, G the call took, and a sweep over every (T, G)
+  that fits the bucket is timed beside), at the weighted fit's buckets
+  and a weighted V = 96 batch (route tile), on large float-weighted
+  graphs (route per_k, one launch per k: 4 at V = 512, 1 at V = 1000),
+  on large integer-weighted graphs (route blocked, the same shapes) and
+  at the REDDIT-B-scale path's buckets (route blocked), each
+  bit-identical to ``floyd_warshall_plain``.  K3's kernels must build
+  without spills (``-Xptxas -v``).  Bound: the larger of 2 n V^3
+  operations over 67 TFLOP/s fp32 and adj, mask and S moved once over
+  3.35 TB/s.  No single PyTorch call computes APSP: no library time.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -79,6 +88,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +150,35 @@ def heavy_tailed_graphs(n_graphs, median, mean, vmax, edge_ratio, seed):
         lo = (pairs // (vmax + 1)).astype(np.int32)
         hi = (pairs % (vmax + 1)).astype(np.int32)
         out.append((n, np.concatenate([lo, hi]), np.concatenate([hi, lo])))
+    return out
+
+
+def ptxas_info(text):
+    """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
+    ``nvcc -Xptxas -v`` output; a K3 kernel is named by its function and
+    template argument (``fw_tile<4>``), another by its mangled name."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(fw_[a-z]+)(?:ILi(\d+)E)?", m.group(1))
+            cur = m.group(1) if k is None else k.group(1) + (
+                "<%s>" % k.group(2) if k.group(2) else "")
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem"] = int(m.group(1)) if m else 0
     return out
 
 
@@ -313,21 +352,32 @@ def main():
     for line in nvcc_out.splitlines():   # ptxas: registers, smem, spills
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
+    k3_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                if k.startswith("fw_")}
+    check(len(k3_ptxas) == 8 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k3_ptxas.values()),
+        "K3's 8 kernels built without spills: %s" % k3_ptxas)
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
                 "floyd_warshall": fw_ops.floyd_warshall_cuda}
 
+    k3_routes = fw_ops.floyd_warshall_cuda.route_launches
+
     def run_path(name, fn):
         for c in counters.values():
             c.launches = 0
+        for r in k3_routes:
+            k3_routes[r] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         launches = {k: c.launches for k, c in counters.items()}
+        launches["floyd_warshall_by_route"] = dict(k3_routes)
         print("path %s: %.3f s, launches %s" % (name, secs, launches),
               flush=True)
         return out, secs, launches
@@ -507,6 +557,37 @@ def main():
                                          "shortest_path"])):
         sp_path(key, spec, mutag[:150], mutag[150:],
                 data="MUTAG via read_data, fit 150, transform 38")
+    # unlabeled SP on REDDIT-B-scale graphs: unit weights past V = 128,
+    # K3's blocked route.  Cut to the stand-in's graphs of 129-512
+    # vertices, the first 96 to fit and the next 16 to transform, so the
+    # CPU run's plain Floyd-Warshall stays well under a minute.
+    mid = [g for g in coo if 129 <= g[0] <= 512]
+    rb_fit = [Graph.from_arrays(n, s, r) for n, s, r in mid[:96]]
+    rb_tr = [Graph.from_arrays(n, s, r) for n, s, r in mid[96:112]]
+    rbk = sp_path("sp_redditb_unlabeled",
+                  {"name": "shortest_path", "with_labels": False},
+                  rb_fit, rb_tr,
+                  data="REDDIT-B-scale stand-in (seed 1234): its graphs "
+                       "of 129-512 vertices, fit the first 96, transform "
+                       "the next 16",
+                  cut="graphs outside 129-512 vertices and past the "
+                      "first 112 of them left out").kernel_
+    rb = paths["sp_redditb_unlabeled"]
+    rb.update(route=rbk._plan(rbk.X)[0], stages_s=dict(rbk.timer_.times),
+              buckets={int(b[1].shape[1]): len(b[0])
+                       for b in rbk.X["buckets"]})
+
+    def rb_run():
+        gk = GraphKernel(kernel={"name": "shortest_path",
+                                 "with_labels": False})
+        gk.fit_transform(rb_fit)
+        return gk.transform(rb_tr)
+
+    rb.update(warm_runs(rb_run, 3))
+    by_route = rb["launches"]["floyd_warshall_by_route"]
+    check(by_route["blocked"] == rb["launches"]["floyd_warshall"] > 0,
+          "sp_redditb_unlabeled took K3's blocked route on every call %s"
+          % by_route)
     sp_mod.sparse_counts_gram = plain_sparse
     print(json.dumps({"paths": paths}), flush=True)
 
@@ -671,15 +752,20 @@ def main():
           "bound_ms": 1e3 * k2_bytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
 
     # ---------------- K3 against its plain version ---------------------- #
-    def k3_device_ms(fn, reps, V):
+    def k3_device_ms(fn, reps, V, route):
         """Device ms per call of K3 from torch.profiler's kernel records
         over ``reps`` calls: each kernel's mean record times its launches
-        a call (route A: fw_smem once; route B: fw_init once and fw_step
-        V times), and the number of records seen (None, 0 when none)."""
+        a call (route tile: fw_tile once; per_k: fw_init once and fw_step
+        V times; blocked: fw_init once and each phase once a round), and
+        the number of records seen (None, 0 when none)."""
         fn()
         _, _, by_name, counts = profiled(
             lambda: [fn() for _ in range(reps)])
-        per_call = {"fw_smem": 1, "fw_init": 1, "fw_step": V}
+        nt = -(-V // fw_ops.BLOCKED_TILE)
+        per_call = {"tile": {"fw_tile": 1},
+                    "per_k": {"fw_init": 1, "fw_step": V},
+                    "blocked": {"fw_init": 1, "fw_pivot": nt,
+                                "fw_panel": nt, "fw_rest": nt}}[route]
         ms, seen = 0.0, 0
         for k, t in by_name.items():
             for f, times in per_call.items():
@@ -688,43 +774,80 @@ def main():
                     seen += counts[k]
         return (ms if seen else None), seen
 
-    def k3_case(A, M, what):
+    def k3_case(A, M, what, integral=False, reps=50):
         n, V = A.shape[:2]
-        route = "smem" if V <= fw_ops.ROUTE_A_MAX_V else "global"
-        S = fw_ops.floyd_warshall_cuda(A, M)
+        route = fw_ops.fw_route(V, integral)
+        smem = 0   # dynamic shared memory a block (ptxas shows static)
+        if route == "tile":
+            T, G = fw_ops.fw_tile_config(n, V)
+            inst = "T=%d, G=%d" % (T, G)
+            smem = 16 * G * -(-V // T) * T
+        elif route == "blocked":
+            inst = "%d-wide tiles, %d launches" % (
+                fw_ops.BLOCKED_TILE, 1 + 3 * -(-V // fw_ops.BLOCKED_TILE))
+        else:
+            inst = "%d launches" % (V + 1)
+        S = fw_ops.floyd_warshall_cuda(A, M, integral)
         R = fw_ops.floyd_warshall_plain(A, M)
         torch.cuda.synchronize()
         differ = int((S.view(torch.int32) != R.view(torch.int32)).sum())
         err = float((S - R).abs().max())
-        check(differ == 0, "K3 %s, %d graphs at V = %d (route %s) "
+        check(differ == 0, "K3 %s, %d graphs at V = %d (route %s, %s) "
               "bit-identical to plain (%d entries differ)"
-              % (what, n, V, route, differ))
-        big = route == "global"
+              % (what, n, V, route, inst, differ))
+        big = route != "tile"
 
         def call():
-            return fw_ops.floyd_warshall_cuda(A, M)
+            return fw_ops.floyd_warshall_cuda(A, M, integral)
 
         # 2 V^3 min-plus operations a graph; adj and mask read once, S
         # written once
         ops = 2.0 * n * V ** 3
         nbytes = 8.0 * n * V * V + n * V
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        dev_ms, records = k3_device_ms(call, 3 if big else 20, V)
+        dev_ms, records = k3_device_ms(call, 3 if big else 20, V, route)
         return {"what": what, "n": n, "V": V, "route": route,
+                "instantiation": inst, "dynamic_smem_bytes": smem,
+                "integral": integral,
                 "differing": differ, "max_abs_err": err, "ops": ops,
-                "bytes": nbytes, "ms": cuda_ms(call, 5 if big else 50),
+                "bytes": nbytes, "ms": cuda_ms(call, 5 if big else reps),
                 "device_ms": dev_ms, "device_records": records,
-                "wrapper_ms": host_ms(call, 5 if big else 50),
+                "wrapper_ms": host_ms(call, 5 if big else reps),
                 "plain_ms": cuda_ms(
                     lambda: fw_ops.floyd_warshall_plain(A, M),
                     1 if big else 3),
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    def fw_batch(n, V, density, weighted):
+    def tile_sweep(A, M):
+        """Route tile's time at every (T, G) that fits V, each checked
+        bit for bit: the data behind ops.floyd_warshall.TILE_WIDTHS and
+        fw_tile_config."""
+        n, V = A.shape[:2]
+        R = fw_ops.floyd_warshall_plain(A, M).view(torch.int32)
+        rows = []
+        for T, cap in sorted(fw_ops.TILE_MAX_THREADS.items()):
+            tpg = (-(-V // T)) ** 2
+            for G in (1, 2, 4, 8, 16, 32):
+                if G * tpg > cap:
+                    continue
+
+                def call(T=T, G=G):
+                    return fw_ops.floyd_warshall_cuda(A, M, tile=(T, G))
+
+                same = torch.equal(call().view(torch.int32), R)
+                rows.append({"T": T, "G": G, "threads": G * tpg,
+                             "bit_identical": same, "ms": cuda_ms(call, 50)})
+        check(all(r["bit_identical"] for r in rows),
+              "K3 route tile at V = %d bit-identical at every (T, G)" % V)
+        return rows
+
+    def fw_batch(n, V, density, weighted, integer=False):
         A = (rng.rand(n, V, V) < density).astype(np.float32)
         if weighted:
             A *= rng.uniform(0.5, 2.0, (n, V, V)).astype(np.float32)
+        if integer:
+            A *= rng.randint(1, 5, (n, V, V)).astype(np.float32)
         A = np.triu(A, 1)
         A = A + A.transpose(0, 2, 1)
         M = np.zeros((n, V), bool)
@@ -732,18 +855,27 @@ def main():
             M[g, :rng.randint(V // 2, V + 1)] = True
         return (torch.from_numpy(A).cuda(), torch.from_numpy(M).cuda())
 
-    def bucket_cases(kernel, what):
-        return [k3_case(torch.from_numpy(A).cuda(),
-                        torch.from_numpy(M).cuda(), what)
-                for _, A, _, M in kernel.X["buckets"]]
+    def bucket_cases(kernel, what, sweep=False, reps=50):
+        out = []
+        for _, A, _, M in kernel.X["buckets"]:
+            A, M = torch.from_numpy(A).cuda(), torch.from_numpy(M).cuda()
+            out.append(k3_case(A, M, what, kernel.X["unit"], reps))
+            if sweep:
+                out[-1]["tile_sweep"] = tile_sweep(A, M)
+        return out
 
     # the main path's shapes: the NCI1-scale fit buckets
-    k3 = bucket_cases(spk, "NCI1-scale fit bucket")
+    k3 = bucket_cases(spk, "NCI1-scale fit bucket", sweep=True)
     k3_other = bucket_cases(wsp, "weighted NCI1-scale fit bucket")
     k3_other.append(k3_case(*fw_batch(256, 96, 0.04, True),
                             "weighted random batch"))
-    k3_b = [k3_case(*fw_batch(4, 512, 0.008, True), "weighted, route B"),
-            k3_case(*fw_batch(1, 1000, 0.004, True), "weighted, route B")]
+    k3_b = [k3_case(*fw_batch(4, 512, 0.008, True), "weighted, route per_k"),
+            k3_case(*fw_batch(1, 1000, 0.004, True), "weighted, route per_k")]
+    k3_bi = [k3_case(*fw_batch(4, 512, 0.008, False, True),
+                     "integer weights 1-4, route blocked", True),
+             k3_case(*fw_batch(1, 1000, 0.004, False, True),
+                     "integer weights 1-4, route blocked", True)]
+    k3_rb = bucket_cases(rbk, "REDDIT-B-scale 129-512 fit bucket", reps=5)
 
     def total(cases, key):
         vals = [c[key] for c in cases]
@@ -805,7 +937,8 @@ def main():
          "source": "grakel_torch/csrc/floyd_warshall.cu",
          "replaces": "grakel_tpu/ops/floyd_warshall.py:30",
          "launches": launches["floyd_warshall"],
-         "max_abs_err": max(c["max_abs_err"] for c in k3 + k3_other + k3_b),
+         "max_abs_err": max(c["max_abs_err"] for c in
+                            k3 + k3_other + k3_b + k3_bi + k3_rb),
          "ms": total(k3, "ms"), "device_ms": total(k3, "device_ms"),
          "wrapper_ms": total(k3, "wrapper_ms"),
          "plain_ms": total(k3, "plain_ms"),
@@ -815,7 +948,17 @@ def main():
          "library": "none: no single PyTorch call computes APSP",
          "summed_over": "one call per NCI1-scale fit bucket (the calls "
                         "one fit_transform makes)",
-         "shapes": k3, "other_route_a": k3_other, "route_b": k3_b},
+         "ptxas": k3_ptxas,
+         "shapes": k3, "other_route_tile": k3_other, "route_per_k": k3_b,
+         "route_blocked": k3_bi,
+         "redditb_fit_buckets": {
+             "ms": total(k3_rb, "ms"), "device_ms": total(k3_rb, "device_ms"),
+             "plain_ms": total(k3_rb, "plain_ms"),
+             "bound_ms": total(k3_rb, "bound_ms"),
+             "bound_by": row_bound_by(k3_rb, FP32_OPS_PER_S, "bytes"),
+             "shapes": [{k: c[k] for k in ("n", "V", "route", "ms",
+                                           "device_ms", "plain_ms",
+                                           "bound_ms")} for c in k3_rb]}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: %s" % smi, flush=True)

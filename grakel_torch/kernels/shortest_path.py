@@ -27,6 +27,11 @@ per-pair work around it is torch elementwise ops on the kernel's device:
   occurring once only touch the diagonal (``split_singletons``); a still
   wide repeated-id space assembles on the host (``sparse_counts_gram``).
 
+Count Grams sum in f32 while no entry can pass 2^24 (widest bucket V
+with (V (V - 1))^2 < 2^24, so V <= 64) and in f64 above, so they are
+exact integers either way; the JAX package sums in f32 throughout and
+rounds such entries.
+
 Not ported: the JAX package's stream mode with its native BFS engine and
 its small-cell routing to XLA-CPU.  Its own tests show stream mode gives
 the dense mode's Gram.
@@ -69,11 +74,13 @@ def _size_buckets(graphs):
 class _Bucket:
     """One bucket after Floyd-Warshall, on the kernel's device: S f32
     [nb, V, V], valid bool [nb, V, V] (both endpoints real, u != v,
-    reachable), labels int64 [nb, V], graph ids int64 [nb]."""
+    reachable), labels int64 [nb, V], graph ids int64 [nb].  ``unit``:
+    every edge weight is 1, so K3 may take its integral-weight route."""
 
-    def __init__(self, idxs, A, Lb, M, dev):
+    def __init__(self, idxs, A, Lb, M, dev, unit):
         M = torch.from_numpy(M).to(dev)
-        self.S = batched_floyd_warshall(torch.from_numpy(A).to(dev), M)
+        self.S = batched_floyd_warshall(torch.from_numpy(A).to(dev), M,
+                                        integral=unit)
         V = self.S.shape[1]
         eye = torch.eye(V, dtype=torch.bool, device=dev)
         self.valid = (M[:, :, None] & M[:, None, :] & ~eye[None]
@@ -173,7 +180,17 @@ class ShortestPath(Kernel):
     # ------------------------------------------------------------------ #
     def _fw(self, p):
         dev = self._device()
-        return [_Bucket(*b, dev) for b in p["buckets"]]
+        return [_Bucket(*b, dev, p["unit"]) for b in p["buckets"]]
+
+    @staticmethod
+    def _count_dtype(*ps):
+        """Width of the count Grams of the parses ``ps``: a graph of V
+        vertices has at most V (V - 1) valid pairs, so an entry is at
+        most (V (V - 1))^2 for V the widest bucket; f32 sums of integers
+        are exact below 2^24, f64 ones below 2^53."""
+        V = max(p["max_V"] for p in ps)
+        return torch.float32 if (V * (V - 1)) ** 2 < 1 << 24 \
+            else torch.float64
 
     def _plan(self, *ps):
         """(route, L, D, fw) for the parses ``ps``: route "direct" or
@@ -231,19 +248,21 @@ class ShortestPath(Kernel):
         n = p["n"]
         route, L, D, fw = self._plan(p)
         fw = fw[0] if fw else self._fw(p)
+        dt = self._count_dtype(p)
         if route == "direct":
             gids, ids = self._direct_items(fw, L, D)
             return coo_counts_gram(gids, ids, torch.ones_like(ids,
                                    dtype=torch.float32), True, n,
-                                   L * L * D)
+                                   L * L * D, dtype=dt)
         gids, gl, gv, n_rep, dcorr = self._hash_labels([fw], [n])
         if n_rep > self._SPARSE_GRAM_MIN_REP:
             # still-wide repeated-id space: a chunked GEMM over it is
             # nearly all zeros; host multiplicity-split assembly instead
-            K = torch.from_numpy(sparse_counts_gram(gids[gv], gl[gv], n))
+            K = torch.from_numpy(sparse_counts_gram(gids[gv], gl[gv], n,
+                                                    dtype=dt))
         else:
             K = coo_counts_gram(gids, gl, torch.ones_like(
-                gids, dtype=torch.float32), gv, n, max(n_rep, 1))
+                gids, dtype=torch.float32), gv, n, max(n_rep, 1), dtype=dt)
         K.diagonal().add_(dcorr.to(K.device, K.dtype))
         return K
 
@@ -255,6 +274,7 @@ class ShortestPath(Kernel):
         nx, ny = px["n"], py["n"]
         route, L, D, fw = self._plan(px, py)
         fwx, fwy = fw if fw else (self._fw(px), self._fw(py))
+        dt = self._count_dtype(px, py)
         if route == "direct":
             xg, xi = self._direct_items(fwx, L, D)
             yg, yi = self._direct_items(fwy, L, D)
@@ -262,8 +282,9 @@ class ShortestPath(Kernel):
             ones_x = torch.ones_like(xi, dtype=torch.float32)
             ones_y = torch.ones_like(yi, dtype=torch.float32)
             K = coo_counts_gram_rect(yg, yi, ones_y, True, xg, xi, ones_x,
-                                     True, ny, nx, W)
-            self._Y_diag_cache = counts_diag(yg, yi, ones_y, True, ny, W)
+                                     True, ny, nx, W, dtype=dt)
+            self._Y_diag_cache = counts_diag(yg, yi, ones_y, True, ny, W,
+                                             dtype=dt)
             return K
         # joint compaction: consistent feature ids across X and Y;
         # singletons occur on one side only and re-enter Y's diagonal
@@ -274,8 +295,9 @@ class ShortestPath(Kernel):
         ones = torch.ones_like(gids, dtype=torch.float32)
         W = max(n_rep, 1)
         K = coo_counts_gram_rect(gy, gl, ones, gv & is_y, gx, gl, ones,
-                                 gv & ~is_y, ny, nx, W)
-        self._Y_diag_cache = (counts_diag(gy, gl, ones, gv & is_y, ny, W)
+                                 gv & ~is_y, ny, nx, W, dtype=dt)
+        self._Y_diag_cache = (counts_diag(gy, gl, ones, gv & is_y, ny, W,
+                                          dtype=dt)
                               .to(torch.float64) + dcorr[nx:nx + ny])
         return K
 
@@ -287,13 +309,14 @@ class ShortestPath(Kernel):
         n = parsed["n"]
         route, L, D, fw = self._plan(parsed)
         fw = fw[0] if fw else self._fw(parsed)
+        dt = self._count_dtype(parsed)
         if route == "direct":
             gids, ids = self._direct_items(fw, L, D)
             return counts_diag(gids, ids, torch.ones_like(
-                ids, dtype=torch.float32), True, n, L * L * D)
+                ids, dtype=torch.float32), True, n, L * L * D, dtype=dt)
         gids, gl, gv, n_rep, dcorr = self._hash_labels([fw], [n])
         return counts_diag(gids, gl, torch.ones_like(
-            gids, dtype=torch.float32), gv, n, max(n_rep, 1)) \
+            gids, dtype=torch.float32), gv, n, max(n_rep, 1), dtype=dt) \
             .to(torch.float64) + dcorr
 
 

@@ -13,7 +13,9 @@ GEMM.
 
 Every GEMM here runs in full fp32 (TF32 off, set and restored around
 each product): count Grams hold exact integers below 2^24 only in full
-fp32, and TF32 keeps ~10 mantissa bits.
+fp32, and TF32 keeps ~10 mantissa bits.  The counts-Gram functions take
+``dtype=torch.float64`` from a caller whose entries can pass 2^24 (f64
+sums of integers are exact below 2^53).
 """
 
 from __future__ import annotations
@@ -126,14 +128,15 @@ def normalize_gram(K, diag_rows, diag_cols):
 # chunked COO-count Gram: K[g, g'] = sum_l c[g, l] * c[g', l]
 # --------------------------------------------------------------------- #
 
-def _densify(gids, labels, weights, valid, n, lo, chunk):
+def _densify(gids, labels, weights, valid, n, lo, chunk,
+             dtype=torch.float32):
     """counts[g, l - lo] for the items with lo <= l < lo + chunk, as a
-    [n, chunk] f32 tensor (scatter by index_add_)."""
+    [n, chunk] ``dtype`` tensor (scatter by index_add_)."""
     rel = labels - lo
     in_chunk = valid & (rel >= 0) & (rel < chunk)
     seg = gids[in_chunk] * chunk + rel[in_chunk]
-    counts = torch.zeros(n * chunk, dtype=torch.float32, device=gids.device)
-    counts.index_add_(0, seg, weights[in_chunk])
+    counts = torch.zeros(n * chunk, dtype=dtype, device=gids.device)
+    counts.index_add_(0, seg, weights[in_chunk].to(dtype))
     return counts.view(n, chunk)
 
 
@@ -150,19 +153,20 @@ def _items(gids, labels, weights, valid, n):
 
 
 def chunked_counts_gram_raw(gids, labels, weights, valid, n_graphs,
-                            n_chunks, chunk, K0=None):
+                            n_chunks, chunk, K0=None, dtype=torch.float32):
     """Symmetric counts-Gram accumulation over ``n_chunks`` label chunks
     of width ``chunk``: each chunk densifies counts to [n_graphs, chunk]
-    and accumulates one GEMM.  Items with valid=False or a label outside
-    every chunk contribute nothing.  ``K0`` is the starting accumulator
-    (updated in place; zeros if None)."""
+    and accumulates one GEMM in ``dtype``.  Items with valid=False or a
+    label outside every chunk contribute nothing.  ``K0`` is the
+    starting accumulator (updated in place, in its own dtype; zeros of
+    ``dtype`` if None)."""
     n = int(n_graphs)
     g, lab, w, v = _items(gids, labels, weights, valid, n)
-    K = torch.zeros((n, n), dtype=torch.float32, device=g.device) \
+    K = torch.zeros((n, n), dtype=dtype, device=g.device) \
         if K0 is None else K0
     with full_fp32():
         for c in range(n_chunks):
-            C = _densify(g, lab, w, v, n, c * chunk, chunk)
+            C = _densify(g, lab, w, v, n, c * chunk, chunk, K.dtype)
             K.addmm_(C, C.T)
     return K
 
@@ -178,49 +182,50 @@ def chunk_plan(n_labels, chunk=4096):
 
 
 def coo_counts_gram(gids, labels, weights, valid, n_graphs, n_labels,
-                    chunk=4096):
+                    chunk=4096, dtype=torch.float32):
     """K[g,g'] = sum_l (sum_{i: gid=g, lab=l} w_i) * (same for g').
 
     Item arrays are tensors on one device (``labels``, ``weights`` and
     ``valid`` may also be numpy; they follow ``gids``' device).  Returns
-    an f32 [n_graphs, n_graphs] tensor there."""
+    a ``dtype`` [n_graphs, n_graphs] tensor there."""
     nc, ch = chunk_plan(n_labels, chunk)
     return chunked_counts_gram_raw(gids, labels, weights, valid,
-                                   n_graphs, nc, ch)
+                                   n_graphs, nc, ch, dtype=dtype)
 
 
 def coo_counts_gram_rect(ga, la, wa, va, gb, lb, wb, vb,
-                         n_a, n_b, n_labels, chunk=4096):
+                         n_a, n_b, n_labels, chunk=4096,
+                         dtype=torch.float32):
     """K[i, j] = <counts_a[i], counts_b[j]> over a label universe of
-    ``n_labels``; f32 [n_a, n_b] on ``ga``'s device."""
+    ``n_labels``; ``dtype`` [n_a, n_b] on ``ga``'s device."""
     n_a, n_b = int(n_a), int(n_b)
     nc, ch = chunk_plan(n_labels, chunk)
     a = _items(ga, la, wa, va, n_a)
     b = _items(gb.to(ga.device), lb, wb, vb, n_b)
-    K = torch.zeros((n_a, n_b), dtype=torch.float32, device=ga.device)
+    K = torch.zeros((n_a, n_b), dtype=dtype, device=ga.device)
     with full_fp32():
         for c in range(nc):
-            ca = _densify(*a, n_a, c * ch, ch)
-            cb = _densify(*b, n_b, c * ch, ch)
+            ca = _densify(*a, n_a, c * ch, ch, dtype)
+            cb = _densify(*b, n_b, c * ch, ch, dtype)
             K.addmm_(ca, cb.T)
     return K
 
 
 def counts_diag(gids, labels, weights, valid, n_graphs, n_labels,
-                chunk=4096):
-    """diag of coo_counts_gram without forming K; f32 [n_graphs]."""
+                chunk=4096, dtype=torch.float32):
+    """diag of coo_counts_gram without forming K; ``dtype`` [n_graphs]."""
     n = int(n_graphs)
     nc, ch = chunk_plan(n_labels, chunk)
     items = _items(gids, labels, weights, valid, n)
-    d = torch.zeros(n, dtype=torch.float32, device=gids.device)
+    d = torch.zeros(n, dtype=dtype, device=gids.device)
     for c in range(nc):
-        C = _densify(*items, n, c * ch, ch)
+        C = _densify(*items, n, c * ch, ch, dtype)
         d += (C * C).sum(1)
     return d
 
 
 def sparse_counts_gram(gids, labels, n_graphs, weights=None,
-                       dense_col_mult=64):
+                       dense_col_mult=64, dtype=torch.float32):
     """K[g, g'] = sum_l c[g, l] c[g', l] assembled on the host for very
     sparse, very wide count matrices (late WL-SP generations mint
     millions of mostly-singleton triplet columns, where a chunked GEMM
@@ -233,7 +238,8 @@ def sparse_counts_gram(gids, labels, n_graphs, weights=None,
       in-column pair products through one global bincount scatter
       (cost = sum over those columns of nnz_col^2);
     * denser columns gather into one [n, n_hot] block, multiplied as a
-      numpy f32 product (exact for integer counts below 2^24).
+      numpy product in ``dtype``'s width (f32: exact for integer sums
+      below 2^24; f64 below 2^53).
 
     ``gids`` / ``labels`` are per-item numpy arrays (or tensors, read to
     the host); duplicates are allowed and their weights (default 1) sum.
@@ -283,7 +289,8 @@ def sparse_counts_gram(gids, labels, n_graphs, weights=None,
     if hot.any():
         ent = np.repeat(hot, sizes)
         gcol = np.cumsum(hot) - 1
-        D = np.zeros((n, int(hot.sum())), np.float32)
+        D = np.zeros((n, int(hot.sum())), np.float64
+                     if dtype == torch.float64 else np.float32)
         D[rows[ent], np.repeat(gcol[hot], sizes[hot])] = cw[ent]
         K += (D @ D.T).astype(np.float64)
     return K

@@ -204,11 +204,13 @@ def test_entry_points_on_card_match_cpu(cuda, name, kw):
     assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
 
 
-def _fw_batch(seed, n, V, weighted):
+def _fw_batch(seed, n, V, weighted, integer=False):
     rng = np.random.RandomState(seed)
     A = (rng.rand(n, V, V) < min(1.0, 3.0 / V)).astype(np.float32)
     if weighted:
         A *= rng.uniform(0.5, 2.0, (n, V, V)).astype(np.float32)
+    if integer:
+        A *= rng.randint(1, 5, (n, V, V)).astype(np.float32)
     A = np.triu(A, 1)
     A = A + A.transpose(0, 2, 1)
     M = np.zeros((n, V), bool)
@@ -218,21 +220,36 @@ def _fw_batch(seed, n, V, weighted):
     return torch.from_numpy(A), torch.from_numpy(M)
 
 
-# route A (one block per graph in shared memory) up to V = 128, the
-# 64 KB tile past the 48 KB default; route B (a launch per k) above
-@pytest.mark.parametrize("n,V,weighted", [
-    (300, 16, False), (200, 56, True), (7, 8, False), (3, 128, True),
-    (5, 136, True), (4, 512, False), (1, 1000, True), (2, 129, True)])
-def test_floyd_warshall_kernel_bit_identical(cuda, n, V, weighted):
-    """K3 on both routes against the plain version, bit for bit (the
+# route "tile" (V <= 128) at every instantiation boundary (T = 2 up to
+# V = 24, 4 up to 64, 8 up to 128), n = 0 meaning 3 G + 1 graphs for the
+# G graphs a block holds; route "blocked" (integral=True, integer
+# weights) and route "per_k" (float weights) above
+@pytest.mark.parametrize("n,V,weighted,integral", [
+    (300, 16, False, False), (200, 56, True, False), (7, 8, False, False),
+    (3, 128, True, False)]
+    + [(0, V, w, False) for V in (1, 7, 24, 25, 31, 32, 33, 63, 64, 65,
+                                  127, 128) for w in (False, True)]
+    + [(5, 136, True, False), (4, 512, False, False), (1, 1000, True, False),
+       (2, 129, True, False),
+       (3, 129, False, True), (2, 200, False, True), (4, 512, False, True),
+       (1, 1000, False, True)])
+def test_floyd_warshall_kernel_bit_identical(cuda, n, V, weighted, integral):
+    """K3 on every route against the plain version, bit for bit (the
     ShortestPath hash route keys on the distance bits); one launch a
     call whatever the route."""
-    A, M = _fw_batch(n * 13 + V, n, V, weighted)
+    if n == 0:
+        G = fw.fw_tile_config(1 << 20, V)[1]
+        n = 3 * G + 1
+        assert fw.fw_tile_config(n, V)[1] == G and (G == 1 or n % G)
+    A, M = _fw_batch(n * 13 + V, n, V, weighted, integer=integral)
     A, M = A.to(cuda), M.to(cuda)
+    route = fw.fw_route(V, integral)
     before = fw.floyd_warshall_cuda.launches
-    S = fw.batched_floyd_warshall(A, M)
+    by_route = fw.floyd_warshall_cuda.route_launches[route]
+    S = fw.batched_floyd_warshall(A, M, integral=integral)
     torch.cuda.synchronize()
     assert fw.floyd_warshall_cuda.launches == before + 1
+    assert fw.floyd_warshall_cuda.route_launches[route] == by_route + 1
     R = fw.floyd_warshall_plain(A, M)
     assert torch.equal(S.view(torch.int32), R.view(torch.int32))
 
@@ -248,6 +265,10 @@ def test_floyd_warshall_wrapper_checks_inputs(cuda):
         fw.floyd_warshall_cuda(A, M[:, :4])                    # mask shape
     with pytest.raises(ValueError):
         fw.floyd_warshall_cuda(A, M.cpu())                     # device
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A, M, tile=(3, 1))              # no such T
+    with pytest.raises(ValueError):
+        fw.floyd_warshall_cuda(A, M, tile=(2, 64))             # 1024 threads
 
 
 @pytest.mark.parametrize("spec,attrs,weighted", [
@@ -278,5 +299,31 @@ def test_shortest_path_on_card_matches_cpu(cuda, spec, attrs, weighted):
             out.append((K, T, gk.diagonal()))
         assert (fw.floyd_warshall_cuda.launches > before) == (dev == "cuda")
     (K, T, d), (Kc, Tc, dc) = out
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+    assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
+
+
+@pytest.mark.parametrize("with_labels", [False, True])
+def test_shortest_path_large_graphs_on_card_match_cpu(cuda, with_labels):
+    """Unit-weight graphs past V = 128 take K3's blocked route on every
+    call, and their count Grams (entries past 2^24, summed in f64)
+    equal the CPU's exactly."""
+    train, test = generate_dataset(
+        n_graphs=24, n_graphs_test=4, r_vertices=(129, 260),
+        r_connectivity=(0.01, 0.03), random_state=6, features=("nl", 3))
+    out = []
+    for dev in ("cuda", "cpu"):
+        k = grakel_torch.ShortestPath(with_labels=with_labels)
+        before = dict(fw.floyd_warshall_cuda.route_launches)
+        with use_device(dev):
+            out.append((k.fit_transform(train), k.transform(test),
+                        k.diagonal()))
+        after = fw.floyd_warshall_cuda.route_launches
+        if dev == "cuda":
+            assert after["blocked"] > before["blocked"]
+            assert after["tile"] == before["tile"]
+            assert after["per_k"] == before["per_k"]
+    (K, T, d), (Kc, Tc, dc) = out
+    assert K.max() > 2 ** 24
     assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
     assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])

@@ -15,6 +15,7 @@ import grakel_tpu
 import grakel_torch
 from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset, read_data
+from grakel_torch.kernels.base import normalize_input
 from grakel_torch.ops import floyd_warshall as fw
 from grakel_torch.ops import gram as tgram
 from grakel_torch.ops import wl as twl
@@ -226,3 +227,60 @@ def test_wl_shortest_path_matches_jax():
     (Kj, Tj, dj), (Kt, Tt, dt) = res
     assert np.array_equal(Kt, Kj) and np.array_equal(Tt, Tj)
     assert np.array_equal(dt[0], dj[0]) and np.array_equal(dt[1], dj[1])
+
+
+def _exact_sp_features(graphs, with_labels):
+    """Each graph's shortest-path feature counts as a Counter of Python
+    ints: (l_u, l_v, d) (or d) over ordered pairs u != v that are
+    connected, from the plain Floyd-Warshall."""
+    from collections import Counter
+    out = []
+    for g in normalize_input(graphs):
+        A = np.zeros((1, g.n, g.n), np.float32)
+        A[0, g.senders, g.receivers] = g.weights
+        S = fw.floyd_warshall_plain(torch.from_numpy(A),
+                                    torch.ones((1, g.n), dtype=torch.bool))
+        S = S[0].numpy()
+        labs = g.get_labels(label_type="vertex", return_none=True)
+        c = Counter()
+        for u in range(g.n):
+            for v in range(g.n):
+                if u != v and S[u, v] < fw.INF:
+                    d = int(S[u, v])
+                    c[(labs[u], labs[v], d) if with_labels else d] += 1
+        out.append(c)
+    return out
+
+
+@pytest.mark.parametrize("with_labels,force_hash", [
+    (False, False), (True, False), (True, True)])
+def test_shortest_path_counts_exact_past_2_24(with_labels, force_hash):
+    """Graphs past 64 vertices can push a count-Gram entry past 2^24,
+    where f32 sums round (here past 2^26: ordered-pair counts of an
+    undirected graph are even, so f32 holds their products to 2^26):
+    ShortestPath then sums in f64, and its Grams and diagonals equal the
+    exact integer Gram of the feature counts, on the direct and the hash
+    route."""
+    train, test = generate_dataset(
+        n_graphs=8, n_graphs_test=3, r_vertices=(150, 200),
+        r_connectivity=(0.01, 0.03), random_state=5, features=("nl", 2))
+    with use_device("cpu"):
+        k = grakel_torch.ShortestPath(with_labels=with_labels)
+        if force_hash:
+            k._DIRECT_MAX_WIDTH = 0
+        K = k.fit_transform(train)
+        T = k.transform(test)
+        dx, dy = k.diagonal()
+    fx = _exact_sp_features(train, with_labels)
+    fy = _exact_sp_features(test, with_labels)
+
+    def dot(a, b):
+        return sum(v * b[f] for f, v in a.items() if f in b)
+
+    Kx = np.array([[dot(a, b) for b in fx] for a in fx], dtype=object)
+    Ty = np.array([[dot(a, b) for b in fx] for a in fy], dtype=object)
+    assert Kx.max() > 2 ** 26 and Kx.max() < 2 ** 53
+    assert np.array_equal(K, Kx.astype(np.float64))
+    assert np.array_equal(T, Ty.astype(np.float64))
+    assert np.array_equal(dx, np.diagonal(Kx).astype(np.float64))
+    assert np.array_equal(dy, np.array([dot(a, a) for a in fy], np.float64))
