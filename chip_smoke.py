@@ -30,9 +30,14 @@ main paths through the public entry points, at full data size:
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
-CUDA-core K1 (``min_gram``), labeled PM the tensor-core K1-tc
-(``min_gram_tc``) and no CUDA-core K1, and every ShortestPath path K3
-(``floyd_warshall``).  WL-VH, the PM paths and SP on the NCI1-scale set
+CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
+concatenated into one call) and no K1-tc, labeled PM the kernels its
+levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
+the levels that take K1, one K1-tc call for each other level), and
+every ShortestPath path K3 (``floyd_warshall``).  The unlabeled PM Gram
+stage (K1 and the torch ops up to the f64 result) is then timed and
+profiled as it runs, one fused K1 call, beside the same stage with one
+K1 call and a torch fold per level.  WL-VH, the PM paths and SP on the NCI1-scale set
 and on the REDDIT-B-scale graphs then run again, warm (WL-VH 5 times,
 each PM path twice, each SP path 3 times; median reported), and once
 more under ``torch.profiler`` for their device busy time, idle share and
@@ -45,12 +50,20 @@ with the stream kept busy while the calls are enqueued; ``device_ms``,
 the kernel's own records in torch.profiler; ``wrapper_ms``, the host
 time of a call:
 
-* K1 at the unlabeled levels, integer inputs exactly, and a ragged
-  real-valued case to rtol=1e-5, atol=1e-4 (the f32 sum order differs);
-  also at the labeled levels, square (fit_transform) and at the
-  transform shape of a 10-fold split (411 x 3699), for the break-even
-  ratio of the two routes.  Bound: the larger of bytes over 3.35 TB/s
-  and operations over 67 TFLOP/s fp32; yardstick ``torch.cdist(p=1)``
+* K1 at the call the unlabeled PM path makes (2000 x 2000 x 90, the
+  weighted levels concatenated, symmetric: the block triangle), at each
+  unlabeled level alone (symmetric), at the labeled levels, square
+  (symmetric, as fit_transform) and at the transform shape of a 10-fold
+  split (411 x 3699), for the break-even ratio of the two routes; integer
+  inputs exactly, a ragged real-valued case to rtol=1e-5, atol=1e-4 (the
+  f32 sum order differs), the triangle against the full rectangle at a
+  ragged n and at n = 1, and the alpha / accumulate epilogue.  Every
+  shape of the path and of the labeled levels is timed at each tile
+  instantiation (``tile_sweep``, each checked bit for bit), and K1's
+  kernels must build without spills.  Bound: the larger of bytes (the
+  inputs once, the output once, read once more when accumulating) over
+  3.35 TB/s and operations (2 L per distinct entry: n (n + 1) / 2 when
+  symmetric) over 67 TFLOP/s fp32; yardstick ``torch.cdist(p=1)``
   (sum_l min(a, b) = (sum a + sum b - |a - b|_1) / 2);
 * K1-tc at the four labeled levels (symmetric, as PyramidMatch's
   fit_transform calls it), at their transform shape and a ragged
@@ -155,15 +168,18 @@ def heavy_tailed_graphs(n_graphs, median, mean, vmax, edge_ratio, seed):
 
 def ptxas_info(text):
     """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
-    ``nvcc -Xptxas -v`` output; a K3 kernel is named by its function and
-    template argument (``fw_tile<4>``), another by its mangled name."""
+    ``nvcc -Xptxas -v`` output; a K3 or K1 kernel is named by its function
+    and template arguments (``fw_tile<4>``, ``min_gram_kernel<64,8,4>``),
+    another by its mangled name."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(fw_[a-z]+)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"(fw_[a-z]+|min_gram_kernel)(I(?:Li\d+E)+E)?",
+                          m.group(1))
+            args = re.findall(r"Li(\d+)E", (k.group(2) or "") if k else "")
             cur = m.group(1) if k is None else k.group(1) + (
-                "<%s>" % k.group(2) if k.group(2) else "")
+                "<%s>" % ",".join(args) if args else "")
             out[cur] = {}
             continue
         if cur is None:
@@ -358,6 +374,13 @@ def main():
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k3_ptxas.values()),
         "K3's 8 kernels built without spills: %s" % k3_ptxas)
+    k1_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                if k.startswith("min_gram_kernel")}
+    check(len(k1_ptxas) == 3 * len(intersect.K1_TILES) and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k1_ptxas.values()),
+        "K1's %d kernels built without spills: %s"
+        % (3 * len(intersect.K1_TILES), k1_ptxas))
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
@@ -440,7 +463,8 @@ def main():
         pm = PyramidMatch(L=4, d=6, **kw)
         return pm, pm.fit_transform(graphs())
 
-    pm_mats = {}   # the level matrices each PM path gave K1 / K1-tc
+    pm_mats = {}   # each PM path's level matrices, on the card
+    pm_fit = {}    # each PM path's fitted kernel and Gram
     for key, name, graphs, kw in (
             ("pm_unlabeled_redditb", "pm_unlabeled", reddit,
              {"with_labels": False}),
@@ -451,22 +475,79 @@ def main():
         n = len(graphs())
         paths[key] = {"graphs": n, "wall_s": secs, "launches": launches,
                       "stages_s": dict(pm.timer_.times)}
-        if kw["with_labels"]:
-            check(launches["min_gram_tc"] > 0 and launches["min_gram"] == 0,
-                  "%s launched K1-tc (%d) and no CUDA-core K1 (%d)"
-                  % (name, launches["min_gram_tc"], launches["min_gram"]))
-        else:
-            check(launches["min_gram"] > 0, "%s launched K1 (%d)"
-                  % (name, launches["min_gram"]))
         Kref, mats = level_grams(pm, intersect.min_gram_plain)
+        # fit_transform's level routes: the levels that take K1 go in one
+        # K1 call, each other level in a K1-tc call of its own
+        maxima = [M.amax(0).cpu().numpy() for M in mats]
+        routes = [intersect.min_gram_route(mx, mx, True, True)
+                  for mx in maxima]
+        paths[key]["level_routes"] = routes
+        want = {"min_gram": int("min_gram" in routes),
+                "min_gram_tc": routes.count("min_gram_tc")}
+        check(launches["min_gram"] == want["min_gram"]
+              and launches["min_gram_tc"] == want["min_gram_tc"],
+              "%s launched K1 %d and K1-tc %d times, as its level routes %s "
+              "name" % (name, launches["min_gram"], launches["min_gram_tc"],
+                        routes))
+        if not kw["with_labels"]:
+            check(launches["min_gram"] == 1 and launches["min_gram_tc"] == 0,
+                  "%s launched K1 exactly once for its Gram" % name)
         check(Kp.shape == (n, n) and np.isfinite(Kp).all()
               and np.array_equal(Kp, Kref),
               "%s Gram == plain level Grams combined" % name)
         paths[key].update(warm_runs(lambda g=graphs, k=kw: pm_run(g, **k),
                                     2))
         pm_mats[name] = mats
+        pm_fit[name] = (pm, Kp)
     paths["pm_unlabeled_redditb"]["max_vertices"] = int(max(
         n for n, _, _ in coo))
+
+    # the unlabeled PM Gram stage from the uploaded levels to the f64
+    # Gram: one K1 call over the weighted, concatenated levels (the path)
+    # against one K1 call and a torch fold a level (the path before the
+    # levels were fused), both on the current K1
+    pm_u, Kp_u = pm_fit["pm_unlabeled"]
+    scale = float(2 ** max(pm_u.L - 1, 0))
+    weights = [float(round(c * scale)) for c in pm_u._level_coeffs()]
+    fused_W = torch.cat([w * M for w, M in zip(weights,
+                                               pm_mats["pm_unlabeled"])],
+                        1).contiguous()
+
+    def stage_fused():
+        return intersect.min_gram_cuda(fused_W, fused_W).double() / scale
+
+    def stage_levels():
+        K = None
+        for w, M in zip(weights, pm_mats["pm_unlabeled"]):
+            Kj = intersect.min_gram_cuda(M, M)
+            K = Kj.mul_(w) if K is None else K.add_(Kj, alpha=w)
+        return K.double() / scale
+
+    def stage_row(fn):
+        reps = 10
+        _, busy, by_name, counts = profiled(
+            lambda: [fn() for _ in range(reps)])
+        k1_ms = sum(v for k, v in by_name.items() if "min_gram_kernel" in k)
+        k1_n = sum(v for k, v in counts.items() if "min_gram_kernel" in k)
+        return {"ms": cuda_ms(fn, 50), "profiled_device_ms": busy / reps,
+                "k1_device_ms": k1_ms / reps,
+                "other_device_ms": (busy - k1_ms) / reps,
+                "k1_launches": k1_n / reps,
+                "device_activities": {k[:60]: v / reps
+                                      for k, v in by_name.items()}}
+
+    gram_stage = {"fused": stage_row(stage_fused),
+                  "per_level": stage_row(stage_levels)}
+    check(np.array_equal(stage_fused().cpu().numpy(), Kp_u)
+          and np.array_equal(stage_levels().cpu().numpy(), Kp_u),
+          "PM unlabeled Gram stage, fused and per level, == the path's Gram")
+    paths["pm_unlabeled_redditb"]["gram_stage"] = gram_stage
+    print("PM unlabeled Gram stage: fused %.4f ms (K1 %.4f), per level "
+          "%.4f ms (K1 %.4f)" % (
+              gram_stage["fused"]["profiled_device_ms"],
+              gram_stage["fused"]["k1_device_ms"],
+              gram_stage["per_level"]["profiled_device_ms"],
+              gram_stage["per_level"]["k1_device_ms"]), flush=True)
     # ---------------- ShortestPath: the slice of K3 --------------------- #
     # sparse_counts_gram (WL-SP's late generations) timed where it runs
     sparse_s = []
@@ -592,50 +673,100 @@ def main():
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
-    def k1_case(A, B, integer):
+    def k1_case(A, B, integer, sweep=False, out=None, alpha=1.0):
+        """K1 on A, B (the block triangle when B is A; into ``out`` with
+        ``alpha`` when given) against the plain version, timed beside its
+        bound, the plain version and cdist; ``sweep`` times every tile
+        instantiation too, each checked against the plain version."""
+        sym = B is A
         n, L = A.shape
         m = B.shape[0]
-        K = intersect.min_gram_cuda(A, B)
         R = intersect.min_gram_plain(A, B)
+        base = None if out is None else out.clone()
+        K = intersect.min_gram_cuda(A, B, out, alpha)
         torch.cuda.synchronize()
-        err = float((K - R).abs().max()) if K.numel() else 0.0
-        ok = torch.equal(K, R) if integer else torch.allclose(
-            K, R, rtol=1e-5, atol=1e-4)
-        check(ok, "K1 %dx%dx%d %s vs plain, max abs err %g"
-              % (n, m, L, "integer" if integer else "real", err))
+        want = R if out is None else base + alpha * R
+        err = float((K - want).abs().max()) if K.numel() else 0.0
+        ok = torch.equal(K, want) if integer else torch.allclose(
+            K, want, rtol=1e-5, atol=1e-4)
+        check(ok, "K1 %dx%dx%d %s %s%s vs plain, max abs err %g"
+              % (n, m, L, "symmetric" if sym else "rect",
+                 "integer" if integer else "real",
+                 "" if out is None else ", K += %g Gram" % alpha, err))
         big = n * m * L > 1e9
-        ops = 2.0 * n * m * L
-        nbytes = 4.0 * (n * L + m * L + n * m)
+        # the function's own work: 2 L operations a distinct entry (n (n +
+        # 1) / 2 of them when symmetric); the inputs read once, the output
+        # written once and read once more when accumulating
+        ops = 2.0 * L * (n * (n + 1) / 2 if sym else n * m)
+        nbytes = 4.0 * ((n if sym else n + m) * L
+                        + n * m * (1 if out is None else 2))
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        return {"n": n, "m": m, "L": L, "max_abs_err": err,
-                "ops": ops, "bytes": nbytes,
-                "ms": cuda_ms(lambda: intersect.min_gram_cuda(A, B),
-                              5 if big else 50),
-                "device_ms": device_ms(lambda: intersect.min_gram_cuda(A, B),
-                                       5 if big else 20, "min_gram_kernel"),
-                "wrapper_ms": host_ms(lambda: intersect.min_gram_cuda(A, B),
-                                      5 if big else 20),
-                "plain_ms": cuda_ms(lambda: intersect.min_gram_plain(A, B),
-                                    1 if big else 5),
-                "library_ms": cuda_ms(lambda: torch.cdist(A, B, p=1),
-                                      3 if big else 20),
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    k1 = [k1_case(A, A, True) for A in pm_mats["pm_unlabeled"]]
-    k1_labeled = [k1_case(A, A, True) for A in pm_mats["pm_labeled"]]
+        def call():
+            return intersect.min_gram_cuda(A, B, out, alpha)
+
+        row = {"n": n, "m": m, "L": L, "symmetric": sym,
+               "tile": intersect.K1_TILES[intersect.k1_tile(n, m, sym)],
+               "accumulate": out is not None, "max_abs_err": err,
+               "ops": ops, "bytes": nbytes,
+               "ms": cuda_ms(call, 5 if big else 50),
+               "device_ms": device_ms(call, 5 if big else 20,
+                                      "min_gram_kernel"),
+               "wrapper_ms": host_ms(call, 5 if big else 20),
+               "plain_ms": cuda_ms(lambda: intersect.min_gram_plain(A, B),
+                                   1 if big else 5),
+               "library_ms": cuda_ms(lambda: torch.cdist(A, B, p=1),
+                                     3 if big else 20),
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if sweep:
+            row["tile_sweep"] = []
+            for tile, shape in sorted(intersect.K1_TILES.items()):
+                def tcall(tile=tile):
+                    return intersect.min_gram_cuda(A, B, tile=tile)
+                row["tile_sweep"].append({
+                    "tile": shape, "bit_identical": torch.equal(tcall(), R),
+                    "ms": cuda_ms(tcall, 5 if big else 50)})
+            check(all(t["bit_identical"] for t in row["tile_sweep"]),
+                  "K1 %dx%dx%d bit-identical at every tile" % (n, m, L))
+        return row
+
+    # the call the unlabeled PM path makes, then each of its levels alone
+    k1 = [k1_case(fused_W, fused_W, True, sweep=True)]
+    k1_levels = [k1_case(A, A, True) for A in pm_mats["pm_unlabeled"]]
+    k1_labeled = [k1_case(A, A, True, sweep=True)
+                  for A in pm_mats["pm_labeled"]]
     # PyramidMatch's transform shape at the labeled levels: a 10-fold
     # cross-validation split of the NCI1-scale set, the 411 test graphs'
     # rows against the 3699 training graphs'
     n_test = N_GRAPHS // 10
     rect = [(A[N_GRAPHS - n_test:].clone(), A[:N_GRAPHS - n_test].clone())
             for A in pm_mats["pm_labeled"]]
-    k1_rect = [k1_case(A, B, True) for A, B in rect]
+    k1_rect = [k1_case(A, B, True, sweep=True) for A, B in rect]
     rng = np.random.RandomState(SEED)
     ragged = k1_case(torch.from_numpy(rng.rand(37, 333).astype(np.float32))
                      .cuda(),
                      torch.from_numpy(rng.rand(1001, 333).astype(np.float32))
                      .cuda(), False)
+    # the triangle against the full rectangle at a ragged n (no multiple
+    # of a tile side) and at n = 1, on counts and on reals: the same sums
+    # in the same order, so equal bit for bit, and the mirror exactly the
+    # transpose
+    sym_checks = []
+    for n_r, integer in ((1001, True), (1001, False), (1, True)):
+        X = rng.randint(0, 9, (n_r, 77)) if integer else rng.rand(n_r, 77)
+        X = torch.from_numpy(X.astype(np.float32)).cuda()
+        Ks, Kr = intersect.min_gram_cuda(X, X), intersect.min_gram_cuda(
+            X, X.clone())
+        same = torch.equal(Ks, Kr) and torch.equal(Ks, Ks.T)
+        sym_checks.append({"n": n_r, "L": 77, "integer": integer,
+                           "triangle_equals_rect_and_transpose": same})
+        check(same, "K1 %dx%dx77 %s: triangle == rectangle, K == K.T"
+              % (n_r, n_r, "integer" if integer else "real"))
+    # the alpha / accumulate epilogue at the path's call
+    acc_case = k1_case(fused_W, fused_W, True,
+                       out=torch.full((fused_W.shape[0],) * 2, 5.0,
+                                      device="cuda"), alpha=3.0)
 
     # ---------------- K1-tc against its plain version ------------------- #
     def tc_case(A, B):
@@ -710,15 +841,19 @@ def main():
             (c["ms"] + c["expansion_ms"]) / c["w_expanded"])
     be_sym = min(c["break_even_ratio"] for c in tc)
     be_rect = min(c["break_even_ratio"] for c in tc_rect)
-    check(all(c["route"] == "min_gram_tc" for c in tc),
-          "labeled levels route to K1-tc (W'/L %s, code limit %g; "
-          "break-even measured now %.2f); at the transform shape W'/L %s "
-          "route to %s (code limit %g; break-even measured now %.2f)"
-          % ([round(c["w_expanded"] / c["L"], 2) for c in tc],
-             intersect._TC_MAX_RATIO_SYM, be_sym,
-             [round(c["w_expanded"] / c["L"], 2) for c in tc_rect],
-             [c["route"] for c in tc_rect], intersect._TC_MAX_RATIO_RECT,
-             be_rect))
+    # the code's limits are the floors of these readings taken on an H100
+    # (ops/intersect.py); a limit more than 15 % above this run's reading
+    # would send levels to the slower kernel
+    check(intersect._TC_MAX_RATIO_SYM <= 1.15 * be_sym
+          and intersect._TC_MAX_RATIO_RECT <= 1.15 * be_rect,
+          "route limits within this run's break-even: symmetric limit %g, "
+          "break-even %.2f (labeled levels' W'/L %s route to %s); "
+          "rectangular limit %g, break-even %.2f (W'/L %s route to %s)"
+          % (intersect._TC_MAX_RATIO_SYM, be_sym,
+             [round(c["w_expanded"] / c["L"], 2) for c in tc],
+             [c["route"] for c in tc], intersect._TC_MAX_RATIO_RECT,
+             be_rect, [round(c["w_expanded"] / c["L"], 2) for c in tc_rect],
+             [c["route"] for c in tc_rect]))
 
     # ---------------- K2 against its plain versions --------------------- #
     batch = GraphBatch.from_graphs(normalize_input(train),
@@ -893,17 +1028,28 @@ def main():
          "source": "grakel_torch/csrc/min_gram.cu",
          "replaces": "grakel_tpu/ops/intersect.py:55",
          "launches": launches["min_gram"],
-         "max_abs_err": max(c["max_abs_err"] for c in k1 + [ragged]),
+         "max_abs_err": max(c["max_abs_err"] for c in
+                            k1 + k1_levels + k1_labeled + k1_rect
+                            + [ragged, acc_case]),
          "ms": total(k1, "ms"), "device_ms": total(k1, "device_ms"),
          "wrapper_ms": total(k1, "wrapper_ms"),
          "plain_ms": total(k1, "plain_ms"),
          "bound_ms": total(k1, "bound_ms"),
          "bound_by": row_bound_by(k1, FP32_OPS_PER_S, "bytes"),
          "library_ms": total(k1, "library_ms"),
-         "summed_over": "one call per unlabeled PM level (the levels K1 "
-                        "runs on the main path)",
-         "shapes": k1, "labeled_levels": k1_labeled,
-         "labeled_levels_rect": k1_rect, "ragged_real_check": ragged},
+         "summed_over": "the one K1 call of the unlabeled PM fit_transform "
+                        "Gram: its four levels scaled by their integer "
+                        "weights and concatenated, 2000 x 2000 x 90, "
+                        "symmetric (the block triangle)",
+         "ptxas": k1_ptxas, "shapes": k1,
+         "per_level_shapes": {
+             k: total(k1_levels, k) for k in
+             ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+         "per_level": k1_levels,
+         "labeled_levels": k1_labeled, "labeled_levels_rect": k1_rect,
+         "ragged_real_check": ragged, "symmetric_vs_rect_checks": sym_checks,
+         "accumulate_check": acc_case,
+         "gram_stage": gram_stage},
         {"name": "min_gram_tc", "route": "cuda",
          "source": "grakel_torch/csrc/min_gram_tc.cu",
          "replaces": "grakel_tpu/ops/intersect.py:55",

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
-    "grakel_min_gram": [_P, _P, _P, _I, _I, _I, _P],
+    "grakel_min_gram": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "grakel_min_gram_tc": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "grakel_wl_hash_refine": [_P, _P, _P, _P, _I, _P],
     "grakel_floyd_warshall": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -17,13 +17,14 @@ semantics:
 
 Embeddings of graphs with at least ``_DEVICE_EMBED_MIN_N`` vertices come
 from the slab-batched Lanczos on the kernel's device (ops/spectral.py);
-smaller graphs keep the scipy path.  Every level's all-pairs
-intersection I_p is one :func:`min_intersection_gram` call on the
-kernel's device (on a card the tensor-core kernel K1-tc where the
-threshold expansion of the counts stays narrow, as on labeled levels,
-and the CUDA-core kernel K1 elsewhere), which folds the level into the
-sum with its integer weight 2^(L-1) c_p; one division by 2^(L-1)
-follows: integer-valued, exact in f32 below 2^24.
+smaller graphs keep the scipy path.  The level intersections I_p are
+computed on the kernel's device with the integer weights 2^(L-1) c_p
+folded in: the levels whose count expansion stays narrow (labeled ones)
+one :func:`min_intersection_gram` call each on the tensor-core kernel
+K1-tc, the others (unlabeled ones) weighted and concatenated into one
+call of the CUDA-core kernel K1; one division by 2^(L-1) follows.
+Integer-valued, exact in f32 while no entry can reach 2^24; past that
+bound the levels are folded in f64 (``_combined_gram``).
 
 Past ``_DENSE_MAX_W`` (wide label universes) the kernel switches to a
 SPARSE path: histogram entries become unary-expanded 0/1 features
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from .base import Kernel, normalize_input
+from ..ops import intersect
 from ..ops.gram import coo_counts_gram, coo_counts_gram_rect
 from ..ops.intersect import min_intersection_gram
 
@@ -272,15 +274,28 @@ class PyramidMatch(Kernel):
             out[i, :m] = flat[:m]
         return out
 
+    # an f32 sum of integers is exact below this
+    _F32_EXACT = 2 ** 24
+
     def _combined_gram(self, px, py):
         """Dense-path Gram: k = sum_p c_p I_p, the level intersections
         I_p [len(py), len(px)] computed on the kernel's device.  The c_p
         are dyadic rationals; scaled by 2^(L-1) every weight is an exact
-        integer, so each level is folded in with its weight by the Gram
-        call itself, exactly in f32, and one division by the scale
-        finishes in f64.  The level matrices are counts built here on
-        the host, so their column maxima go along with them and routing
-        reads nothing back from the device.
+        integer w_p.  The level matrices are counts built here on the
+        host, so every decision below is made from host data and nothing
+        is read back from the device.
+
+        While no entry of sum_p w_p I_p can reach 2^24 (bounded per level
+        by the smaller of the column maxima's min-sum and the row masses)
+        the weighted sum is exact in f32: each level is routed
+        (``min_gram_route`` on its own column maxima), the levels that
+        take K1 are scaled by w_p (w min(a, b) = min(w a, w b)) and
+        concatenated along L for ONE K1 call, and the K1-tc levels add
+        into its result with their weights in their own epilogues.  From
+        2^24 on, each level's f32 Gram is computed apart (exact while the
+        level stays below 2^24) and the levels are folded in f64, as the
+        JAX package's per-level path does.  One division by 2^(L-1)
+        finishes in f64.
 
         Row truncation to the smaller label count (reference :270-277) is
         equivalent to truncating the flattened feature width to the
@@ -289,9 +304,10 @@ class PyramidMatch(Kernel):
         if self.L == 0:
             return torch.zeros((len(py), len(px)), dtype=torch.float64)
         dev = self._device()
+        sym = py is px
         cs = self._level_coeffs()
         scale = float(2 ** max(self.L - 1, 0))
-        Kacc = None
+        levels, bound = [], 0.0   # (w_p, Ma, Mb, their column maxima)
         for j in range(self.L):
             cj = float(round(cs[j] * scale))
             wx = next((d[j].size for d in px if len(d)), 0)
@@ -300,14 +316,39 @@ class PyramidMatch(Kernel):
             if w == 0 or cj == 0.0:
                 continue
             Ma = self._level_matrix(py, j, w)
-            Mb = Ma if py is px else self._level_matrix(px, j, w)
-            A = torch.from_numpy(Ma).to(dev)
-            B = A if py is px else torch.from_numpy(Mb).to(dev)
-            Kacc = min_intersection_gram(
-                A, B, count_max=(Ma.max(0), Mb.max(0)), out=Kacc,
-                alpha=cj)
-        if Kacc is None:
+            Mb = Ma if sym else self._level_matrix(px, j, w)
+            mx = (Ma.max(0), Mb.max(0))
+            bound += cj * min(float(np.minimum(*mx).sum()),
+                              float(Ma.sum(1).max()), float(Mb.sum(1).max()))
+            levels.append((cj, Ma, Mb, mx))
+        if not levels:
             return torch.zeros((len(py), len(px)), dtype=torch.float64)
+
+        def upload(Ma, Mb):
+            A = torch.from_numpy(Ma).to(dev)
+            return A, (A if sym else torch.from_numpy(Mb).to(dev))
+
+        if bound >= self._F32_EXACT:
+            K = None
+            for cj, Ma, Mb, mx in levels:
+                I = min_intersection_gram(*upload(Ma, Mb), count_max=mx)
+                I = I.to(torch.float64)
+                K = I.mul_(cj) if K is None else K.add_(I, alpha=cj)
+            return K / scale
+        routes = [intersect.min_gram_route(*mx, True, sym)
+                  for _, _, _, mx in levels]
+        group = [lv for lv, r in zip(levels, routes) if r == "min_gram"]
+        Kacc = None
+        if group:
+            Wa = np.concatenate([cj * Ma for cj, Ma, _, _ in group], axis=1)
+            Wb = Wa if sym else np.concatenate(
+                [cj * Mb for cj, _, Mb, _ in group], axis=1)
+            Kacc = min_intersection_gram(*upload(Wa, Wb), route="min_gram")
+        for (cj, Ma, Mb, mx), r in zip(levels, routes):
+            if r == "min_gram_tc":
+                Kacc = min_intersection_gram(
+                    *upload(Ma, Mb), count_max=mx, out=Kacc, alpha=cj,
+                    route=r)
         return Kacc.to(torch.float64) / scale
 
     def _sparse_gram(self, px, py=None):

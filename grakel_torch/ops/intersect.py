@@ -18,6 +18,12 @@ package chooses between its threshold GEMM and its Pallas kernel
   pay): the CUDA-core kernel K1 (``csrc/min_gram.cu``, the port of the
   Pallas kernel ``_min_gram_kernel``), accumulating in f32 as the Pallas
   kernel does: integer-valued histograms come out exact below 2^24.
+  When B is A it computes the block upper triangle and mirrors it.
+
+Both kernels return ``alpha * K`` or add it into ``out`` in their
+epilogues.  ``route=`` names the kernel instead of routing: PyramidMatch
+hands K1 its levels scaled by their integer weights and concatenated,
+whose weighted maxima must not be routed again.
 
 CPU tensors take each kernel's plain version: :func:`min_gram_plain`,
 the pair-tiled broadcast-min-reduce of the JAX package's
@@ -34,21 +40,22 @@ import torch
 
 __all__ = ["min_intersection_gram", "min_gram_route", "min_gram_plain",
            "min_gram_threshold_plain", "min_gram_cuda", "min_gram_tc_cuda",
-           "column_stats", "threshold_columns", "expand_thresholds"]
+           "k1_tile", "column_stats", "threshold_columns",
+           "expand_thresholds"]
 
 # counts above this take K1, as in grakel_tpu/ops/intersect.py
 _GEMM_MAX_T = 2048
 # K1-tc is taken while W' <= ratio * L, one ratio per call form.
 # chip_smoke.py measures the break-even ratio at the labeled NCI1-scale
-# levels on an H100 (PERF.md): the W' / L at which K1-tc, its expansion
-# included, costs as much device time as K1.  Symmetric 4110 x 4110
-# (fit_transform; K1-tc computes half the Gram): 20.7 to 22.5.
-# Rectangular 411 x 3699 (transform of a 10-fold split; K1-tc computes
-# it all and expands A and B): 4.4 to 4.9.  Each limit is the floor of
-# its smallest reading.  They are verified at these shapes only: a
+# levels: the W' / L at which K1-tc, its expansion included, costs as
+# much device time as K1.  On an H100 80GB HBM3 at 700 W (PERF.md):
+# symmetric 4110 x 4110 (fit_transform; both kernels compute the block
+# triangle) 8.82 to 9.62; rectangular 411 x 3699 (transform of a 10-fold
+# split; K1-tc expands A and B) 3.09 to 3.26.  Each limit is the floor
+# of its smallest reading.  They are verified at these shapes only: a
 # smaller transform batch expands B for fewer products and favours K1.
-_TC_MAX_RATIO_SYM = 20.0
-_TC_MAX_RATIO_RECT = 4.0
+_TC_MAX_RATIO_SYM = 8.0
+_TC_MAX_RATIO_RECT = 3.0
 # K1-tc's rows are staged in 16-byte copies: W' pads to a multiple
 _TC_K_ALIGN = 16
 
@@ -157,12 +164,36 @@ def min_gram_threshold_plain(A, B):
 # kernel wrappers
 # --------------------------------------------------------------------- #
 
-def min_gram_cuda(A, B):
-    """Launch K1 (``csrc/min_gram.cu``).  ``A`` [n, L] and ``B`` [m, L]
-    must be contiguous f32 CUDA tensors on one device.  Returns f32
-    [n, m]."""
+# K1's instantiations (csrc/min_gram.cu): id -> (block tile side, thread
+# tile side); a block computes a side x side output tile
+K1_TILES = {0: (64, 8), 1: (32, 4)}
+# the 64-wide tile while its grid has at least 4 blocks a SM of an H100
+# (132 SMs); below that the 32-wide one keeps the card fuller.  From the
+# tile sweep of chip_smoke.py (PERF.md)
+_K1_WIDE_MIN_BLOCKS = 4 * 132
+
+
+def k1_tile(n, m, symmetric):
+    """The K1 instantiation (a ``K1_TILES`` id) for an n x m Gram: 64 x 64
+    blocks of 8 x 8 a thread when that grid has at least
+    ``_K1_WIDE_MIN_BLOCKS`` blocks (the triangle's when ``symmetric``),
+    else 32 x 32 blocks of 4 x 4 a thread."""
+    tn, tm = -(-n // 64), -(-m // 64)
+    blocks = tm * (tm + 1) // 2 if symmetric else tn * tm
+    return 0 if blocks >= _K1_WIDE_MIN_BLOCKS else 1
+
+
+def min_gram_cuda(A, B, out=None, alpha=1.0, tile=None):
+    """Launch K1 (``csrc/min_gram.cu``): ``alpha * K`` with ``K[i, j] =
+    sum_l min(A[i, l], B[j, l])`` as f32 [n, m], added into ``out`` (f32
+    [n, m], contiguous) when given.  ``A`` [n, L] and ``B`` [m, L] are
+    contiguous f32 CUDA tensors on one device; ``B is A`` computes the
+    upper block triangle and mirrors it.  ``tile`` (a ``K1_TILES`` id)
+    overrides :func:`k1_tile`, for measurements.  Returns the result
+    tensor."""
     from .. import _build
-    if A.device.type != "cuda" or B.device != A.device:
+    dev = A.device
+    if dev.type != "cuda" or B.device != dev:
         raise ValueError("min_gram_cuda: A and B must be CUDA tensors on "
                          "one device")
     for X, name in ((A, "A"), (B, "B")):
@@ -175,16 +206,31 @@ def min_gram_cuda(A, B):
     if B.shape[1] != L:
         raise ValueError("min_gram_cuda: A and B differ in width "
                          "(%d vs %d)" % (L, B.shape[1]))
-    if max(n, m, L) >= 1 << 31 or (n + 63) // 64 > 65535:
+    if max(n, m, L) >= 1 << 31:
         raise ValueError("min_gram_cuda: shape (%d, %d, %d) out of range"
                          % (n, m, L))
-    K = torch.empty((n, m), dtype=torch.float32, device=A.device)
+    sym = B is A
+    if tile is None:
+        tile = k1_tile(n, m, sym)
+    elif tile not in K1_TILES:
+        raise ValueError("min_gram_cuda: no tile %r (have %s)"
+                         % (tile, sorted(K1_TILES)))
+    if out is None:
+        out, accumulate = torch.empty((n, m), dtype=torch.float32,
+                                      device=dev), 0
+    else:
+        if out.shape != (n, m) or out.dtype != torch.float32 \
+                or out.device != dev or not out.is_contiguous():
+            raise ValueError("min_gram_cuda: out must be a contiguous f32 "
+                             "[%d, %d] tensor on %s" % (n, m, dev))
+        accumulate = 1
     if n == 0 or m == 0:
-        return K
-    _build.launch("grakel_min_gram", A.device, A.data_ptr(), B.data_ptr(),
-                  K.data_ptr(), n, m, L)
+        return out
+    _build.launch("grakel_min_gram", dev, A.data_ptr(), B.data_ptr(),
+                  out.data_ptr(), n, m, L, float(alpha), accumulate,
+                  int(sym), tile)
     min_gram_cuda.launches += 1
-    return K
+    return out
 
 
 min_gram_cuda.launches = 0
@@ -240,14 +286,15 @@ min_gram_tc_cuda.launches = 0
 # --------------------------------------------------------------------- #
 
 def _fold(K, out, alpha):
-    """alpha * K, added into ``out`` when given."""
+    """alpha * K, added into ``out`` when given (the CPU routes; the
+    kernels fold in their epilogues)."""
     if out is not None:
         return out.add_(K, alpha=alpha)
     return K if alpha == 1.0 else K.mul_(alpha)
 
 
 def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
-                          out=None, alpha=1.0):
+                          out=None, alpha=1.0, route=None):
     """K[i, j] = sum_l min(A[i, l], B[j, l]); B defaults to A.
 
     A: [n, L], B: [m, L] tensors on one device, taken as f32.  Returns
@@ -261,8 +308,11 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     and B.  That is a contract, not a hint: it says that A and B hold
     nonnegative integer counts with these column maxima (PyramidMatch's
     level matrices, built on the host), and it is not checked against
-    the device data.  Inputs that break it give a wrong Gram.  CUDA
-    tensors launch K1-tc or K1; CPU tensors take their plain versions."""
+    the device data.  Inputs that break it give a wrong Gram.  ``route``
+    (``"min_gram"`` or ``"min_gram_tc"``) names the kernel instead of
+    routing; ``"min_gram"`` reads nothing, ``"min_gram_tc"`` needs counts
+    as above.  CUDA tensors launch K1-tc or K1; CPU tensors take their
+    plain versions."""
     sym = B is None or B is A
     B = A if B is None else B
     if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
@@ -270,6 +320,8 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     if A.device != B.device:
         raise ValueError("min_intersection_gram: A and B on different "
                          "devices")
+    if route not in (None, "min_gram", "min_gram_tc"):
+        raise ValueError("min_intersection_gram: unknown route %r" % route)
     dev = A.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("min_intersection_gram: unsupported device %s"
@@ -280,19 +332,26 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     if n == 0 or m == 0:
         K = torch.zeros((n, m), dtype=torch.float32, device=dev)
         return _fold(K, out, alpha)
-    if count_max is None:
-        max_a, max_b, integer = column_stats(A, B)
-    else:
-        max_a, max_b = (np.asarray(x, np.float64) for x in count_max)
-        integer = True
-        if max_a.shape != (A.shape[1],) or max_b.shape != (A.shape[1],) \
-                or (max_a < 0).any() or (max_b < 0).any() \
-                or (max_a != np.floor(max_a)).any() \
-                or (max_b != np.floor(max_b)).any():
-            raise ValueError("min_intersection_gram: count_max must be two "
-                             "length-%d arrays of nonnegative integers"
-                             % A.shape[1])
-    if min_gram_route(max_a, max_b, integer, sym) == "min_gram_tc":
+    if route != "min_gram":
+        if count_max is None:
+            max_a, max_b, integer = column_stats(A, B)
+        else:
+            max_a, max_b = (np.asarray(x, np.float64) for x in count_max)
+            integer = True
+            if max_a.shape != (A.shape[1],) \
+                    or max_b.shape != (A.shape[1],) \
+                    or (max_a < 0).any() or (max_b < 0).any() \
+                    or (max_a != np.floor(max_a)).any() \
+                    or (max_b != np.floor(max_b)).any():
+                raise ValueError("min_intersection_gram: count_max must be "
+                                 "two length-%d arrays of nonnegative "
+                                 "integers" % A.shape[1])
+        if route is None:
+            route = min_gram_route(max_a, max_b, integer, sym)
+        elif not integer:
+            raise ValueError("min_intersection_gram: route min_gram_tc "
+                             "needs nonnegative integer inputs")
+    if route == "min_gram_tc":
         # from pageable memory a non-blocking copy is staged at once and
         # waits for nothing queued on the card
         cols = torch.from_numpy(threshold_columns(
@@ -302,6 +361,6 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
         if dev.type == "cuda":
             return min_gram_tc_cuda(EA, EB, out, alpha)
         return _fold(_indicator_product_plain(EA, EB), out, alpha)
-    K = min_gram_cuda(A, B) if dev.type == "cuda" \
-        else min_gram_plain(A, B, tile)
-    return _fold(K, out, alpha)
+    if dev.type == "cuda":
+        return min_gram_cuda(A, B, out, alpha)
+    return _fold(min_gram_plain(A, B, tile), out, alpha)

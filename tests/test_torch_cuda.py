@@ -27,7 +27,7 @@ def cuda():
     return torch.device("cuda")
 
 
-# counts below 9 give W' ~ 8 L, above the rectangular route limit (4 L):
+# counts below 9 give W' ~ 8 L, above the rectangular route limit (3 L):
 # these calls take the CUDA-core K1; counts below 3 (W' <= 2 L) and the
 # 1 x 1 case (W' = 3 L) take K1-tc
 @pytest.mark.parametrize("n,m,L,hi,route", [
@@ -97,6 +97,107 @@ def test_min_gram_tc_kernel_matches_threshold_plain(cuda, n, m, L, hi, sym):
     assert intersect.min_gram_tc_cuda.launches == before + 3
 
 
+def _k1_inputs(seed, n, L, integer, device):
+    """A [n, L]: counts 0..8 (integer) or uniform reals, with all-zero
+    rows and columns."""
+    rng = np.random.RandomState(seed)
+    A = rng.randint(0, 9, (n, L)) if integer else rng.rand(n, L)
+    A = torch.tensor(A, dtype=torch.float32, device=device)
+    A[: max(1, n // 10)] = 0
+    A[:, ::5] = 0
+    return A
+
+
+# every K1 instantiation at n = 1 and at n that are no multiple of a tile
+# side (2000 = 15 x 128 + 80 = 62 x 32 + 16), at widths across the chunk
+# boundaries (BK = 8) and the main path's (90 fused, 1728 labeled)
+@pytest.mark.parametrize("L", [1, 6, 31, 33, 90, 1728])
+@pytest.mark.parametrize("n", [1, 63, 65, 129, 2000])
+def test_min_gram_k1_symmetric_and_rect_bit_identical(cuda, n, L):
+    """K1 on integer inputs, bit for bit against the plain version, at
+    every tile: the block triangle (B is A) and the full rectangle
+    (B a copy), the mirrored half equal to the transpose, and the
+    alpha / accumulate epilogue; one launch a call."""
+    A = _k1_inputs(n * 31 + L, n, L, True, cuda)
+    R = intersect.min_gram_plain(A, A)
+    base = torch.tensor(np.random.RandomState(n).randint(0, 50, (n, n)),
+                        dtype=torch.float32, device=cuda)
+    for tile in sorted(intersect.K1_TILES):
+        before = intersect.min_gram_cuda.launches
+        K = intersect.min_gram_cuda(A, A, tile=tile)
+        Kr = intersect.min_gram_cuda(A, A.clone(), tile=tile)
+        out = base.clone()
+        got = intersect.min_gram_cuda(A, A, out=out, alpha=3.0, tile=tile)
+        K4 = intersect.min_gram_cuda(A, A.clone(), alpha=4.0, tile=tile)
+        torch.cuda.synchronize()
+        assert intersect.min_gram_cuda.launches == before + 4
+        assert torch.equal(K, R) and torch.equal(Kr, R), tile
+        assert torch.equal(K, K.T), tile
+        assert got is out and torch.equal(out, base + 3.0 * R), tile
+        assert torch.equal(K4, 4.0 * R), tile
+
+
+@pytest.mark.parametrize("n,m,L", [(37, 1001, 333), (129, 65, 90),
+                                   (2000, 3, 7), (300, 300, 1728)])
+def test_min_gram_k1_rect_and_real_values(cuda, n, m, L):
+    """Rectangular calls on integers (exact) and on reals (the f32 sum
+    order differs from the plain version's: rtol 1e-5, atol 1e-4), at
+    every tile; on reals the triangle still equals the rectangle
+    exactly (the same sums in the same order)."""
+    for integer in (True, False):
+        A = _k1_inputs(n + L, n, L, integer, cuda)
+        B = _k1_inputs(m + 2 * L, m, L, integer, cuda)
+        R = intersect.min_gram_plain(A, B)
+        for tile in sorted(intersect.K1_TILES):
+            K = intersect.min_gram_cuda(A, B, tile=tile)
+            if integer:
+                assert torch.equal(K, R), tile
+            else:
+                torch.testing.assert_close(K, R, rtol=1e-5, atol=1e-4)
+                Ks = intersect.min_gram_cuda(A, A, tile=tile)
+                assert torch.equal(Ks, intersect.min_gram_cuda(
+                    A, A.clone(), tile=tile)), tile
+
+
+def test_min_gram_k1_default_tile_and_empty(cuda):
+    """The default instantiation (ops.intersect.k1_tile) on the main
+    path's shapes, and empty and zero-width inputs."""
+    assert intersect.k1_tile(2000, 2000, True) in intersect.K1_TILES
+    A = _k1_inputs(3, 500, 90, True, cuda)
+    assert torch.equal(intersect.min_gram_cuda(A, A),
+                       intersect.min_gram_plain(A, A))
+    E = torch.zeros((0, 4), device=cuda)
+    assert intersect.min_gram_cuda(E, A[:, :4].contiguous()).shape == (0, 500)
+    Z = torch.zeros((5, 0), device=cuda)
+    assert torch.equal(intersect.min_gram_cuda(Z, Z),
+                       torch.zeros((5, 5), device=cuda))
+
+
+def test_pm_unlabeled_one_k1_launch_per_gram(cuda, monkeypatch):
+    """Unlabeled PyramidMatch with every level routed to K1 (the route
+    limits set to 0, as on REDDIT-scale counts): one K1 launch for the
+    fit_transform Gram and one for the transform's, no K1-tc, and the
+    Grams equal the CPU's."""
+    monkeypatch.setattr(intersect, "_TC_MAX_RATIO_SYM", 0.0)
+    monkeypatch.setattr(intersect, "_TC_MAX_RATIO_RECT", 0.0)
+    train, test = generate_dataset(n_graphs=150, n_graphs_test=20,
+                                   r_vertices=(5, 60), random_state=8,
+                                   features=("nl", 4))
+    train, test = normalize_input(train), normalize_input(test)
+    k = grakel_torch.PyramidMatch(with_labels=False)
+    n1, ntc = intersect.min_gram_cuda.launches, \
+        intersect.min_gram_tc_cuda.launches
+    K = k.fit_transform(train)
+    assert intersect.min_gram_cuda.launches == n1 + 1
+    T = k.transform(test)
+    assert intersect.min_gram_cuda.launches == n1 + 2
+    assert intersect.min_gram_tc_cuda.launches == ntc
+    with use_device("cpu"):
+        kc = grakel_torch.PyramidMatch(with_labels=False)
+        Kc, Tc = kc.fit_transform(train), kc.transform(test)
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+
+
 def test_pm_levels_route_and_fold_on_card(cuda):
     """min_intersection_gram with host statistics, as PyramidMatch calls
     it, accumulating two levels into one result."""
@@ -162,6 +263,17 @@ def test_wrappers_check_inputs(cuda):
         intersect.min_gram_cuda(A.double(), A)          # wrong dtype
     with pytest.raises(ValueError):
         intersect.min_gram_cuda(A, torch.ones((4, 5), device=cuda))
+    for bad in (torch.ones((4, 5), device=cuda),           # shape
+                torch.ones((4, 4), device=cuda).double(),  # dtype
+                torch.ones((4, 4), device=cuda).t(),       # not contiguous
+                torch.ones((8, 4), device=cuda)[::2],      # not contiguous
+                torch.ones((4, 4))):                       # device
+        with pytest.raises(ValueError, match="out"):
+            intersect.min_gram_cuda(A, A, out=bad)
+    with pytest.raises(ValueError, match="tile"):
+        intersect.min_gram_cuda(A, A, tile=9)
+    with pytest.raises(ValueError):
+        intersect.min_gram_cuda(A.cpu(), A.cpu())
     E = torch.ones((4, 32), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         intersect.min_gram_tc_cuda(E.float(), E)        # wrong dtype

@@ -120,6 +120,21 @@ def test_route_unlabeled_levels_take_cuda_cores(width, w_expanded, top):
         assert min_gram_route(mx, mx, True, sym) == "min_gram"
 
 
+# the measured limits: W' <= 8 L when B is A and W' <= 3 L otherwise
+# take K1-tc, wider expansions the CUDA-core K1
+@pytest.mark.parametrize("top,extra,sym,route", [
+    (8, 0, True, "min_gram_tc"), (8, 1, True, "min_gram"),
+    (12, 0, True, "min_gram"), (20, 0, True, "min_gram"),
+    (3, 0, False, "min_gram_tc"), (3, 1, False, "min_gram"),
+    (3, 90, False, "min_gram"), (1, 0, False, "min_gram_tc")])
+def test_route_limits_measured_against_k1(top, extra, sym, route):
+    """100 columns with maxima ``top``, ``extra`` of them one more: W' =
+    100 top + extra."""
+    mx = np.full(100, float(top))
+    mx[:extra] += 1
+    assert min_gram_route(mx, mx, True, sym) == route
+
+
 def test_route_count_limit():
     mx = np.array([2049.0, 1.0] + [0.0] * 998)
     for sym in (True, False):

@@ -170,6 +170,31 @@ def test_pm_sparse_path_close(kw):
         np.testing.assert_allclose(a, b, rtol=1e-5)
 
 
+def _large_histograms(pm, rng, sizes):
+    """Unlabeled histograms of graphs with ``sizes`` vertices whose
+    embeddings are uniform draws from ``rng`` (d = 6)."""
+    return pm._histograms([(n, rng.rand(n, 6)) for n in sizes])
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["fit", "transform"])
+def test_pm_level_sum_exact_past_2_24(rect):
+    """At L = 10 the weighted level sum 2^(L-1) sum_p c_p I_p of graphs
+    with ~4000 vertices passes 2^24 (n * d * 1023), where an f32 sum of
+    integers rounds; each level alone stays below it.  The port folds
+    the levels in f64 there, as the JAX package's per-level path does, so
+    the Grams are equal."""
+    rng = np.random.RandomState(0)
+    kt = grakel_torch.PyramidMatch(L=10, d=6, with_labels=False)
+    kj = grakel_tpu.PyramidMatch(L=10, d=6, with_labels=False)
+    px = _large_histograms(kt, rng, (4000, 3900, 4100))
+    py = _large_histograms(kt, rng, (4050, 3950)) if rect else px
+    with use_device("cpu"):
+        got = kt._combined_gram(px, py).numpy()
+    exp = kj._combine(kj._intersections(px, py))
+    assert got.shape == exp.shape == (len(py), len(px))
+    assert np.array_equal(got, exp)
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 def test_pm_with_device_embeddings_equal(normalize):
     """>= 128-vertex graphs take each package's own Lanczos (f32, other
