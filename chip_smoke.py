@@ -26,7 +26,14 @@ main paths through the public entry points, at full data size:
   REDDIT-B-scale stand-in's graphs of 129-512 vertices (fit 96,
   transform 16: unit weights past V = 128, K3's blocked route, on every
   call).  Every Gram must equal the same calls under
-  ``use_device("cpu")``.
+  ``use_device("cpu")``;
+* NeighborhoodHash, the slice of K4 and K5: ``GraphKernel(kernel="NH",
+  random_state=0)`` (R = 3, bits = 8), ``simple`` (``nh_nci1scale``) and
+  ``count_sensitive`` (``nh_cs_nci1scale``), ``fit_transform`` on the
+  4110 NCI1-scale graphs and ``transform`` of the 64 held-out ones; and
+  ``WeisfeilerLehmanOptimalAssignment(n_iter=5)`` on the same graphs
+  (``wloa_nci1scale``).  Every Gram must equal the same calls under
+  ``use_device("cpu")`` bit for bit.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -34,7 +41,10 @@ CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
 concatenated into one call) and no K1-tc, labeled PM the kernels its
 levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
 the levels that take K1, one K1-tc call for each other level), and
-every ShortestPath path K3 (``floyd_warshall``).  The unlabeled PM Gram
+every ShortestPath path K3 (``floyd_warshall``), each NH path K4
+(``nh_round``) R times a parse, K5 (``jaccard_fold``) once a Gram and one
+K1-tc or K1 call a round, as the rounds' routes name (printed with each
+round's W'/L).  The unlabeled PM Gram
 stage (K1 and the torch ops up to the f64 result) is then timed and
 profiled as it runs, one fused K1 call, beside the same stage with one
 K1 call and a torch fold per level.  WL-VH, the PM paths and SP on the NCI1-scale set
@@ -88,7 +98,25 @@ time of a call:
   bit-identical to ``floyd_warshall_plain``.  K3's kernels must build
   without spills (``-Xptxas -v``).  Bound: the larger of 2 n V^3
   operations over 67 TFLOP/s fp32 and adj, mask and S moved once over
-  3.35 TB/s.  No single PyTorch call computes APSP: no library time.
+  3.35 TB/s.  No single PyTorch call computes APSP: no library time;
+* K4 on the NH paths' batches (the fit graphs, and the held-out graphs,
+  whose planted unseen label poisons nodes), both hash types, R rounds
+  bit-identical to ``ops.nh.nh_rounds_plain``; the R-round call
+  ``ops.nh.nh_rounds`` timed as the parse makes it.  Bound: the bytes
+  the R rounds must move (a round reads each node's label, validity,
+  graph id and offset and writes its new label and validity, and reads
+  each edge's target and the target's label and validity; the R
+  histograms are written once) over 3.35 TB/s;
+* K5 on the NH paths' per-round counts (fit: symmetric 4110 x 4110;
+  transform: 64 x 4110), bit-identical to
+  ``ops.intersect.jaccard_fold_plain`` and to the paths' Grams.  Bound:
+  R n m 4 bytes read and n m 4 written over 3.35 TB/s.  No single
+  PyTorch call computes either: no library time;
+* ``min_intersection_gram_rounds`` (the Pallas kernel's second reach, R
+  K1 calls) on the simple path's fit stack (symmetric, exact) and on a
+  ragged real-valued rectangular stack (rtol=1e-5, atol=1e-4) against R
+  ``min_gram_plain`` calls, beside R ``torch.cdist(p=1)`` calls: K1's
+  ``rounds`` entry.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -274,15 +302,40 @@ def profiled(fn):
     return wall, busy / 1e3, by_name, counts
 
 
-def device_ms(fn, reps, kernel):
-    """Milliseconds per launch of the CUDA kernel whose name contains
-    ``kernel``, from torch.profiler over ``reps`` calls of ``fn()``: the
-    kernel records' total over their count (None when it saw none)."""
+def kernel_records(fn, reps):
+    """torch.profiler's CUDA records over ``reps`` calls of ``fn()``:
+    ({name: total ms}, {name: count}).  The profiler has left out up to
+    a few dozen of a session's kernel records on an H100, all of them in
+    short sessions; 64 short spin kernels before the calls and after
+    them, each batch waited for, take that loss instead."""
+    import torch
+
+    def pad():
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    def run():
+        pad()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        pad()
+
     fn()
-    _, _, by_name, counts = profiled(lambda: [fn() for _ in range(reps)])
+    _, _, by_name, counts = profiled(run)
+    return by_name, counts
+
+
+def device_ms(fn, reps, kernel, per_call=1):
+    """Device milliseconds a call of ``fn()`` spends in the CUDA kernel
+    whose name contains ``kernel``, launched ``per_call`` times a call,
+    from torch.profiler over ``reps`` calls: the kernel records' mean
+    times ``per_call`` (None when the profiler saw none)."""
+    by_name, counts = kernel_records(fn, reps)
     hits = [k for k in by_name if kernel in k]
     n = sum(counts[k] for k in hits)
-    return sum(by_name[k] for k in hits) / n if n else None
+    return per_call * sum(by_name[k] for k in hits) / n if n else None
 
 
 def warm_runs(fn, reps):
@@ -340,13 +393,15 @@ def main():
               file=sys.stderr)
         return 2
     from grakel_torch import (Graph, GraphKernel, PyramidMatch,
-                              WeisfeilerLehman, use_device, _build)
+                              WeisfeilerLehman,
+                              WeisfeilerLehmanOptimalAssignment, use_device,
+                              _build)
     from grakel_torch.batch import GraphBatch
     from grakel_torch.datasets import generate_dataset, read_data
     from grakel_torch.kernels import shortest_path as sp_mod
     from grakel_torch.kernels.base import normalize_input
     from grakel_torch.ops import floyd_warshall as fw_ops
-    from grakel_torch.ops import intersect, wl as wl_ops
+    from grakel_torch.ops import intersect, nh as nh_ops, wl as wl_ops
 
     check = Checks()
     torch.cuda.set_device(0)
@@ -381,11 +436,19 @@ def main():
         for v in k1_ptxas.values()),
         "K1's %d kernels built without spills: %s"
         % (3 * len(intersect.K1_TILES), k1_ptxas))
+    k45_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                 if "nh_round" in k or "jaccard" in k}
+    check(len(k45_ptxas) == 4 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k45_ptxas.values()),
+        "K4's 2 and K5's 2 kernels built without spills: %s" % k45_ptxas)
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
-                "floyd_warshall": fw_ops.floyd_warshall_cuda}
+                "floyd_warshall": fw_ops.floyd_warshall_cuda,
+                "nh_round": nh_ops.nh_round_cuda,
+                "jaccard_fold": intersect.jaccard_fold_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
 
@@ -670,6 +733,118 @@ def main():
           "sp_redditb_unlabeled took K3's blocked route on every call %s"
           % by_route)
     sp_mod.sparse_counts_gram = plain_sparse
+
+    # ---------------- NeighborhoodHash and WL-OA: K4 and K5 ------------- #
+    def w_ratio(ma, mb):
+        return float(np.minimum(ma, mb).sum()) / ma.size
+
+    def nh_run(params, dev=None):
+        """GraphKernel(kernel="NH", random_state=0): fit_transform on the
+        NCI1-scale set, transform of the held-out graphs; on ``dev``
+        (None: the card)."""
+        gk = GraphKernel(kernel=dict(params, name="NH"), random_state=0)
+        with use_device(dev):
+            t = time.perf_counter()
+            K = gk.fit_transform(train)
+            t_fit = time.perf_counter() - t
+            d = gk.diagonal()
+            t = time.perf_counter()
+            Kt = gk.transform(held)
+            t_tr = time.perf_counter() - t
+        return {"out": (K, Kt), "diag": d, "fit_transform_s": t_fit,
+                "transform_s": t_tr, "gk": gk}
+
+    nh_kernels, paths_out = {}, {}
+    for key, params in (("nh_nci1scale", {}),
+                        ("nh_cs_nci1scale", {"nh_type": "count_sensitive"})):
+        r, secs, launches = run_path(key, lambda p=params: nh_run(p))
+        k = r["gk"].kernel_
+        nh_kernels[key] = k
+        paths_out[key] = r["out"]
+        K, Kt = r["out"]
+        X, Y = k.X["hists"], k._Y["hists"]
+        rounds = []
+        for q in range(k.R):
+            mx = X[q].amax(0).cpu().numpy()
+            my = Y[q].amax(0).cpu().numpy()
+            rounds.append({
+                "round": q, "fit_route": intersect.min_gram_route(
+                    mx, mx, True, True), "fit_w_ratio": w_ratio(mx, mx),
+                "transform_route": intersect.min_gram_route(
+                    my, mx, True, False),
+                "transform_w_ratio": w_ratio(my, mx),
+                "max_count": float(max(mx.max(), my.max()))})
+        print("%s rounds (route, W'/L): %s" % (key, "; ".join(
+            "r%d fit %s %.3f, transform %s %.3f" % (
+                q["round"], q["fit_route"], q["fit_w_ratio"],
+                q["transform_route"], q["transform_w_ratio"])
+            for q in rounds)), flush=True)
+        tc = sum((q["fit_route"] == "min_gram_tc")
+                 + (q["transform_route"] == "min_gram_tc") for q in rounds)
+        check(launches["nh_round"] == 2 * k.R
+              and launches["jaccard_fold"] == 2
+              and launches["min_gram_tc"] == tc
+              and launches["min_gram"] == 2 * k.R - tc,
+              "%s launched K4 %d (R = %d a parse, 2 parses), K5 %d (one a "
+              "Gram), K1-tc %d and K1 %d (as the rounds' routes name: %d "
+              "and %d)" % (key, launches["nh_round"], k.R,
+                           launches["jaccard_fold"], launches["min_gram_tc"],
+                           launches["min_gram"], tc, 2 * k.R - tc))
+        check(K.shape == (N_GRAPHS, N_GRAPHS) and Kt.shape == (N_HELD,
+                                                                N_GRAPHS)
+              and np.isfinite(K).all() and np.isfinite(Kt).all()
+              and 0 <= K.min() and K.max() <= 1 and 0 <= Kt.min()
+              and Kt.max() <= 1 and r["diag"] == 1.0,
+              "%s Grams finite in [0, 1], shapes %s %s, diagonal() 1"
+              % (key, K.shape, Kt.shape))
+        t = time.perf_counter()
+        c = nh_run(params, "cpu")
+        cpu_s = time.perf_counter() - t
+        check(all(np.array_equal(a, b) for a, b in zip(r["out"], c["out"])),
+              "%s Grams == use_device('cpu') Grams bit for bit" % key)
+        paths[key] = dict(
+            graphs=N_GRAPHS, held_out=N_HELD, R=k.R, bits=k.bits,
+            nh_type=k.nh_type, wall_s=secs,
+            fit_transform_s_first=r["fit_transform_s"],
+            transform_s=r["transform_s"], launches=launches, rounds=rounds,
+            stages_s=dict(k.timer_.times), cpu_s=cpu_s)
+        paths[key].update(warm_runs(lambda p=params: nh_run(p), 3))
+
+    def wloa_run(dev=None):
+        k = WeisfeilerLehmanOptimalAssignment(n_iter=5)
+        with use_device(dev):
+            t = time.perf_counter()
+            K = k.fit_transform(train)
+            t_fit = time.perf_counter() - t
+            d = k.diagonal()
+            t = time.perf_counter()
+            Kt = k.transform(held)
+            t_tr = time.perf_counter() - t
+            xd, yd = k.diagonal()
+        return {"out": (K, d, Kt, xd, yd), "fit_transform_s": t_fit,
+                "transform_s": t_tr, "k": k}
+
+    r, secs, launches = run_path("wloa_nci1scale", wloa_run)
+    K, d, Kt = r["out"][:3]
+    check(K.shape == (N_GRAPHS, N_GRAPHS) and np.isfinite(K).all()
+          and Kt.shape == (N_HELD, N_GRAPHS) and np.isfinite(Kt).all()
+          and np.array_equal(np.diagonal(K), d),
+          "wloa_nci1scale Grams finite, shapes %s %s, diag(K) == diagonal()"
+          % (K.shape, Kt.shape))
+    t = time.perf_counter()
+    c = wloa_run("cpu")
+    cpu_s = time.perf_counter() - t
+    check(all(np.array_equal(a, b) for a, b in zip(r["out"], c["out"])),
+          "wloa_nci1scale Grams and diagonals == use_device('cpu') ones")
+    wx = r["k"].X
+    paths["wloa_nci1scale"] = dict(
+        graphs=N_GRAPHS, held_out=N_HELD, n_iter=5, wall_s=secs,
+        fit_transform_s_first=r["fit_transform_s"],
+        transform_s=r["transform_s"], launches=launches, cpu_s=cpu_s,
+        expanded_columns=int(wx["width"]),
+        repeated_columns=int((np.bincount(wx["eids"]) > 1).sum()),
+        gram_dtype=str(K.dtype))
+    paths["wloa_nci1scale"].update(warm_runs(wloa_run, 1))
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -893,9 +1068,7 @@ def main():
         a call (route tile: fw_tile once; per_k: fw_init once and fw_step
         V times; blocked: fw_init once and each phase once a round), and
         the number of records seen (None, 0 when none)."""
-        fn()
-        _, _, by_name, counts = profiled(
-            lambda: [fn() for _ in range(reps)])
+        by_name, counts = kernel_records(fn, reps)
         nt = -(-V // fw_ops.BLOCKED_TILE)
         per_call = {"tile": {"fw_tile": 1},
                     "per_k": {"fw_init": 1, "fw_step": V},
@@ -1012,6 +1185,157 @@ def main():
                      "integer weights 1-4, route blocked", True)]
     k3_rb = bucket_cases(rbk, "REDDIT-B-scale 129-512 fit bucket", reps=5)
 
+    # ---------------- K4 against its plain version ---------------------- #
+    def k4_case(kern, graphs, what):
+        """K4 on ``graphs`` parsed by the fitted NH kernel ``kern``: R
+        rounds against nh_rounds_plain on the card, bit for bit, and the
+        R-round call ``nh_rounds`` (R launches and the zero fill of its
+        histogram stack) timed beside its bound and the plain R rounds."""
+        batch, lab, valid = kern._round_inputs(normalize_input(graphs))
+        cs = kern.nh_type == "count_sensitive"
+        n, R, bits = batch.n_graphs, kern.R, kern.bits
+        gids, off, tgt = (batch.node_graph_ids, batch.csr_offsets,
+                          batch.csr_targets)
+        H = nh_ops.nh_rounds(batch, lab, valid, n, R, bits, cs)
+        P = nh_ops.nh_rounds_plain(lab, valid, gids, off, tgt, n, R, bits,
+                                   cs)
+        torch.cuda.synchronize()
+        differ = int((H != P).sum())
+        poisoned = int((batch.node_mask & ~valid).sum())
+        check(differ == 0, "K4 %s, %s, %d graphs, R = %d: histograms "
+              "bit-identical to plain (%d differ; %d poisoned nodes)"
+              % (kern.nh_type, what, n, R, differ, poisoned))
+
+        def call():
+            return nh_ops.nh_rounds(batch, lab, valid, n, R, bits, cs)
+
+        N, E = lab.shape[0], tgt.shape[0]
+        # a round, a node: label, validity, graph id, offset read, new
+        # label and validity written; an edge: target, its label and
+        # validity read; then the R histograms written once
+        nbytes = R * (18.0 * N + 4 + 9.0 * E) + 4.0 * R * n * (1 << bits)
+        row = {"what": what, "nh_type": kern.nh_type, "graphs": n,
+               "nodes": N, "edges": E, "poisoned_nodes": poisoned,
+               "rounds": R, "differing": differ, "bytes": nbytes,
+               "ms": cuda_ms(call, 100, 5),
+               "device_ms": device_ms(call, 50, "nh_round", R),
+               "wrapper_ms": host_ms(call, 100),
+               "plain_ms": cuda_ms(lambda: nh_ops.nh_rounds_plain(
+                   lab, valid, gids, off, tgt, n, R, bits, cs), 5),
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes"}
+        check(row["device_ms"] is not None, "K4 %s, %s: device time from "
+              "the profiler's records (%s ms)"
+              % (kern.nh_type, what, row["device_ms"]))
+        return row
+
+    k4 = [k4_case(nh_kernels[key], graphs, what)
+          for key in ("nh_nci1scale", "nh_cs_nci1scale")
+          for graphs, what in ((train, "NCI1-scale fit batch"),
+                               (held, "held-out batch, poisoned labels"))]
+
+    # ---------------- K5 against its plain version ---------------------- #
+    def k5_case(kern, key, sym):
+        """K5 on the NH path's per-round counts: the fit Gram's
+        (symmetric) or the transform's (64 x 4110), bit-identical to the
+        plain fold and to the path's Gram."""
+        X = kern.X["hists"]
+        vx = torch.tensor(kern.X["nv"], dtype=torch.float32, device="cuda")
+        if sym:
+            C = intersect.min_intersection_gram_rounds(X, route=None)
+            va = vb = vx
+            ref = paths_out[key][0]
+        else:
+            Y = kern._Y["hists"]
+            C = intersect.min_intersection_gram_rounds(Y, X, route=None)
+            va = torch.tensor(kern._Y["nv"], dtype=torch.float32,
+                              device="cuda")
+            vb = vx
+            ref = paths_out[key][1]
+        R, n, m = C.shape
+        K = intersect.jaccard_fold_cuda(C, va, vb, sym)
+        P = intersect.jaccard_fold_plain(C, va, vb, sym)
+        torch.cuda.synchronize()
+        differ = int((K.view(torch.int32) != P.view(torch.int32)).sum())
+        same_path = np.array_equal(K.double().cpu().numpy(), ref)
+        check(differ == 0 and same_path,
+              "K5 %s %s %dx%d, R = %d: bit-identical to the plain fold (%d "
+              "differ) and to the path's Gram (%s)"
+              % (kern.nh_type, "symmetric" if sym else "rect", n, m, R,
+                 differ, same_path))
+
+        def call():
+            return intersect.jaccard_fold_cuda(C, va, vb, sym)
+
+        nbytes = 4.0 * (R * n * m + n * m + n + m)
+        # a division and four adds an entry and round, three operations
+        # an entry for the mean and the symmetrization
+        ops = 5.0 * R * n * m + 3.0 * n * m
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        dev = device_ms(call, 10, "jaccard_")
+        check(dev is not None, "K5 %s %dx%d: device time from the "
+              "profiler's records (%s ms)" % (kern.nh_type, n, m, dev))
+        return {"nh_type": kern.nh_type, "n": n, "m": m, "R": R,
+                "symmetric": sym, "differing": differ, "bytes": nbytes,
+                "ops": ops, "max_abs_err": float((K - P).abs().max()),
+                "ms": cuda_ms(call, 20), "device_ms": dev,
+                "wrapper_ms": host_ms(call, 20),
+                "plain_ms": cuda_ms(lambda: intersect.jaccard_fold_plain(
+                    C, va, vb, sym), 3),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    k5 = [k5_case(nh_kernels[key], key, sym)
+          for key in ("nh_nci1scale", "nh_cs_nci1scale")
+          for sym in (True, False)]
+
+    # ------- K1 through min_intersection_gram_rounds (reach 2) ---------- #
+    def rounds_case(A, B, integer, what):
+        R, n, L = A.shape
+        m = B.shape[1]
+        before = intersect.min_gram_cuda.launches
+        K = intersect.min_intersection_gram_rounds(A, B)
+        torch.cuda.synchronize()
+        calls = intersect.min_gram_cuda.launches - before
+        P = torch.stack([intersect.min_gram_plain(A[q], B[q])
+                         for q in range(R)])
+        err = float((K - P).abs().max())
+        ok = torch.equal(K, P) if integer else torch.allclose(
+            K, P, rtol=1e-5, atol=1e-4)
+        check(ok and calls == R and K.shape == (R, n, m),
+              "min_intersection_gram_rounds %s [%d, %d, %d] x [%d, %d, %d]: "
+              "%d K1 calls, == %d min_gram_plain calls (max abs err %g)"
+              % (what, R, n, L, R, m, L, calls, R, err))
+        sym = B is A
+        ops = 2.0 * R * L * (n * (n + 1) / 2 if sym else n * m)
+        nbytes = 4.0 * R * ((n if sym else n + m) * L + n * m)
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+
+        def call():
+            return intersect.min_intersection_gram_rounds(A, B)
+
+        dev = device_ms(call, 10, "min_gram_kernel", R)
+        check(dev is not None, "min_intersection_gram_rounds %s: device "
+              "time from the profiler's records (%s ms)" % (what, dev))
+        return {"what": what, "R": R, "n": n, "m": m, "L": L,
+                "symmetric": sym, "launches": calls, "max_abs_err": err,
+                "ms": cuda_ms(call, 10), "device_ms": dev,
+                "wrapper_ms": host_ms(call, 10),
+                "plain_ms": cuda_ms(lambda: [intersect.min_gram_plain(
+                    A[q], B[q]) for q in range(R)], 1),
+                "library_ms": cuda_ms(lambda: [torch.cdist(
+                    A[q], B[q], p=1) for q in range(R)], 2),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    Xnh = nh_kernels["nh_nci1scale"].X["hists"]
+    k1_rounds = [
+        rounds_case(Xnh, Xnh, True, "NH simple fit stack, symmetric"),
+        rounds_case(torch.from_numpy(rng.rand(3, 37, 333).astype(
+            np.float32)).cuda(), torch.from_numpy(rng.rand(
+                3, 1001, 333).astype(np.float32)).cuda(), False,
+            "ragged real-valued rect")]
+
     def total(cases, key):
         vals = [c[key] for c in cases]
         return None if None in vals else sum(vals)
@@ -1049,7 +1373,10 @@ def main():
          "labeled_levels": k1_labeled, "labeled_levels_rect": k1_rect,
          "ragged_real_check": ragged, "symmetric_vs_rect_checks": sym_checks,
          "accumulate_check": acc_case,
-         "gram_stage": gram_stage},
+         "gram_stage": gram_stage,
+         "rounds": {"replaces": "grakel_tpu/ops/intersect.py:98 "
+                                "(_min_gram_rounds_impl, reach 2)",
+                    "shapes": k1_rounds}},
         {"name": "min_gram_tc", "route": "cuda",
          "source": "grakel_torch/csrc/min_gram_tc.cu",
          "replaces": "grakel_tpu/ops/intersect.py:55",
@@ -1105,6 +1432,34 @@ def main():
              "shapes": [{k: c[k] for k in ("n", "V", "route", "ms",
                                            "device_ms", "plain_ms",
                                            "bound_ms")} for c in k3_rb]}},
+        {"name": "nh_round", "route": "cuda",
+         "source": "grakel_torch/csrc/nh_hash.cu",
+         "replaces": "grakel_tpu/kernels/neighborhood_hash.py:226",
+         "launches": launches["nh_round"],
+         "max_abs_err": max(c["differing"] for c in k4),
+         **{k: k4[0][k] for k in ("ms", "device_ms", "wrapper_ms",
+                                  "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes a hash round",
+         "summed_over": "one nh_rounds call, the R = 3 rounds of one parse "
+                        "of the NCI1-scale fit set, simple (R launches and "
+                        "the zero fill of the histogram stack)",
+         "ptxas": {k: v for k, v in k45_ptxas.items() if "nh_round" in k},
+         "shapes": k4},
+        {"name": "jaccard_fold", "route": "cuda",
+         "source": "grakel_torch/csrc/jaccard.cu",
+         "replaces": "grakel_tpu/ops/intersect.py:153",
+         "launches": launches["jaccard_fold"],
+         "max_abs_err": max(c["max_abs_err"] for c in k5),
+         "ms": k5[0]["ms"], "device_ms": k5[0]["device_ms"],
+         "wrapper_ms": k5[0]["wrapper_ms"], "plain_ms": k5[0]["plain_ms"],
+         "bound_ms": k5[0]["bound_ms"], "bound_by": k5[0]["bound_by"],
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the fold",
+         "summed_over": "the fold of the simple NH fit_transform Gram, "
+                        "4110 x 4110, R = 3, symmetric",
+         "ptxas": {k: v for k, v in k45_ptxas.items() if "jaccard" in k},
+         "shapes": k5},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: %s" % smi, flush=True)

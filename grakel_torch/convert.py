@@ -25,7 +25,14 @@ State layout, by kernel name:
 * ``"ShortestPath"``: ``{"enum": {label: id}, "graphs": [(n, senders,
   receivers, weights, node_labels), ...]}`` — the label enumeration and
   the fit graphs (the fitted state is their dense buckets, parsed again
-  against the enumeration).
+  against the enumeration);
+* ``"NeighborhoodHash"``: ``{"labels_hash": {label: int}, "graphs": [(n,
+  senders, receivers, weights, node_labels), ...]}`` — the random label
+  hash drawn at fit and the fit graphs (their round histograms are
+  computed again with that hash);
+* ``"WeisfeilerLehmanOptimalAssignment"``: ``{"graphs": [...]}`` — the
+  fit graphs (the hierarchy and the credential dicts are rebuilt
+  deterministically from them: WL-OA refits).
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
-from .kernels import (EdgeHistogram, PyramidMatch, ShortestPath,
-                      VertexHistogram, WeisfeilerLehman)
+from .kernels import (EdgeHistogram, NeighborhoodHash, PyramidMatch,
+                      ShortestPath, VertexHistogram, WeisfeilerLehman,
+                      WeisfeilerLehmanOptimalAssignment)
 
 __all__ = ["kernel_from_state"]
 
@@ -42,7 +50,10 @@ _CLASSES = {"VertexHistogram": VertexHistogram,
             "EdgeHistogram": EdgeHistogram,
             "WeisfeilerLehman": WeisfeilerLehman,
             "PyramidMatch": PyramidMatch,
-            "ShortestPath": ShortestPath}
+            "ShortestPath": ShortestPath,
+            "NeighborhoodHash": NeighborhoodHash,
+            "WeisfeilerLehmanOptimalAssignment":
+                WeisfeilerLehmanOptimalAssignment}
 
 
 def _graphs(items):
@@ -70,8 +81,13 @@ def kernel_from_state(name, params, state):
                "labels": np.asarray(X["labels"], np.int32),
                "valid": np.asarray(X["valid"], bool),
                "n_labels": int(X["n_labels"])}
-    elif name == "WeisfeilerLehman":
+    elif name in ("WeisfeilerLehman", "WeisfeilerLehmanOptimalAssignment"):
         return k.fit(_graphs(state["graphs"]))
+    elif name == "NeighborhoodHash":
+        k._labels_hash_dict = dict(state["labels_hash"])
+        # parse in transform mode: the carried hash is kept, not redrawn
+        k._method_calling = 3
+        k.X = k.parse_input(_graphs(state["graphs"]))
     elif name == "ShortestPath":
         k._enum = dict(state["enum"])
         # parse in transform mode: the carried enumeration is kept and,

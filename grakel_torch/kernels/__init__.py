@@ -6,6 +6,8 @@ from .pyramid_match import PyramidMatch
 from .shortest_path import ShortestPath, ShortestPathAttr
 from .weisfeiler_lehman import WeisfeilerLehman
 from .core_framework import CoreFramework
+from .neighborhood_hash import NeighborhoodHash
+from .wl_optimal_assignment import WeisfeilerLehmanOptimalAssignment
 
 __all__ = [
     "Kernel",
@@ -16,4 +18,6 @@ __all__ = [
     "ShortestPathAttr",
     "WeisfeilerLehman",
     "CoreFramework",
+    "NeighborhoodHash",
+    "WeisfeilerLehmanOptimalAssignment",
 ]

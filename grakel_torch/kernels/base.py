@@ -40,7 +40,9 @@ def parallel_sum(thunks, n_jobs):
     The per-iteration framework dispatch (WL hands one base-kernel job
     per label generation to this helper).  ``n_jobs`` ``None``/``0``/``1``
     runs sequentially; ``-1`` uses one thread per job; ``k > 1`` caps the
-    pool at ``k``.
+    pool at ``k``.  The outputs are summed in f64 numpy, in thunk order
+    (integer count Grams stay exact past 2^24); None outputs are skipped,
+    and None is returned when every output is None.
     """
     thunks = list(thunks)
     if not thunks:
@@ -52,10 +54,11 @@ def parallel_sum(thunks, n_jobs):
         w = len(thunks) if n_jobs < 0 else min(n_jobs, len(thunks))
         with ThreadPoolExecutor(max_workers=w) as ex:
             outs = list(ex.map(lambda t: t(), thunks))
-    acc = outs[0]
-    for r in outs[1:]:
+    acc = None
+    for r in outs:
         if r is not None:
-            acc = acc + r
+            r = np.asarray(_to_numpy(r), np.float64)
+            acc = r if acc is None else acc + r
     return acc
 
 

@@ -9,7 +9,8 @@ has zero counts in.
 Labels never become a dense [n_graphs, n_labels] host matrix: the flat
 (graph_id, label_id) COO stream goes through the chunked scatter + GEMM
 accumulation of :func:`grakel_torch.ops.gram.coo_counts_gram` on the
-kernel's device, whatever the label count.
+kernel's device, whatever the label count, in f32 or, once an entry
+could pass 2^24, in f64.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 
 from .base import Kernel, normalize_input
 from ..batch import bucket_size, enumerate_labels
-from ..ops.gram import coo_counts_gram, coo_counts_gram_rect, counts_diag
+from ..ops.gram import (coo_counts_gram, coo_counts_gram_rect, count_dtype,
+                        counts_diag)
 
 __all__ = ["VertexHistogram", "EdgeHistogram"]
 
@@ -120,17 +122,29 @@ class _HistogramKernel(Kernel):
                 torch.ones(len(p["gids"]), dtype=torch.float32, device=dev),
                 torch.from_numpy(p["valid"]).to(dev))
 
+    @staticmethod
+    def _count_dtype(*ps):
+        """Width of the count Grams of the parses ``ps``: an entry is at
+        most the product of two graphs' item counts, so at most the
+        largest item count squared (:func:`ops.gram.count_dtype`)."""
+        most = max(int(np.bincount(p["gids"][p["valid"]]).max(initial=0))
+                   for p in ps)
+        return count_dtype(most * most)
+
     def _gram(self, px, py=None):
         L = max(px["n_labels"], py["n_labels"] if py else 0, 1)
         if py is None:
-            return coo_counts_gram(*self._items(px), px["n"], L)
+            return coo_counts_gram(*self._items(px), px["n"], L,
+                                   dtype=self._count_dtype(px))
         # rows = transform graphs (py), cols = fit graphs (px)
         return coo_counts_gram_rect(*self._items(py), *self._items(px),
-                                    py["n"], px["n"], L)
+                                    py["n"], px["n"], L,
+                                    dtype=self._count_dtype(px, py))
 
     def _diag(self, parsed):
         L = max(parsed["n_labels"], 1)
-        return counts_diag(*self._items(parsed), parsed["n"], L)
+        return counts_diag(*self._items(parsed), parsed["n"], L,
+                           dtype=self._count_dtype(parsed))
 
 
 class VertexHistogram(_HistogramKernel):

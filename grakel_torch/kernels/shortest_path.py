@@ -51,8 +51,8 @@ import torch
 from .base import Kernel, normalize_input
 from ..batch import enumerate_labels
 from ..ops.floyd_warshall import INF, batched_floyd_warshall
-from ..ops.gram import (coo_counts_gram, coo_counts_gram_rect, counts_diag,
-                        sparse_counts_gram)
+from ..ops.gram import (coo_counts_gram, coo_counts_gram_rect, count_dtype,
+                        counts_diag, sparse_counts_gram)
 from ..ops.wl import compact_pairs, split_singletons
 
 __all__ = ["ShortestPath", "ShortestPathAttr"]
@@ -189,8 +189,7 @@ class ShortestPath(Kernel):
         most (V (V - 1))^2 for V the widest bucket; f32 sums of integers
         are exact below 2^24, f64 ones below 2^53."""
         V = max(p["max_V"] for p in ps)
-        return torch.float32 if (V * (V - 1)) ** 2 < 1 << 24 \
-            else torch.float64
+        return count_dtype((V * (V - 1)) ** 2)
 
     def _plan(self, *ps):
         """(route, L, D, fw) for the parses ``ps``: route "direct" or

@@ -17,8 +17,9 @@ Two execution paths:
   hash over the batch's sender CSR, which also gives each node's
   compaction key, + ``torch.unique`` compaction (ops/wl.py);
   per-generation Gram = chunked scatter + fp32 GEMM accumulation
-  (ops/gram.py), over the repeated labels only, with singletons folded
-  into the diagonal.
+  (ops/gram.py; f64 once an entry could pass 2^24, bounded on the host
+  by :meth:`WeisfeilerLehman._count_dtype`), over the repeated labels
+  only, with singletons folded into the diagonal.
   Transform recomputes WL on the disjoint union of fit and transform
   graphs (refinement is per-graph independent, so fit ids keep their
   meaning) and evaluates only the rectangular block.
@@ -39,7 +40,8 @@ from ..estimator import NotFittedError
 from ..graph import Graph
 from ..ops import wl as wl_ops
 from ..ops.gram import (chunk_plan, chunked_counts_gram_raw,
-                        coo_counts_gram_rect, counts_diag, normalize_gram)
+                        coo_counts_gram_rect, count_dtype, counts_diag,
+                        normalize_gram)
 
 __all__ = ["WeisfeilerLehman"]
 
@@ -149,6 +151,12 @@ class WeisfeilerLehman(Kernel):
             labels, nu, _ = self._refine(batch, labels)
             yield labels, bucket_size(nu)
 
+    def _count_dtype(self, batch):
+        """Width of the count Grams over ``batch``: a generation adds at
+        most n_i n_j to an entry, so an entry is at most (n_iter + 1)
+        max_n^2 (:func:`ops.gram.count_dtype`)."""
+        return count_dtype(self._h * batch.max_nodes ** 2)
+
     @staticmethod
     def _refine(batch, labels):
         """One refinement over the batch's CSR: (ids, n_unique, counts)."""
@@ -160,7 +168,8 @@ class WeisfeilerLehman(Kernel):
         """Symmetric fit_transform Gram on the WL fast path: one
         counts-GEMM accumulation per generation over the labels that
         occur more than once; singleton labels only add to the diagonal
-        (ops/wl.py split_singletons).  Returns K f32 [n, n]."""
+        (ops/wl.py split_singletons).  Returns K [n, n], f32, or f64 when
+        an entry could pass 2^24 (:meth:`_count_dtype`)."""
         batch = self._batch(graphs)
         n = batch.n_graphs
         gids, valid = batch.node_graph_ids, batch.node_mask
@@ -170,7 +179,8 @@ class WeisfeilerLehman(Kernel):
         L = max(batch.num_node_labels, 1)
         gram_labels, gram_valid = labels, valid
         diag_corr = torch.zeros(n, dtype=torch.float64, device=labels.device)
-        K = torch.zeros((n, n), dtype=torch.float32, device=labels.device)
+        K = torch.zeros((n, n), dtype=self._count_dtype(batch),
+                        device=labels.device)
         for _ in range(self.n_iter):
             K = chunked_counts_gram_raw(gids, gram_labels, ones, gram_valid,
                                         n, *chunk_plan(L), K0=K)
@@ -196,13 +206,14 @@ class WeisfeilerLehman(Kernel):
         vx = valid & ~is_y
         ones = torch.ones(gids.shape[0], dtype=torch.float32,
                           device=gids.device)
+        dt = self._count_dtype(batch)
         K = xd = yd = None
         for labels, L in self._generations(batch):
             Ki = coo_counts_gram_rect(
                 gids_y, labels, ones, vy, gids_x, labels, ones, vx,
-                ny, nx, L)
-            xi = counts_diag(gids_x, labels, ones, vx, nx, L)
-            yi = counts_diag(gids_y, labels, ones, vy, ny, L)
+                ny, nx, L, dtype=dt)
+            xi = counts_diag(gids_x, labels, ones, vx, nx, L, dtype=dt)
+            yi = counts_diag(gids_y, labels, ones, vy, ny, L, dtype=dt)
             K = Ki if K is None else K + Ki
             xd = xi if xd is None else xd + xi
             yd = yi if yd is None else yd + yi

@@ -30,7 +30,16 @@ from ..device import resolve_device
 __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
            "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
            "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
-           "sparse_counts_gram"]
+           "sparse_counts_gram", "count_dtype"]
+
+
+def count_dtype(bound):
+    """The dtype of a count Gram whose entries (and so every partial sum
+    of nonnegative integer products) are at most ``bound``: f32 sums of
+    integers are exact below 2^24, f64 ones below 2^53.  The callers
+    bound their entries on the host, so the choice costs no device
+    read."""
+    return torch.float32 if bound < 1 << 24 else torch.float64
 
 
 @contextlib.contextmanager

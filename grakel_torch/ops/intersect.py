@@ -29,8 +29,14 @@ CPU tensors take each kernel's plain version: :func:`min_gram_plain`,
 the pair-tiled broadcast-min-reduce of the JAX package's
 ``_min_gram_impl``, and the threshold expansion with an f64 product.
 
-``min_intersection_gram_rounds`` and ``jaccard_gram_rounds`` arrive with
-the port's NeighborhoodHash.
+NeighborhoodHash's Gram adds two functions over R rounds of histograms
+A [R, n, L]: :func:`min_intersection_gram_rounds` (the Pallas kernel's
+second reach, ``_min_gram_rounds_impl``: one K1 call a round by default,
+as the JAX function takes the Pallas kernel on every accelerator) and
+:func:`jaccard_gram_rounds` (``_jaccard_rounds_impl``): the rounds'
+Grams from :func:`min_intersection_gram_rounds`, each round routed,
+then the Jaccard fold K5 (``csrc/jaccard.cu``, plain version
+:func:`jaccard_fold_plain`).
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ import torch
 __all__ = ["min_intersection_gram", "min_gram_route", "min_gram_plain",
            "min_gram_threshold_plain", "min_gram_cuda", "min_gram_tc_cuda",
            "k1_tile", "column_stats", "threshold_columns",
-           "expand_thresholds"]
+           "expand_thresholds", "min_intersection_gram_rounds",
+           "jaccard_gram_rounds", "jaccard_fold_plain", "jaccard_fold_cuda"]
 
 # counts above this take K1, as in grakel_tpu/ops/intersect.py
 _GEMM_MAX_T = 2048
@@ -98,17 +105,26 @@ def min_gram_route(max_a, max_b, integer, symmetric):
     return "min_gram_tc" if width <= ratio * max_a.size else "min_gram"
 
 
+def _round_stats(A, B):
+    """(column maxima of each round of A [R, L], of B [R, L], whether
+    each round of both holds only nonnegative integers [R] bool) for
+    nonempty f32 A [R, n, L] and B [R, m, L] on one device, in one
+    device-to-host copy."""
+    def part(X):
+        bad = ((X < 0) | (X != torch.floor(X))).flatten(1).any(1)
+        return torch.cat([X.amax(1), bad[:, None].to(X.dtype)], 1)
+    L = A.shape[2]
+    s = torch.cat([part(A), part(B)], 1).cpu().numpy()
+    return (s[:, :L], s[:, L + 1:2 * L + 1],
+            (s[:, L] == 0) & (s[:, 2 * L + 1] == 0))
+
+
 def column_stats(A, B):
     """(column maxima of A, of B, whether every entry of both is a
     nonnegative integer) for nonempty A [n, L] and B [m, L] on one
     device: numpy arrays and a bool, in one device-to-host copy."""
-    def part(X):
-        bad = ((X < 0) | (X != torch.floor(X))).any()
-        return torch.cat([X.amax(0), bad.reshape(1).to(X.dtype)])
-    L = A.shape[1]
-    stats = torch.cat([part(A), part(B)]).cpu().numpy()
-    return (stats[:L], stats[L + 1:2 * L + 1],
-            not (stats[L] or stats[2 * L + 1]))
+    max_a, max_b, integer = _round_stats(A[None], B[None])
+    return max_a[0], max_b[0], bool(integer[0])
 
 
 def threshold_columns(T, align=_TC_K_ALIGN):
@@ -364,3 +380,175 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     if dev.type == "cuda":
         return min_gram_cuda(A, B, out, alpha)
     return _fold(min_gram_plain(A, B, tile), out, alpha)
+
+
+# --------------------------------------------------------------------- #
+# rounds: NeighborhoodHash's Gram
+# --------------------------------------------------------------------- #
+
+def _check_rounds(A, B, name):
+    if A.dim() != 3 or B.dim() != 3 or A.shape[0] != B.shape[0] \
+            or A.shape[2] != B.shape[2]:
+        raise ValueError("%s: need A [R, n, L] and B [R, m, L]" % name)
+    if A.device != B.device:
+        raise ValueError("%s: A and B on different devices" % name)
+    if A.device.type not in ("cuda", "cpu"):
+        raise ValueError("%s: unsupported device %s" % (name, A.device))
+
+
+def min_intersection_gram_rounds(A, B=None, *, route="min_gram",
+                                 count_max=None):
+    """Per-round min-intersection Grams: ``K[r, i, j] = sum_l min(A[r, i,
+    l], B[r, j, l])`` for A [R, n, L] and B [R, m, L] (B defaults to A)
+    on one device, as an f32 [R, n, m] tensor there.
+
+    The counterpart of ``grakel_tpu/ops/intersect.py:
+    min_intersection_gram_rounds``, which returns its PADDED device
+    array for the caller to slice; this returns the unpadded stack.
+    One :func:`min_intersection_gram` call a round, each adding into its
+    slice of one zeroed stack through the kernels' ``out=`` epilogue.
+    ``route="min_gram"`` (the default) takes K1 every round, as the JAX
+    function takes the Pallas kernel on every accelerator; ``route=None``
+    routes each round with :func:`min_gram_route` on its column maxima:
+    ``count_max=(max_a, max_b)``, numpy [R, L] each, under
+    :func:`min_intersection_gram`'s contract (nonnegative integer counts
+    with these maxima, not checked), or else read with the integer check
+    for all rounds in one device-to-host copy."""
+    sym = B is None or B is A
+    B = A if B is None else B
+    _check_rounds(A, B, "min_intersection_gram_rounds")
+    if route not in (None, "min_gram"):
+        raise ValueError("min_intersection_gram_rounds: unknown route %r"
+                         % route)
+    A = A.to(torch.float32).contiguous()
+    B = A if sym else B.to(torch.float32).contiguous()
+    R, n, _ = A.shape
+    m = B.shape[1]
+    out = torch.zeros((R, n, m), dtype=torch.float32, device=A.device)
+    if R == 0 or n == 0 or m == 0:
+        return out
+    kws = [{"route": "min_gram"}] * R
+    if route is None:
+        if count_max is None:
+            max_a, max_b, integer = _round_stats(A, B)
+        else:
+            (max_a, max_b), integer = count_max, [True] * R
+        kws = [{"count_max": (max_a[r], max_b[r])} if integer[r]
+               else {"route": "min_gram"} for r in range(R)]
+    for r in range(R):
+        min_intersection_gram(A[r], None if sym else B[r], out=out[r],
+                              **kws[r])
+    return out
+
+
+def jaccard_fold_plain(C, va, vb, symmetrize):
+    """Plain PyTorch Jaccard fold: from per-round intersection counts C
+    [R, n, m] and vertex counts va [n], vb [m] (f32, one device), f32
+    ``K = mean_r where(d > 0, c_r / d, 0)``, ``d = va[i] + vb[j] -
+    c_r``, and ``(K + K^T) / 2`` when ``symmetrize``, in the order
+    XLA-CPU compiles ``_jaccard_rounds_impl``: rounds added in order from
+    zero, the mean as a product with the f32 value of 1 / R.  Each step
+    is one IEEE operation, so this equals the JAX function bit for bit,
+    on any device."""
+    R = C.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=C.device)
+    acc = torch.zeros(C.shape[1:], dtype=torch.float32, device=C.device)
+    for r in range(R):
+        d = (va[:, None] + vb[None, :]) - C[r]
+        acc = acc + torch.where(d > 0, C[r] / d, zero)
+    acc = acc * torch.tensor(1.0 / R, dtype=torch.float32, device=C.device)
+    if symmetrize:
+        acc = (acc + acc.T) * 0.5
+    return acc
+
+
+def jaccard_fold_cuda(C, va, vb, symmetrize):
+    """Launch K5 (``csrc/jaccard.cu``): the fold of
+    :func:`jaccard_fold_plain`, bit-identical to it.  ``C`` [R, n, m]
+    (R >= 1), ``va`` [n] and ``vb`` [m] are contiguous f32 CUDA tensors
+    on one device; ``symmetrize`` needs n == m.  Returns f32 K [n, m]."""
+    from .. import _build
+    dev = C.device
+    if not (dev.type == "cuda" and va.device == dev and vb.device == dev
+            and C.dtype == va.dtype == vb.dtype == torch.float32
+            and C.is_contiguous() and va.is_contiguous()
+            and vb.is_contiguous() and C.dim() == 3 and va.dim() == 1
+            and vb.dim() == 1 and C.shape[0] >= 1
+            and va.shape[0] == C.shape[1] and vb.shape[0] == C.shape[2]
+            and max(C.shape) < 1 << 31
+            and C.shape[1] * C.shape[2] < 1 << 39
+            and (not symmetrize or C.shape[1] == C.shape[2])):
+        raise ValueError("jaccard_fold_cuda: need contiguous f32 CUDA "
+                         "tensors on one device: C [R >= 1, n, m], va [n], "
+                         "vb [m]; n == m when symmetrizing")
+    R, n, m = C.shape
+    K = torch.empty((n, m), dtype=torch.float32, device=dev)
+    inv_r = float(torch.tensor(1.0 / R, dtype=torch.float32))
+    _build.launch("grakel_jaccard_fold", dev, C.data_ptr(), va.data_ptr(),
+                  vb.data_ptr(), K.data_ptr(), R, n, m, inv_r,
+                  int(bool(symmetrize)))
+    jaccard_fold_cuda.launches += 1
+    return K
+
+
+jaccard_fold_cuda.launches = 0
+
+
+def jaccard_gram_rounds(A, B=None, va=None, vb=None, symmetrize=None):
+    """Multiset-Jaccard Gram averaged over rounds (NeighborhoodHash's
+    comparison; the counterpart of ``grakel_tpu/ops/intersect.py:
+    jaccard_gram_rounds``):
+
+    ``K[i, j] = mean_r c_r[i, j] / (va[i] + vb[j] - c_r[i, j])`` with
+    ``c_r = sum_l min(A[r, i, l], B[r, j, l])`` and 0 where the
+    denominator is not positive (two empty graphs).
+
+    A [R, n, L] and B [R, m, L] (B defaults to A) are tensors of
+    nonnegative integer counts on one device; va [n] and vb [m] vertex
+    counts (default ones; vb defaults to va when B is A).  ``symmetrize``
+    (default: B is A) returns ``(K + K^T) / 2`` and needs n == m.
+
+    The column maxima of all rounds of both sides come to the host in
+    one copy (which also checks the counts); the c_r come from one
+    :func:`min_intersection_gram_rounds` call, each round routed by
+    those maxima (K1-tc or K1); then one Jaccard fold: K5 for CUDA
+    tensors, :func:`jaccard_fold_plain` for CPU tensors.
+    Returns the unpadded f32 [n, m] (the JAX function returns a padded
+    array for its caller to slice)."""
+    same = B is None or B is A
+    sym = same if symmetrize is None else bool(symmetrize)
+    B = A if same else B
+    _check_rounds(A, B, "jaccard_gram_rounds")
+    dev = A.device
+    A = A.to(torch.float32).contiguous()
+    B = A if same else B.to(torch.float32).contiguous()
+    R, n, _ = A.shape
+    m = B.shape[1]
+    if R == 0:
+        raise ValueError("jaccard_gram_rounds: need at least one round")
+    if sym and n != m:
+        raise ValueError("jaccard_gram_rounds: symmetrizing needs n == m "
+                         "(got %d and %d)" % (n, m))
+
+    def counts(v, k):
+        if v is None:
+            return torch.ones(k, dtype=torch.float32, device=dev)
+        return torch.as_tensor(v, device=dev).to(torch.float32).contiguous()
+
+    va_t = counts(va, n)
+    vb_t = va_t if (vb is va and va is not None) or (vb is None and same) \
+        else counts(vb, m)
+    if va_t.shape != (n,) or vb_t.shape != (m,):
+        raise ValueError("jaccard_gram_rounds: va must be [%d] and vb [%d]"
+                         % (n, m))
+    if n == 0 or m == 0:
+        return torch.zeros((n, m), dtype=torch.float32, device=dev)
+    max_a, max_b, integer = _round_stats(A, B)
+    if not integer.all():
+        raise ValueError("jaccard_gram_rounds: A and B must hold "
+                         "nonnegative integer counts")
+    C = min_intersection_gram_rounds(A, B, route=None,
+                                     count_max=(max_a, max_b))
+    if dev.type == "cuda":
+        return jaccard_fold_cuda(C, va_t, vb_t, sym)
+    return jaccard_fold_plain(C, va_t, vb_t, sym)

@@ -15,7 +15,7 @@ from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset
 from grakel_torch.kernels.base import normalize_input
 from grakel_torch.ops import floyd_warshall as fw
-from grakel_torch.ops import intersect, wl
+from grakel_torch.ops import intersect, nh, wl
 
 pytestmark = pytest.mark.cuda
 
@@ -300,7 +300,12 @@ def test_wrappers_check_inputs(cuda):
     ("WeisfeilerLehman", {"n_iter": 3}),
     ("WeisfeilerLehman", {"n_iter": 5, "normalize": True}),
     ("VertexHistogram", {}),
-    ("PyramidMatch", {}), ("PyramidMatch", {"with_labels": False})])
+    ("PyramidMatch", {}), ("PyramidMatch", {"with_labels": False}),
+    ("NeighborhoodHash", {"random_state": 0}),
+    ("NeighborhoodHash", {"random_state": 1, "nh_type": "count_sensitive",
+                          "R": 5, "bits": 6}),
+    ("WeisfeilerLehmanOptimalAssignment", {"n_iter": 3}),
+    ("WeisfeilerLehmanOptimalAssignment", {"n_iter": 5, "normalize": True})])
 def test_entry_points_on_card_match_cpu(cuda, name, kw):
     train, test = generate_dataset(n_graphs=80, n_graphs_test=10,
                                    r_vertices=(5, 30), random_state=2,
@@ -439,3 +444,202 @@ def test_shortest_path_large_graphs_on_card_match_cpu(cuda, with_labels):
     assert K.max() > 2 ** 24
     assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
     assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
+
+
+def _nh_batch(seed, hub, device):
+    """A GraphBatch of random graphs with an edgeless graph (degree-0
+    nodes) and a hub of out-degree ``hub``, with random int32 labels
+    (high bits set too: the rounds mask them) and a fifth invalid."""
+    rng = np.random.RandomState(seed)
+    graphs = []
+    for g in range(40):
+        n = rng.randint(1, 30)
+        if g == 0:
+            s = r = np.zeros(0, np.int64)
+        elif g == 1:
+            n = hub + 1
+            s = np.zeros(hub, np.int64)
+            r = np.arange(1, hub + 1)
+            s, r = np.concatenate([s, r]), np.concatenate([r, s])
+        else:
+            A = rng.rand(n, n) < 0.2
+            np.fill_diagonal(A, False)
+            s, r = np.nonzero(A)
+        graphs.append(grakel_torch.Graph.from_arrays(n, s, r))
+    b = grakel_torch.GraphBatch.from_graphs(graphs, node_label_enum={},
+                                            device=device)
+    N = b.node_mask.shape[0]
+    lab = rng.randint(-2 ** 31, 2 ** 31 - 1, N)
+    lab[rng.rand(N) < 0.5] %= 3          # repeated labels for the fold
+    valid = (rng.rand(N) < 0.8) & b.node_mask.cpu().numpy()
+    return (b, torch.tensor(lab, dtype=torch.int32, device=device),
+            torch.tensor(valid, device=device))
+
+
+@pytest.mark.parametrize("bits", [1, 5, 8, 12])
+@pytest.mark.parametrize("nh_type", ["simple", "count_sensitive"])
+def test_nh_round_kernel_bit_identical(cuda, nh_type, bits):
+    """K4, one launch a round, against nh_rounds_plain on the card and on
+    the CPU: equal histograms after 1-5 rounds, with degree-0 nodes, a
+    node of degree 64 and invalid labels."""
+    cs = nh_type == "count_sensitive"
+    b, lab, valid = _nh_batch(bits, 64, cuda)
+    for R in (1, 5):
+        before = nh.nh_round_cuda.launches
+        H = nh.nh_rounds(b, lab, valid, b.n_graphs, R, bits, cs)
+        torch.cuda.synchronize()
+        assert nh.nh_round_cuda.launches == before + R
+        P = nh.nh_rounds_plain(lab, valid, b.node_graph_ids, b.csr_offsets,
+                               b.csr_targets, b.n_graphs, R, bits, cs)
+        assert H.dtype == torch.int32 and torch.equal(H, P)
+        Pc = nh.nh_rounds_plain(lab.cpu(), valid.cpu(),
+                                b.node_graph_ids.cpu(), b.csr_offsets.cpu(),
+                                b.csr_targets.cpu(), b.n_graphs, R, bits, cs)
+        assert torch.equal(H.cpu(), Pc)
+        assert int(H.sum()) > 0
+
+
+def test_nh_round_kernel_labels_and_validity(cuda):
+    """One K4 round's labels and validity against the plain round's
+    (recovered with R = 1 from a one-node-a-graph layout)."""
+    b, lab, valid = _nh_batch(3, 64, cuda)
+    hist = torch.zeros((b.n_graphs, 1 << 8), dtype=torch.int32, device=cuda)
+    new_lab, new_valid = nh.nh_round_cuda(
+        lab, valid, b.node_graph_ids, b.csr_offsets, b.csr_targets, hist, 8,
+        True)
+    # every node its own graph: the plain histogram row of node v is the
+    # one-hot of its new label when it stays valid
+    N = lab.shape[0]
+    own = torch.arange(N, dtype=torch.int32, device=cuda)
+    P = nh.nh_rounds_plain(lab, valid, own, b.csr_offsets, b.csr_targets, N,
+                           1, 8, True)[0]
+    assert torch.equal(new_valid, P.sum(1) > 0)
+    keep = new_valid.nonzero().flatten()
+    assert torch.equal(P[keep].argmax(1).to(torch.int32), new_lab[keep])
+    assert int((new_lab >> 8).abs().sum()) == 0
+
+
+def _fold_inputs(seed, R, n, m, device):
+    rng = np.random.RandomState(seed)
+    C = rng.randint(0, 9, (R, n, m)).astype(np.float32)
+    va = rng.randint(0, 12, n).astype(np.float32)
+    vb = rng.randint(0, 12, m).astype(np.float32)
+    va[: n // 7] = 0                              # empty graphs: d <= 0
+    return [torch.from_numpy(x).to(device) for x in (C, va, vb)]
+
+
+@pytest.mark.parametrize("R,n,m,sym", [
+    (3, 1, 1, True), (3, 31, 31, True), (3, 33, 33, True),
+    (5, 100, 100, True), (1, 257, 257, True), (3, 40, 40, False),
+    (1, 37, 1001, False), (3, 1001, 37, False), (2, 1, 5, False)])
+def test_jaccard_fold_kernel_bit_identical(cuda, R, n, m, sym):
+    """K5 against jaccard_fold_plain on the card and on the CPU, bit for
+    bit: symmetric (a non-symmetric stack too: the pair (i, j), (j, i)
+    fold), rectangular, R = 1, ragged tiles."""
+    C, va, vb = _fold_inputs(R * n + m, R, n, m, cuda)
+    before = intersect.jaccard_fold_cuda.launches
+    K = intersect.jaccard_fold_cuda(C, va, vb if not sym else va, sym)
+    torch.cuda.synchronize()
+    assert intersect.jaccard_fold_cuda.launches == before + 1
+    vb2 = va if sym else vb
+    P = intersect.jaccard_fold_plain(C, va, vb2, sym)
+    Pc = intersect.jaccard_fold_plain(C.cpu(), va.cpu(), vb2.cpu(), sym)
+    assert torch.equal(K.view(torch.int32), P.view(torch.int32))
+    assert torch.equal(K.cpu().view(torch.int32), Pc.view(torch.int32))
+    if sym:
+        assert torch.equal(K, K.T)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_jaccard_gram_rounds_on_card(cuda, sym):
+    """jaccard_gram_rounds on the card: one routed kernel call a round
+    and one K5 launch, equal to the CPU run bit for bit."""
+    rng = np.random.RandomState(4)
+    A = torch.tensor(rng.randint(0, 4, (3, 300, 256)), dtype=torch.float32,
+                     device=cuda)
+    B = A if sym else torch.tensor(rng.randint(0, 4, (3, 77, 256)),
+                                   dtype=torch.float32, device=cuda)
+    va = A[0].sum(1) + 2
+    vb = va if sym else B[0].sum(1)
+    counters = (intersect.min_gram_cuda, intersect.min_gram_tc_cuda,
+                intersect.jaccard_fold_cuda)
+    before = [c.launches for c in counters]
+    K = intersect.jaccard_gram_rounds(A, B, va=va, vb=vb)
+    torch.cuda.synchronize()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got[0] + got[1] == 3 and got[2] == 1
+    Kc = intersect.jaccard_gram_rounds(A.cpu(), None if sym else B.cpu(),
+                                       va=va.cpu(),
+                                       vb=None if sym else vb.cpu())
+    assert torch.equal(K.cpu(), Kc)
+
+
+@pytest.mark.parametrize("integer,sym", [(True, True), (True, False),
+                                         (False, False)])
+def test_min_intersection_gram_rounds_on_card(cuda, integer, sym):
+    """One K1 call a round by default, each adding into its slice of the
+    zeroed stack, equal to R min_gram_plain calls: integers exactly,
+    reals at K1's tolerance."""
+    rng = np.random.RandomState(5)
+    R, n, m, L = 3, 129, 65, 90
+    A = rng.randint(0, 9, (R, n, L)) if integer else rng.rand(R, n, L)
+    B = rng.randint(0, 9, (R, m, L)) if integer else rng.rand(R, m, L)
+    A = torch.tensor(A, dtype=torch.float32, device=cuda)
+    B = A if sym else torch.tensor(B, dtype=torch.float32, device=cuda)
+    before = intersect.min_gram_cuda.launches
+    K = intersect.min_intersection_gram_rounds(A, B)
+    torch.cuda.synchronize()
+    assert intersect.min_gram_cuda.launches == before + R
+    for r in range(R):
+        P = intersect.min_gram_plain(A[r], B[r])
+        if integer:
+            assert torch.equal(K[r], P)
+        else:
+            torch.testing.assert_close(K[r], P, rtol=1e-5, atol=1e-4)
+
+
+def test_nh_path_launches_on_card(cuda):
+    """NeighborhoodHash fit_transform on the card: R K4 launches a parse,
+    one K5 launch a Gram, one K1 or K1-tc call a round."""
+    train, test = generate_dataset(n_graphs=60, n_graphs_test=10,
+                                   r_vertices=(5, 30), random_state=8,
+                                   features=("nl", 6))
+    counters = (nh.nh_round_cuda, intersect.jaccard_fold_cuda,
+                intersect.min_gram_cuda, intersect.min_gram_tc_cuda)
+    for c in counters:
+        c.launches = 0
+    k = grakel_torch.NeighborhoodHash(random_state=0, R=4)
+    k.fit_transform(train)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters[:2]] == [4, 1]
+    assert counters[2].launches + counters[3].launches == 4
+    k.transform(test)
+    assert [c.launches for c in counters[:2]] == [8, 2]
+    assert counters[2].launches + counters[3].launches == 8
+
+
+def test_nh_and_jaccard_wrappers_check_inputs(cuda):
+    b, lab, valid = _nh_batch(0, 5, cuda)
+    hist = torch.zeros((b.n_graphs, 256), dtype=torch.int32, device=cuda)
+    args = [lab, valid, b.node_graph_ids, b.csr_offsets, b.csr_targets, hist]
+    for i, bad in ((0, lab.long()), (1, valid.int()), (0, lab.cpu()),
+                   (2, b.node_graph_ids[:-1]), (3, b.csr_offsets[:-1]),
+                   (5, hist[:, :128]), (5, hist.t())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            nh.nh_round_cuda(*a, 8, False)
+    with pytest.raises(ValueError):
+        nh.nh_round_cuda(*args, 31, False)                # bits
+    with pytest.raises(ValueError):
+        nh.nh_round_cuda(*[x.cpu() for x in args], 8, False)
+    C, va, vb = _fold_inputs(0, 2, 6, 5, cuda)
+    for bad in ((C.double(), va, vb), (C, va[:-1], vb), (C, va, vb.cpu()),
+                (C[:, :, :4], va, vb), (C[:0], va, vb),
+                (C.transpose(1, 2), vb, va)):
+        with pytest.raises(ValueError):
+            intersect.jaccard_fold_cuda(*bad, False)
+    with pytest.raises(ValueError):
+        intersect.jaccard_fold_cuda(C, va, vb, True)      # 6 x 5
+    with pytest.raises(ValueError):
+        intersect.jaccard_fold_cuda(C.cpu(), va.cpu(), vb.cpu(), False)

@@ -157,3 +157,30 @@ def test_kernel_base_gram_paths_equal(which, normalize):
     jxd, jyd = kj.diagonal()
     np.testing.assert_array_equal(xd, jxd)
     np.testing.assert_array_equal(yd, jyd)
+
+
+@pytest.mark.parametrize("name", ["VertexHistogram", "EdgeHistogram"])
+def test_histogram_counts_exact_past_2_24(name):
+    """Graphs of 5001 items of one label: entries of 5001 x 5001 =
+    25,010,001 and 4999 x 5001 = 24,999,999 (odd, past 2^24, where f32
+    holds only even integers).  An entry is at most the largest item
+    count squared, so VH and EH sum in f64 there and stay exact."""
+    from grakel_torch.graph import Graph
+
+    def graph(k):
+        if name == "VertexHistogram":
+            return Graph.from_arrays(k, [], [], None,
+                                     {v: "x" for v in range(k)})
+        s, r = np.arange(k), np.arange(1, k + 1)
+        return Graph.from_arrays(k + 1, s, r, None, None,
+                                 {(i, i + 1): "e" for i in range(k)})
+
+    with use_device("cpu"):
+        kt = getattr(grakel_torch, name)()
+        K = kt.fit_transform([graph(5001), graph(5001)])
+        T = kt.transform([graph(4999)])
+        xd, yd = kt.diagonal()
+    assert np.array_equal(K, np.full((2, 2), 25010001.0))
+    assert np.array_equal(T, np.full((1, 2), 24999999.0))
+    assert np.array_equal(xd, [25010001.0] * 2)
+    assert np.array_equal(yd, [4999.0 ** 2])

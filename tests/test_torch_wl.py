@@ -259,3 +259,70 @@ def test_wl_vh_nci1_scale_equal():
         kt = grakel_torch.WeisfeilerLehman(n_iter=5)
         Kt, Tt = kt.fit_transform(train), kt.transform(test)
     assert np.array_equal(Kt, Kj) and np.array_equal(Tt, Tj)
+
+
+def _exact_wl_grams(fit, test, n_iter):
+    """Exact WL-VH Grams (fit x fit, test x fit) in Python integers: each
+    node's credential is its label and its out-neighbours' sorted labels,
+    ids shared by all graphs, features counted per generation."""
+    from collections import Counter
+    graphs = normalize_input(list(fit) + list(test))
+    feats = []
+    for g in graphs:
+        nbrs = [[] for _ in range(g.n)]
+        for s, r in zip(g.senders.tolist(), g.receivers.tolist()):
+            nbrs[s].append(r)
+        feats.append((nbrs, [g.get_labels()[v] for v in range(g.n)],
+                      Counter()))
+    cur = [f[1] for f in feats]
+    for it in range(n_iter + 1):
+        for (_, _, c), labs in zip(feats, cur):
+            c.update((it, lab) for lab in labs)
+        mapping = {}
+        cur = [[mapping.setdefault(
+            (labs[v], tuple(sorted(labs[u] for u in nbrs[v]))),
+            len(mapping)) for v in range(len(labs))]
+            for (nbrs, _, _), labs in zip(feats, cur)]
+    cs = [f[2] for f in feats]
+
+    def dot(a, b):
+        return sum(v * b[k] for k, v in a.items() if k in b)
+
+    nf = len(fit)
+    K = np.array([[dot(a, b) for b in cs[:nf]] for a in cs[:nf]], object)
+    T = np.array([[dot(a, b) for b in cs[:nf]] for a in cs[nf:]], object)
+    return K, T
+
+
+@pytest.fixture(scope="module")
+def wl_large():
+    """Six unlabeled-like train graphs of 5802-6374 vertices (two labels)
+    and two test graphs: WL-VH entries up to ~1.5e8 at n_iter = 5."""
+    train, test = generate_dataset(
+        n_graphs=8, n_graphs_test=2, r_vertices=(5500, 6500),
+        r_connectivity=(0.001, 0.002), random_state=3, features=("nl", 2))
+    return train, test, _exact_wl_grams(train, test, 5)
+
+
+@pytest.mark.parametrize("call", ["fit_transform", "transform",
+                                  "general_path"])
+def test_wl_counts_exact_past_2_24(wl_large, call):
+    """A WL-VH entry is at most (n_iter + 1) max_n^2; past 2^24 an f32
+    sum of counts rounds, so the port sums in f64 there and its Grams and
+    diagonals equal the exact integer Gram.  The general path (a base
+    kernel with parameters) sums its f64 base Grams in f64."""
+    train, test, (Kx, Tx) = wl_large
+    assert Kx.max() > 2 ** 24 and Kx.max() < 2 ** 53
+    with use_device("cpu"):
+        if call == "general_path":
+            kt = grakel_torch.WeisfeilerLehman(
+                n_iter=5, base_graph_kernel=(grakel_torch.VertexHistogram,
+                                             {"sparse": True}))
+        else:
+            kt = grakel_torch.WeisfeilerLehman(n_iter=5)
+        K = kt.fit_transform(train)
+        assert np.array_equal(K, Kx.astype(np.float64))
+        assert np.array_equal(kt.diagonal(), np.diagonal(Kx).astype(float))
+        if call != "fit_transform":
+            T = kt.transform(test)
+            assert np.array_equal(T, Tx.astype(np.float64))
