@@ -41,10 +41,12 @@ CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
 concatenated into one call) and no K1-tc, labeled PM the kernels its
 levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
 the levels that take K1, one K1-tc call for each other level), and
-every ShortestPath path K3 (``floyd_warshall``), each NH path K4
-(``nh_round``) R times a parse, K5 (``jaccard_fold``) once a Gram and one
-K1-tc or K1 call a round, as the rounds' routes name (printed with each
-round's W'/L).  The unlabeled PM Gram
+every ShortestPath path K3 (``floyd_warshall``), each NH path K4 once a
+parse on its graph route (``nh_graph``; no launch of its round route
+``nh_round``), K5 (``jaccard_fold``) once a Gram (the fit Gram on its
+triangle route, the transform's on its rect route) and one K1-tc or K1
+call a round, as the rounds' routes name (printed with each round's
+W'/L).  The unlabeled PM Gram
 stage (K1 and the torch ops up to the f64 result) is then timed and
 profiled as it runs, one fused K1 call, beside the same stage with one
 K1 call and a torch fold per level.  WL-VH, the PM paths and SP on the NCI1-scale set
@@ -99,19 +101,31 @@ time of a call:
   without spills (``-Xptxas -v``).  Bound: the larger of 2 n V^3
   operations over 67 TFLOP/s fp32 and adj, mask and S moved once over
   3.35 TB/s.  No single PyTorch call computes APSP: no library time;
-* K4 on the NH paths' batches (the fit graphs, and the held-out graphs,
-  whose planted unseen label poisons nodes), both hash types, R rounds
-  bit-identical to ``ops.nh.nh_rounds_plain``; the R-round call
-  ``ops.nh.nh_rounds`` timed as the parse makes it.  Bound: the bytes
-  the R rounds must move (a round reads each node's label, validity,
-  graph id and offset and writes its new label and validity, and reads
-  each edge's target and the target's label and validity; the R
-  histograms are written once) over 3.35 TB/s;
-* K5 on the NH paths' per-round counts (fit: symmetric 4110 x 4110;
-  transform: 64 x 4110), bit-identical to
-  ``ops.intersect.jaccard_fold_plain`` and to the paths' Grams.  Bound:
-  R n m 4 bytes read and n m 4 written over 3.35 TB/s.  No single
-  PyTorch call computes either: no library time;
+* K4 through ``ops.nh.nh_rounds`` (the call a parse makes), both hash
+  types, R rounds bit-identical to ``ops.nh.nh_rounds_plain``, on each
+  route, which the launch counts must confirm: the graph route on the NH
+  paths' batches (the fit graphs, with a sweep of chunk sizes, and the
+  held-out graphs, whose planted unseen label poisons nodes; the fit
+  graphs also with a sweep of the hub degree) and on the
+  REDDIT-B-scale stand-in's 2000 graphs labeled by vertex degree (hubs
+  of degree up to ~230, folded by a warp); the round route on six graphs
+  of 5500-6500 vertices (ROADMAP's WL inputs); both in one batch of 150
+  NCI1-scale graphs and those six.  The graph route must write every bin
+  of a stack of garbage and the call must run no fill kernel.  Bound:
+  the bytes the call must move (each node's label, validity, graph id
+  and offset and each edge's target read once, the R histograms written
+  once) over 3.35 TB/s; the earlier count (every round's node and edge
+  traffic) beside it;
+* K5 on the NH paths' per-round counts on each route: the fit Gram's
+  (symmetric 4110 x 4110) on the triangle route the path takes and on
+  the pair route, the transform's (64 x 4110) on the rect route,
+  bit-identical to ``ops.intersect.jaccard_fold_plain`` and to the
+  paths' Grams; the triangle route must give the same ratios with the
+  tiles below the diagonal set to NaN.  Bound: the counts it must read
+  (R n (n + 1) / 2 on the triangle route, R n m otherwise), the vertex
+  counts and the n m ratios written, over 3.35 TB/s; the earlier count
+  (the full square) beside it.  No single PyTorch call computes K4 or K5: no
+  library time;
 * ``min_intersection_gram_rounds`` (the Pallas kernel's second reach, R
   K1 calls) on the simple path's fit stack (symmetric, exact) and on a
   ragged real-valued rectangular stack (rtol=1e-5, atol=1e-4) against R
@@ -236,17 +250,18 @@ class Checks:
             self.failed.append(what)
 
 
-def cuda_ms(fn, reps, warmup=1):
+def cuda_ms(fn, reps, warmup=1, busy_cycles=50_000_000):
     """Mean device milliseconds of ``fn()`` on the current stream: CUDA
     events around ``reps`` back-to-back calls, after ``warmup`` calls.  A
-    sleep kernel (~25 ms) keeps the stream busy while the host enqueues
-    the calls, so a call that does not wait for the device is timed by
-    its device work, not by its host side (:func:`host_ms`)."""
+    sleep kernel (``busy_cycles``, ~25 ms by default) keeps the stream
+    busy while the host enqueues the calls, so a call that does not wait
+    for the device is timed by its device work, not by its host side
+    (:func:`host_ms`), as long as the sleep outlasts the enqueueing."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(busy_cycles)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -437,26 +452,29 @@ def main():
         "K1's %d kernels built without spills: %s"
         % (3 * len(intersect.K1_TILES), k1_ptxas))
     k45_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
-                 if "nh_round" in k or "jaccard" in k}
-    check(len(k45_ptxas) == 4 and all(
+                 if "nh_graph" in k or "nh_round" in k or "jaccard" in k}
+    check(len(k45_ptxas) == 13 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k45_ptxas.values()),
-        "K4's 2 and K5's 2 kernels built without spills: %s" % k45_ptxas)
+        "K4's 4 and K5's 9 kernels built without spills: %s" % k45_ptxas)
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
                 "floyd_warshall": fw_ops.floyd_warshall_cuda,
+                "nh_graph": nh_ops.nh_graph_cuda,
                 "nh_round": nh_ops.nh_round_cuda,
                 "jaccard_fold": intersect.jaccard_fold_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
+    k5_routes = intersect.jaccard_fold_cuda.route_launches
 
     def run_path(name, fn):
         for c in counters.values():
             c.launches = 0
-        for r in k3_routes:
-            k3_routes[r] = 0
+        for routes in (k3_routes, k5_routes):
+            for r in routes:
+                routes[r] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
@@ -464,6 +482,7 @@ def main():
         secs = time.perf_counter() - t
         launches = {k: c.launches for k, c in counters.items()}
         launches["floyd_warshall_by_route"] = dict(k3_routes)
+        launches["jaccard_fold_by_route"] = dict(k5_routes)
         print("path %s: %.3f s, launches %s" % (name, secs, launches),
               flush=True)
         return out, secs, launches
@@ -781,15 +800,18 @@ def main():
             for q in rounds)), flush=True)
         tc = sum((q["fit_route"] == "min_gram_tc")
                  + (q["transform_route"] == "min_gram_tc") for q in rounds)
-        check(launches["nh_round"] == 2 * k.R
+        folds = launches["jaccard_fold_by_route"]
+        check(launches["nh_graph"] == 2 and launches["nh_round"] == 0
               and launches["jaccard_fold"] == 2
+              and folds["triangle"] == folds["rect"] == 1
               and launches["min_gram_tc"] == tc
               and launches["min_gram"] == 2 * k.R - tc,
-              "%s launched K4 %d (R = %d a parse, 2 parses), K5 %d (one a "
-              "Gram), K1-tc %d and K1 %d (as the rounds' routes name: %d "
-              "and %d)" % (key, launches["nh_round"], k.R,
-                           launches["jaccard_fold"], launches["min_gram_tc"],
-                           launches["min_gram"], tc, 2 * k.R - tc))
+              "%s launched K4 %d times on the graph route (one a parse, 2 "
+              "parses) and %d on the round route, K5 %d (one a Gram: %s), "
+              "K1-tc %d and K1 %d (as the rounds' routes name: %d and %d)"
+              % (key, launches["nh_graph"], launches["nh_round"],
+                 launches["jaccard_fold"], folds, launches["min_gram_tc"],
+                 launches["min_gram"], tc, 2 * k.R - tc))
         check(K.shape == (N_GRAPHS, N_GRAPHS) and Kt.shape == (N_HELD,
                                                                 N_GRAPHS)
               and np.isfinite(K).all() and np.isfinite(Kt).all()
@@ -1186,61 +1208,175 @@ def main():
     k3_rb = bucket_cases(rbk, "REDDIT-B-scale 129-512 fit bucket", reps=5)
 
     # ---------------- K4 against its plain version ---------------------- #
-    def k4_case(kern, graphs, what):
-        """K4 on ``graphs`` parsed by the fitted NH kernel ``kern``: R
-        rounds against nh_rounds_plain on the card, bit for bit, and the
-        R-round call ``nh_rounds`` (R launches and the zero fill of its
-        histogram stack) timed beside its bound and the plain R rounds."""
-        batch, lab, valid = kern._round_inputs(normalize_input(graphs))
-        cs = kern.nh_type == "count_sensitive"
-        n, R, bits = batch.n_graphs, kern.R, kern.bits
+    def degree_inputs(graphs, bits, seed):
+        """``graphs`` in a batch on the card, each vertex labeled by its
+        out-degree through a seeded random bits-wide hash (as NH hashes
+        labels), 1 % of them poisoned (a label unseen at fit)."""
+        batch = GraphBatch.from_graphs(graphs, node_label_enum={},
+                                       device="cuda")
+        deg = torch.diff(batch.csr_offsets).long()
+        r = np.random.RandomState(seed)
+        lut = torch.from_numpy(r.randint(0, 1 << bits, int(deg.max()) + 1)
+                               ).cuda()
+        valid = batch.node_mask & torch.from_numpy(
+            r.rand(deg.shape[0]) > 0.01).cuda()
+        lab = torch.where(valid, lut[deg], 0).to(torch.int32)
+        return batch, lab, valid
+
+    def k4_case(batch, lab, valid, R, bits, cs, what, route, sweep=False):
+        """K4 through ``nh_rounds`` (the call a parse makes) on ``batch``:
+        on ``route`` (the launch counts say which), bit-identical to
+        nh_rounds_plain on the card, timed beside its bound and the plain
+        R rounds.  On the graph route also into a stack of garbage (every
+        bin of every row written) with no fill kernel in the call's
+        profile, and with ``sweep`` at several chunk sizes."""
+        n, nh_type = batch.n_graphs, "count_sensitive" if cs else "simple"
         gids, off, tgt = (batch.node_graph_ids, batch.csr_offsets,
                           batch.csr_targets)
+        before = (nh_ops.nh_graph_cuda.launches,
+                  nh_ops.nh_round_cuda.launches)
         H = nh_ops.nh_rounds(batch, lab, valid, n, R, bits, cs)
+        torch.cuda.synchronize()
+        got = (nh_ops.nh_graph_cuda.launches - before[0],
+               nh_ops.nh_round_cuda.launches - before[1])
+        want = {"graph": (1, 0), "round": (0, R), "mixed": (1, R)}[route]
         P = nh_ops.nh_rounds_plain(lab, valid, gids, off, tgt, n, R, bits,
                                    cs)
         torch.cuda.synchronize()
         differ = int((H != P).sum())
         poisoned = int((batch.node_mask & ~valid).sum())
-        check(differ == 0, "K4 %s, %s, %d graphs, R = %d: histograms "
-              "bit-identical to plain (%d differ; %d poisoned nodes)"
-              % (kern.nh_type, what, n, R, differ, poisoned))
+        deg = torch.diff(off)
+        hub = nh_ops.K4_HUB_DEGREE[cs]
+        check(differ == 0 and got == want,
+              "K4 %s, %s, %d graphs, R = %d, bits = %d: route %s (graph and "
+              "round launches %s), histograms bit-identical to plain (%d "
+              "differ; %d poisoned nodes; max out-degree %d, %d nodes above "
+              "the hub degree %d)" % (nh_type, what, n, R, bits, route, got,
+                                      differ, poisoned, int(deg.max()),
+                                      int((deg > hub).sum()), hub))
 
         def call():
             return nh_ops.nh_rounds(batch, lab, valid, n, R, bits, cs)
 
-        N, E = lab.shape[0], tgt.shape[0]
-        # a round, a node: label, validity, graph id, offset read, new
-        # label and validity written; an edge: target, its label and
-        # validity read; then the R histograms written once
-        nbytes = R * (18.0 * N + 4 + 9.0 * E) + 4.0 * R * n * (1 << bits)
-        row = {"what": what, "nh_type": kern.nh_type, "graphs": n,
-               "nodes": N, "edges": E, "poisoned_nodes": poisoned,
-               "rounds": R, "differing": differ, "bytes": nbytes,
-               "ms": cuda_ms(call, 100, 5),
-               "device_ms": device_ms(call, 50, "nh_round", R),
-               "wrapper_ms": host_ms(call, 100),
+        N, E, L = lab.shape[0], tgt.shape[0], 1 << bits
+        # each input once (label, validity, graph id, offset a node; the
+        # target an edge), the R histograms written once
+        nbytes = 13.0 * N + 4 + 4.0 * E + 4.0 * R * n * L
+        by_name, _ = kernel_records(call, 20)
+        hits = [k for k in by_name if "nh_graph" in k or "nh_round" in k]
+        wrapper = host_ms(call, 20)
+        # the sleep outlasts enqueueing 100 calls twice over (the host
+        # plans the chunks on every call: ~2 ms for 4110 graphs)
+        busy = int(max(5e7, 4e6 * 100 * wrapper))
+        row = {"what": what, "nh_type": nh_type, "route": route,
+               "graphs": n, "nodes": N, "edges": E, "bits": bits,
+               "poisoned_nodes": poisoned, "max_degree": int(deg.max()),
+               "hub_degree": hub, "hub_nodes": int((deg > hub).sum()),
+               "rounds": R, "launches": got, "differing": differ,
+               "bytes": nbytes, "ms": cuda_ms(call, 100, 5, busy),
+               "device_ms": sum(by_name[k] for k in hits) / 20 if hits
+               else None,
+               "wrapper_ms": wrapper,
                "plain_ms": cuda_ms(lambda: nh_ops.nh_rounds_plain(
                    lab, valid, gids, off, tgt, n, R, bits, cs), 5),
                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-               "bound_by": "bytes"}
+               "bound_by": "bytes",
+               # the earlier count: every round's node and edge traffic
+               "bound_ms_earlier_count": 1e3 * (R * (18.0 * N + 4 + 9.0 * E)
+                                            + 4.0 * R * n * L)
+               / HBM_BYTES_PER_S}
         check(row["device_ms"] is not None, "K4 %s, %s: device time from "
               "the profiler's records (%s ms)"
-              % (kern.nh_type, what, row["device_ms"]))
+              % (nh_type, what, row["device_ms"]))
+        if route == "graph":
+            fills = [k for k in by_name if "fill" in k.lower()]
+            chunks, _, smem = nh_ops.nh_plan(batch.n_nodes, batch.n_edges,
+                                             bits)
+            G = torch.full_like(P, -7)
+            nh_ops.nh_graph_cuda(lab, valid, gids, off, tgt, chunks, G, bits,
+                                 cs)
+            torch.cuda.synchronize()
+            check(torch.equal(G, P) and not fills,
+                  "K4 %s, %s: the graph route writes every bin into a stack "
+                  "of garbage (%d chunks, %d B of shared memory), and the "
+                  "nh_rounds call runs no fill kernel (%s)"
+                  % (nh_type, what, len(chunks), smem, fills))
+            row.update(chunks=len(chunks), smem_bytes=smem)
+        if sweep:
+            row["chunk_sweep"] = {}
+            for cn in (64, 128, 256, 512, 1024):
+                chunks, _, smem = nh_ops.nh_plan(batch.n_nodes,
+                                                 batch.n_edges, bits, cn)
+                G = torch.full_like(P, -7)
+
+                def gcall(chunks=chunks, G=G):
+                    return nh_ops.nh_graph_cuda(lab, valid, gids, off, tgt,
+                                                chunks, G, bits, cs)
+
+                gcall()
+                torch.cuda.synchronize()
+                check(torch.equal(G, P), "K4 %s, %s, chunks of %d nodes: "
+                      "bit-identical" % (nh_type, what, cn))
+                row["chunk_sweep"][cn] = {"chunks": len(chunks),
+                                          "smem_bytes": smem,
+                                          "ms": cuda_ms(gcall, 100, 5,
+                                                        busy)}
+            # the out-degree above which a warp folds a node (0: every
+            # node with an edge; 2^31 - 1: none)
+            row["hub_sweep"] = {}
+            chunks, _, _ = nh_ops.nh_plan(batch.n_nodes, batch.n_edges, bits)
+            for hd in (0, 4, 8, 16, 32, 2 ** 31 - 1):
+                G = torch.full_like(P, -7)
+
+                def hcall(hd=hd, G=G):
+                    return nh_ops.nh_graph_cuda(lab, valid, gids, off, tgt,
+                                                chunks, G, bits, cs,
+                                                hub_degree=hd)
+
+                hcall()
+                torch.cuda.synchronize()
+                check(torch.equal(G, P), "K4 %s, %s, hub degree %d: "
+                      "bit-identical" % (nh_type, what, hd))
+                row["hub_sweep"][hd] = cuda_ms(hcall, 100, 5, busy)
         return row
 
-    k4 = [k4_case(nh_kernels[key], graphs, what)
-          for key in ("nh_nci1scale", "nh_cs_nci1scale")
-          for graphs, what in ((train, "NCI1-scale fit batch"),
-                               (held, "held-out batch, poisoned labels"))]
+    k4 = []
+    for key in ("nh_nci1scale", "nh_cs_nci1scale"):
+        kern = nh_kernels[key]
+        cs = kern.nh_type == "count_sensitive"
+        for graphs, what in ((train, "NCI1-scale fit batch"),
+                             (held, "held-out batch, poisoned labels")):
+            inputs = kern._round_inputs(normalize_input(graphs))
+            k4.append(k4_case(*inputs, kern.R, kern.bits, cs, what, "graph",
+                              sweep=what.startswith("NCI1")))
+    wl_big, _ = generate_dataset(
+        n_graphs=8, n_graphs_test=2, r_vertices=(5500, 6500),
+        r_connectivity=(0.001, 0.002), random_state=3, features=("nl", 2))
+    big = normalize_input(wl_big)
+    hub_graphs = [Graph.from_arrays(n, s, r) for n, s, r in coo]
+    mix = normalize_input(train[:150])
+    mix = mix[:50] + big[:3] + mix[50:100] + big[3:] + mix[100:]
+    for cs in (False, True):
+        for graphs, what, route in (
+                (hub_graphs, "REDDIT-B-scale stand-in, degree labels (hubs)",
+                 "graph"),
+                (big, "6 graphs of 5500-6500 vertices, degree labels",
+                 "round"),
+                (mix, "150 NCI1-scale graphs and the 6 large ones",
+                 "mixed")):
+            k4.append(k4_case(*degree_inputs(graphs, 8, SEED), 3, 8, cs,
+                              what, route))
 
     # ---------------- K5 against its plain version ---------------------- #
-    def k5_case(kern, key, sym):
-        """K5 on the NH path's per-round counts: the fit Gram's
-        (symmetric) or the transform's (64 x 4110), bit-identical to the
-        plain fold and to the path's Gram."""
+    def k5_case(kern, key, route):
+        """K5 on the NH path's per-round counts on ``route``: the fit
+        Gram's (triangle, as the path takes it, or pair) or the
+        transform's (rect, 64 x 4110), bit-identical to the plain fold and
+        to the path's Gram; the triangle route also with the tiles below
+        the diagonal poisoned (it must not read them)."""
         X = kern.X["hists"]
         vx = torch.tensor(kern.X["nv"], dtype=torch.float32, device="cuda")
+        sym, tri = route != "rect", route == "triangle"
         if sym:
             C = intersect.min_intersection_gram_rounds(X, route=None)
             va = vb = vx
@@ -1253,41 +1389,66 @@ def main():
             vb = vx
             ref = paths_out[key][1]
         R, n, m = C.shape
-        K = intersect.jaccard_fold_cuda(C, va, vb, sym)
+        before = intersect.jaccard_fold_cuda.route_launches[route]
+        K = intersect.jaccard_fold_cuda(C, va, vb, sym, triangle=tri)
         P = intersect.jaccard_fold_plain(C, va, vb, sym)
         torch.cuda.synchronize()
+        took = intersect.jaccard_fold_cuda.route_launches[route] - before
         differ = int((K.view(torch.int32) != P.view(torch.int32)).sum())
         same_path = np.array_equal(K.double().cpu().numpy(), ref)
-        check(differ == 0 and same_path,
-              "K5 %s %s %dx%d, R = %d: bit-identical to the plain fold (%d "
-              "differ) and to the path's Gram (%s)"
-              % (kern.nh_type, "symmetric" if sym else "rect", n, m, R,
-                 differ, same_path))
+        check(differ == 0 and same_path and took == 1,
+              "K5 %s %s %dx%d, R = %d: route %s, bit-identical to the plain "
+              "fold (%d differ) and to the path's Gram (%s)"
+              % (kern.nh_type, route, n, m, R, route, differ, same_path))
+        upper_only = None
+        if tri:
+            t = torch.arange(n, device="cuda") // intersect.K5_TILE
+            Cp = C.masked_fill(t[:, None] > t[None, :], float("nan"))
+            Kp = intersect.jaccard_fold_cuda(Cp, va, va, True, triangle=True)
+            torch.cuda.synchronize()
+            upper_only = torch.equal(Kp.view(torch.int32),
+                                     K.view(torch.int32))
+            check(upper_only, "K5 %s triangle: the same ratios with the "
+                  "tiles below the diagonal NaN (it reads the upper block "
+                  "triangle only)" % kern.nh_type)
+            del Cp, Kp
 
         def call():
-            return intersect.jaccard_fold_cuda(C, va, vb, sym)
+            return intersect.jaccard_fold_cuda(C, va, vb, sym, triangle=tri)
 
-        nbytes = 4.0 * (R * n * m + n * m + n + m)
-        # a division and four adds an entry and round, three operations
-        # an entry for the mean and the symmetrization
-        ops = 5.0 * R * n * m + 3.0 * n * m
+        # counts read once (the distinct ones on the triangle route), the
+        # vertex counts once, the ratios written once; a division and four
+        # adds an entry and round, the mean (and the pair's symmetrization)
+        if tri:
+            entries = n * (n + 1) / 2
+            nbytes = 4.0 * (R * entries + n * m + n)
+            ops = 5.0 * R * entries + n * m
+        else:
+            nbytes = 4.0 * (R * n * m + n * m + n + (0 if sym else m))
+            ops = 5.0 * R * n * m + (3.0 if sym else 1.0) * n * m
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         dev = device_ms(call, 10, "jaccard_")
-        check(dev is not None, "K5 %s %dx%d: device time from the "
-              "profiler's records (%s ms)" % (kern.nh_type, n, m, dev))
-        return {"nh_type": kern.nh_type, "n": n, "m": m, "R": R,
-                "symmetric": sym, "differing": differ, "bytes": nbytes,
+        check(dev is not None, "K5 %s %s %dx%d: device time from the "
+              "profiler's records (%s ms)" % (kern.nh_type, route, n, m,
+                                              dev))
+        return {"nh_type": kern.nh_type, "route": route, "n": n, "m": m,
+                "R": R, "symmetric": sym, "differing": differ,
+                "upper_triangle_only": upper_only, "bytes": nbytes,
                 "ops": ops, "max_abs_err": float((K - P).abs().max()),
                 "ms": cuda_ms(call, 20), "device_ms": dev,
                 "wrapper_ms": host_ms(call, 20),
                 "plain_ms": cuda_ms(lambda: intersect.jaccard_fold_plain(
                     C, va, vb, sym), 3),
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                # the earlier count: every count of the square read
+                "bound_ms_earlier_count": 1e3 * 4.0 * (R * n * m + n * m + n
+                                                   + m) / HBM_BYTES_PER_S}
 
-    k5 = [k5_case(nh_kernels[key], key, sym)
+    k5 = [k5_case(nh_kernels[key], key, route)
           for key in ("nh_nci1scale", "nh_cs_nci1scale")
-          for sym in (True, False)]
+          for route in (("triangle", "rect", "pair")
+                        if key == "nh_nci1scale" else ("triangle", "rect"))]
 
     # ------- K1 through min_intersection_gram_rounds (reach 2) ---------- #
     def rounds_case(A, B, integer, what):
@@ -1347,6 +1508,9 @@ def main():
 
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in counters}
+    launches["jaccard_fold_by_route"] = {
+        r: sum(p["launches"]["jaccard_fold_by_route"][r]
+               for p in paths.values()) for r in k5_routes}
     kernels = [
         {"name": "min_gram", "route": "cuda",
          "source": "grakel_torch/csrc/min_gram.cu",
@@ -1432,32 +1596,36 @@ def main():
              "shapes": [{k: c[k] for k in ("n", "V", "route", "ms",
                                            "device_ms", "plain_ms",
                                            "bound_ms")} for c in k3_rb]}},
-        {"name": "nh_round", "route": "cuda",
+        {"name": "nh_hash", "route": "cuda",
          "source": "grakel_torch/csrc/nh_hash.cu",
          "replaces": "grakel_tpu/kernels/neighborhood_hash.py:226",
-         "launches": launches["nh_round"],
+         "launches": launches["nh_graph"] + launches["nh_round"],
+         "route_launches": {"graph": launches["nh_graph"],
+                            "round": launches["nh_round"]},
          "max_abs_err": max(c["differing"] for c in k4),
          **{k: k4[0][k] for k in ("ms", "device_ms", "wrapper_ms",
-                                  "plain_ms", "bound_ms", "bound_by")},
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "bound_ms_earlier_count")},
          "library_ms": None,
          "library": "none: no single PyTorch call computes a hash round",
          "summed_over": "one nh_rounds call, the R = 3 rounds of one parse "
-                        "of the NCI1-scale fit set, simple (R launches and "
-                        "the zero fill of the histogram stack)",
-         "ptxas": {k: v for k, v in k45_ptxas.items() if "nh_round" in k},
+                        "of the NCI1-scale fit set, simple (one graph-route "
+                        "launch)",
+         "ptxas": {k: v for k, v in k45_ptxas.items() if "nh_" in k},
          "shapes": k4},
         {"name": "jaccard_fold", "route": "cuda",
          "source": "grakel_torch/csrc/jaccard.cu",
          "replaces": "grakel_tpu/ops/intersect.py:153",
          "launches": launches["jaccard_fold"],
          "max_abs_err": max(c["max_abs_err"] for c in k5),
-         "ms": k5[0]["ms"], "device_ms": k5[0]["device_ms"],
-         "wrapper_ms": k5[0]["wrapper_ms"], "plain_ms": k5[0]["plain_ms"],
-         "bound_ms": k5[0]["bound_ms"], "bound_by": k5[0]["bound_by"],
+         "route_launches": dict(launches["jaccard_fold_by_route"]),
+         **{k: k5[0][k] for k in ("ms", "device_ms", "wrapper_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "bound_ms_earlier_count")},
          "library_ms": None,
          "library": "none: no single PyTorch call computes the fold",
          "summed_over": "the fold of the simple NH fit_transform Gram, "
-                        "4110 x 4110, R = 3, symmetric",
+                        "4110 x 4110, R = 3, on the triangle route",
          "ptxas": {k: v for k, v in k45_ptxas.items() if "jaccard" in k},
          "shapes": k5},
     ]

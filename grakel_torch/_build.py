@@ -44,7 +44,10 @@ _SIGNATURES = {
     "grakel_min_gram_tc": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "grakel_wl_hash_refine": [_P, _P, _P, _P, _I, _P],
     "grakel_floyd_warshall": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "grakel_nh_round": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "grakel_nh_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _P],
+    "grakel_nh_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                        _I, _P],
     "grakel_jaccard_fold": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 

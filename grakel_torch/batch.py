@@ -153,6 +153,12 @@ class GraphBatch:
             edge_gid[:E] = np.repeat(np.arange(n, dtype=np.int32), n_edges)
             edge_msk[:E] = True
         csr_offsets, csr_targets = _sender_csr(send[:E], recv[:E], N, N_pad)
+        # no edge leaves its graph (K4 holds whole graphs in a block)
+        own_end = edge_off + np.repeat(n_nodes, n_edges)
+        for name, x in (("sender", send[:E]), ("receiver", recv[:E])):
+            if not ((x >= edge_off) & (x < own_end)).all():
+                raise ValueError("GraphBatch: an edge %s lies outside its "
+                                 "graph's nodes" % name)
         if node_label_enum is None:
             node_label_enum = {}
         if edge_label_enum is None:

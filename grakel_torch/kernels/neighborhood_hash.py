@@ -14,11 +14,13 @@ Reference semantics (grakel/kernels/neighborhood_hash.py):
   is inherently normalized, diagonal 1 (:346-368).
 
 Device path: the graphs pack into a ``GraphBatch``, whose sender CSR
-carries the R rounds (``ops/nh.nh_rounds``: the hand kernel K4 once a
-round on the card) to int32 label histograms [R, n, 2^bits], converted
-to f32 once.  The Gram is ``ops/intersect.jaccard_gram_rounds``: one
-routed min-intersection a round (K1-tc or K1) and the Jaccard fold K5,
-bit-identical to the JAX package's.  ``nv`` counts every vertex of a
+carries the R rounds (``ops/nh.nh_rounds``: on the card the hand kernel
+K4, one launch for all R rounds of the graphs that fit a block's shared
+memory, one a round for the others) to int32 label histograms [R, n,
+2^bits], converted to f32 once.  The Gram is
+``ops/intersect.jaccard_gram_rounds``: one routed min-intersection a
+round (K1-tc or K1) and the Jaccard fold K5 (the fit Gram on its
+upper-triangle route), bit-identical to the JAX package's.  ``nv`` counts every vertex of a
 graph, the poisoned ones included.
 """
 

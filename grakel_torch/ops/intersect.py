@@ -48,7 +48,8 @@ __all__ = ["min_intersection_gram", "min_gram_route", "min_gram_plain",
            "min_gram_threshold_plain", "min_gram_cuda", "min_gram_tc_cuda",
            "k1_tile", "column_stats", "threshold_columns",
            "expand_thresholds", "min_intersection_gram_rounds",
-           "jaccard_gram_rounds", "jaccard_fold_plain", "jaccard_fold_cuda"]
+           "jaccard_gram_rounds", "jaccard_fold_plain", "jaccard_fold_cuda",
+           "K5_TILE"]
 
 # counts above this take K1, as in grakel_tpu/ops/intersect.py
 _GEMM_MAX_T = 2048
@@ -462,11 +463,24 @@ def jaccard_fold_plain(C, va, vb, symmetrize):
     return acc
 
 
-def jaccard_fold_cuda(C, va, vb, symmetrize):
+_FOLD_ROUTES = {"rect": 0, "pair": 1, "triangle": 2}
+# K5's tile side (csrc/jaccard.cu kTile): the triangle route reads the
+# tiles (i // K5_TILE, j // K5_TILE) on or above the diagonal only
+K5_TILE = 32
+
+
+def jaccard_fold_cuda(C, va, vb, symmetrize, triangle=False):
     """Launch K5 (``csrc/jaccard.cu``): the fold of
     :func:`jaccard_fold_plain`, bit-identical to it.  ``C`` [R, n, m]
     (R >= 1), ``va`` [n] and ``vb`` [m] are contiguous f32 CUDA tensors
-    on one device; ``symmetrize`` needs n == m.  Returns f32 K [n, m]."""
+    on one device; ``symmetrize`` needs n == m.  Returns f32 K [n, m].
+
+    Routes, one launch each (``route_launches`` counts them): "rect"
+    without ``symmetrize``; "pair" (each (i, j), (j, i) folded together)
+    with it; "triangle" with ``triangle`` too, the caller's promise that
+    every C[r] is symmetric bit for bit and ``vb`` is ``va`` (the counts
+    of one symmetric min-intersection call): it reads the upper triangle
+    only, since then acc_ij == acc_ji and (x + x) * 0.5 == x exactly."""
     from .. import _build
     dev = C.device
     if not (dev.type == "cuda" and va.device == dev and vb.device == dev
@@ -477,21 +491,27 @@ def jaccard_fold_cuda(C, va, vb, symmetrize):
             and va.shape[0] == C.shape[1] and vb.shape[0] == C.shape[2]
             and max(C.shape) < 1 << 31
             and C.shape[1] * C.shape[2] < 1 << 39
-            and (not symmetrize or C.shape[1] == C.shape[2])):
+            and (not symmetrize or C.shape[1] == C.shape[2])
+            and (not triangle or (symmetrize
+                                  and vb.data_ptr() == va.data_ptr()))):
         raise ValueError("jaccard_fold_cuda: need contiguous f32 CUDA "
                          "tensors on one device: C [R >= 1, n, m], va [n], "
-                         "vb [m]; n == m when symmetrizing")
+                         "vb [m]; n == m when symmetrizing; triangle only "
+                         "symmetrizing with vb the same tensor as va")
     R, n, m = C.shape
+    route = "triangle" if triangle else "pair" if symmetrize else "rect"
     K = torch.empty((n, m), dtype=torch.float32, device=dev)
     inv_r = float(torch.tensor(1.0 / R, dtype=torch.float32))
     _build.launch("grakel_jaccard_fold", dev, C.data_ptr(), va.data_ptr(),
                   vb.data_ptr(), K.data_ptr(), R, n, m, inv_r,
-                  int(bool(symmetrize)))
+                  _FOLD_ROUTES[route])
     jaccard_fold_cuda.launches += 1
+    jaccard_fold_cuda.route_launches[route] += 1
     return K
 
 
 jaccard_fold_cuda.launches = 0
+jaccard_fold_cuda.route_launches = dict.fromkeys(_FOLD_ROUTES, 0)
 
 
 def jaccard_gram_rounds(A, B=None, va=None, vb=None, symmetrize=None):
@@ -512,7 +532,8 @@ def jaccard_gram_rounds(A, B=None, va=None, vb=None, symmetrize=None):
     one copy (which also checks the counts); the c_r come from one
     :func:`min_intersection_gram_rounds` call, each round routed by
     those maxima (K1-tc or K1); then one Jaccard fold: K5 for CUDA
-    tensors, :func:`jaccard_fold_plain` for CPU tensors.
+    tensors (its triangle route when B is A and vb is va, or defaults
+    to it), :func:`jaccard_fold_plain` for CPU tensors.
     Returns the unpadded f32 [n, m] (the JAX function returns a padded
     array for its caller to slice)."""
     same = B is None or B is A
@@ -550,5 +571,8 @@ def jaccard_gram_rounds(A, B=None, va=None, vb=None, symmetrize=None):
     C = min_intersection_gram_rounds(A, B, route=None,
                                      count_max=(max_a, max_b))
     if dev.type == "cuda":
-        return jaccard_fold_cuda(C, va_t, vb_t, sym)
+        # one symmetric call's counts, one vertex-count tensor: K5 reads
+        # the upper triangle only
+        return jaccard_fold_cuda(C, va_t, vb_t, sym,
+                                 triangle=sym and same and vb_t is va_t)
     return jaccard_fold_plain(C, va_t, vb_t, sym)

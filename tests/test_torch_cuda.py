@@ -446,13 +446,14 @@ def test_shortest_path_large_graphs_on_card_match_cpu(cuda, with_labels):
     assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
 
 
-def _nh_batch(seed, hub, device):
+def _nh_batch(seed, hub, device, pa=0):
     """A GraphBatch of random graphs with an edgeless graph (degree-0
-    nodes) and a hub of out-degree ``hub``, with random int32 labels
-    (high bits set too: the rounds mask them) and a fifth invalid."""
+    nodes), a hub of out-degree ``hub`` and ``pa`` preferential-attachment
+    graphs of 30-150 vertices, with random int32 labels (high bits set
+    too: the rounds mask them) and a fifth invalid."""
     rng = np.random.RandomState(seed)
     graphs = []
-    for g in range(40):
+    for g in range(40 + pa):
         n = rng.randint(1, 30)
         if g == 0:
             s = r = np.zeros(0, np.int64)
@@ -461,6 +462,14 @@ def _nh_batch(seed, hub, device):
             s = np.zeros(hub, np.int64)
             r = np.arange(1, hub + 1)
             s, r = np.concatenate([s, r]), np.concatenate([r, s])
+        elif g >= 40:
+            n = rng.randint(30, 151)
+            ends, s, r = [0], [], []
+            for v in range(1, n):
+                for u in set(ends[i] for i in rng.randint(0, len(ends), 2)):
+                    s += [v, u]
+                    r += [u, v]
+                    ends += [u, v]
         else:
             A = rng.rand(n, n) < 0.2
             np.fill_diagonal(A, False)
@@ -476,32 +485,92 @@ def _nh_batch(seed, hub, device):
             torch.tensor(valid, device=device))
 
 
-@pytest.mark.parametrize("bits", [1, 5, 8, 12])
+def _k4_launches():
+    return nh.nh_graph_cuda.launches, nh.nh_round_cuda.launches
+
+
+def _plain_rounds(b, lab, valid, R, bits, cs):
+    """nh_rounds_plain on the device of ``lab``."""
+    d = lab.device
+    return nh.nh_rounds_plain(lab, valid, b.node_graph_ids.to(d),
+                              b.csr_offsets.to(d), b.csr_targets.to(d),
+                              b.n_graphs, R, bits, cs)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 5, 8, 12])
 @pytest.mark.parametrize("nh_type", ["simple", "count_sensitive"])
-def test_nh_round_kernel_bit_identical(cuda, nh_type, bits):
-    """K4, one launch a round, against nh_rounds_plain on the card and on
-    the CPU: equal histograms after 1-5 rounds, with degree-0 nodes, a
-    node of degree 64 and invalid labels."""
+def test_nh_round_kernel_bit_identical(cuda, nh_type, bits, monkeypatch):
+    """K4's routes through nh_rounds against nh_rounds_plain on the card
+    and on the CPU, R = 1, 3, 5, with degree-0 nodes, a node of degree 64,
+    preferential-attachment graphs and invalid labels: the graph route
+    (one launch a call), the round route (one a round) and a batch that
+    mixes them (the largest graphs on the round route)."""
     cs = nh_type == "count_sensitive"
-    b, lab, valid = _nh_batch(bits, 64, cuda)
-    for R in (1, 5):
-        before = nh.nh_round_cuda.launches
-        H = nh.nh_rounds(b, lab, valid, b.n_graphs, R, bits, cs)
+    b, lab, valid = _nh_batch(bits, 64, cuda, pa=4)
+    each = nh.k4_smem_bytes(b.n_nodes, b.n_edges, 1, bits)
+    default, mixed = nh.K4_SMEM_BUDGET, int(np.sort(each)[-4])
+    big = np.flatnonzero(each > mixed)
+    assert 1 <= len(big) <= 3
+    for R in (1, 3, 5):
+        P = _plain_rounds(b, lab, valid, R, bits, cs)
+        Pc = _plain_rounds(b, lab.cpu(), valid.cpu(), R, bits, cs)
+        assert torch.equal(P.cpu(), Pc) and int(P.sum()) > 0
+        for budget, want in ((default, (1, 0)), (0, (0, R)),
+                             (mixed, (1, R))):
+            monkeypatch.setattr(nh, "K4_SMEM_BUDGET", budget)
+            _, rnd, _ = nh.nh_plan(b.n_nodes, b.n_edges, bits,
+                                   nh.K4_CHUNK_NODES, budget)
+            if budget == mixed:
+                assert rnd.tolist() == big.tolist()
+            before = _k4_launches()
+            H = nh.nh_rounds(b, lab, valid, b.n_graphs, R, bits, cs)
+            torch.cuda.synchronize()
+            got = tuple(x - y for x, y in zip(_k4_launches(), before))
+            assert got == want, (budget, got)
+            assert H.dtype == torch.int32 and torch.equal(H, P)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 12])
+@pytest.mark.parametrize("nh_type", ["simple", "count_sensitive"])
+def test_nh_kernel_hub_fold_bit_identical(cuda, nh_type, bits):
+    """Each K4 route with every node of degree >= 1 folded by a warp (hub
+    degree 0), with none (no hub), and at the default, on a degree-200
+    star and preferential-attachment graphs; the graph route writes every
+    bin of its rows (the stack starts as garbage) and nothing else."""
+    cs = nh_type == "count_sensitive"
+    b, lab, valid = _nh_batch(bits + 7, 200, cuda, pa=6)
+    R = 3
+    P = _plain_rounds(b, lab, valid, R, bits, cs)
+    chunks, rnd, _ = nh.nh_plan(b.n_nodes, b.n_edges, bits, 64)
+    assert len(rnd) == 0 and len(chunks) > 2
+    args = (lab, valid, b.node_graph_ids, b.csr_offsets, b.csr_targets)
+    for hub in (0, None, 2 ** 31 - 1):
+        H = torch.full_like(P, -7)
+        before = _k4_launches()
+        nh.nh_graph_cuda(*args, chunks, H, bits, cs, hub_degree=hub)
         torch.cuda.synchronize()
-        assert nh.nh_round_cuda.launches == before + R
-        P = nh.nh_rounds_plain(lab, valid, b.node_graph_ids, b.csr_offsets,
-                               b.csr_targets, b.n_graphs, R, bits, cs)
-        assert H.dtype == torch.int32 and torch.equal(H, P)
-        Pc = nh.nh_rounds_plain(lab.cpu(), valid.cpu(),
-                                b.node_graph_ids.cpu(), b.csr_offsets.cpu(),
-                                b.csr_targets.cpu(), b.n_graphs, R, bits, cs)
-        assert torch.equal(H.cpu(), Pc)
-        assert int(H.sum()) > 0
+        assert torch.equal(H, P), hub
+        G = torch.zeros_like(P)
+        lr, vr = lab, valid
+        for r in range(R):
+            lr, vr = nh.nh_round_cuda(lr, vr, *args[2:], G[r], bits, cs,
+                                      hub_degree=hub)
+        torch.cuda.synchronize()
+        assert torch.equal(G, P), hub
+        assert tuple(x - y for x, y in zip(_k4_launches(), before)) == \
+            (1, R)
+    # a part of the table writes its chunks' rows only
+    H = torch.full_like(P, -7)
+    nh.nh_graph_cuda(*args, chunks[1:2], H, bits, cs)
+    g0, g1 = chunks[1, :2]
+    assert torch.equal(H[:, g0:g1], P[:, g0:g1])
+    assert int((H[:, :g0] != -7).sum() + (H[:, g1:] != -7).sum()) == 0
 
 
 def test_nh_round_kernel_labels_and_validity(cuda):
     """One K4 round's labels and validity against the plain round's
-    (recovered with R = 1 from a one-node-a-graph layout)."""
+    (recovered with R = 1 from a one-node-a-graph layout); with a graph
+    mask, only the marked graphs' nodes are relabeled and counted."""
     b, lab, valid = _nh_batch(3, 64, cuda)
     hist = torch.zeros((b.n_graphs, 1 << 8), dtype=torch.int32, device=cuda)
     new_lab, new_valid = nh.nh_round_cuda(
@@ -517,6 +586,17 @@ def test_nh_round_kernel_labels_and_validity(cuda):
     keep = new_valid.nonzero().flatten()
     assert torch.equal(P[keep].argmax(1).to(torch.int32), new_lab[keep])
     assert int((new_lab >> 8).abs().sum()) == 0
+    mask = torch.zeros(b.n_graphs, dtype=torch.bool, device=cuda)
+    mask[1::3] = True
+    hm = torch.zeros_like(hist)
+    ml, mv = nh.nh_round_cuda(lab, valid, b.node_graph_ids, b.csr_offsets,
+                              b.csr_targets, hm, 8, True, graph_mask=mask)
+    on = mask[b.node_graph_ids.clamp(max=b.n_graphs - 1).long()] \
+        & b.node_mask
+    assert torch.equal(ml[on], new_lab[on]) and torch.equal(mv[on],
+                                                            new_valid[on])
+    assert torch.equal(hm[mask], hist[mask]) and int(hm[~mask].abs().sum()) \
+        == 0
 
 
 def _fold_inputs(seed, R, n, m, device):
@@ -528,26 +608,55 @@ def _fold_inputs(seed, R, n, m, device):
     return [torch.from_numpy(x).to(device) for x in (C, va, vb)]
 
 
-@pytest.mark.parametrize("R,n,m,sym", [
-    (3, 1, 1, True), (3, 31, 31, True), (3, 33, 33, True),
-    (5, 100, 100, True), (1, 257, 257, True), (3, 40, 40, False),
-    (1, 37, 1001, False), (3, 1001, 37, False), (2, 1, 5, False)])
-def test_jaccard_fold_kernel_bit_identical(cuda, R, n, m, sym):
-    """K5 against jaccard_fold_plain on the card and on the CPU, bit for
-    bit: symmetric (a non-symmetric stack too: the pair (i, j), (j, i)
-    fold), rectangular, R = 1, ragged tiles."""
+def _symmetric(C):
+    return torch.triu(C) + torch.triu(C, 1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("R,n,m,route", [
+    (3, 1, 1, "pair"), (3, 31, 31, "pair"), (3, 33, 33, "pair"),
+    (5, 100, 100, "pair"), (1, 257, 257, "pair"), (3, 40, 40, "rect"),
+    (1, 37, 1001, "rect"), (3, 1001, 37, "rect"), (2, 1, 5, "rect"),
+    (5, 66, 67, "rect"), (4, 129, 130, "rect"),
+    (1, 1, 1, "triangle"), (3, 31, 31, "triangle"), (3, 33, 33, "triangle"),
+    (1, 65, 65, "triangle"), (5, 100, 100, "triangle"),
+    (3, 4110, 4110, "triangle"), (2, 258, 258, "triangle"),
+    (4, 97, 97, "triangle")])
+def test_jaccard_fold_kernel_bit_identical(cuda, R, n, m, route):
+    """Each K5 route against jaccard_fold_plain on the card and on the
+    CPU, bit for bit, R = 1 to 5, n and m off the tile and off 16-byte
+    rows: pair (a non-symmetric stack too: the pair (i, j), (j, i)
+    fold), rect, and triangle on symmetric stacks with one vertex-count
+    vector, where it equals the unsymmetrized fold too and reads only
+    the tiles on and above the diagonal (the others poisoned with NaN)."""
     C, va, vb = _fold_inputs(R * n + m, R, n, m, cuda)
+    sym = route != "rect"
+    if route == "triangle":
+        C, vb = _symmetric(C), va
+    elif sym:
+        vb = va
     before = intersect.jaccard_fold_cuda.launches
-    K = intersect.jaccard_fold_cuda(C, va, vb if not sym else va, sym)
+    by_route = dict(intersect.jaccard_fold_cuda.route_launches)
+    Cin = C
+    if route == "triangle":
+        t = intersect.K5_TILE
+        i = torch.arange(n, device=cuda) // t
+        below = i[:, None] > i[None, :]
+        Cin = C.masked_fill(below, float("nan"))
+    K = intersect.jaccard_fold_cuda(Cin, va, vb, sym,
+                                    triangle=route == "triangle")
     torch.cuda.synchronize()
     assert intersect.jaccard_fold_cuda.launches == before + 1
-    vb2 = va if sym else vb
-    P = intersect.jaccard_fold_plain(C, va, vb2, sym)
-    Pc = intersect.jaccard_fold_plain(C.cpu(), va.cpu(), vb2.cpu(), sym)
+    assert intersect.jaccard_fold_cuda.route_launches[route] == \
+        by_route[route] + 1
+    P = intersect.jaccard_fold_plain(C, va, vb, sym)
+    Pc = intersect.jaccard_fold_plain(C.cpu(), va.cpu(), vb.cpu(), sym)
     assert torch.equal(K.view(torch.int32), P.view(torch.int32))
     assert torch.equal(K.cpu().view(torch.int32), Pc.view(torch.int32))
     if sym:
         assert torch.equal(K, K.T)
+    if route == "triangle":
+        U = intersect.jaccard_fold_plain(C, va, va, False)
+        assert torch.equal(K.view(torch.int32), U.view(torch.int32))
 
 
 @pytest.mark.parametrize("sym", [True, False])
@@ -564,10 +673,14 @@ def test_jaccard_gram_rounds_on_card(cuda, sym):
     counters = (intersect.min_gram_cuda, intersect.min_gram_tc_cuda,
                 intersect.jaccard_fold_cuda)
     before = [c.launches for c in counters]
+    routes = dict(intersect.jaccard_fold_cuda.route_launches)
     K = intersect.jaccard_gram_rounds(A, B, va=va, vb=vb)
     torch.cuda.synchronize()
     got = [c.launches - b for c, b in zip(counters, before)]
     assert got[0] + got[1] == 3 and got[2] == 1
+    route = "triangle" if sym else "rect"
+    assert intersect.jaccard_fold_cuda.route_launches[route] == \
+        routes[route] + 1
     Kc = intersect.jaccard_gram_rounds(A.cpu(), None if sym else B.cpu(),
                                        va=va.cpu(),
                                        vb=None if sym else vb.cpu())
@@ -599,23 +712,30 @@ def test_min_intersection_gram_rounds_on_card(cuda, integer, sym):
 
 
 def test_nh_path_launches_on_card(cuda):
-    """NeighborhoodHash fit_transform on the card: R K4 launches a parse,
-    one K5 launch a Gram, one K1 or K1-tc call a round."""
+    """NeighborhoodHash fit_transform on the card: one K4 launch a parse
+    (the graph route), one K5 launch a Gram (the triangle route for the
+    fit Gram, rect for the transform's), one K1 or K1-tc call a round."""
     train, test = generate_dataset(n_graphs=60, n_graphs_test=10,
                                    r_vertices=(5, 30), random_state=8,
                                    features=("nl", 6))
-    counters = (nh.nh_round_cuda, intersect.jaccard_fold_cuda,
-                intersect.min_gram_cuda, intersect.min_gram_tc_cuda)
+    counters = (nh.nh_graph_cuda, nh.nh_round_cuda,
+                intersect.jaccard_fold_cuda, intersect.min_gram_cuda,
+                intersect.min_gram_tc_cuda)
     for c in counters:
         c.launches = 0
+    folds = intersect.jaccard_fold_cuda.route_launches
+    for r in folds:
+        folds[r] = 0
     k = grakel_torch.NeighborhoodHash(random_state=0, R=4)
     k.fit_transform(train)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters[:2]] == [4, 1]
-    assert counters[2].launches + counters[3].launches == 4
+    assert [c.launches for c in counters[:3]] == [1, 0, 1]
+    assert counters[3].launches + counters[4].launches == 4
+    assert folds == {"rect": 0, "pair": 0, "triangle": 1}
     k.transform(test)
-    assert [c.launches for c in counters[:2]] == [8, 2]
-    assert counters[2].launches + counters[3].launches == 8
+    assert [c.launches for c in counters[:3]] == [2, 0, 2]
+    assert counters[3].launches + counters[4].launches == 8
+    assert folds == {"rect": 1, "pair": 0, "triangle": 1}
 
 
 def test_nh_and_jaccard_wrappers_check_inputs(cuda):
@@ -633,6 +753,23 @@ def test_nh_and_jaccard_wrappers_check_inputs(cuda):
         nh.nh_round_cuda(*args, 31, False)                # bits
     with pytest.raises(ValueError):
         nh.nh_round_cuda(*[x.cpu() for x in args], 8, False)
+    mask = torch.ones(b.n_graphs, dtype=torch.bool, device=cuda)
+    for kw in ({"graph_mask": mask[:-1]}, {"graph_mask": mask.int()},
+               {"nodes": (3, 2)}, {"nodes": (0, lab.shape[0] + 1)}):
+        with pytest.raises(ValueError):
+            nh.nh_round_cuda(*args, 8, False, **kw)
+    chunks, _, _ = nh.nh_plan(b.n_nodes, b.n_edges, 8)
+    H = torch.zeros((2, b.n_graphs, 256), dtype=torch.int32, device=cuda)
+    for bad in (chunks[:, :5], chunks + [[0, 1, 0, 0, 0, 0]],
+                chunks + [[0, 0, 0, lab.shape[0], 0, 0]],
+                chunks + [[0, 0, 0, 0, 0, b.csr_targets.shape[0] + 1]]):
+        with pytest.raises(ValueError):
+            nh.nh_graph_cuda(*args[:5], bad, H, 8, False)
+    for bad in (H[0], H[:, :, :128], H.long(), H.cpu()):
+        with pytest.raises(ValueError):
+            nh.nh_graph_cuda(*args[:5], chunks, bad, 8, False)
+    with pytest.raises(ValueError):
+        nh.nh_graph_cuda(*[x.cpu() for x in args[:5]], chunks, H, 8, False)
     C, va, vb = _fold_inputs(0, 2, 6, 5, cuda)
     for bad in ((C.double(), va, vb), (C, va[:-1], vb), (C, va, vb.cpu()),
                 (C[:, :, :4], va, vb), (C[:0], va, vb),
@@ -641,5 +778,9 @@ def test_nh_and_jaccard_wrappers_check_inputs(cuda):
             intersect.jaccard_fold_cuda(*bad, False)
     with pytest.raises(ValueError):
         intersect.jaccard_fold_cuda(C, va, vb, True)      # 6 x 5
+    S = C[:, :5, :5].contiguous()
+    for vs, sym in (((vb, vb.clone()), True), ((vb, vb), False)):
+        with pytest.raises(ValueError, match="triangle"):
+            intersect.jaccard_fold_cuda(S, *vs, sym, triangle=True)
     with pytest.raises(ValueError):
         intersect.jaccard_fold_cuda(C.cpu(), va.cpu(), vb.cpu(), False)

@@ -333,16 +333,213 @@ def test_neighborhood_hash_state_carry(nh_type):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """K4's and K5's wrappers take CUDA tensors only: on CPU tensors they
-    raise before building anything (their callers take the plain
-    versions there)."""
+    """K4's (both routes) and K5's (every route) wrappers take CUDA
+    tensors only: on CPU tensors they raise before building anything
+    (their callers take the plain versions there)."""
     b, lab, valid = _round_inputs(0, 8)
     hist = torch.zeros((b.n_graphs, 256), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         nh.nh_round_cuda(torch.from_numpy(lab.astype(np.int32)),
                          torch.from_numpy(valid), b.node_graph_ids,
                          b.csr_offsets, b.csr_targets, hist, 8, False)
-    C = torch.zeros((2, 3, 3))
+    chunks, _, _ = nh.nh_plan(b.n_nodes, b.n_edges, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        intersect.jaccard_fold_cuda(C, torch.ones(3), torch.ones(3), True)
+        nh.nh_graph_cuda(torch.from_numpy(lab.astype(np.int32)),
+                         torch.from_numpy(valid), b.node_graph_ids,
+                         b.csr_offsets, b.csr_targets, chunks,
+                         hist[None], 8, False)
+    C = torch.zeros((2, 3, 3))
+    for tri in (False, True):
+        v = torch.ones(3)
+        with pytest.raises(ValueError, match="CUDA"):
+            intersect.jaccard_fold_cuda(C, v, v, True, triangle=tri)
     assert torch.equal(intersect.jaccard_gram_rounds(C), torch.zeros(3, 3))
+
+
+# --------------------------------------------------------------------- #
+# K5's triangle route and K4's routes: what the CPU can hold them to
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("seed,R,n,L", [
+    (11, 1, 1, 8), (12, 3, 31, 64), (13, 3, 70, 256), (14, 5, 45, 16),
+    (15, 2, 33, 128)])
+def test_jaccard_fold_symmetric_counts_need_no_mirror(seed, R, n, L):
+    """The identity K5's triangle route relies on: on the counts of one
+    symmetric min-intersection call with one vertex-count vector, the
+    symmetrized fold equals the plain one bit for bit (acc_ij == acc_ji,
+    (x + x) * 0.5 == x), and both equal the JAX function's Gram."""
+    A, _, va, _ = _hists(seed, R, n, n, L, min(2, n - 1))
+    At = torch.from_numpy(A)
+    C = intersect.min_intersection_gram_rounds(At)
+    assert torch.equal(C, C.transpose(1, 2))
+    v = torch.from_numpy(va.astype(np.float32))
+    sym = intersect.jaccard_fold_plain(C, v, v, True)
+    tri = intersect.jaccard_fold_plain(C, v, v, False)
+    assert torch.equal(sym.view(torch.int32), tri.view(torch.int32))
+    ref = _jax_jaccard(A, None, va, None, True)
+    assert np.array_equal(tri.numpy().view(np.int32), ref.view(np.int32))
+    assert np.array_equal(
+        intersect.jaccard_gram_rounds(At, va=va).numpy(), ref)
+
+
+def _pa_graph(rng, n, m):
+    """A preferential-attachment graph of n vertices, each new vertex
+    linked to m earlier ones drawn by degree; both edge directions."""
+    ends, s, r = [0], [], []
+    for v in range(1, n):
+        for u in set(ends[i] for i in rng.randint(0, len(ends), m)):
+            s += [v, u]
+            r += [u, v]
+            ends += [u, v]
+    return n, np.array(s, np.int64), np.array(r, np.int64)
+
+
+def _hub_batch(seed, bits):
+    """A star whose centre has degree 200 and a few preferential-attachment
+    graphs, labeled by vertex degree through a random bits-wide hash, a
+    few nodes poisoned (labels unseen at fit): a CPU GraphBatch, the
+    labels, their validity."""
+    rng = np.random.RandomState(seed)
+    graphs = [(201, np.r_[np.zeros(200, np.int64), np.arange(1, 201)],
+               np.r_[np.arange(1, 201), np.zeros(200, np.int64)])]
+    graphs += [_pa_graph(rng, int(rng.randint(20, 120)), 2)
+               for _ in range(4)]
+    b = GraphBatch.from_graphs(
+        [Graph.from_arrays(n, s, r) for n, s, r in graphs],
+        node_label_enum={}, device="cpu")
+    deg = np.diff(b.csr_offsets.numpy()).astype(np.int64)
+    lut = rng.randint(0, 1 << bits, deg.max() + 1)
+    valid = b.node_mask.numpy() & (rng.rand(deg.shape[0]) > 0.02)
+    lab = np.where(valid, lut[deg], 0)
+    return b, lab, valid
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("nh_type", ["simple", "count_sensitive"])
+def test_nh_rounds_plain_equals_jax_on_hubs(nh_type, bits):
+    """A 200-degree star centre and degree-labeled preferential-attachment
+    graphs with poisoned nodes: the plain rounds equal the JAX program's
+    histograms exactly (the hub case K4 folds with a warp)."""
+    b, lab, valid = _hub_batch(bits, bits)
+    cs, R = nh_type == "count_sensitive", 3
+    ref = np.asarray(jax_nh_rounds(
+        jnp.asarray(lab.astype(np.uint32)), jnp.asarray(valid),
+        jnp.asarray(b.node_mask.numpy()),
+        jnp.asarray(b.node_graph_ids.numpy()),
+        jnp.asarray(b.senders.numpy()), jnp.asarray(b.receivers.numpy()),
+        jnp.asarray(b.edge_mask.numpy()), b.n_graphs, R, bits, cs))
+    got = nh.nh_rounds_plain(torch.from_numpy(lab.astype(np.int32)),
+                             torch.from_numpy(valid), b.node_graph_ids,
+                             b.csr_offsets, b.csr_targets, b.n_graphs, R,
+                             bits, cs)
+    assert np.array_equal(got.numpy(), ref)
+    assert got[:, 0].sum() > 0 and (~valid & b.node_mask.numpy()).any()
+
+
+def _check_plan(n_nodes, n_edges, bits, chunk_nodes, budget):
+    chunks, rnd, smem = nh.nh_plan(n_nodes, n_edges, bits, chunk_nodes,
+                                   budget)
+    n = len(n_nodes)
+    node_at = np.r_[0, np.cumsum(n_nodes)]
+    edge_at = np.r_[0, np.cumsum(n_edges)]
+    cover = np.zeros(n, np.int64)
+    for g0, g1, v0, v1, e0, e1 in chunks.tolist():
+        cover[g0:g1] += 1
+        assert (v0, v1, e0, e1) == (node_at[g0], node_at[g1], edge_at[g0],
+                                    edge_at[g1])
+        cost = int(nh.k4_smem_bytes(v1 - v0, e1 - e0, g1 - g0, bits))
+        assert cost <= budget and cost <= smem
+        assert v1 - v0 <= chunk_nodes or g1 - g0 == 1
+        assert all(nh.nh_route(n_nodes[g], n_edges[g], bits, budget)
+                   == "graph" for g in range(g0, g1))
+    cover[rnd] += 1
+    assert (cover == 1).all()
+    assert all(nh.nh_route(n_nodes[g], n_edges[g], bits, budget) == "round"
+               for g in rnd)
+    if len(chunks):
+        assert smem == max(int(nh.k4_smem_bytes(
+            c[3] - c[2], c[5] - c[4], c[1] - c[0], bits)) for c in chunks)
+    return chunks, rnd
+
+
+@pytest.mark.parametrize("case", ["nci1", "mixed", "bits12", "bits14",
+                                  "empty_graphs", "tight"])
+def test_nh_plan_covers_each_graph_once_within_budget(case):
+    """K4's planner: every graph lies in exactly one graph-route chunk or
+    on the round route; a chunk holds a run of consecutive graphs with
+    its node and edge ranges, within the node target (or a single graph)
+    and the shared-memory budget; a graph over the budget, or any graph
+    at large bits, takes the round route."""
+    rng = np.random.RandomState(len(case))
+    bits, chunk_nodes, budget = 8, nh.K4_CHUNK_NODES, nh.K4_SMEM_BUDGET
+    n_nodes = rng.randint(10, 51, 300)
+    if case == "mixed":
+        n_nodes[[0, 17, 18, 299]] = [6000, 5500, 6400, 7000]
+    if case == "empty_graphs":
+        n_nodes[rng.rand(300) < 0.3] = 0
+    if case == "tight":
+        chunk_nodes, budget = 40, 12 * 1024
+    if case.startswith("bits"):
+        bits = int(case[4:])
+    n_edges = (n_nodes * rng.uniform(1, 9, 300)).astype(np.int64)
+    chunks, rnd = _check_plan(n_nodes, n_edges, bits, chunk_nodes, budget)
+    if case == "mixed":
+        assert rnd.tolist() == [0, 17, 18, 299]
+    elif case == "bits14":
+        assert len(chunks) == 0 and len(rnd) == 300
+    else:
+        assert len(rnd) == 0 and len(chunks) > 1
+    if case == "bits12":
+        assert (chunks[:, 1] - chunks[:, 0]).max() <= 2
+
+
+def test_nh_route_by_shape():
+    assert nh.nh_route(50, 200, 8) == "graph"
+    assert nh.nh_route(3782, 8763, 8) == "graph"      # REDDIT-B's largest
+    assert nh.nh_route(5500, 40000, 8) == "round"
+    assert nh.nh_route(50, 200, 14) == "round"        # 2 x 2^14 counters
+    assert nh.nh_route(1 << 16, 0, 1, budget=1 << 30) == "round"
+    assert nh.k4_smem_bytes(10, 30, 2, 8) == 16 * -(-(4096 + 144 + 64) // 16)
+    empty = nh.nh_plan(np.zeros(0, np.int64), np.zeros(0, np.int64), 8)
+    assert empty[0].shape == (0, 6) and empty[1].size == 0 and empty[2] == 0
+
+
+def test_nh_plan_chunks_are_self_contained():
+    """The plain rounds of each chunk alone (its node and edge ranges,
+    rebased) give the chunk's rows of the whole batch's histograms: the
+    ranges the graph route stages hold every edge of their graphs."""
+    train, _ = generate_dataset(n_graphs=70, n_graphs_test=2,
+                                r_vertices=(1, 40), random_state=21,
+                                features=("nl", 5))
+    graphs = grakel_torch.kernels.base.normalize_input(train)
+    b = GraphBatch.from_graphs(graphs, node_label_enum={}, device="cpu")
+    rng = np.random.RandomState(2)
+    N = b.node_mask.shape[0]
+    lab = torch.from_numpy(rng.randint(0, 7, N).astype(np.int32))
+    valid = b.node_mask & torch.from_numpy(rng.rand(N) < 0.9)
+    chunks, rnd, _ = nh.nh_plan(b.n_nodes, b.n_edges, 6, chunk_nodes=64)
+    assert len(rnd) == 0 and len(chunks) > 3
+    for cs in (False, True):
+        full = nh.nh_rounds_plain(lab, valid, b.node_graph_ids,
+                                  b.csr_offsets, b.csr_targets, b.n_graphs,
+                                  3, 6, cs)
+        for g0, g1, v0, v1, e0, e1 in chunks.tolist():
+            part = nh.nh_rounds_plain(
+                lab[v0:v1], valid[v0:v1], b.node_graph_ids[v0:v1] - g0,
+                b.csr_offsets[v0:v1 + 1] - e0, b.csr_targets[e0:e1] - v0,
+                g1 - g0, 3, 6, cs)
+            assert torch.equal(part, full[:, g0:g1])
+
+
+def test_graph_batch_refuses_edges_between_graphs():
+    """K4's graph route holds whole graphs in a block: GraphBatch refuses
+    an edge that leaves its graph, even when it stays in the batch."""
+    Gr = Graph.from_arrays
+    for bad in ([Gr(3, [0, 1], [1, 3]), Gr(2, [0], [1])],
+                [Gr(2, [], []), Gr(3, [0, 2], [-1, 0])],
+                [Gr(2, [2], [0]), Gr(2, [0], [1])]):
+        with pytest.raises(ValueError, match="its graph"):
+            GraphBatch.from_graphs(bad, device="cpu")
+    ok = GraphBatch.from_graphs([Gr(3, [0, 1], [1, 2]), Gr(2, [1], [0])],
+                                device="cpu")
+    assert ok.csr_targets.tolist() == [1, 2, 3]
