@@ -33,6 +33,19 @@ main paths through the public entry points, at full data size:
   4110 NCI1-scale graphs and ``transform`` of the 64 held-out ones; and
   ``WeisfeilerLehmanOptimalAssignment(n_iter=5)`` on the same graphs
   (``wloa_nci1scale``).  Every Gram must equal the same calls under
+  ``use_device("cpu")`` bit for bit;
+* HadamardCode and Propagation, the slice of K6: ``HadamardCode(n_iter=5)``
+  (VertexHistogram base, the fast path) ``fit_transform`` on the 4110
+  NCI1-scale graphs and ``transform`` of the 64 held-out ones, whose
+  planted unseen label takes a Hadamard row no fit vertex has (37 labels
+  stay within D = 64; ``hc_nci1scale``: K6 once a generation, 5 a call);
+  HadamardCode with a ShortestPath base on MUTAG read with ``read_data``
+  (``hc_sp_mutag``, the host path: K3, no K6); ``Propagation(random_state
+  =0)`` (TV, t_max = 5, w = 0.01) on the NCI1-scale set, whose transform
+  runs the unseen-label branch (``prop_nci1scale``); and
+  ``PropagationAttr(random_state=0)`` on Cuneiform read with
+  ``read_data`` (real attributes; ``propattr_cuneiform``).  Every Gram,
+  transform and diagonal must equal the same calls under
   ``use_device("cpu")`` bit for bit.
 
 Every kernel's launch count is set to 0 just before a path and read just
@@ -41,7 +54,9 @@ CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
 concatenated into one call) and no K1-tc, labeled PM the kernels its
 levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
 the levels that take K1, one K1-tc call for each other level), and
-every ShortestPath path K3 (``floyd_warshall``), each NH path K4 once a
+every ShortestPath path K3 (``floyd_warshall``), ``hc_nci1scale`` K6
+(``hadamard_step``) 5 times in fit_transform and 5 in transform and the
+other HadamardCode / Propagation paths none, each NH path K4 once a
 parse on its graph route (``nh_graph``; no launch of its round route
 ``nh_round``), K5 (``jaccard_fold``) once a Gram (the fit Gram on its
 triangle route, the transform's on its rect route) and one K1-tc or K1
@@ -126,6 +141,19 @@ time of a call:
   counts and the n m ratios written, over 3.35 TB/s; the earlier count
   (the full square) beside it.  No single PyTorch call computes K4 or K5: no
   library time;
+* K6 through ``ops.hadamard.hadamard_step_cuda``, codes and keys
+  bit-identical to ``ops.hadamard.hadamard_step_plain``: the five
+  generations of the ``hc_nci1scale`` fit (its own initial codes, D = 64;
+  generation 0 hashes only), random codes of width D = 1, 2, 8, 32, 64,
+  128 and 1024 on the same batch (with and without the neighbour sum),
+  the REDDIT-B-scale stand-in (out-degrees to 226) at D = 1 and 64, and
+  codes over the whole int32 range whose sums wrap.  Its 10 kernels must
+  build without spills.  Bound: the bytes the generation must move (each
+  valid node's row, tag and key, and when propagating its offset, each
+  edge's target and the new row) over 3.35 TB/s, against ~24 integer
+  operations an element over 67 TOP/s; no PyTorch call computes the
+  hash (no library time), the int32 ``index_add_`` of the neighbours'
+  rows (the neighbour sum alone) is timed beside;
 * ``min_intersection_gram_rounds`` (the Pallas kernel's second reach, R
   K1 calls) on the simple path's fit stack (symmetric, exact) and on a
   ragged real-valued rectangular stack (rtol=1e-5, atol=1e-4) against R
@@ -134,8 +162,8 @@ time of a call:
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
-line, the ``nvidia-smi`` name and power limit, and last ``{"ok": true,
-"device": {...}}``.  Exits non-zero, with no result line, without a CUDA
+line, the seconds the whole run took, the ``nvidia-smi`` name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, without a CUDA
 card, outside the repository, or when any check fails.
 """
 
@@ -143,6 +171,7 @@ from __future__ import annotations
 
 import json
 import os
+from collections import Counter
 import re
 import subprocess
 import sys
@@ -407,7 +436,8 @@ def main():
               "script (%s); run it from the repository" % e,
               file=sys.stderr)
         return 2
-    from grakel_torch import (Graph, GraphKernel, PyramidMatch,
+    from grakel_torch import (Graph, GraphKernel, HadamardCode, Propagation,
+                              PropagationAttr, PyramidMatch, ShortestPath,
                               WeisfeilerLehman,
                               WeisfeilerLehmanOptimalAssignment, use_device,
                               _build)
@@ -416,8 +446,10 @@ def main():
     from grakel_torch.kernels import shortest_path as sp_mod
     from grakel_torch.kernels.base import normalize_input
     from grakel_torch.ops import floyd_warshall as fw_ops
+    from grakel_torch.ops import hadamard as hc_ops
     from grakel_torch.ops import intersect, nh as nh_ops, wl as wl_ops
 
+    t_start = time.perf_counter()
     check = Checks()
     torch.cuda.set_device(0)
     kind = torch.cuda.get_device_name(0)
@@ -458,13 +490,21 @@ def main():
         for v in k45_ptxas.values()),
         "K4's 4 and K5's 9 kernels built without spills: %s" % k45_ptxas)
 
+    k6_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                if "hadamard" in k}
+    check(len(k6_ptxas) == 10 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k6_ptxas.values()),
+        "K6's 10 kernels built without spills: %s" % k6_ptxas)
+
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
                 "floyd_warshall": fw_ops.floyd_warshall_cuda,
                 "nh_graph": nh_ops.nh_graph_cuda,
                 "nh_round": nh_ops.nh_round_cuda,
-                "jaccard_fold": intersect.jaccard_fold_cuda}
+                "jaccard_fold": intersect.jaccard_fold_cuda,
+                "hadamard_step": hc_ops.hadamard_step_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
@@ -867,6 +907,86 @@ def main():
         repeated_columns=int((np.bincount(wx["eids"]) > 1).sum()),
         gram_dtype=str(K.dtype))
     paths["wloa_nci1scale"].update(warm_runs(wloa_run, 1))
+
+    # ---------------- HadamardCode and Propagation: K6 ------------------ #
+    k6_count = hc_ops.hadamard_step_cuda
+
+    def class_run(make, fit, tr, dev=None):
+        """``make()``'s kernel: fit_transform on ``fit``, diagonal(),
+        transform of ``tr``, both diagonals, on ``dev`` (None: the card);
+        with K6's launches in fit_transform and in transform."""
+        k = make()
+        with use_device(dev):
+            n0 = k6_count.launches
+            t = time.perf_counter()
+            K = k.fit_transform(fit)
+            t_fit = time.perf_counter() - t
+            n1 = k6_count.launches
+            d = k.diagonal()
+            t = time.perf_counter()
+            Kt = k.transform(tr)
+            t_tr = time.perf_counter() - t
+            n2 = k6_count.launches
+            xd, yd = k.diagonal()
+        return {"out": (K, d, Kt, xd, yd), "fit_transform_s": t_fit,
+                "transform_s": t_tr, "k": k, "k6": (n1 - n0, n2 - n1)}
+
+    def class_path(key, make, fit, tr, k6, warm, **info):
+        """Drive ``make()``'s kernel on the card (a path: counts read
+        around it) and on the CPU: finite Grams of the right shapes,
+        diag(K) == diagonal(), K6 launched ``k6`` times in fit_transform
+        and ``k6`` in transform, every output equal to the CPU run's bit
+        for bit; then ``warm`` warm runs."""
+        r, secs, launches = run_path(key, lambda: class_run(make, fit, tr))
+        K, d, Kt = r["out"][:3]
+        check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
+              and Kt.shape == (len(tr), len(fit)) and np.isfinite(Kt).all()
+              and np.array_equal(np.diagonal(K), d),
+              "%s Grams finite, shapes %s %s, diag(K) == diagonal()"
+              % (key, K.shape, Kt.shape))
+        check(r["k6"] == (k6, k6), "%s launched K6 %s times in "
+              "fit_transform and transform (%d each wanted)"
+              % (key, r["k6"], k6))
+        t = time.perf_counter()
+        c = class_run(make, fit, tr, "cpu")
+        cpu_s = time.perf_counter() - t
+        check(all(np.array_equal(a, b) for a, b in zip(r["out"], c["out"])),
+              "%s Grams and diagonals == use_device('cpu') ones bit for bit"
+              % key)
+        timer = getattr(r["k"], "timer_", None)
+        paths[key] = dict(
+            info, graphs=len(fit), held_out=len(tr), wall_s=secs,
+            fit_transform_s_first=r["fit_transform_s"],
+            transform_s=r["transform_s"], launches=launches,
+            k6_launches_per_call=r["k6"], gram_dtype=str(K.dtype),
+            stages_s=None if timer is None else dict(timer.times),
+            cpu_s=cpu_s)
+        paths[key].update(warm_runs(lambda: class_run(make, fit, tr), warm))
+        return r["k"]
+
+    hck = class_path("hc_nci1scale", lambda: HadamardCode(n_iter=5), train,
+                     held, 5, 3, n_iter=5, base="VertexHistogram (fast "
+                     "path)", dimension=HadamardCode._hdim(N_LABELS))
+    class_path("hc_sp_mutag", lambda: HadamardCode(
+        n_iter=5, base_graph_kernel=(ShortestPath, {})), mutag[:150],
+        mutag[150:], 0, 1, n_iter=5, base="ShortestPath (host path)",
+        data="MUTAG via read_data, fit 150, transform 38")
+    check(paths["hc_sp_mutag"]["launches"]["floyd_warshall"] > 0,
+          "hc_sp_mutag launched K3 (%d)"
+          % paths["hc_sp_mutag"]["launches"]["floyd_warshall"])
+    pk = class_path("prop_nci1scale", lambda: Propagation(random_state=0),
+                    train, held, 0, 3, M="TV", t_max=5, w=0.01)
+    unseen = sum(isinstance(b, Counter) for phi in pk._Y for b in
+                 phi.values())
+    check(unseen > 0, "prop_nci1scale's transform ran the unseen-label "
+          "branch (%d bags of it)" % unseen)
+    paths["prop_nci1scale"]["unseen_branch_bags"] = unseen
+    cun = read_data("Cuneiform", path=os.path.join(HERE, "tests", "data"),
+                    prefer_attr_nodes=True).data
+    class_path("propattr_cuneiform", lambda: PropagationAttr(random_state=0),
+               cun[:200], cun[200:], 0, 3, M="L1", t_max=5, w=4,
+               data="Cuneiform via read_data (real attributes), fit 200, "
+                    "transform %d" % (len(cun) - 200))
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -1450,6 +1570,133 @@ def main():
           for route in (("triangle", "rect", "pair")
                         if key == "nh_nci1scale" else ("triangle", "rect"))]
 
+    # ---------------- K6 against its plain version ---------------------- #
+    def k6_case(batch, codes, tags, what, propagate, timed=True):
+        """K6 for one generation over ``batch``'s CSR: the new codes and
+        the keys bit-identical to hadamard_step_plain on the card, one
+        launch; timed beside its bound, the plain version and the int32
+        ``index_add_`` of the neighbours' rows (the neighbour sum alone).
+        Returns (row, the new codes)."""
+        off, tgt = batch.csr_offsets, batch.csr_targets
+        before = k6_count.launches
+        got, key = hc_ops.hadamard_step_cuda(codes, off, tgt, tags,
+                                             propagate)
+        torch.cuda.synchronize()
+        launched = k6_count.launches - before
+        want, wkey = hc_ops.hadamard_step_plain(codes, off, tgt, tags,
+                                                propagate)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum()) + int((key != wkey).sum())
+        N, D = codes.shape
+        nodes, E = batch.total_nodes, tgt.shape[0]
+        deg = torch.diff(off.long())
+        send = torch.repeat_interleave(torch.arange(N, device="cuda"), deg)
+        tgt_l = tgt.long()
+        wrapped = None
+        if propagate:
+            wide = codes.long()
+            wide = wide.index_add(0, send, wide[tgt_l])
+            wrapped = int((wide.abs() >= 2 ** 31).any(1).sum())
+            del wide
+        check(differ == 0 and launched == 1,
+              "K6 %s, D = %d, %s: codes and keys bit-identical to plain (%d "
+              "differ; max out-degree %d; %s rows wrapped), one launch (%d)"
+              % (what, D, "propagating" if propagate else "hash only",
+                 differ, int(deg.max()), wrapped, launched))
+        row = {"what": what, "D": D, "propagate": propagate, "nodes": nodes,
+               "rows": N, "edges": E, "max_degree": int(deg.max()),
+               "wrapped_rows": wrapped, "launches": launched,
+               "differing": differ}
+        if not timed:
+            return row, got
+        out = torch.empty_like(codes)
+
+        def call():
+            return hc_ops.hadamard_step_cuda(codes, off, tgt, tags,
+                                             propagate, out=out)
+
+        def neighbour_sum():
+            return codes.index_add(0, send, codes[tgt_l])
+
+        # the function's own bytes: each valid node's row, tag and key, and
+        # when propagating its offset, each edge's target and the new row;
+        # operations: ~24 integer operations an element (two positions,
+        # two fmix32, two sums), one more an edge and column
+        nbytes = 4.0 * nodes * D + 12.0 * nodes + (
+            4.0 * (nodes + 1) + 4.0 * E + 4.0 * nodes * D
+            if propagate else 0.0)
+        ops = 24.0 * nodes * D + (1.0 * E * D if propagate else 0.0)
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        # the profiler has dropped every record of a 20-call session of a
+        # 5-microsecond kernel (D = 2): one more, longer session then
+        dev = device_ms(call, 20, "hadamard_")
+        if dev is None:
+            dev = device_ms(call, 100, "hadamard_")
+        check(dev is not None, "K6 %s, D = %d: device time from the "
+              "profiler's records (%s ms)" % (what, D, dev))
+        row.update(bytes=nbytes, ops=ops, ms=cuda_ms(call, 100, 5),
+                   device_ms=dev, wrapper_ms=host_ms(call, 50),
+                   plain_ms=cuda_ms(lambda: hc_ops.hadamard_step_plain(
+                       codes, off, tgt, tags, propagate), 3),
+                   index_add_ms=cuda_ms(neighbour_sum, 20)
+                   if propagate else None,
+                   bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        return row, got
+
+    def k6_inputs(graphs, D, kind, seed):
+        """``graphs`` in a batch on the card, int32 codes [N_pad, D] and
+        random u32 tags: codes in [-3, 3] ("small") or over the whole
+        int32 range ("wrap": the neighbour sums pass 2^31 and wrap)."""
+        batch = GraphBatch.from_graphs(graphs, node_label_enum={},
+                                       device="cuda")
+        N = batch.node_labels.shape[0]
+        r = np.random.RandomState(seed)
+        c = (r.randint(-2 ** 31, 2 ** 31, (N, D), dtype=np.int64)
+             if kind == "wrap" else r.randint(-3, 4, (N, D)))
+        tags = r.randint(0, 2 ** 31, N).astype(np.int32)
+        return (batch, torch.from_numpy(c.astype(np.int32)).cuda(),
+                torch.from_numpy(tags).cuda())
+
+    # the NCI1-scale fit batch with the path's own initial codes and tags:
+    # the five generations one fit_transform runs
+    fit_graphs = normalize_input(train)
+    hb = GraphBatch.from_graphs(fit_graphs, node_label_enum={},
+                                device="cuda")
+    hD = hck._hdim(len(hck._enum))
+    c0 = np.zeros((hb.node_labels.shape[0], hD), np.int32)
+    c0[:hb.total_nodes] = hck._initial_codes(fit_graphs, hck._enum, hD)
+    cur = torch.from_numpy(c0).cuda()
+    htags = torch.full((c0.shape[0],), hD, dtype=torch.int32, device="cuda")
+    k6 = []
+    for gen in range(5):
+        row, nxt = k6_case(hb, cur, htags, "NCI1-scale fit batch, "
+                           "generation %d" % gen, gen > 0)
+        k6.append(row)
+        cur = nxt
+    k6_widths = []
+    for D in (1, 2, 8, 32, 64, 128, 1024):
+        b, c, tg = k6_inputs(fit_graphs, D, "small", SEED + D)
+        k6_case(b, c, tg, "NCI1-scale fit batch, random codes", False,
+                timed=False)
+        k6_widths.append(k6_case(b, c, tg, "NCI1-scale fit batch, random "
+                                 "codes", True)[0])
+    del b, c, tg
+    k6_hub = []
+    for D in (1, 64):
+        b, c, tg = k6_inputs(hub_graphs, D, "small", SEED)
+        k6_hub.append(k6_case(b, c, tg, "REDDIT-B-scale stand-in (hubs)",
+                              True)[0])
+    del b, c, tg
+    b, c, tg = k6_inputs(fit_graphs, 64, "wrap", SEED)
+    k6_wrap = k6_case(b, c, tg, "NCI1-scale fit batch, codes over the "
+                      "int32 range", True)[0]
+    check(k6_wrap["wrapped_rows"] > 0, "K6's wrap batch: %d rows' sums "
+          "passed the int32 range" % k6_wrap["wrapped_rows"])
+    check(k6_hub[0]["max_degree"] > 200, "K6's hub batch: max out-degree "
+          "%d" % k6_hub[0]["max_degree"])
+    del b, c, tg, cur, nxt
+
     # ------- K1 through min_intersection_gram_rounds (reach 2) ---------- #
     def rounds_case(A, B, integer, what):
         R, n, L = A.shape
@@ -1628,8 +1875,31 @@ def main():
                         "4110 x 4110, R = 3, on the triangle route",
          "ptxas": {k: v for k, v in k45_ptxas.items() if "jaccard" in k},
          "shapes": k5},
+        {"name": "hadamard_step", "route": "cuda",
+         "source": "grakel_torch/csrc/hadamard.cu",
+         "replaces": "grakel_tpu/kernels/hadamard_code.py:50,199",
+         "launches": launches["hadamard_step"],
+         "max_abs_err": max(c["differing"] for c in
+                            k6 + k6_widths + k6_hub + [k6_wrap]),
+         "ms": total(k6, "ms"), "device_ms": total(k6, "device_ms"),
+         "wrapper_ms": total(k6, "wrapper_ms"),
+         "plain_ms": total(k6, "plain_ms"),
+         "bound_ms": total(k6, "bound_ms"),
+         "bound_by": row_bound_by(k6, FP32_OPS_PER_S, "bytes"),
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the row hash",
+         "index_add_ms": total(k6[1:], "index_add_ms"),
+         "index_add": "the neighbour sum alone, int32 index_add_ of the "
+                      "gathered rows, over the four propagating generations",
+         "summed_over": "the five generations of one HadamardCode(n_iter=5) "
+                        "fit_transform on the NCI1-scale fit batch, D = %d "
+                        "(generation 0 hashes only)" % hD,
+         "ptxas": k6_ptxas, "shapes": k6, "widths": k6_widths,
+         "hub_batch": k6_hub, "wrap_batch": k6_wrap},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print("chip_smoke: %.1f s in all, the build included"
+          % (time.perf_counter() - t_start), flush=True)
     print("nvidia-smi: %s" % smi, flush=True)
     if check.failed:
         print("chip_smoke: %d check(s) failed: %s"

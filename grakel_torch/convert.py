@@ -32,7 +32,18 @@ State layout, by kernel name:
   computed again with that hash);
 * ``"WeisfeilerLehmanOptimalAssignment"``: ``{"graphs": [...]}`` — the
   fit graphs (the hierarchy and the credential dicts are rebuilt
-  deterministically from them: WL-OA refits).
+  deterministically from them: WL-OA refits);
+* ``"HadamardCode"``: ``{"enum": {label: id}, "graphs": [...]}`` — the
+  label enumeration and the fit graphs (a base kernel other than
+  VertexHistogram is fitted again on their generations);
+* ``"Propagation"`` / ``"PropagationAttr"``: ``{"u": [...], "b": [...],
+  "hd": [{code: id}, ...], "enum_labels": {label: column},
+  "parent_labels": set, "dim": int (PropagationAttr), "X": [{t: (vals,
+  cnts)}, ...]}`` and optionally ``"random_state"`` (a
+  ``RandomState.get_state()`` tuple) — the projections, offsets and
+  bucket dicts drawn at fit, the label columns, the fit bags, and the
+  generator's state after fit (a transform with labels unseen at fit
+  draws from it).
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
-from .kernels import (EdgeHistogram, NeighborhoodHash, PyramidMatch,
+from .kernels import (EdgeHistogram, HadamardCode, NeighborhoodHash,
+                      Propagation, PropagationAttr, PyramidMatch,
                       ShortestPath, VertexHistogram, WeisfeilerLehman,
                       WeisfeilerLehmanOptimalAssignment)
 
@@ -53,7 +65,10 @@ _CLASSES = {"VertexHistogram": VertexHistogram,
             "ShortestPath": ShortestPath,
             "NeighborhoodHash": NeighborhoodHash,
             "WeisfeilerLehmanOptimalAssignment":
-                WeisfeilerLehmanOptimalAssignment}
+                WeisfeilerLehmanOptimalAssignment,
+            "HadamardCode": HadamardCode,
+            "Propagation": Propagation,
+            "PropagationAttr": PropagationAttr}
 
 
 def _graphs(items):
@@ -88,6 +103,28 @@ def kernel_from_state(name, params, state):
         # parse in transform mode: the carried hash is kept, not redrawn
         k._method_calling = 3
         k.X = k.parse_input(_graphs(state["graphs"]))
+    elif name == "HadamardCode":
+        k.X = _graphs(state["graphs"])
+        k._enum = dict(state["enum"])
+        if not k._fast:
+            k._host_fit(with_gram=False)
+    elif name in ("Propagation", "PropagationAttr"):
+        k._u = [np.asarray(u, np.float64) for u in state["u"]]
+        k._b = [np.asarray(b, np.float64) if np.ndim(b) else float(b)
+                for b in state["b"]]
+        k._hd = [dict(h) for h in state["hd"]]
+        if name == "PropagationAttr":
+            k._dim = int(state["dim"])
+        else:
+            k._enum_labels = dict(state["enum_labels"])
+            k._parent_labels = set(state["parent_labels"])
+        k.X = [{t: (np.asarray(v, np.int64), np.asarray(c, np.int64))
+                for t, (v, c) in phi.items()} for phi in state["X"]]
+        if state.get("random_state") is not None:
+            # a generator of its own: never the global one that
+            # random_state=None resolves to
+            k.random_state_ = np.random.RandomState()
+            k.random_state_.set_state(state["random_state"])
     elif name == "ShortestPath":
         k._enum = dict(state["enum"])
         # parse in transform mode: the carried enumeration is kept and,

@@ -8,6 +8,8 @@ from .weisfeiler_lehman import WeisfeilerLehman
 from .core_framework import CoreFramework
 from .neighborhood_hash import NeighborhoodHash
 from .wl_optimal_assignment import WeisfeilerLehmanOptimalAssignment
+from .hadamard_code import HadamardCode
+from .propagation import Propagation, PropagationAttr
 
 __all__ = [
     "Kernel",
@@ -20,4 +22,7 @@ __all__ = [
     "CoreFramework",
     "NeighborhoodHash",
     "WeisfeilerLehmanOptimalAssignment",
+    "HadamardCode",
+    "Propagation",
+    "PropagationAttr",
 ]

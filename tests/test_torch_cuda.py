@@ -15,7 +15,9 @@ from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset
 from grakel_torch.kernels.base import normalize_input
 from grakel_torch.ops import floyd_warshall as fw
-from grakel_torch.ops import intersect, nh, wl
+from grakel_torch.batch import GraphBatch
+from grakel_torch.graph import Graph
+from grakel_torch.ops import hadamard, intersect, nh, wl
 
 pytestmark = pytest.mark.cuda
 
@@ -784,3 +786,143 @@ def test_nh_and_jaccard_wrappers_check_inputs(cuda):
             intersect.jaccard_fold_cuda(S, *vs, sym, triangle=True)
     with pytest.raises(ValueError):
         intersect.jaccard_fold_cuda(C.cpu(), va.cpu(), vb.cpu(), False)
+
+
+# --------------------------------------------------------------------- #
+# K6: HadamardCode's generation step
+# --------------------------------------------------------------------- #
+
+def _hc_batch(seed, hub, device):
+    """Random graphs of 1-40 vertices, an edgeless one, self-loops, and
+    with ``hub`` one graph whose vertex 0 links both ways to 250 others
+    (out-degree 250: a warp's lanes loop over all of it)."""
+    rng = np.random.RandomState(seed)
+    graphs = [Graph.from_arrays(3, [], [])]
+    for _ in range(60):
+        n = rng.randint(1, 41)
+        e = rng.randint(0, 3 * n)
+        graphs.append(Graph.from_arrays(n, rng.randint(0, n, e),
+                                        rng.randint(0, n, e)))
+    if hub:
+        others = np.arange(1, 251)
+        graphs.insert(7, Graph.from_arrays(
+            251, np.r_[np.zeros(250, int), others],
+            np.r_[others, np.zeros(250, int)]))
+    return GraphBatch.from_graphs(graphs, node_label_enum={}, device=device)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8, 16, 32, 64, 128, 512, 1024])
+@pytest.mark.parametrize("case", ["small", "wrap", "hub"])
+def test_hadamard_step_kernel_bit_identical(cuda, D, case):
+    """K6 against its plain version on the card, with and without the
+    neighbour sum: codes of a few units, codes over the whole int32 range
+    (the sums wrap), and a hub of out-degree 250."""
+    b = _hc_batch(D, case == "hub", cuda)
+    N = b.node_labels.shape[0]
+    rng = np.random.RandomState(D + len(case))
+    if case == "wrap":
+        c = rng.randint(-2 ** 31, 2 ** 31, (N, D), dtype=np.int64)
+    else:
+        c = rng.randint(-3, 4, (N, D))
+    codes = torch.tensor(c.astype(np.int32), device=cuda)
+    tag = torch.tensor(rng.randint(0, 2 ** 31, N).astype(np.int32),
+                       device=cuda)
+    args = (codes, b.csr_offsets, b.csr_targets, tag)
+    for propagate in (False, True):
+        before = hadamard.hadamard_step_cuda.launches
+        got, key = hadamard.hadamard_step_cuda(*args, propagate)
+        torch.cuda.synchronize()
+        assert hadamard.hadamard_step_cuda.launches == before + 1
+        want, wkey = hadamard.hadamard_step_plain(*args, propagate)
+        assert torch.equal(got, want) and torch.equal(key, wkey)
+        assert (got is codes) == (not propagate)
+    if case == "wrap":
+        wide = codes.long().clone()
+        s = torch.repeat_interleave(torch.arange(N, device=cuda),
+                                    torch.diff(b.csr_offsets.long()))
+        wide.index_add_(0, s, codes.long()[b.csr_targets.long()])
+        assert (wide.abs() >= 2 ** 31).any()
+
+
+def test_hadamard_generations_on_card(cuda):
+    """``hadamard_generations`` on the card: one K6 launch a generation,
+    the keys of the CPU run, the caller's codes untouched; a given
+    ``out`` buffer is written."""
+    bc = _hc_batch(3, True, "cpu")
+    bg = _hc_batch(3, True, cuda)
+    N = bc.node_labels.shape[0]
+    rng = np.random.RandomState(5)
+    codes = torch.tensor(rng.choice([-1, 1], (N, 64)).astype(np.int32))
+    tag = torch.full((N,), 64, dtype=torch.int32)
+    want = list(hadamard.hadamard_generations(bc, codes, tag, 5))
+    cg = codes.to(cuda)
+    before = hadamard.hadamard_step_cuda.launches
+    got = list(hadamard.hadamard_generations(bg, cg, tag.to(cuda), 5))
+    torch.cuda.synchronize()
+    assert hadamard.hadamard_step_cuda.launches == before + 5
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(cg.cpu(), codes)
+    out = torch.full_like(cg, 7)
+    nxt, _ = hadamard.hadamard_step_cuda(cg, bg.csr_offsets, bg.csr_targets,
+                                         tag.to(cuda), True, out=out)
+    assert nxt is out and not torch.equal(out, torch.full_like(cg, 7))
+
+
+def test_hadamard_wrapper_checks_inputs(cuda):
+    b = _hc_batch(0, False, cuda)
+    N = b.node_labels.shape[0]
+    codes = torch.zeros((N, 8), dtype=torch.int32, device=cuda)
+    tag = torch.full((N,), 8, dtype=torch.int32, device=cuda)
+    args = [codes, b.csr_offsets, b.csr_targets, tag]
+    for i, bad in ((0, codes.long()), (0, codes[:, :6].contiguous()),
+                   (0, codes[:, ::2]), (0, codes[0]), (1, args[1][:-1]),
+                   (2, args[2].long()), (3, tag[:-1]), (3, tag.cpu())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            hadamard.hadamard_step_cuda(*a, True)
+    for out in (codes, codes[:, :4].contiguous(), codes.long(),
+                codes.cpu()):
+        with pytest.raises(ValueError, match="out"):
+            hadamard.hadamard_step_cuda(*args, True, out=out)
+    with pytest.raises(ValueError):
+        hadamard.hadamard_step_cuda(*[x.cpu() for x in args], False)
+
+
+@pytest.mark.parametrize("name,kw,k6", [
+    ("HadamardCode", {"n_iter": 3}, 3),
+    ("HadamardCode", {"n_iter": 5, "normalize": True}, 5),
+    ("HadamardCode", {"n_iter": 2, "base_graph_kernel": "SP"}, 0),
+    ("Propagation", {"random_state": 0}, 0),
+    ("Propagation", {"random_state": 1, "M": "H", "normalize": True}, 0),
+    ("PropagationAttr", {"random_state": 0}, 0),
+    ("PropagationAttr", {"random_state": 2, "M": "L2", "w": 0.5}, 0)])
+def test_hc_and_propagation_on_card_match_cpu(cuda, name, kw, k6):
+    """The three classes on the card equal their CPU runs (the test split
+    holds a label unseen at fit); HadamardCode's fast path launches K6
+    once a generation in fit_transform and in transform, its host path
+    (a ShortestPath base) none and K3 instead."""
+    feats = ("na", 3) if name == "PropagationAttr" else ("nl", 6)
+    train, test = generate_dataset(n_graphs=80, n_graphs_test=10,
+                                   r_vertices=(5, 30), random_state=2,
+                                   features=feats)
+    if kw.get("base_graph_kernel") == "SP":
+        kw = dict(kw, base_graph_kernel=(grakel_torch.ShortestPath, {}))
+    k = getattr(grakel_torch, name)(**kw)
+    hadamard.hadamard_step_cuda.launches = 0
+    fw.floyd_warshall_cuda.launches = 0
+    K = k.fit_transform(train)
+    torch.cuda.synchronize()
+    assert hadamard.hadamard_step_cuda.launches == k6
+    T = k.transform(test)
+    d = k.diagonal()
+    torch.cuda.synchronize()
+    assert hadamard.hadamard_step_cuda.launches == 2 * k6
+    if "base_graph_kernel" in kw:
+        assert fw.floyd_warshall_cuda.launches > 0
+    with use_device("cpu"):
+        kc = getattr(grakel_torch, name)(**kw)
+        Kc, Tc, dc = kc.fit_transform(train), kc.transform(test), \
+            kc.diagonal()
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+    assert all(np.array_equal(a, b) for a, b in zip(d, dc))

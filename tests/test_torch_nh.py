@@ -18,7 +18,7 @@ from grakel_torch.batch import GraphBatch
 from grakel_torch.convert import kernel_from_state
 from grakel_torch.datasets import generate_dataset, read_data
 from grakel_torch.graph import Graph
-from grakel_torch.ops import intersect, nh
+from grakel_torch.ops import hadamard, intersect, nh
 from grakel_tpu.datasets import read_data as jax_read_data
 from grakel_tpu.kernels.neighborhood_hash import _nh_rounds as jax_nh_rounds
 from grakel_tpu.ops import intersect as jintersect
@@ -333,9 +333,10 @@ def test_neighborhood_hash_state_carry(nh_type):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """K4's (both routes) and K5's (every route) wrappers take CUDA
-    tensors only: on CPU tensors they raise before building anything
-    (their callers take the plain versions there)."""
+    """K4's (both routes), K5's (every route) and K6's (with and without
+    propagation) wrappers take CUDA tensors only: on CPU tensors they
+    raise before building anything (their callers take the plain
+    versions there)."""
     b, lab, valid = _round_inputs(0, 8)
     hist = torch.zeros((b.n_graphs, 256), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -354,6 +355,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             intersect.jaccard_fold_cuda(C, v, v, True, triangle=tri)
     assert torch.equal(intersect.jaccard_gram_rounds(C), torch.zeros(3, 3))
+    codes = torch.zeros((b.node_labels.shape[0], 4), dtype=torch.int32)
+    tag = torch.full((codes.shape[0],), 4, dtype=torch.int32)
+    for propagate in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            hadamard.hadamard_step_cuda(codes, b.csr_offsets, b.csr_targets,
+                                        tag, propagate)
 
 
 # --------------------------------------------------------------------- #
