@@ -38,7 +38,8 @@ main paths through the public entry points, at full data size:
   (VertexHistogram base, the fast path) ``fit_transform`` on the 4110
   NCI1-scale graphs and ``transform`` of the 64 held-out ones, whose
   planted unseen label takes a Hadamard row no fit vertex has (37 labels
-  stay within D = 64; ``hc_nci1scale``: K6 once a generation, 5 a call);
+  stay within D = 64; ``hc_nci1scale``: K6's graph route once a call,
+  its round route never);
   HadamardCode with a ShortestPath base on MUTAG read with ``read_data``
   (``hc_sp_mutag``, the host path: K3, no K6); ``Propagation(random_state
   =0)`` (TV, t_max = 5, w = 0.01) on the NCI1-scale set, whose transform
@@ -54,9 +55,10 @@ CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
 concatenated into one call) and no K1-tc, labeled PM the kernels its
 levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
 the levels that take K1, one K1-tc call for each other level), and
-every ShortestPath path K3 (``floyd_warshall``), ``hc_nci1scale`` K6
-(``hadamard_step``) 5 times in fit_transform and 5 in transform and the
-other HadamardCode / Propagation paths none, each NH path K4 once a
+every ShortestPath path K3 (``floyd_warshall``), ``hc_nci1scale`` K6's
+graph route (``hadamard_graph``) once in fit_transform and once in
+transform and its round route (``hadamard_step``) never, the other
+HadamardCode / Propagation paths neither, each NH path K4 once a
 parse on its graph route (``nh_graph``; no launch of its round route
 ``nh_round``), K5 (``jaccard_fold``) once a Gram (the fit Gram on its
 triangle route, the transform's on its rect route) and one K1-tc or K1
@@ -93,8 +95,10 @@ time of a call:
   symmetric) over 67 TFLOP/s fp32; yardstick ``torch.cdist(p=1)``
   (sum_l min(a, b) = (sum a + sum b - |a - b|_1) / 2);
 * K1-tc at the four labeled levels (symmetric, as PyramidMatch's
-  fit_transform calls it), at their transform shape and a ragged
-  rectangular case, exactly, with the alpha / accumulate epilogue; its
+  fit_transform calls it), at their transform shape, at the NH simple
+  path's six calls (its fit Gram's three rounds, 4110 x 4110 over L =
+  256, and its transform's, 64 x 4110) and a ragged rectangular case,
+  exactly, with the alpha / accumulate epilogue; its
   expansion timed apart.  Bound: the larger of the products the
   function needs (2 W' per Gram entry, n (n + 1) / 2 distinct entries
   when symmetric) over 1979 TOP/s int8 and the int8 inputs plus the f32
@@ -141,17 +145,24 @@ time of a call:
   counts and the n m ratios written, over 3.35 TB/s; the earlier count
   (the full square) beside it.  No single PyTorch call computes K4 or K5: no
   library time;
-* K6 through ``ops.hadamard.hadamard_step_cuda``, codes and keys
-  bit-identical to ``ops.hadamard.hadamard_step_plain``: the five
-  generations of the ``hc_nci1scale`` fit (its own initial codes, D = 64;
-  generation 0 hashes only), random codes of width D = 1, 2, 8, 32, 64,
-  128 and 1024 on the same batch (with and without the neighbour sum),
-  the REDDIT-B-scale stand-in (out-degrees to 226) at D = 1 and 64, and
-  codes over the whole int32 range whose sums wrap.  Its 10 kernels must
-  build without spills.  Bound: the bytes the generation must move (each
-  valid node's row, tag and key, and when propagating its offset, each
-  edge's target and the new row) over 3.35 TB/s, against ~24 integer
-  operations an element over 67 TOP/s; no PyTorch call computes the
+* K6 through ``ops.hadamard.hadamard_generations`` (the call
+  HadamardCode's fast path makes), the keys of all five generations
+  bit-identical to ``ops.hadamard.hadamard_generations_plain``, on the
+  routes ``ops.hadamard.hc_plan`` picks (the launches per route must
+  match): the ``hc_nci1scale`` fit batch (its own table, D = 64; graph
+  route, with the earlier design timed beside (the round route over
+  every row, five launches), the planner alone and a sweep of
+  the shared memory budget timed beside) and its transform batch (tags
+  Dx and Dt), random tables of width D = 1, 2, 8, 32, 64, 128 (graph
+  route) and 1024 (mostly the round route) on the fit batch, the
+  REDDIT-B-scale stand-in (out-degrees to 226) at D = 1 (graph route)
+  and 64 (its large graphs on the round route, mixed), and a row a node
+  over the whole int32 range whose sums wrap.  Its 14 kernels must build
+  without spills.  Bound: the larger of the bytes the call must move
+  (each valid node's row index, tag and offset, each edge's target and
+  the table read once, the keys written once) over 3.35 TB/s and ~24
+  integer operations an element a generation over 67 TOP/s; the
+  earlier per-generation count beside it; no PyTorch call computes the
   hash (no library time), the int32 ``index_add_`` of the neighbours'
   rows (the neighbour sum alone) is timed beside;
 * ``min_intersection_gram_rounds`` (the Pallas kernel's second reach, R
@@ -492,10 +503,11 @@ def main():
 
     k6_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                 if "hadamard" in k}
-    check(len(k6_ptxas) == 10 and all(
+    check(len(k6_ptxas) == 14 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k6_ptxas.values()),
-        "K6's 10 kernels built without spills: %s" % k6_ptxas)
+        "K6's 14 kernels (10 round route, 4 graph route) built without "
+        "spills: %s" % k6_ptxas)
 
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
@@ -504,6 +516,7 @@ def main():
                 "nh_graph": nh_ops.nh_graph_cuda,
                 "nh_round": nh_ops.nh_round_cuda,
                 "jaccard_fold": intersect.jaccard_fold_cuda,
+                "hadamard_graph": hc_ops.hadamard_graph_cuda,
                 "hadamard_step": hc_ops.hadamard_step_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
@@ -911,32 +924,39 @@ def main():
     # ---------------- HadamardCode and Propagation: K6 ------------------ #
     k6_count = hc_ops.hadamard_step_cuda
 
+    def k6_routes():
+        return hc_ops.hadamard_graph_cuda.launches, k6_count.launches
+
     def class_run(make, fit, tr, dev=None):
         """``make()``'s kernel: fit_transform on ``fit``, diagonal(),
         transform of ``tr``, both diagonals, on ``dev`` (None: the card);
-        with K6's launches in fit_transform and in transform."""
+        with K6's launches (graph route, round route) in fit_transform
+        and in transform."""
         k = make()
         with use_device(dev):
-            n0 = k6_count.launches
+            n0 = k6_routes()
             t = time.perf_counter()
             K = k.fit_transform(fit)
             t_fit = time.perf_counter() - t
-            n1 = k6_count.launches
+            n1 = k6_routes()
             d = k.diagonal()
             t = time.perf_counter()
             Kt = k.transform(tr)
             t_tr = time.perf_counter() - t
-            n2 = k6_count.launches
+            n2 = k6_routes()
             xd, yd = k.diagonal()
         return {"out": (K, d, Kt, xd, yd), "fit_transform_s": t_fit,
-                "transform_s": t_tr, "k": k, "k6": (n1 - n0, n2 - n1)}
+                "transform_s": t_tr, "k": k,
+                "k6": tuple(tuple(b - a for a, b in zip(x, y))
+                            for x, y in ((n0, n1), (n1, n2)))}
 
     def class_path(key, make, fit, tr, k6, warm, **info):
         """Drive ``make()``'s kernel on the card (a path: counts read
         around it) and on the CPU: finite Grams of the right shapes,
-        diag(K) == diagonal(), K6 launched ``k6`` times in fit_transform
-        and ``k6`` in transform, every output equal to the CPU run's bit
-        for bit; then ``warm`` warm runs."""
+        diag(K) == diagonal(), K6's graph route launched ``k6`` times in
+        fit_transform and ``k6`` in transform and its round route never,
+        every output equal to the CPU run's bit for bit; then ``warm`` warm
+        runs."""
         r, secs, launches = run_path(key, lambda: class_run(make, fit, tr))
         K, d, Kt = r["out"][:3]
         check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
@@ -944,9 +964,9 @@ def main():
               and np.array_equal(np.diagonal(K), d),
               "%s Grams finite, shapes %s %s, diag(K) == diagonal()"
               % (key, K.shape, Kt.shape))
-        check(r["k6"] == (k6, k6), "%s launched K6 %s times in "
-              "fit_transform and transform (%d each wanted)"
-              % (key, r["k6"], k6))
+        check(r["k6"] == ((k6, 0), (k6, 0)), "%s launched K6 (graph "
+              "route, round route) %s times in fit_transform and transform "
+              "((%d, 0) each wanted)" % (key, r["k6"], k6))
         t = time.perf_counter()
         c = class_run(make, fit, tr, "cpu")
         cpu_s = time.perf_counter() - t
@@ -965,7 +985,7 @@ def main():
         return r["k"]
 
     hck = class_path("hc_nci1scale", lambda: HadamardCode(n_iter=5), train,
-                     held, 5, 3, n_iter=5, base="VertexHistogram (fast "
+                     held, 1, 3, n_iter=5, base="VertexHistogram (fast "
                      "path)", dimension=HadamardCode._hdim(N_LABELS))
     class_path("hc_sp_mutag", lambda: HadamardCode(
         n_iter=5, base_graph_kernel=(ShortestPath, {})), mutag[:150],
@@ -1171,6 +1191,16 @@ def main():
              [c["route"] for c in tc], intersect._TC_MAX_RATIO_RECT,
              be_rect, [round(c["w_expanded"] / c["L"], 2) for c in tc_rect],
              [c["route"] for c in tc_rect]))
+
+    # K1-tc at the NH simple path's calls: its fit Gram's three rounds
+    # (symmetric 4110 x 4110 over L = 256) and its transform's (64 x 4110)
+    nhk = nh_kernels["nh_nci1scale"]
+    Xh = [x.float() for x in nhk.X["hists"]]
+    tc_nh = [tc_case(A, A) for A in Xh] + [
+        tc_case(y.float(), A) for y, A in zip(nhk._Y["hists"], Xh)]
+    check(all(c["route"] == "min_gram_tc" for c in tc_nh), "NH's six K1-tc "
+          "calls route to K1-tc (%s)" % [c["route"] for c in tc_nh])
+    del Xh
 
     # ---------------- K2 against its plain versions --------------------- #
     batch = GraphBatch.from_graphs(normalize_input(train),
@@ -1571,131 +1601,223 @@ def main():
                         if key == "nh_nci1scale" else ("triangle", "rect"))]
 
     # ---------------- K6 against its plain version ---------------------- #
-    def k6_case(batch, codes, tags, what, propagate, timed=True):
-        """K6 for one generation over ``batch``'s CSR: the new codes and
-        the keys bit-identical to hadamard_step_plain on the card, one
-        launch; timed beside its bound, the plain version and the int32
-        ``index_add_`` of the neighbours' rows (the neighbour sum alone).
-        Returns (row, the new codes)."""
+    def k6_case(batch, table, row, tags, what, route, n_iter=5,
+                main=False):
+        """K6 through ``hadamard_generations`` (the call HadamardCode's
+        fast path makes) on ``batch``: every generation's keys
+        bit-identical to hadamard_generations_plain on the card, on
+        ``route`` (the launches per route must be hc_plan's: one
+        graph-route launch, and n_iter round-route ones when a graph does
+        not fit a block); timed beside its bound, the plain version and
+        the int32 ``index_add_`` of the neighbours' rows (the neighbour
+        sum alone).  ``main`` also times the earlier design on the
+        same inputs (every row from device memory, a launch a
+        generation), the planner alone, the route at 1-4 generations and
+        a sweep of the shared memory budget."""
         off, tgt = batch.csr_offsets, batch.csr_targets
-        before = k6_count.launches
-        got, key = hc_ops.hadamard_step_cuda(codes, off, tgt, tags,
-                                             propagate)
+        N, D = row.shape[0], table.shape[1]
+        chunks, rnd, smem = hc_ops.hc_plan(batch.n_nodes, batch.n_edges, D,
+                                           N, hc_ops.K6_SMEM_BUDGET)
+        before = k6_routes()
+        key = hc_ops.hadamard_generations(batch, table, row, tags, n_iter)
         torch.cuda.synchronize()
-        launched = k6_count.launches - before
-        want, wkey = hc_ops.hadamard_step_plain(codes, off, tgt, tags,
-                                                propagate)
+        took = tuple(a - b for a, b in zip(k6_routes(), before))
+        want = hc_ops.hadamard_generations_plain(table, row, off, tgt, tags,
+                                                 n_iter)
         torch.cuda.synchronize()
-        differ = int((got != want).sum()) + int((key != wkey).sum())
-        N, D = codes.shape
+        differ = int((key != want).sum())
+        got_route = ("graph" if not len(rnd) else "round"
+                     if len(rnd) == batch.n_graphs else "mixed")
         nodes, E = batch.total_nodes, tgt.shape[0]
         deg = torch.diff(off.long())
         send = torch.repeat_interleave(torch.arange(N, device="cuda"), deg)
         tgt_l = tgt.long()
-        wrapped = None
-        if propagate:
-            wide = codes.long()
-            wide = wide.index_add(0, send, wide[tgt_l])
-            wrapped = int((wide.abs() >= 2 ** 31).any(1).sum())
-            del wide
-        check(differ == 0 and launched == 1,
-              "K6 %s, D = %d, %s: codes and keys bit-identical to plain (%d "
-              "differ; max out-degree %d; %s rows wrapped), one launch (%d)"
-              % (what, D, "propagating" if propagate else "hash only",
-                 differ, int(deg.max()), wrapped, launched))
-        row = {"what": what, "D": D, "propagate": propagate, "nodes": nodes,
-               "rows": N, "edges": E, "max_degree": int(deg.max()),
-               "wrapped_rows": wrapped, "launches": launched,
-               "differing": differ}
-        if not timed:
-            return row, got
-        out = torch.empty_like(codes)
+        codes = table[row.long()]
+        wide = codes.long().index_add(0, send, codes.long()[tgt_l])
+        wrapped = int((wide.abs() >= 2 ** 31).any(1).sum())
+        del wide
+        check(differ == 0 and took == (1, n_iter if len(rnd) else 0)
+              and got_route == route,
+              "K6 %s, D = %d, %d generations: keys bit-identical to plain "
+              "(%d differ; max out-degree %d; %d rows' first sums past the "
+              "int32 range), route %s (%s wanted; %d chunks, %d B of shared "
+              "memory, %d graphs on the round route), graph and round "
+              "launches %s" % (what, D, n_iter, differ, int(deg.max()),
+                               wrapped, got_route, route, len(chunks), smem,
+                               len(rnd), took))
 
         def call():
-            return hc_ops.hadamard_step_cuda(codes, off, tgt, tags,
-                                             propagate, out=out)
+            return hc_ops.hadamard_generations(batch, table, row, tags,
+                                               n_iter)
 
         def neighbour_sum():
             return codes.index_add(0, send, codes[tgt_l])
 
-        # the function's own bytes: each valid node's row, tag and key, and
-        # when propagating its offset, each edge's target and the new row;
-        # operations: ~24 integer operations an element (two positions,
-        # two fmix32, two sums), one more an edge and column
-        nbytes = 4.0 * nodes * D + 12.0 * nodes + (
-            4.0 * (nodes + 1) + 4.0 * E + 4.0 * nodes * D
-            if propagate else 0.0)
-        ops = 24.0 * nodes * D + (1.0 * E * D if propagate else 0.0)
+        # the function's own bytes: each valid node's row index, tag and
+        # CSR offset (and one more offset), each edge's target and the
+        # table read once, n_iter keys a node written once; operations:
+        # ~24 integer operations an element a generation (two positions,
+        # two fmix32, two sums), one an edge and column a propagating one
+        nbytes = 12.0 * nodes + 4 + 4.0 * E + 4.0 * table.numel() \
+            + 8.0 * n_iter * nodes
+        ops = 24.0 * nodes * D * n_iter + 1.0 * E * D * (n_iter - 1)
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        # the profiler has dropped every record of a 20-call session of a
-        # 5-microsecond kernel (D = 2): one more, longer session then
-        dev = device_ms(call, 20, "hadamard_")
-        if dev is None:
-            dev = device_ms(call, 100, "hadamard_")
-        check(dev is not None, "K6 %s, D = %d: device time from the "
-              "profiler's records (%s ms)" % (what, D, dev))
-        row.update(bytes=nbytes, ops=ops, ms=cuda_ms(call, 100, 5),
-                   device_ms=dev, wrapper_ms=host_ms(call, 50),
-                   plain_ms=cuda_ms(lambda: hc_ops.hadamard_step_plain(
-                       codes, off, tgt, tags, propagate), 3),
-                   index_add_ms=cuda_ms(neighbour_sum, 20)
-                   if propagate else None,
-                   bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
-        return row, got
+        # the earlier count, a generation at a time: every row, tag and
+        # key moved each generation, and each propagating one its offsets,
+        # its targets and the new rows
+        per_gen = n_iter * (4.0 * nodes * D + 12.0 * nodes) + (n_iter - 1) \
+            * (4.0 * (nodes + 1) + 4.0 * E + 4.0 * nodes * D)
+        by_name, _ = kernel_records(call, 20)
+        hits = [k for k in by_name if "hadamard_" in k]
+        wrapper = host_ms(call, 20)
+        # the sleep outlasts enqueueing the timed calls twice over (the
+        # host plans the chunks on every call)
+        busy = int(max(5e7, 4e6 * 100 * wrapper))
+        row_ = {"what": what, "D": D, "n_iter": n_iter, "route": got_route,
+                "graphs": batch.n_graphs, "nodes": nodes, "rows": N,
+                "edges": E, "table_rows": table.shape[0],
+                "max_degree": int(deg.max()), "wrapped_rows": wrapped,
+                "chunks": len(chunks), "smem_bytes": smem,
+                "round_graphs": len(rnd), "launches": took,
+                "differing": differ, "bytes": nbytes, "ops": ops,
+                "ms": cuda_ms(call, 100, 5, busy),
+                "device_ms": sum(by_name[k] for k in hits) / 20 if hits
+                else None,
+                "wrapper_ms": wrapper,
+                "plain_ms": cuda_ms(lambda: hc_ops.hadamard_generations_plain(
+                    table, row, off, tgt, tags, n_iter), 3),
+                "index_add_ms": (n_iter - 1) * cuda_ms(neighbour_sum, 20),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms_per_generation_count": 1e3 * max(
+                    t_ops, per_gen / HBM_BYTES_PER_S)}
+        check(row_["device_ms"] is not None, "K6 %s, D = %d: device time "
+              "from the profiler's records (%s ms, kernels %s)"
+              % (what, D, row_["device_ms"], hits))
+        if not main:
+            return row_
+        # the earlier design: the rows gathered once, then a launch a
+        # generation over all rows from device memory into two buffers
+        first = codes.contiguous()
+
+        def five_launches():
+            cur, spare, keys = first, None, []
+            for g in range(n_iter):
+                nxt, k = k6_count(cur, off, tgt, tags, g > 0, out=spare)
+                if g > 0:
+                    spare = cur if cur is not first else None
+                    cur = nxt
+                keys.append(k)
+            return keys
+
+        old = torch.stack(five_launches())
+        torch.cuda.synchronize()
+        check(torch.equal(old, want), "K6 %s: the earlier five-launch "
+              "design gives the same keys" % what)
+        row_["five_launch_ms"] = cuda_ms(five_launches, 100, 5)
+        # the graph route's time by generation count: its slope is a
+        # propagating generation's, its intercept the staging's
+        row_["n_iter_sweep"] = {}
+        for it in (1, 2, 3, 4):
+            got = hc_ops.hadamard_generations(batch, table, row, tags, it)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want[:it]), "K6 %s, %d generations: "
+                  "bit-identical" % (what, it))
+            row_["n_iter_sweep"][it] = cuda_ms(
+                lambda it=it: hc_ops.hadamard_generations(
+                    batch, table, row, tags, it), 100, 5, busy)
+        row_["n_iter_sweep"][n_iter] = row_["ms"]
+        row_["planner_ms"] = host_ms(lambda: hc_ops.hc_plan(
+            batch.n_nodes, batch.n_edges, D, N, hc_ops.K6_SMEM_BUDGET), 20)
+        row_["budget_sweep"] = {}
+        default = hc_ops.K6_SMEM_BUDGET
+        try:
+            for kb in (32, 48, 64, 96, 112, 160, 224):
+                hc_ops.K6_SMEM_BUDGET = kb * 1024
+                ch, rn, sm = hc_ops.hc_plan(batch.n_nodes, batch.n_edges, D,
+                                            N, kb * 1024)
+                got = call()
+                torch.cuda.synchronize()
+                check(torch.equal(got, want) and not len(rn),
+                      "K6 %s, budget %d KB: bit-identical, graph route "
+                      "only (%d chunks, %d B)" % (what, kb, len(ch), sm))
+                row_["budget_sweep"][kb] = {"chunks": len(ch),
+                                            "smem_bytes": sm,
+                                            "ms": cuda_ms(call, 100, 5,
+                                                          busy)}
+        finally:
+            hc_ops.K6_SMEM_BUDGET = default
+        return row_
 
     def k6_inputs(graphs, D, kind, seed):
-        """``graphs`` in a batch on the card, int32 codes [N_pad, D] and
-        random u32 tags: codes in [-3, 3] ("small") or over the whole
-        int32 range ("wrap": the neighbour sums pass 2^31 and wrap)."""
+        """``graphs`` in a batch on the card, a table and row indices (the
+        padding rows on a zero row) and random u32 tags: a table of a
+        quarter as many rows as nodes with codes in [-3, 3] ("small"), or
+        a row a node over the whole int32 range ("wrap": the neighbour
+        sums pass 2^31 and wrap)."""
         batch = GraphBatch.from_graphs(graphs, node_label_enum={},
                                        device="cuda")
-        N = batch.node_labels.shape[0]
+        N, n = batch.node_labels.shape[0], batch.total_nodes
         r = np.random.RandomState(seed)
-        c = (r.randint(-2 ** 31, 2 ** 31, (N, D), dtype=np.int64)
-             if kind == "wrap" else r.randint(-3, 4, (N, D)))
-        tags = r.randint(0, 2 ** 31, N).astype(np.int32)
-        return (batch, torch.from_numpy(c.astype(np.int32)).cuda(),
-                torch.from_numpy(tags).cuda())
+        if kind == "wrap":
+            table = r.randint(-2 ** 31, 2 ** 31, (n + 1, D), dtype=np.int64)
+            row = np.minimum(np.arange(N), n)
+        else:
+            table = r.randint(-3, 4, (n // 4 + 2, D))
+            row = r.randint(0, len(table) - 1, N)
+            row[n:] = len(table) - 1
+        table[-1] = 0
+        tags = r.randint(0, 2 ** 31, N)
+        return (batch,) + tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                                for a in (table, row, tags))
 
-    # the NCI1-scale fit batch with the path's own initial codes and tags:
-    # the five generations one fit_transform runs
-    fit_graphs = normalize_input(train)
+    # the hc_nci1scale path's own inputs: its fit batch (D = 64, one tag)
+    # and its transform batch (the fit and held-out graphs, tags Dx and Dt
+    # over D_pad columns, the held-out rows after the fit table's)
+    fit_graphs, held_graphs = normalize_input(train), normalize_input(held)
     hb = GraphBatch.from_graphs(fit_graphs, node_label_enum={},
                                 device="cuda")
     hD = hck._hdim(len(hck._enum))
-    c0 = np.zeros((hb.node_labels.shape[0], hD), np.int32)
-    c0[:hb.total_nodes] = hck._initial_codes(fit_graphs, hck._enum, hD)
-    cur = torch.from_numpy(c0).cuda()
-    htags = torch.full((c0.shape[0],), hD, dtype=torch.int32, device="cuda")
-    k6 = []
-    for gen in range(5):
-        row, nxt = k6_case(hb, cur, htags, "NCI1-scale fit batch, "
-                           "generation %d" % gen, gen > 0)
-        k6.append(row)
-        cur = nxt
+    table, row = (torch.from_numpy(a).cuda() for a in hck._code_table(
+        hb, [hck._initial_codes(fit_graphs, hck._enum, hD)]))
+    htags = torch.full((row.shape[0],), hD, dtype=torch.int32,
+                       device="cuda")
+    k6 = k6_case(hb, table, row, htags, "hc_nci1scale fit batch", "graph",
+                 main=True)
+    enum_t = hck._collect_labels(held_graphs, dict(hck._enum))
+    Dx, Dt = hck._hdim(len(hck._enum)), hck._hdim(len(enum_t))
+    tb = GraphBatch.from_graphs(fit_graphs + held_graphs, node_label_enum={},
+                                device="cuda")
+    table, row = (torch.from_numpy(a).cuda() for a in hck._code_table(
+        tb, [hck._initial_codes(fit_graphs, hck._enum, max(Dx, Dt)),
+             hck._initial_codes(held_graphs, enum_t, max(Dx, Dt))]))
+    ttags = torch.full((row.shape[0],), Dt, dtype=torch.int32, device="cuda")
+    ttags[:hb.total_nodes] = Dx
+    k6_transform = k6_case(tb, table, row, ttags, "hc_nci1scale transform "
+                           "batch (tags %d and %d)" % (Dx, Dt), "graph")
     k6_widths = []
     for D in (1, 2, 8, 32, 64, 128, 1024):
-        b, c, tg = k6_inputs(fit_graphs, D, "small", SEED + D)
-        k6_case(b, c, tg, "NCI1-scale fit batch, random codes", False,
-                timed=False)
-        k6_widths.append(k6_case(b, c, tg, "NCI1-scale fit batch, random "
-                                 "codes", True)[0])
-    del b, c, tg
+        b, tab, rw, tg = k6_inputs(fit_graphs, D, "small", SEED + D)
+        route = hc_ops.hc_plan(b.n_nodes, b.n_edges, D, rw.shape[0])[1]
+        k6_widths.append(k6_case(b, tab, rw, tg, "NCI1-scale fit batch, "
+                                 "random table", "graph" if D < 1024
+                                 else "mixed" if len(route) < b.n_graphs
+                                 else "round"))
     k6_hub = []
-    for D in (1, 64):
-        b, c, tg = k6_inputs(hub_graphs, D, "small", SEED)
-        k6_hub.append(k6_case(b, c, tg, "REDDIT-B-scale stand-in (hubs)",
-                              True)[0])
-    del b, c, tg
-    b, c, tg = k6_inputs(fit_graphs, 64, "wrap", SEED)
-    k6_wrap = k6_case(b, c, tg, "NCI1-scale fit batch, codes over the "
-                      "int32 range", True)[0]
+    for D, route in ((1, "graph"), (64, "mixed")):
+        b, tab, rw, tg = k6_inputs(hub_graphs, D, "small", SEED)
+        k6_hub.append(k6_case(b, tab, rw, tg, "REDDIT-B-scale stand-in "
+                              "(hubs)", route))
+    b, tab, rw, tg = k6_inputs(fit_graphs, 64, "wrap", SEED)
+    k6_wrap = k6_case(b, tab, rw, tg, "NCI1-scale fit batch, codes over the "
+                      "int32 range", "graph")
     check(k6_wrap["wrapped_rows"] > 0, "K6's wrap batch: %d rows' sums "
           "passed the int32 range" % k6_wrap["wrapped_rows"])
     check(k6_hub[0]["max_degree"] > 200, "K6's hub batch: max out-degree "
           "%d" % k6_hub[0]["max_degree"])
-    del b, c, tg, cur, nxt
+    check(k6_widths[-1]["round_graphs"] > 0, "K6 at D = 1024: %d graphs on "
+          "the round route" % k6_widths[-1]["round_graphs"])
+    del b, tab, rw, tg, table, row
 
     # ------- K1 through min_intersection_gram_rounds (reach 2) ---------- #
     def rounds_case(A, B, integer, what):
@@ -1793,7 +1915,8 @@ def main():
          "replaces": "grakel_tpu/ops/intersect.py:55",
          "mirrors": "grakel_tpu/ops/intersect.py:244 (_min_gram_gemm)",
          "launches": launches["min_gram_tc"],
-         "max_abs_err": max(c["max_abs_err"] for c in tc + [tc_ragged]),
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in tc + tc_nh + [tc_ragged]),
          "ms": total(tc, "ms"), "device_ms": total(tc, "device_ms"),
          "wrapper_ms": total(tc, "wrapper_ms"),
          "expansion_ms": total(tc, "expansion_ms"),
@@ -1806,6 +1929,19 @@ def main():
          "k1_ms": total(tc, "k1_ms"),
          "break_even_ratio": be_sym, "break_even_ratio_rect": be_rect,
          "summed_over": "one call per labeled PM level",
+         "nh_calls": {
+             "summed_over": "the NH simple path's six calls: its fit "
+                            "Gram's three rounds (4110 x 4110, symmetric) "
+                            "and its transform's (64 x 4110)",
+             **{k: total(tc_nh, k) for k in (
+                 "ms", "device_ms", "expansion_ms", "plain_ms", "bound_ms",
+                 "library_ms")},
+             "bound_by": row_bound_by(tc_nh, INT8_OPS_PER_S, "bytes"),
+             "fit": {k: total(tc_nh[:3], k) for k in (
+                 "ms", "bound_ms", "library_ms")},
+             "transform": {k: total(tc_nh[3:], k) for k in (
+                 "ms", "bound_ms", "library_ms")},
+             "shapes": tc_nh},
          "shapes": tc, "transform_shapes": tc_rect,
          "ragged_rect_check": tc_ragged},
         {"name": "wl_hash_refine", "route": "cuda",
@@ -1875,27 +2011,33 @@ def main():
                         "4110 x 4110, R = 3, on the triangle route",
          "ptxas": {k: v for k, v in k45_ptxas.items() if "jaccard" in k},
          "shapes": k5},
-        {"name": "hadamard_step", "route": "cuda",
+        {"name": "hadamard", "route": "cuda",
          "source": "grakel_torch/csrc/hadamard.cu",
          "replaces": "grakel_tpu/kernels/hadamard_code.py:50,199",
-         "launches": launches["hadamard_step"],
+         "launches": launches["hadamard_graph"] + launches["hadamard_step"],
+         "route_launches": {"graph": launches["hadamard_graph"],
+                            "round": launches["hadamard_step"]},
          "max_abs_err": max(c["differing"] for c in
-                            k6 + k6_widths + k6_hub + [k6_wrap]),
-         "ms": total(k6, "ms"), "device_ms": total(k6, "device_ms"),
-         "wrapper_ms": total(k6, "wrapper_ms"),
-         "plain_ms": total(k6, "plain_ms"),
-         "bound_ms": total(k6, "bound_ms"),
-         "bound_by": row_bound_by(k6, FP32_OPS_PER_S, "bytes"),
+                            [k6, k6_transform] + k6_widths + k6_hub
+                            + [k6_wrap]),
+         **{k: k6[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
+                               "bound_ms", "bound_by",
+                               "bound_ms_per_generation_count",
+                               "index_add_ms", "five_launch_ms",
+                               "planner_ms")},
          "library_ms": None,
          "library": "none: no single PyTorch call computes the row hash",
-         "index_add_ms": total(k6[1:], "index_add_ms"),
          "index_add": "the neighbour sum alone, int32 index_add_ of the "
                       "gathered rows, over the four propagating generations",
-         "summed_over": "the five generations of one HadamardCode(n_iter=5) "
-                        "fit_transform on the NCI1-scale fit batch, D = %d "
-                        "(generation 0 hashes only)" % hD,
-         "ptxas": k6_ptxas, "shapes": k6, "widths": k6_widths,
-         "hub_batch": k6_hub, "wrap_batch": k6_wrap},
+         "five_launch": "the earlier design on the same inputs: the rows "
+                        "gathered into device memory, one round-route "
+                        "launch a generation over every row",
+         "summed_over": "one hadamard_generations call, the five "
+                        "generations of one HadamardCode(n_iter=5) "
+                        "fit_transform on the NCI1-scale fit batch, D = %d, "
+                        "graph route (one launch)" % hD,
+         "ptxas": k6_ptxas, "shapes": [k6, k6_transform],
+         "widths": k6_widths, "hub_batch": k6_hub, "wrap_batch": k6_wrap},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("chip_smoke: %.1f s in all, the build included"

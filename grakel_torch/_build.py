@@ -49,7 +49,10 @@ _SIGNATURES = {
     "grakel_nh_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                         _I, _P],
     "grakel_jaccard_fold": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "grakel_hadamard_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "grakel_hadamard_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _P],
+    "grakel_hadamard_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                              _P],
 }
 
 

@@ -18,13 +18,16 @@ semantics (grakel/kernels/hadamard_code.py:107-260):
 
 Two execution paths:
 
-* **fast path** (base kernel VertexHistogram without parameters): codes
-  are int32 rows [N_pad, D] on the kernel's device, and a generation is
-  one call of ``ops/hadamard`` (on the card the hand kernel K6: the
-  neighbour sum and the row hash of each node, K2's int64 compaction
-  key), then ``torch.unique`` compaction and the counts-Gram, over the
-  repeated codes only, singletons folded into the diagonal as on WL's
-  fast path.  Counts sum in f32, or f64 once an entry could pass 2^24
+* **fast path** (base kernel VertexHistogram without parameters): the
+  initial codes go to the kernel's device as a row index a node into a
+  small table of Hadamard rows, and one call of
+  ``ops/hadamard.hadamard_generations`` gives every generation's keys
+  (on the card the hand kernel K6, one launch for the graphs that fit a
+  block's shared memory: the neighbour sums and the row hash of each
+  node, K2's int64 compaction key); then, a generation at a time,
+  ``torch.unique`` compaction and the counts-Gram, over the repeated
+  codes only, singletons folded into the diagonal as on WL's fast
+  path.  Counts sum in f32, or f64 once an entry could pass 2^24
   (an entry is at most n_iter max_n^2).
 * **host path** (any other base kernel): the generation loop with tuple
   labels, one base-kernel instance a generation, dispatched through
@@ -170,20 +173,18 @@ class HadamardCode(Kernel):
         return int(2 ** ceil(log2(max(nl, 1))))
 
     def _initial_codes(self, graphs, enum, D_pad):
-        """int32 [sum nodes, D_pad] initial Hadamard codes (the rows of
-        H(D) for D = the dimension of ``enum``, zero-padded to D_pad)."""
+        """The initial Hadamard codes of ``graphs``' vertices as (row
+        indices int32 [sum nodes], table int32 [D, D_pad]): vertex v's
+        code is row ``enum[l(v)]`` of H(D), D the dimension of ``enum``,
+        zero-padded to D_pad."""
         D = self._hdim(len(enum))
-        H = hadamard(D).astype(np.int32)
-        rows = []
+        table = np.zeros((D, D_pad), np.int32)
+        table[:, :D] = hadamard(D)
+        idx = []
         for g in graphs:
             labs = g.get_labels(label_type="vertex")
-            idx = np.array([enum[labs[v]] for v in range(g.n)], np.int64)
-            rows.append(H[idx])
-        out = np.concatenate(rows, axis=0) if rows else \
-            np.zeros((0, D), np.int32)
-        if D < D_pad:
-            out = np.pad(out, ((0, 0), (0, D_pad - D)))
-        return out
+            idx.extend(enum[labs[v]] for v in range(g.n))
+        return np.asarray(idx, np.int32), table
 
     # ------------------------------------------------------- device path
     def _batch(self, graphs):
@@ -195,17 +196,32 @@ class HadamardCode(Kernel):
         most n_i n_j to an entry (:func:`ops.gram.count_dtype`)."""
         return count_dtype(self.n_iter * batch.max_nodes ** 2)
 
-    def _keys(self, batch, code_blocks, tags):
-        """The generations' compaction keys over ``batch``: its nodes'
-        codes are the int32 blocks ``code_blocks`` in node order, padded
-        with zero rows, and ``tags`` [N_pad] their dimension tags."""
-        codes = np.zeros((batch.node_labels.shape[0],
-                          code_blocks[0].shape[1]), np.int32)
-        np.concatenate(code_blocks, axis=0, out=codes[:batch.total_nodes])
+    @staticmethod
+    def _code_table(batch, parts):
+        """(table int32 [T + 1, D_pad], row int32 [N_pad]) for ``batch``,
+        whose nodes' initial codes are the ``(rows, table)`` parts of
+        :meth:`_initial_codes` in node order: the parts' tables stacked,
+        their rows offset to match, the padding rows on a last zero
+        row."""
+        tables, rows, at = [], [], 0
+        for r, t in parts:
+            rows.append(r + at)
+            tables.append(t)
+            at += t.shape[0]
+        tables.append(np.zeros((1, tables[0].shape[1]), np.int32))
+        row = np.full(batch.node_labels.shape[0], at, np.int32)
+        np.concatenate(rows, out=row[:batch.total_nodes])
+        return np.concatenate(tables), row
+
+    def _keys(self, batch, parts, tags):
+        """The generations' compaction keys [n_iter, N_pad] over
+        ``batch`` (:meth:`_code_table` of ``parts``), with ``tags``
+        [N_pad] (on the batch's device) the rows' dimension tags."""
+        table, row = self._code_table(batch, parts)
         dev = batch.device
         return hadamard_generations(
-            batch, torch.from_numpy(codes).to(dev),
-            torch.from_numpy(tags).to(dev), self.n_iter)
+            batch, torch.from_numpy(table).to(dev),
+            torch.from_numpy(row).to(dev), tags, self.n_iter)
 
     def _device_sym(self, graphs):
         """Symmetric Gram on the fast path, on the kernel's device: per
@@ -220,9 +236,9 @@ class HadamardCode(Kernel):
         K = torch.zeros((n, n), dtype=self._count_dtype(batch),
                         device=gids.device)
         diag = torch.zeros(n, dtype=torch.float64, device=gids.device)
-        for key in self._keys(batch,
-                              [self._initial_codes(graphs, self._enum, D)],
-                              np.full(N_pad, D, np.int32)):
+        tags = torch.full((N_pad,), D, dtype=torch.int32, device=gids.device)
+        for key in self._keys(
+                batch, [self._initial_codes(graphs, self._enum, D)], tags):
             ids, _, counts = wl_ops.compact_key_ids(key, valid)
             labels, rep_valid, n_rep, dc = wl_ops.split_singletons(
                 ids, counts, valid, gids, n)
@@ -246,8 +262,8 @@ class HadamardCode(Kernel):
         D_pad = max(Dx, Dt)
         cx = self._initial_codes(Xg, self._enum, D_pad)
         cy = self._initial_codes(Yg, enum_t, D_pad)
-        tags = np.full(N_pad, Dt, np.int32)
-        tags[:cx.shape[0]] = Dx
+        tags = torch.full((N_pad,), Dt, dtype=torch.int32, device=gids.device)
+        tags[:len(cx[0])] = Dx
         is_y = gids >= nx
         gids_y = torch.where(is_y, gids - nx, 0)
         gids_x = torch.where(is_y, 0, gids)

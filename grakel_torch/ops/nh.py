@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["nh_rounds", "nh_rounds_plain", "nh_round_cuda", "nh_graph_cuda",
-           "nh_plan", "nh_route", "k4_smem_bytes", "rot_plain",
+           "nh_plan", "nh_route", "chunk_table", "k4_smem_bytes", "rot_plain",
            "xor_segment_plain", "K4_SMEM_BUDGET", "K4_CHUNK_NODES",
            "K4_HUB_DEGREE"]
 
@@ -163,13 +163,11 @@ def nh_plan(n_nodes, n_edges, bits, chunk_nodes=K4_CHUNK_NODES,
     ``n_edges`` sender edges (numpy [n_graphs], in batch order; nodes
     and edges of a graph contiguous, as ``GraphBatch`` lays them out).
 
-    Returns ``(chunks, round_graphs, smem)``: int32 [C, 6] rows ``(g0,
-    g1, node0, node1, edge0, edge1)``, each a run of consecutive graphs
-    on the graph route that the greedy walk in batch order packs while
-    the run holds at most ``chunk_nodes`` nodes (a larger graph alone)
-    and fits ``budget`` bytes of shared memory, ordered by decreasing
-    node count (blocks start in about that order, so the largest chunks
-    do not finish last); int64 ids of the graphs on the round route
+    Returns ``(chunks, round_graphs, smem)``: the :func:`chunk_table` of
+    the runs of consecutive graphs on the graph route that the greedy
+    walk in batch order packs while a run holds at most ``chunk_nodes``
+    nodes (a larger graph alone) and fits ``budget`` bytes of shared
+    memory; int64 ids of the graphs on the round route
     (:func:`nh_route`); the shared memory bytes of the largest chunk (0
     without chunks)."""
     n_nodes = np.asarray(n_nodes, np.int64)
@@ -199,17 +197,25 @@ def nh_plan(n_nodes, n_edges, bits, chunk_nodes=K4_CHUNK_NODES,
             run = [g, nv, c]
     if run is not None:
         chunks.append((run[0], len(n_nodes)))
-    table = np.zeros((len(chunks), 6), np.int32)
+    table = chunk_table(*np.array(chunks, np.int64).reshape(-1, 2).T,
+                        node_at, edge_at)
     if chunks:
-        lo, hi = np.array(chunks, np.int64).T
-        order = np.argsort(node_at[lo] - node_at[hi], kind="stable")
-        lo, hi = lo[order], hi[order]
-        table[:] = np.stack([lo, hi, node_at[lo], node_at[hi], edge_at[lo],
-                             edge_at[hi]], 1)
-        smem = int(k4_smem_bytes(node_at[hi] - node_at[lo],
-                                 edge_at[hi] - edge_at[lo], hi - lo,
-                                 bits).max())
+        g0, g1, v0, v1, e0, e1 = table.T.astype(np.int64)
+        smem = int(k4_smem_bytes(v1 - v0, e1 - e0, g1 - g0, bits).max())
     return table, np.flatnonzero(~fits), smem
+
+
+def chunk_table(lo, hi, node_at, edge_at):
+    """The int32 [C, 6] chunk table of the graph runs ``[lo[c], hi[c])``
+    (int64 numpy) of a batch whose graphs' nodes and CSR edges start at
+    ``node_at`` and ``edge_at`` (length n_graphs + 1): rows ``(g0, g1,
+    node0, node1, edge0, edge1)``, ordered by decreasing node count
+    (blocks start in about that order, so the largest chunks do not
+    finish last)."""
+    order = np.argsort(node_at[lo] - node_at[hi], kind="stable")
+    lo, hi = lo[order], hi[order]
+    return np.stack([lo, hi, node_at[lo], node_at[hi], edge_at[lo],
+                     edge_at[hi]], 1).astype(np.int32).reshape(-1, 6)
 
 
 _COPY_STREAMS = {}

@@ -844,28 +844,121 @@ def test_hadamard_step_kernel_bit_identical(cuda, D, case):
         assert (wide.abs() >= 2 ** 31).any()
 
 
-def test_hadamard_generations_on_card(cuda):
-    """``hadamard_generations`` on the card: one K6 launch a generation,
-    the keys of the CPU run, the caller's codes untouched; a given
-    ``out`` buffer is written."""
+def _k6_launches():
+    return (hadamard.hadamard_graph_cuda.launches,
+            hadamard.hadamard_step_cuda.launches)
+
+
+def _hc_table(b, D, case, seed):
+    """A table and row indices for ``b`` (padding rows on a zero row):
+    codes of a few units, or one row a node over the whole int32 range
+    ("wrap": the sums pass 2^31), and random tags."""
+    N = b.node_labels.shape[0]
+    n = b.total_nodes
+    rng = np.random.RandomState(seed)
+    if case == "wrap":
+        table = rng.randint(-2 ** 31, 2 ** 31, (n + 1, D), dtype=np.int64)
+        row = np.arange(N)
+    else:
+        table = rng.randint(-3, 4, (max(n // 4, 1) + 1, D))
+        row = rng.randint(0, len(table) - 1, N)
+    table[-1] = 0
+    row[n:] = len(table) - 1
+    tag = rng.randint(0, 2 ** 31, N)
+    dev = b.csr_offsets.device
+    return tuple(torch.tensor(a.astype(np.int32), device=dev)
+                 for a in (table, np.minimum(row, len(table) - 1), tag))
+
+
+@pytest.mark.parametrize("D", [1, 2, 8, 32, 64, 128, 1024])
+@pytest.mark.parametrize("case", ["small", "wrap", "hub"])
+def test_hadamard_graph_route_bit_identical(cuda, D, case):
+    """``hadamard_generations`` on the card (K6's graph route, and its
+    round route for graphs whose buffers do not fit a block: the hub's
+    at D >= 128, most at D = 1024) against the plain multi-generation
+    version on the card, n_iter 1, 2 and 5, every row of the key stack;
+    the launches per route match the plan."""
+    b = _hc_batch(D, case == "hub", cuda)
+    table, row, tag = _hc_table(b, D, case, D + len(case))
+    _, rnd, _ = hadamard.hc_plan(b.n_nodes, b.n_edges, D, row.shape[0])
+    for n_iter in (1, 2, 5):
+        want = hadamard.hadamard_generations_plain(
+            table, row, b.csr_offsets, b.csr_targets, tag, n_iter)
+        before = _k6_launches()
+        got = hadamard.hadamard_generations(b, table, row, tag, n_iter)
+        torch.cuda.synchronize()
+        took = tuple(x - y for x, y in zip(_k6_launches(), before))
+        assert took == (1, n_iter if len(rnd) else 0), (took, len(rnd))
+        assert got.shape == (n_iter, row.shape[0]) and torch.equal(got, want)
+    if case == "hub" and D >= 128:
+        assert 7 in rnd.tolist()
+    if D == 1024:
+        assert len(rnd) > b.n_graphs // 2
+
+
+@pytest.mark.parametrize("D", [4, 64])
+def test_hadamard_generations_on_card(cuda, D, monkeypatch):
+    """The budget moves graphs between K6's routes: none (every graph on
+    the round route, the padding rows still on the graph route's one
+    launch), a budget that sends the largest graphs (the hub's among
+    them) to the round route and leaves graph-route graphs between them
+    (a masked round route), and the default; the keys equal the CPU run
+    of the plain version each time, and the caller's table and rows are
+    untouched."""
     bc = _hc_batch(3, True, "cpu")
     bg = _hc_batch(3, True, cuda)
-    N = bc.node_labels.shape[0]
-    rng = np.random.RandomState(5)
-    codes = torch.tensor(rng.choice([-1, 1], (N, 64)).astype(np.int32))
-    tag = torch.full((N,), 64, dtype=torch.int32)
-    want = list(hadamard.hadamard_generations(bc, codes, tag, 5))
-    cg = codes.to(cuda)
-    before = hadamard.hadamard_step_cuda.launches
-    got = list(hadamard.hadamard_generations(bg, cg, tag.to(cuda), 5))
+    table, row, tag = _hc_table(bc, D, "wrap", 11)
+    want = hadamard.hadamard_generations(bc, table, row, tag, 5)
+    each = hadamard.k6_smem_bytes(bg.n_nodes, bg.n_edges, D)
+    mixed = int(np.sort(each)[-4])
+    tg, rg, gg = (x.to(cuda) for x in (table, row, tag))
+    for budget in (0, mixed, hadamard.K6_SMEM_BUDGET):
+        monkeypatch.setattr(hadamard, "K6_SMEM_BUDGET", budget)
+        _, rnd, _ = hadamard.hc_plan(bg.n_nodes, bg.n_edges, D,
+                                     row.shape[0], budget)
+        if budget == mixed:
+            assert 7 in rnd.tolist() and 3 <= len(rnd) < rnd[-1] - rnd[0]
+        before = _k6_launches()
+        got = hadamard.hadamard_generations(bg, tg, rg, gg, 5)
+        torch.cuda.synchronize()
+        took = tuple(x - y for x, y in zip(_k6_launches(), before))
+        assert took == (1, 5 if len(rnd) else 0), (budget, took)
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(tg.cpu(), table) and torch.equal(rg.cpu(), row)
+
+
+def test_hadamard_round_route_node_range_and_out(cuda):
+    """The round route over a node range with a graph mask writes the
+    keys of the masked graphs' nodes only, from rows local to the range;
+    a given ``out`` buffer is written there and nowhere else."""
+    b = _hc_batch(5, True, cuda)
+    N = b.node_labels.shape[0]
+    rng = np.random.RandomState(6)
+    codes = torch.tensor(rng.randint(-9, 10, (N, 32)).astype(np.int32),
+                         device=cuda)
+    tag = torch.full((N,), 32, dtype=torch.int32, device=cuda)
+    want, wkey = hadamard.hadamard_step_plain(codes, b.csr_offsets,
+                                              b.csr_targets, tag, True)
+    g0, g1 = 5, 20
+    lo, hi = int(b.node_offsets[g0]), int(b.node_offsets[g1])
+    on = torch.zeros(b.n_graphs, dtype=torch.bool, device=cuda)
+    on[g0:g1:2] = True
+    key = torch.full((N,), -1, dtype=torch.int64, device=cuda)
+    out = torch.full((hi - lo, 32), 7, dtype=torch.int32, device=cuda)
+    nxt, k = hadamard.hadamard_step_cuda(
+        codes[lo:hi].contiguous(), b.csr_offsets, b.csr_targets, tag, True,
+        out=out, nodes=(lo, hi), graph_mask=on, gids=b.node_graph_ids,
+        key=key)
     torch.cuda.synchronize()
-    assert hadamard.hadamard_step_cuda.launches == before + 5
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-    assert torch.equal(cg.cpu(), codes)
-    out = torch.full_like(cg, 7)
-    nxt, _ = hadamard.hadamard_step_cuda(cg, bg.csr_offsets, bg.csr_targets,
-                                         tag.to(cuda), True, out=out)
-    assert nxt is out and not torch.equal(out, torch.full_like(cg, 7))
+    assert nxt is out and k is key
+    gid = b.node_graph_ids.long()
+    mine = b.node_mask & (gid >= g0) & (gid < g1) & (gid % 2 == g0 % 2)
+    assert int(mine.sum()) > 0
+    assert torch.equal(key[mine], wkey[mine])
+    assert (key[~mine] == -1).all()
+    local = mine[lo:hi]
+    assert torch.equal(out[local], want[lo:hi][local])
+    assert (out[~local] == 7).all()
 
 
 def test_hadamard_wrapper_checks_inputs(cuda):
@@ -887,11 +980,38 @@ def test_hadamard_wrapper_checks_inputs(cuda):
             hadamard.hadamard_step_cuda(*args, True, out=out)
     with pytest.raises(ValueError):
         hadamard.hadamard_step_cuda(*[x.cpu() for x in args], False)
+    for kw in ({"nodes": (0, N - 1)}, {"nodes": (2, 1)},
+               {"graph_mask": torch.ones(b.n_graphs, dtype=torch.bool,
+                                         device=cuda)},
+               {"key": torch.empty(N, dtype=torch.int32, device=cuda)},
+               {"key": torch.empty(N - 1, dtype=torch.int64, device=cuda)}):
+        with pytest.raises(ValueError):
+            hadamard.hadamard_step_cuda(*args, True, **kw)
+    # the graph route's wrapper
+    table, row, tag8 = _hc_table(b, 8, "small", 1)
+    chunks, _, _ = hadamard.hc_plan(b.n_nodes, b.n_edges, 8, N)
+    key = torch.empty((3, N), dtype=torch.int64, device=cuda)
+    good = [table, row, tag8, b.csr_offsets, b.csr_targets, chunks, key]
+    bad_chunks = chunks.copy()
+    bad_chunks[0, 3] = N + 1
+    for i, bad in ((0, table[:, :6].contiguous()), (0, table.long()),
+                   (1, row[:-1]), (1, row.cpu()), (2, tag8[:-1]),
+                   (3, b.csr_offsets[:-1]), (5, chunks[:, :4]),
+                   (5, bad_chunks), (6, key[0]), (6, key.int()),
+                   (6, key[:, :-1].contiguous()),
+                   (6, torch.empty((0, N), dtype=torch.int64,
+                                   device=cuda))):
+        a = list(good)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            hadamard.hadamard_graph_cuda(*a)
+    with pytest.raises(ValueError):
+        hadamard.hadamard_generations(b, table, row, tag8.cpu(), 2)
 
 
 @pytest.mark.parametrize("name,kw,k6", [
-    ("HadamardCode", {"n_iter": 3}, 3),
-    ("HadamardCode", {"n_iter": 5, "normalize": True}, 5),
+    ("HadamardCode", {"n_iter": 3}, 1),
+    ("HadamardCode", {"n_iter": 5, "normalize": True}, 1),
     ("HadamardCode", {"n_iter": 2, "base_graph_kernel": "SP"}, 0),
     ("Propagation", {"random_state": 0}, 0),
     ("Propagation", {"random_state": 1, "M": "H", "normalize": True}, 0),
@@ -899,9 +1019,10 @@ def test_hadamard_wrapper_checks_inputs(cuda):
     ("PropagationAttr", {"random_state": 2, "M": "L2", "w": 0.5}, 0)])
 def test_hc_and_propagation_on_card_match_cpu(cuda, name, kw, k6):
     """The three classes on the card equal their CPU runs (the test split
-    holds a label unseen at fit); HadamardCode's fast path launches K6
-    once a generation in fit_transform and in transform, its host path
-    (a ShortestPath base) none and K3 instead."""
+    holds a label unseen at fit); HadamardCode's fast path launches K6's
+    graph route once in fit_transform and once in transform and its round
+    route never (the graphs fit a block), its host path (a ShortestPath
+    base) none and K3 instead."""
     feats = ("na", 3) if name == "PropagationAttr" else ("nl", 6)
     train, test = generate_dataset(n_graphs=80, n_graphs_test=10,
                                    r_vertices=(5, 30), random_state=2,
@@ -909,15 +1030,16 @@ def test_hc_and_propagation_on_card_match_cpu(cuda, name, kw, k6):
     if kw.get("base_graph_kernel") == "SP":
         kw = dict(kw, base_graph_kernel=(grakel_torch.ShortestPath, {}))
     k = getattr(grakel_torch, name)(**kw)
+    hadamard.hadamard_graph_cuda.launches = 0
     hadamard.hadamard_step_cuda.launches = 0
     fw.floyd_warshall_cuda.launches = 0
     K = k.fit_transform(train)
     torch.cuda.synchronize()
-    assert hadamard.hadamard_step_cuda.launches == k6
+    assert _k6_launches() == (k6, 0)
     T = k.transform(test)
     d = k.diagonal()
     torch.cuda.synchronize()
-    assert hadamard.hadamard_step_cuda.launches == 2 * k6
+    assert _k6_launches() == (2 * k6, 0)
     if "base_graph_kernel" in kw:
         assert fw.floyd_warshall_cuda.launches > 0
     with use_device("cpu"):

@@ -135,17 +135,218 @@ def test_hadamard_generations_match_jax_device_run(data, n_iter):
     tb = GraphBatch.from_graphs(normalize_input(list(train) + list(test)),
                                 node_label_enum={}, device="cpu")
     assert tb.node_labels.shape[0] == N_pad
-    padded = np.zeros((N_pad, D), np.int32)
-    padded[:len(codes)] = codes
-    got = list(hc_ops.hadamard_generations(
-        tb, torch.from_numpy(padded), torch.from_numpy(dims.view(np.int32)),
-        n_iter))
-    assert len(got) == len(want) == n_iter
+    # a table of one row a node, the padding rows one zero row
+    table = np.zeros((len(codes) + 1, D), np.int32)
+    table[:len(codes)] = codes
+    row = np.minimum(np.arange(N_pad), len(codes)).astype(np.int32)
+    got = hc_ops.hadamard_generations(
+        tb, torch.from_numpy(table), torch.from_numpy(row),
+        torch.from_numpy(dims.view(np.int32)), n_iter)
+    assert got.shape == (n_iter, N_pad) and got.dtype == torch.int64
+    assert len(want) == n_iter
     valid = tb.node_mask.numpy()
     for key, (j1, j2) in zip(got, want):
         h1, h2 = _unsigned(key)
         np.testing.assert_array_equal(h1[valid], np.asarray(j1)[valid])
         np.testing.assert_array_equal(h2[valid], np.asarray(j2)[valid])
+
+
+def _table_inputs(seed, graphs, D, Dx, big):
+    """Initial codes of ``graphs`` as a table and row indices, the
+    padding rows on a zero row: with ``Dx`` < D the first half of the
+    graphs takes rows of width Dx zero-padded to D (the fit graphs of a
+    transform) and tag Dx, the rest (and the padding) width and tag D;
+    with ``big`` the codes span the whole int32 range."""
+    rng = np.random.RandomState(seed)
+    n = sum(g.n for g in graphs)
+    nx = sum(g.n for g in graphs[:len(graphs) // 2]) if Dx < D else 0
+    T = max(n // 3, 2)
+    table = np.zeros((2 * T + 1, D), np.int32)
+    table[:T, :Dx] = _codes(seed, T, Dx, big)
+    table[T:2 * T] = _codes(seed + 1, T, D, big)
+    row = np.concatenate([rng.randint(0, T, nx),
+                          rng.randint(T, 2 * T, n - nx)]).astype(np.int32)
+    tags = np.full(n, D, np.uint32)
+    tags[:nx] = Dx
+    return table, row, tags
+
+
+@pytest.mark.parametrize("D,Dx,n_iter,big", [
+    (1, 1, 5, True), (2, 1, 3, False), (4, 4, 2, True), (8, 2, 1, True),
+    (16, 16, 4, False), (32, 8, 5, True), (64, 64, 5, True),
+    (64, 32, 4, True), (128, 128, 3, False), (256, 64, 2, True),
+    (1024, 1024, 2, True), (1024, 512, 1, False)])
+def test_hadamard_generations_plain_bit_identical_to_jax(D, Dx, n_iter,
+                                                          big):
+    """The plain multi-generation version on a table and row indices
+    equals the JAX kernel's ``_device_run`` + ``_row_hash`` on the
+    materialised codes bit for bit, over every row of the batch (padding
+    included): fit tags (one dimension) and transform tags (Dx < D,
+    zero-padded rows), codes of a few units or over the whole int32
+    range (the sums wrap)."""
+    train, _ = generate_dataset(n_graphs=14 if D < 512 else 6,
+                                n_graphs_test=1, r_vertices=(0, 25),
+                                r_connectivity=(0.05, 0.4),
+                                random_state=D + n_iter, features=("nl", 3))
+    graphs = normalize_input(train)
+    table, row, tags = _table_inputs(D + Dx, graphs, D, Dx, big)
+    jb = JGraphBatch.from_graphs(jax_normalize_input(train),
+                                 node_label_enum={})
+    N_pad = int(jb.node_labels.shape[0])
+    dims = np.full(N_pad, D, np.uint32)
+    dims[:len(tags)] = tags
+    kj = grakel_tpu.HadamardCode(n_iter=n_iter)
+    want = list(kj._device_run(None, table[row], dims, jb))
+    tb = GraphBatch.from_graphs(graphs, node_label_enum={}, device="cpu")
+    assert tb.node_labels.shape[0] == N_pad
+    full = np.full(N_pad, len(table) - 1, np.int32)
+    full[:len(row)] = row
+    got = hc_ops.hadamard_generations_plain(
+        torch.from_numpy(table), torch.from_numpy(full), tb.csr_offsets,
+        tb.csr_targets, torch.from_numpy(dims.view(np.int32)), n_iter)
+    assert got.shape == (n_iter, N_pad) and len(want) == n_iter
+    for key, (j1, j2) in zip(got, want):
+        h1, h2 = _unsigned(key)
+        np.testing.assert_array_equal(h1, np.asarray(j1))
+        np.testing.assert_array_equal(h2, np.asarray(j2))
+    if big and n_iter > 1:
+        wide = table[row].astype(np.int64)
+        np.add.at(wide, tb.senders.numpy()[tb.edge_mask.numpy()],
+                  table[row][tb.receivers.numpy()[tb.edge_mask.numpy()]])
+        assert (np.abs(wide) >= 2 ** 31).any()     # the sums did wrap
+
+
+# --------------------------------------------------------------------- #
+# K6's plan: what the CPU can hold the routes to
+# --------------------------------------------------------------------- #
+
+def _shapes(seed, G, nmax):
+    rng = np.random.RandomState(seed)
+    nv = rng.randint(0, nmax + 1, G)
+    ne = np.where(nv > 0, rng.randint(0, 4 * nmax + 1, G), 0)
+    ne[rng.rand(G) < 0.1] = 0                         # edgeless graphs
+    return nv, ne
+
+
+def _check_plan(nv, ne, D, n_rows, budget):
+    """The plan's invariants: every graph in exactly one chunk or on the
+    round route, chunks of whole consecutive graphs within the budget,
+    the padding rows in edgeless chunks, the largest chunk's bytes."""
+    chunks, rnd, smem = hc_ops.hc_plan(nv, ne, D, n_rows, budget)
+    G = len(nv)
+    node_at = np.r_[0, np.cumsum(nv)]
+    edge_at = np.r_[0, np.cumsum(ne)]
+    assert chunks.dtype == np.int32 and chunks.shape[1] == 6
+    g0, g1, v0, v1, e0, e1 = chunks.astype(np.int64).T
+    data = g0 < G
+    owner = np.zeros(G, np.int64)
+    for a, b in zip(g0[data], g1[data]):
+        assert a < b
+        owner[a:b] += 1
+    owner[rnd] += 1
+    assert (owner == 1).all()
+    route = np.array([hc_ops.hc_route(a, b, D, budget) for a, b in
+                      zip(nv.tolist(), ne.tolist())])
+    assert (route[rnd] == "round").all()
+    assert np.flatnonzero(route == "round").tolist() == rnd.tolist()
+    assert (v0[data] == node_at[g0[data]]).all()
+    assert (v1[data] == node_at[g1[data]]).all()
+    assert (e0[data] == edge_at[g0[data]]).all()
+    assert (e1[data] == edge_at[g1[data]]).all()
+    each = hc_ops.k6_smem_bytes(v1 - v0, e1 - e0, D)
+    assert (each[data] <= budget).all()
+    assert smem == (int(each.max()) if len(each) else 0)
+    sizes = (v1 - v0)[data]
+    assert (sizes[:-1] >= sizes[1:]).all()        # largest chunks first
+    # the padding rows: edgeless chunks after the graphs', once each
+    assert (g0[~data] == G).all() and (g1[~data] == G).all()
+    assert (e0[~data] == e1[~data]).all()
+    pad = np.zeros(n_rows, np.int64)
+    for a, b in zip(v0[~data], v1[~data]):
+        pad[a:b] += 1
+    assert (pad[:node_at[-1]] == 0).all() and (pad[node_at[-1]:] == 1).all()
+    return chunks, rnd
+
+
+@pytest.mark.parametrize("seed,G,nmax,D,budget", [
+    (0, 300, 50, 64, hc_ops.K6_SMEM_BUDGET), (1, 200, 300, 64, 96 * 1024),
+    (2, 400, 60, 1, 8 * 1024), (3, 100, 40, 1024, 96 * 1024),
+    (4, 150, 120, 8, 24 * 1024), (5, 50, 2000, 32, 200 * 1024),
+    (6, 1, 10, 2, 4096), (7, 80, 30, 128, 0)])
+def test_hc_plan_invariants(seed, G, nmax, D, budget):
+    """Random batches (edgeless and empty graphs among them) at widths
+    1-1024 and budgets from none (every graph on the round route) to
+    200 KB: the plan's invariants hold, and the chunks are not much
+    emptier than the budget allows (the mean chunk of several graphs
+    holds at least a third of it)."""
+    nv, ne = _shapes(seed, G, nmax)
+    chunks, rnd = _check_plan(nv, ne, D, int(nv.sum()) + 1 + seed * 37,
+                              budget)
+    if budget == 0:
+        assert len(rnd) == G
+    g0, g1, v0, v1, e0, e1 = chunks.astype(np.int64).T
+    multi = (g0 < G) & (g1 - g0 > 1)
+    if multi.sum() > 3:
+        each = hc_ops.k6_smem_bytes(v1 - v0, e1 - e0, D)[multi]
+        assert each.mean() >= budget / 3
+
+
+def test_hc_plan_mixes_routes():
+    """A graph too large for the budget takes the round route alone, the
+    graphs around it stay on the graph route, and the chunk on either
+    side of it ends there; the same graph under a larger budget is a
+    chunk of its own."""
+    nv = np.array([30, 40, 300, 20, 45, 3000, 10, 0, 25])
+    ne = np.array([90, 100, 1200, 40, 0, 9000, 12, 0, 70])
+    D = 64
+    assert hc_ops.hc_route(300, 1200, D) == "round"
+    assert hc_ops.hc_route(45, 0, D) == "graph"
+    chunks, rnd = _check_plan(nv, ne, D, int(nv.sum()) + 5,
+                              hc_ops.K6_SMEM_BUDGET)
+    assert rnd.tolist() == [2, 5]
+    spans = sorted((a, b) for a, b in chunks[:, :2].tolist() if a < 9)
+    assert spans == [(0, 2), (3, 5), (6, 9)]
+    chunks, rnd = _check_plan(nv, ne, D, int(nv.sum()) + 5, 200 * 1024)
+    assert rnd.tolist() == [5]
+    assert [2, 3] in chunks[:, :2].tolist()       # 158 KB: a chunk alone
+
+
+def test_hc_plan_chunks_are_closed(data):
+    """What the graph route relies on, emulated with the plain version:
+    each chunk's graphs (a rebased slice of the CSR) give their rows'
+    keys of the whole batch, the padding chunks' rows keep one key in
+    every generation, and the round route's graphs give theirs from their
+    own node range."""
+    train, test = data
+    b = GraphBatch.from_graphs(normalize_input(list(train) + list(test)),
+                               node_label_enum={}, device="cpu")
+    N = b.node_labels.shape[0]
+    D, n_iter = 16, 4
+    table = torch.from_numpy(_codes(3, 40, D, True))
+    row = torch.from_numpy(np.random.RandomState(4).randint(0, 40, N)
+                           .astype(np.int32))
+    tag = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 2 ** 31, N).astype(np.int32))
+    off, tgt = b.csr_offsets, b.csr_targets
+    want = hc_ops.hadamard_generations_plain(table, row, off, tgt, tag,
+                                             n_iter)
+    budget = int(np.sort(hc_ops.k6_smem_bytes(b.n_nodes, b.n_edges, D))[-3])
+    chunks, rnd = _check_plan(b.n_nodes, b.n_edges, D, N, budget)
+    assert 1 <= len(rnd) <= 2
+    got = torch.zeros_like(want)
+    spans = [tuple(c) for c in chunks[:, 2:].tolist()]
+    spans += [(int(b.node_offsets[g]), int(b.node_offsets[g + 1]),
+               int(off[b.node_offsets[g]]), int(off[b.node_offsets[g + 1]]))
+              for g in rnd]
+    for v0, v1, e0, e1 in spans:
+        sub_off = off[v0:v1 + 1] - e0
+        sub_tgt = tgt[e0:e1] - v0
+        assert ((sub_tgt >= 0) & (sub_tgt < v1 - v0)).all()
+        got[:, v0:v1] = hc_ops.hadamard_generations_plain(
+            table, row[v0:v1], sub_off, sub_tgt, tag[v0:v1], n_iter)
+        if e0 == e1:
+            assert (want[:, v0:v1] == want[0, v0:v1]).all()
+    assert torch.equal(got, want)
 
 
 # --------------------------------------------------------------------- #

@@ -333,8 +333,9 @@ def test_neighborhood_hash_state_carry(nh_type):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """K4's (both routes), K5's (every route) and K6's (with and without
-    propagation) wrappers take CUDA tensors only: on CPU tensors they
+    """K4's (both routes), K5's (every route) and K6's (both routes, the
+    round route with and without propagation) wrappers take CUDA tensors
+    only: on CPU tensors they
     raise before building anything (their callers take the plain
     versions there)."""
     b, lab, valid = _round_inputs(0, 8)
@@ -361,6 +362,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             hadamard.hadamard_step_cuda(codes, b.csr_offsets, b.csr_targets,
                                         tag, propagate)
+    chunks, _, _ = hadamard.hc_plan(b.n_nodes, b.n_edges, 4, codes.shape[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        hadamard.hadamard_graph_cuda(
+            codes, torch.arange(codes.shape[0], dtype=torch.int32), tag,
+            b.csr_offsets, b.csr_targets, chunks,
+            torch.empty((3, codes.shape[0]), dtype=torch.int64))
 
 
 # --------------------------------------------------------------------- #
