@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``grakel_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``grakel_torch/csrc/*.cu``)
+and its native host engines (``grakel_torch/native/src/*.cpp``).
 
 The sources have a plain C interface and no PyTorch headers, so each
 compiles with ``nvcc`` in seconds.  At first use every source compiles
@@ -8,13 +9,30 @@ at the root of the checkout, named by a hash of the sources and flags
 (a changed source builds anew; an unchanged one loads the existing
 library).  The library is loaded with ``ctypes``.
 
+The native host engines (C++ for the CPU: clique enumeration, string
+hashes, ODD-STh and NSPD decompositions, canonical labeling, ESU and
+unit-weight BFS) build the same way with ``g++ -O3 -shared -fPIC
+-std=c++17 -fopenmp`` into ``build/native/`` (:func:`build_native`), on
+every machine, the CPU test runs included.  Without OpenMP (a compiler
+that refuses ``-fopenmp``) they build single-threaded; any other
+failure raises with the compiler's output.
+
+Builds are safe to race: a process builds under an exclusive lock on a
+file in the build directory, into a temporary directory there, and
+moves the finished library into place with ``os.replace``, so a reader
+never sees half a file and concurrent first uses (test workers) build
+once.
+
 Nothing here runs at import time: the CPU tests import every module,
 and the CPU has neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import functools
 import glob
 import hashlib
 import os
@@ -23,11 +41,15 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["load_library", "launch", "CSRC", "BUILD_DIR"]
+__all__ = ["load_library", "launch", "build_native", "CSRC", "BUILD_DIR",
+           "NATIVE_SRC", "NATIVE_DIR"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NATIVE_SRC = os.path.join(_PKG, "native", "src")
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "build", "native")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -74,8 +96,8 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def _digest(sources):
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, flags=NVCC_FLAGS):
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
@@ -83,7 +105,7 @@ def _digest(sources):
     return h.hexdigest()[:16]
 
 
-def _run(cmds):
+def _run(cmds, what="kernel"):
     """Run the commands in parallel; raise with the first failure's
     compiler output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -91,9 +113,22 @@ def _run(cmds):
     outs = [p.communicate()[0].decode(errors="replace") for p in procs]
     for c, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError("kernel build failed (%d): %s\n%s"
-                               % (p.returncode, " ".join(c), out))
+            raise RuntimeError("%s build failed (%d): %s\n%s"
+                               % (what, p.returncode, " ".join(c), out))
     return outs
+
+
+@contextlib.contextmanager
+def _locked(directory):
+    """An exclusive lock on ``directory/lock`` for the block (released by
+    the kernel if the process dies, so a lock is never left stale)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def build(verbose=False):
@@ -118,6 +153,58 @@ def build(verbose=False):
         outs += _run([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", staged]])
         os.replace(staged, lib)   # atomic: a reader never sees half a file
     return lib, "".join(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _openmp_flags(gxx):
+    """``["-fopenmp"]`` when ``gxx`` compiles and links an OpenMP probe,
+    else ``[]``: the one failure a native build goes on from.  Probed
+    once a process, in a temporary directory under the build
+    directory."""
+    os.makedirs(NATIVE_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=NATIVE_DIR) as tmp:
+        probe = os.path.join(tmp, "omp_probe.cpp")
+        with open(probe, "w") as f:
+            f.write("#include <omp.h>\n"
+                    "extern \"C\" int grakel_omp_probe() "
+                    "{ return omp_get_max_threads(); }\n")
+        p = subprocess.run([gxx, *GXX_FLAGS, "-fopenmp", probe, "-o",
+                            os.path.join(tmp, "omp_probe.so")],
+                           capture_output=True)
+    return ["-fopenmp"] if p.returncode == 0 else []
+
+
+def build_native():
+    """Compile the native sources into
+    ``build/native/libgrakel_native_<hash>.so`` (skipped when that file
+    exists; the hash covers the sources and the recipe) and return its
+    path.  Each source compiles in its own ``g++`` process, all started
+    together; ``-fopenmp`` is dropped only when the compiler refuses it
+    (an OpenMP probe fails), and the hash covers the flags used, so a
+    single-threaded build is never loaded where OpenMP works.  Raises
+    ``RuntimeError`` with the compiler's output on any other failure."""
+    sources = sorted(glob.glob(os.path.join(NATIVE_SRC, "*.cpp")))
+    if not sources:
+        raise RuntimeError("no native sources under %s" % NATIVE_SRC)
+    gxx = shutil.which("g++") or "g++"
+    flags = GXX_FLAGS + _openmp_flags(gxx)
+    lib = os.path.join(NATIVE_DIR, "libgrakel_native_%s.so"
+                       % _digest(sources, flags))
+    if os.path.exists(lib):
+        return lib
+    with _locked(NATIVE_DIR):
+        if os.path.exists(lib):       # another process built it meanwhile
+            return lib
+        with tempfile.TemporaryDirectory(dir=NATIVE_DIR) as tmp:
+            compile_flags = [f for f in flags if f != "-shared"]
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                    for s in sources]
+            _run([[gxx, *compile_flags, "-c", s, "-o", o]
+                  for s, o in zip(sources, objs)], "native")
+            staged = os.path.join(tmp, "lib.so")
+            _run([[gxx, *flags, *objs, "-o", staged]], "native")
+            os.replace(staged, lib)
+    return lib
 
 
 def load_library():

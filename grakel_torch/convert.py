@@ -43,7 +43,22 @@ State layout, by kernel name:
   ``RandomState.get_state()`` tuple) — the projections, offsets and
   bucket dicts drawn at fit, the label columns, the fit bags, and the
   generator's state after fit (a transform with labels unseen at fit
-  draws from it).
+  draws from it);
+* ``"OddSth"``: ``{"ha", "hb", "C", "node", "graph", "freq": arrays,
+  "ncols": int, "h": int or None}`` — the native engine's big-DAG table
+  (the distinct-subtree fingerprint halves and C weights in
+  first-appearance order, the (table row, graph column, frequency)
+  stream of the fit graphs), the fit graph count and the BFS depth cap;
+* ``"NeighborhoodSubgraphPairwiseDistance"``: ``{"levels": {(r, d):
+  (rows, cols, counts, width)}, "fit_keys": {(r, d): uint64 keys},
+  "norms": {(r, d): f64[n]}, "n": int}`` — the fit graphs' level count
+  matrices, each level's sorted (hash A, hash B) key enumeration, each
+  level's per-graph squared-count sums and the fit graph count.  The
+  keys are native-engine hashes: carry them only into a kernel that
+  hashes with the engine too (the default);
+* ``"SubgraphMatching"``: ``{"graphs": [(n, senders, receivers, weights,
+  node_labels, edge_labels), ...]}`` — the fit graphs (its parameters
+  are the constructor's ``params``).
 """
 
 from __future__ import annotations
@@ -52,9 +67,10 @@ import numpy as np
 
 from .graph import Graph
 from .kernels import (EdgeHistogram, HadamardCode, NeighborhoodHash,
+                      NeighborhoodSubgraphPairwiseDistance, OddSth,
                       Propagation, PropagationAttr, PyramidMatch,
-                      ShortestPath, VertexHistogram, WeisfeilerLehman,
-                      WeisfeilerLehmanOptimalAssignment)
+                      ShortestPath, SubgraphMatching, VertexHistogram,
+                      WeisfeilerLehman, WeisfeilerLehmanOptimalAssignment)
 
 __all__ = ["kernel_from_state"]
 
@@ -68,15 +84,19 @@ _CLASSES = {"VertexHistogram": VertexHistogram,
                 WeisfeilerLehmanOptimalAssignment,
             "HadamardCode": HadamardCode,
             "Propagation": Propagation,
-            "PropagationAttr": PropagationAttr}
+            "PropagationAttr": PropagationAttr,
+            "OddSth": OddSth,
+            "NeighborhoodSubgraphPairwiseDistance":
+                NeighborhoodSubgraphPairwiseDistance,
+            "SubgraphMatching": SubgraphMatching}
 
 
 def _graphs(items):
     out = []
-    for n, s, r, w, nl in items:
+    for n, s, r, w, nl, *el in items:
         if nl is not None and not isinstance(nl, dict):
             nl = {i: v for i, v in enumerate(np.asarray(nl).tolist())}
-        out.append(Graph.from_arrays(n, s, r, w, nl))
+        out.append(Graph.from_arrays(n, s, r, w, nl, *el))
     return out
 
 
@@ -125,6 +145,23 @@ def kernel_from_state(name, params, state):
             # random_state=None resolves to
             k.random_state_ = np.random.RandomState()
             k.random_state_.set_state(state["random_state"])
+    elif name == "OddSth":
+        k.h = state["h"]
+        k.initialize()
+        k.X = {key: np.asarray(state[key]) for key in
+               ("ha", "hb", "C", "node", "graph", "freq")}
+        k.X["ncols"] = k._nx = int(state["ncols"])
+    elif name == "NeighborhoodSubgraphPairwiseDistance":
+        k.X = {tuple(key): (np.asarray(r, np.int32), np.asarray(c, np.int32),
+                            np.asarray(v, np.float32), int(w))
+               for key, (r, c, v, w) in state["levels"].items()}
+        k._fit_keys = {tuple(key): np.asarray(v, np.uint64)
+                       for key, v in state["fit_keys"].items()}
+        k._X_level_norm_factor = {tuple(key): np.asarray(v, np.float64)
+                                  for key, v in state["norms"].items()}
+        k._ngx = int(state["n"])
+    elif name == "SubgraphMatching":
+        k.X = k.parse_input(_graphs(state["graphs"]))
     elif name == "ShortestPath":
         k._enum = dict(state["enum"])
         # parse in transform mode: the carried enumeration is kept and,

@@ -10,6 +10,9 @@ from .neighborhood_hash import NeighborhoodHash
 from .wl_optimal_assignment import WeisfeilerLehmanOptimalAssignment
 from .hadamard_code import HadamardCode
 from .propagation import Propagation, PropagationAttr
+from .odd_sth import OddSth
+from .nspd import NeighborhoodSubgraphPairwiseDistance
+from .subgraph_matching import SubgraphMatching
 
 __all__ = [
     "Kernel",
@@ -25,4 +28,7 @@ __all__ = [
     "HadamardCode",
     "Propagation",
     "PropagationAttr",
+    "OddSth",
+    "NeighborhoodSubgraphPairwiseDistance",
+    "SubgraphMatching",
 ]

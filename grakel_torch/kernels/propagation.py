@@ -39,7 +39,7 @@ import torch
 from .base import Kernel
 from ..estimator import check_random_state
 from ..graph import Graph
-from ..ops.gram import coo_counts_gram, coo_counts_gram_rect, count_dtype
+from ..ops.gram import coo_counts_gram, count_dtype, shared_cols_gram_rect
 
 __all__ = ["Propagation", "PropagationAttr"]
 
@@ -425,12 +425,8 @@ class Propagation(Kernel):
         # rect: only the keys both sides hold meet in a product
         dt = self._count_dtype(px, py)
         gy, cy, wy = self._stream(py)
-        keys = np.intersect1d(cx, cy)
-        hx, hy = np.isin(cx, keys), np.isin(cy, keys)
-        return coo_counts_gram_rect(
-            *self._items(gy[hy], np.searchsorted(keys, cy[hy]), wy[hy]),
-            *self._items(gx[hx], np.searchsorted(keys, cx[hx]), wx[hx]),
-            len(py), len(px), max(len(keys), 1), dtype=dt)
+        return shared_cols_gram_rect(gy, cy, wy, gx, cx, wx, len(py),
+                                     len(px), self._device(), dtype=dt)
 
     def _diag(self, parsed):
         """Each (graph, key) is one item, so the diagonal is each graph's

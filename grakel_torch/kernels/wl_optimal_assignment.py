@@ -44,8 +44,8 @@ import torch
 
 from .base import Kernel, normalize_input
 from ..estimator import NotFittedError
-from ..ops.gram import (coo_counts_gram, coo_counts_gram_rect, count_dtype,
-                        normalize_gram)
+from ..ops.gram import (coo_counts_gram, count_dtype, normalize_gram,
+                        shared_cols_gram_rect)
 
 __all__ = ["WeisfeilerLehmanOptimalAssignment"]
 
@@ -256,22 +256,13 @@ class WeisfeilerLehmanOptimalAssignment(Kernel):
         pos_c = np.minimum(pos, max(len(self._ekeys) - 1, 0))
         hit = (self._ekeys[pos_c] == ekeys) if len(self._ekeys) else \
             np.zeros(ekeys.shape[0], bool)
-        # only the fit columns the new graphs reach add to an entry: the
-        # GEMMs run over those, renumbered in order
-        cols = np.unique(pos_c[hit])
-        fx = np.minimum(np.searchsorted(cols, self.X["eids"]),
-                        max(cols.size - 1, 0))
-        keep = (cols[fx] == self.X["eids"]) if cols.size else \
-            np.zeros(self.X["eids"].shape[0], bool)
-        ny, nk = int(hit.sum()), int(keep.sum())
+        # only the fit columns the new graphs reach add to an entry
         bound = min(mass.max(initial=0.0), self._mass.max(initial=0.0))
-        K = coo_counts_gram_rect(
-            self._tensor(gids[hit]), np.searchsorted(cols, pos_c[hit]),
-            np.ones(ny, np.float32), np.ones(ny, bool),
-            self._tensor(self.X["gids"][keep]), fx[keep],
-            np.ones(nk, np.float32), np.ones(nk, bool),
-            nx, self.X["n"], max(cols.size, 1),
-            dtype=count_dtype(bound)).cpu().numpy()
+        K = shared_cols_gram_rect(
+            gids[hit], pos_c[hit], np.ones(int(hit.sum()), np.float32),
+            self.X["gids"], self.X["eids"],
+            np.ones(len(self.X["eids"]), np.float32), nx, self.X["n"],
+            self._device(), dtype=count_dtype(bound)).cpu().numpy()
         self._is_transformed = True
         if self.normalize:
             X_diag, Y_diag = self.diagonal()

@@ -9,7 +9,11 @@ device.
 
 :func:`sparse_counts_gram` is the one host function: a multiplicity-split
 Gram in numpy for count matrices too sparse and wide for the chunked
-GEMM.
+GEMM (its dense block of the most-shared columns multiplied on the
+caller's device, or the host).  :func:`split_weighted_singletons` splits
+a weighted count matrix's singleton columns into the diagonal, and
+:func:`shared_cols_gram_rect` restricts a rectangular Gram to the
+columns both sides hold.
 
 Every GEMM here runs in full fp32 (TF32 off, set and restored around
 each product): count Grams hold exact integers below 2^24 only in full
@@ -30,7 +34,8 @@ from ..device import resolve_device
 __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
            "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
            "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
-           "sparse_counts_gram", "count_dtype"]
+           "sparse_counts_gram", "count_dtype", "split_weighted_singletons",
+           "shared_cols_gram_rect"]
 
 
 def count_dtype(bound):
@@ -150,12 +155,15 @@ def _densify(gids, labels, weights, valid, n, lo, chunk,
 
 
 def _items(gids, labels, weights, valid, n):
-    """Items as (int64 gids, int64 labels, f32 weights, bool valid) on
-    gids' device, with out-of-range graph ids invalid."""
+    """Items as (int64 gids, int64 labels, weights, bool valid) on gids'
+    device, with out-of-range graph ids invalid.  Weights stay f64 when
+    given in f64 (a weight past 2^24 stays exact for an f64 Gram), else
+    become f32."""
     dev = gids.device
     g = gids.to(torch.int64)
     lab = torch.as_tensor(labels, device=dev).to(torch.int64)
-    w = torch.as_tensor(weights, device=dev).to(torch.float32)
+    w = torch.as_tensor(weights, device=dev)
+    w = w.to(torch.float64 if w.dtype == torch.float64 else torch.float32)
     v = torch.as_tensor(valid, device=dev).to(torch.bool) \
         & (g >= 0) & (g < n)
     return g, lab, w, v
@@ -220,6 +228,26 @@ def coo_counts_gram_rect(ga, la, wa, va, gb, lb, wb, vb,
     return K
 
 
+def shared_cols_gram_rect(ga, ca, wa, gb, cb, wb, n_a, n_b, device,
+                          chunk=4096, dtype=torch.float32):
+    """K[i, j] = sum_l a[i, l] b[j, l] over numpy items ``(graph,
+    column, weight)`` of each side, multiplied only over the columns
+    both sides hold (any other column adds zero to every entry),
+    renumbered densely in column order: the rectangular counts-Gram on
+    ``device``, a ``dtype`` [n_a, n_b] tensor there.  Weights keep their
+    width as in :func:`coo_counts_gram_rect` (f64 stays f64)."""
+    keys = np.unique(ca[np.isin(ca, cb)])
+    ha, hb = np.isin(ca, keys), np.isin(cb, keys)
+
+    def side(g, c, w, hit):
+        return (torch.from_numpy(np.asarray(g[hit], np.int64)).to(device),
+                np.searchsorted(keys, c[hit]), w[hit], True)
+
+    return coo_counts_gram_rect(*side(ga, ca, wa, ha), *side(gb, cb, wb, hb),
+                                n_a, n_b, max(len(keys), 1), chunk=chunk,
+                                dtype=dtype)
+
+
 def counts_diag(gids, labels, weights, valid, n_graphs, n_labels,
                 chunk=4096, dtype=torch.float32):
     """diag of coo_counts_gram without forming K; ``dtype`` [n_graphs]."""
@@ -233,8 +261,50 @@ def counts_diag(gids, labels, weights, valid, n_graphs, n_labels,
     return d
 
 
+def split_weighted_singletons(gids, cols, weights, n_graphs,
+                              col_weights=None):
+    """Split a weighted count matrix ``c[g, l]`` (items ``(gids, cols,
+    weights)``, numpy; duplicate (graph, column) items sum) for the Gram
+    ``K[i, j] = sum_l s_l c[i, l] c[j, l]`` (``s = col_weights``, default
+    1): a column that one (graph, column) item holds after the sum adds
+    only ``s_l c^2`` to that graph's diagonal; every other column is
+    renumbered densely, in column order.
+
+    The weighted form of ``ops.wl.split_singletons`` (whose diagonal
+    correction counts unit items).  Returns ``(g, l, w, shared_cols,
+    diag)``: the shared columns' items (int64 graph ids, int64 dense
+    column ids, summed weights), ``shared_cols`` the original id of each
+    dense column, and ``diag[n_graphs]`` the singletons' part of the
+    diagonal (int64 for integer weights, so exact; else float64)."""
+    gids = np.asarray(_host(gids), np.int64)
+    cols = np.asarray(_host(cols), np.int64)
+    w = np.asarray(_host(weights))
+    s = None if col_weights is None else np.asarray(_host(col_weights))
+    acc = np.result_type(w, np.int64 if s is None else s)
+    acc = np.int64 if acc.kind in "biu" else np.float64
+    n = int(n_graphs)
+    if gids.size == 0:
+        e = np.zeros(0, np.int64)
+        return e, e, np.zeros(0, acc), e, np.zeros(n, acc)
+    uk, inv = np.unique(cols * n + gids, return_inverse=True)
+    ws = np.zeros(len(uk), acc)
+    np.add.at(ws, inv.reshape(-1), w.astype(acc))
+    c, g = uk // n, uk % n
+    new_col = c[1:] != c[:-1]
+    single = np.r_[True, new_col] & np.r_[new_col, True]
+    sq = ws[single] * ws[single]
+    if s is not None:
+        sq = sq * s[c[single]].astype(acc)
+    diag = np.zeros(n, acc)
+    np.add.at(diag, g[single], sq)
+    keep = ~single
+    shared_cols, dense = np.unique(c[keep], return_inverse=True)
+    return g[keep], dense.reshape(-1), ws[keep], shared_cols, diag
+
+
 def sparse_counts_gram(gids, labels, n_graphs, weights=None,
-                       dense_col_mult=64, dtype=torch.float32):
+                       dense_col_mult=64, dtype=torch.float32,
+                       device=None):
     """K[g, g'] = sum_l c[g, l] c[g', l] assembled on the host for very
     sparse, very wide count matrices (late WL-SP generations mint
     millions of mostly-singleton triplet columns, where a chunked GEMM
@@ -246,13 +316,14 @@ def sparse_counts_gram(gids, labels, n_graphs, weights=None,
     * columns touching <= ``dense_col_mult`` graphs contribute their
       in-column pair products through one global bincount scatter
       (cost = sum over those columns of nnz_col^2);
-    * denser columns gather into one [n, n_hot] block, multiplied as a
-      numpy product in ``dtype``'s width (f32: exact for integer sums
-      below 2^24; f64 below 2^53).
+    * denser columns gather into one [n, n_hot] block, multiplied in
+      ``dtype``'s width (f32: exact for integer sums below 2^24; f64
+      below 2^53) on ``device``.
 
     ``gids`` / ``labels`` are per-item numpy arrays (or tensors, read to
     the host); duplicates are allowed and their weights (default 1) sum.
-    Returns float64 numpy [n, n]."""
+    ``device`` (None: the host) is where the dense block is
+    multiplied.  Returns float64 numpy [n, n]."""
     gids = np.asarray(_host(gids), np.int64)
     labels = np.asarray(_host(labels), np.int64)
     n = int(n_graphs)
@@ -298,8 +369,17 @@ def sparse_counts_gram(gids, labels, n_graphs, weights=None,
     if hot.any():
         ent = np.repeat(hot, sizes)
         gcol = np.cumsum(hot) - 1
-        D = np.zeros((n, int(hot.sum())), np.float64
-                     if dtype == torch.float64 else np.float32)
-        D[rows[ent], np.repeat(gcol[hot], sizes[hot])] = cw[ent]
-        K += (D @ D.T).astype(np.float64)
+        K += _hot_gram(rows[ent], np.repeat(gcol[hot], sizes[hot]),
+                       cw[ent], n, int(hot.sum()), dtype, device)
     return K
+
+
+def _hot_gram(r, c, w, n, width, dtype, device):
+    """D D^T of the dense block D[r, c] = w, built and multiplied on
+    ``device`` (None: the host) in ``dtype`` (TF32 off); f64 numpy."""
+    device = torch.device("cpu") if device is None else device
+    D = torch.zeros((n, width), dtype=dtype, device=device)
+    D[torch.from_numpy(r).to(device), torch.from_numpy(c).to(device)] = \
+        torch.from_numpy(w).to(device, dtype)
+    with full_fp32():
+        return (D @ D.T).to(torch.float64).cpu().numpy()

@@ -1048,3 +1048,68 @@ def test_hc_and_propagation_on_card_match_cpu(cuda, name, kw, k6):
             kc.diagonal()
     assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
     assert all(np.array_equal(a, b) for a, b in zip(d, dc))
+
+
+def _native_split(seed=4, n=60, held=10):
+    return generate_dataset(n_graphs=n, n_graphs_test=held,
+                            r_vertices=(5, 20), random_state=seed,
+                            features=("nl", 5))
+
+
+def _run_kernel(k, fit, tr):
+    """fit_transform, diagonal, transform and both diagonals."""
+    K = k.fit_transform(fit)
+    d = k.diagonal()
+    T = k.transform(tr)
+    return (K, d, T) + tuple(np.atleast_1d(x) for x in k.diagonal())
+
+
+@pytest.mark.parametrize("params", [
+    {}, {"h": 2, "normalize": True}, {"h": 1}])
+def test_oddsth_on_card_matches_cpu(cuda, params):
+    """OddSth's integer Gram on the card (the shared columns'
+    counts-Gram) equals the CPU run bit for bit, transform and diagonals
+    too."""
+    train, test = _native_split()
+    got = _run_kernel(grakel_torch.OddSth(**params), train, test)
+    with use_device("cpu"):
+        ref = _run_kernel(grakel_torch.OddSth(**params), train, test)
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+def test_oddsth_exact_past_2_24_on_card(cuda):
+    """Edgeless graphs put K[i, j] = n_0 n_i n_j past 2^24 and odd: the
+    card's f64 Gram is the exact integer one."""
+    ns = [261, 263, 259, 5]
+    fit = [[np.zeros((n, n)), {v: 0 for v in range(n)}] for n in ns]
+    K = grakel_torch.OddSth().fit_transform(fit)
+    assert np.array_equal(K, [[ns[0] * a * b for b in ns] for a in ns])
+
+
+@pytest.mark.parametrize("params,mult", [
+    ({}, 64), ({"normalize": True, "r": 2}, 64), ({}, 3)])
+def test_nspd_on_card_matches_cpu(cuda, params, mult, monkeypatch):
+    """NSPD's f64 products on the card (the dense block of the fit Gram,
+    lowered to columns of more than 3 graphs in one case so it holds
+    many, and the transform's one product over the touched columns)
+    equal the CPU run to rtol 1e-12; the test split holds unseen keys."""
+    monkeypatch.setattr(grakel_torch.NeighborhoodSubgraphPairwiseDistance,
+                        "_DENSE_COL_MULT", mult)
+    train, test = _native_split(5)
+    got = _run_kernel(grakel_torch.NeighborhoodSubgraphPairwiseDistance(
+        **params), train, test)
+    with use_device("cpu"):
+        ref = _run_kernel(grakel_torch.NeighborhoodSubgraphPairwiseDistance(
+            **params), train, test)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-14)
+
+
+def test_subgraph_matching_on_card_matches_cpu(cuda):
+    """SubgraphMatching runs on the host under a card's entry points:
+    the same Grams as its CPU run, bit for bit."""
+    train, test = _native_split(6, 8, 3)
+    got = _run_kernel(grakel_torch.SubgraphMatching(k=3), train, test)
+    with use_device("cpu"):
+        ref = _run_kernel(grakel_torch.SubgraphMatching(k=3), train, test)
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
