@@ -64,7 +64,22 @@ main paths through the public entry points, at full data size:
   which must agree to rtol 1e-6), each the path's own call with the
   arguments the path gives it, are timed beside their bounds; the native engines are held against
   their Python versions on MUTAG (OddSth and NSPD Grams, ``clique_values``
-  on SM product graphs, ``ap_hash_batch``).
+  on SM product graphs, ``ap_hash_batch``);
+* GraphletSampling, RandomWalk and RandomWalkLabeled, the slice of K7,
+  K8 and K9: ``GraphletSampling(k=5, sampling={"n_samples": 150},
+  random_state=42)`` on the 4110 NCI1-scale graphs and the 64 held-out
+  ones (``gs_nci1scale``, host-bound: run once on the card and once on
+  the CPU; K7 once a graphlet size, 3, 4 and 5, in fit_transform and in
+  transform), exhaustive ``GraphletSampling(k=5)`` on MUTAG read with
+  ``read_data``, fit 150, transform 38 (``gs_mutag``: the native ESU,
+  K7 at s = 5), ``RandomWalk()`` on the NCI1-scale set (``rw_nci1scale``:
+  rho = lamda max|mu|^2 past 0.9, so the spectral tile route, K9 a tile;
+  rho and the tiles printed) and ``RandomWalkLabeled()`` on MUTAG, fit
+  150, transform 38 (``rwl_mutag``: K8's labeled CG on its shared route
+  at buckets 16 and 32).  Grams, transforms and diagonals must equal the
+  same calls under ``use_device("cpu")``: GraphletSampling's bit for bit,
+  RandomWalk's f64 tiles to rtol 1e-8 (f64 sums in another order),
+  RandomWalkLabeled's f32 CG to rtol 1e-4.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -186,7 +201,28 @@ time of a call:
   K1 calls) on the simple path's fit stack (symmetric, exact) and on a
   ragged real-valued rectangular stack (rtol=1e-5, atol=1e-4) against R
   ``min_gram_plain`` calls, beside R ``torch.cdist(p=1)`` calls: K1's
-  ``rounds`` entry.
+  ``rounds`` entry;
+* K7 (``ops.canonical.canonical_codes_cuda``) at the three calls of the
+  ``gs_nci1scale`` fit parse and on 100,000 random graphlets at each size
+  s = 2..8, bit-identical to ``canonical_codes_plain``; bound: 3 integer
+  operations a bit read, s! s(s-1)/2 bit reads a graphlet, over 67 TOP/s;
+* K8 (``ops.random_walk.pair_cg_cuda``) at every call of the
+  ``rwl_mutag`` path, on directed NCI1-scale pairs (``RandomWalk(lamda=
+  0.01)``, and ``RandomWalk()``'s lamda 0.1, where the series diverges),
+  on labeled NCI1-scale pairs at V = 64 and on the REDDIT-B stand-in's
+  graphs of 65-256 vertices labeled by degree (the global route), each
+  to rtol 1e-4 of ``pair_cg_plain`` on every pair; at lamda 0.1 on the
+  directed pairs only on those whose plain CG froze and lies within
+  1e-5 of its f64 evaluation (the rest are counted: f32 CG may amplify
+  their rounding without limit);
+  bound: the flops of the steps each pair ran (2 n1 n2 (n1 + n2) a
+  matvec, labeled or not, 12 n1 n2 of vector work) over 67 TFLOP/s
+  fp32;
+* K9 (``ops.random_walk.spectral_tile_cuda``) on every tile of the
+  ``rw_nci1scale`` fit Gram (full 256 x 256 tiles among them), within
+  1e-12 of each entry's sum of |terms| of ``spectral_tile_plain``;
+  bound: 4 f64 operations a term over 34 TFLOP/s.  No single PyTorch
+  call computes K7, K8 or K9: no library time.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -214,6 +250,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 FP64_OPS_PER_S = 67e12         # H100 SXM fp64 tensor cores (DGEMM)
+FP64_VECTOR_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores
 REDDIT_B = dict(n_graphs=2000, median=304, mean=429.63, vmax=3782,
                 edge_ratio=1.1585)
 
@@ -451,6 +488,15 @@ def level_grams(pm, min_gram):
     return (acc.double() / scale).cpu().numpy(), mats
 
 
+def bound(nbytes, ops, rate):
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and ``ops`` over ``rate``, and which of the two."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "operations" if t_o >= t_b else "bytes",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
 def native_phase(class_path, check, paths, train, held, mutag):
     """The slice of the native host layer: OddSth, NSPD and
     SubgraphMatching through their entry points (paths
@@ -465,12 +511,6 @@ def native_phase(class_path, check, paths, train, held, mutag):
     from grakel_torch.kernels import odd_sth as odd_mod
     from grakel_torch.ops import gram as gram_ops
     n, nh = len(train), len(held)
-
-    def bound(nbytes, ops, rate):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-        return {"bound_ms": max(t_b, t_o),
-                "bound_by": "operations" if t_o >= t_b else "bytes",
-                "bytes": nbytes, "ops": ops}
 
     def wall_ms(fn, reps):
         """Host milliseconds of ``fn()`` up to a device sync, mean of
@@ -702,6 +742,334 @@ def native_phase(class_path, check, paths, train, held, mutag):
     paths["sm_mutag"]["native_checks_s"] = time.perf_counter() - t
 
 
+def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
+    """The slice of the isomorphism layer and the random walks:
+    GraphletSampling (``gs_nci1scale``, ``gs_mutag``), RandomWalk
+    (``rw_nci1scale``) and RandomWalkLabeled (``rwl_mutag``) through
+    their entry points, each against its ``use_device("cpu")`` run, then
+    K7, K8 and K9 held against their plain versions at the calls the
+    paths made and at the other shapes named in the module docstring.
+    Returns the three kernels' rows of the ``kernels`` line."""
+    import torch
+    from grakel_torch import (GraphletSampling, RandomWalk,
+                              RandomWalkLabeled)
+    from grakel_torch.kernels import graphlet_sampling as gs_mod
+    from grakel_torch.kernels.base import normalize_input
+    from grakel_torch.ops import canonical as can_ops
+    from grakel_torch.ops import random_walk as rw_ops
+    n, nh = len(train), len(held)
+
+    def spied(module, name):
+        """Record every call of ``module.name``, a dispatcher in front of
+        a kernel's wrapper (the wrappers count their launches under their
+        own names, so they stay in place).  Returns (calls, restore)."""
+        real, seen = getattr(module, name), []
+
+        def spy(*a, **kw):
+            seen.append((a, kw))
+            return real(*a, **kw)
+        setattr(module, name, spy)
+        return seen, lambda: setattr(module, name, real)
+
+    # ---------------- the four paths --------------------------------- #
+    k7_seen, restore = spied(gs_mod, "canonical_codes")
+    try:
+        gk = class_path("gs_nci1scale", lambda: GraphletSampling(
+            k=5, sampling={"n_samples": 150}, random_state=42), train,
+            held, 0, 0, k=5, n_samples=150, random_state=42,
+            data="NCI1-scale, fit %d, transform %d" % (n, nh))
+    finally:
+        restore()
+    gs_calls = [(torch.from_numpy(can_ops.adjacency_masks(a[0])).cuda(),
+                 a[0][0].shape[0]) for a, _ in k7_seen[
+                     :paths["gs_nci1scale"]["launches"]["canonical"]]]
+    sizes = sorted(s for _, s in gs_calls[:3])
+    check(sizes == [3, 4, 5] and len(gs_calls) == 6,
+          "gs_nci1scale launched K7 once a graphlet size in fit_transform "
+          "and in transform (sizes %s, %d launches)"
+          % (sizes, len(gs_calls)))
+    paths["gs_nci1scale"].update(
+        bins=len(gk._graph_bins),
+        graphlets_fit={s: int(m.shape[0]) for m, s in gs_calls[:3]})
+    class_path("gs_mutag", lambda: GraphletSampling(k=5), mutag[:150],
+               mutag[150:], 0, 1, k=5, sampling="exhaustive (native ESU)",
+               data="MUTAG via read_data, fit 150, transform 38")
+    check(paths["gs_mutag"]["launches"]["canonical"] > 0,
+          "gs_mutag launched K7 (%d)"
+          % paths["gs_mutag"]["launches"]["canonical"])
+
+    k9_seen, restore = spied(rw_ops, "spectral_tile")
+    try:
+        rk = class_path("rw_nci1scale", RandomWalk, train, held, 0, 1,
+                        rtol=1e-8, lamda=0.1,
+                        data="NCI1-scale, fit %d, transform %d" % (n, nh))
+    finally:
+        restore()
+    lp = paths["rw_nci1scale"]["launches"]
+    rw_log = rk._spectral_log
+    check(lp["rw_spectral"] > 0 and lp["rw_cg"] == 0
+          and {c["route"] for c in rw_log} == {"tile"},
+          "rw_nci1scale took the spectral tile route (K9 %d launches, K8 "
+          "%d): %s" % (lp["rw_spectral"], lp["rw_cg"], rw_log))
+    paths["rw_nci1scale"].update(rho=rw_log[0]["rho"],
+                                 tiles=[c["tiles"] for c in rw_log])
+    print("rw_nci1scale: rho %.4f, tiles per Gram %s"
+          % (rw_log[0]["rho"], [c["tiles"] for c in rw_log]), flush=True)
+    k9_calls = k9_seen[:lp["rw_spectral"]]
+    k9_fit = k9_calls[:rw_log[0]["tiles"]]
+
+    k8_seen, restore = spied(rw_ops, "pair_cg")
+    try:
+        class_path("rwl_mutag", RandomWalkLabeled, mutag[:150],
+                   mutag[150:], 0, 1, rtol=1e-4, lamda=0.1,
+                   data="MUTAG via read_data, fit 150, transform 38")
+    finally:
+        restore()
+    lp = paths["rwl_mutag"]["launches"]
+    k8_calls = k8_seen[:lp["rw_cg"]]
+    pairs = sum(int(a[0].shape[0]) for a, _ in k8_calls)
+    buckets = sorted({(int(a[0].shape[1]), int(a[1].shape[1]))
+                      for a, _ in k8_calls})
+    check(lp["rw_cg"] > 0 and lp["rw_cg_by_route"]["global"] == 0,
+          "rwl_mutag launched K8 on its shared route (%d launches, %d "
+          "pairs, buckets %s)" % (lp["rw_cg"], pairs, buckets))
+    paths["rwl_mutag"].update(pairs=pairs, buckets=buckets)
+
+    # ---------------- K7 ----------------------------------------------- #
+    def k7_case(masks, s, what, reps=20, time_plain=True):
+        got = can_ops.canonical_codes_cuda(masks, s)
+        want = can_ops.canonical_codes_plain(masks, s)
+        torch.cuda.synchronize()
+        B = int(masks.shape[0])
+        fact = int(np.prod(np.arange(1, s + 1)))
+        case = dict(what=what, s=s, graphlets=B,
+                    differing=int((got.long() != want).sum()),
+                    ms=cuda_ms(lambda: can_ops.canonical_codes_cuda(
+                        masks, s), reps),
+                    plain_ms=cuda_ms(lambda: can_ops.canonical_codes_plain(
+                        masks, s), 1, 0) if time_plain else None,
+                    **bound(12 * B, 3 * B * fact * s * (s - 1) // 2,
+                            FP32_OPS_PER_S))
+        check(case["differing"] == 0, "K7 %s (s = %d, %d graphlets) == "
+              "plain gather-and-min bit for bit" % (what, s, B))
+        return case
+
+    k7 = [k7_case(m, s, "gs_nci1scale fit parse") for m, s in gs_calls[:3]]
+    rng = np.random.RandomState(11)
+    k7_sizes = []
+    for s in range(2, 9):
+        A = rng.rand(100_000, s, s) < rng.rand(100_000, 1, 1)
+        masks = torch.from_numpy(can_ops.adjacency_masks(list(A))).cuda()
+        k7_sizes.append(k7_case(masks, s, "100000 random graphlets", 3,
+                                time_plain=False))
+    k7_row = {
+        "name": "canonical", "route": "cuda",
+        "source": "grakel_torch/csrc/canonical.cu",
+        "replaces": "grakel_tpu/ops/canonical.py:50",
+        "max_abs_err": max(c["differing"] for c in k7 + k7_sizes),
+        **{k: sum(c[k] for c in k7) for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations", "library_ms": None,
+        "library": "none: no single PyTorch call computes a canonical code",
+        "summed_over": "the three K7 calls of the gs_nci1scale fit parse "
+                       "(graphlet sizes 3, 4, 5)",
+        "shapes": k7, "random_sizes": k7_sizes}
+
+    # ---------------- K8 ----------------------------------------------- #
+    def k8_ops(Ax, Ay, nx, ny, steps):
+        """Flops of the steps each pair ran: per matvec 2 n1 n2 (n1 + n2)
+        (labeled too: a label's masks split X's rows and columns, so
+        the common labels' products add up to one) and 12 n1 n2 of
+        vector work."""
+        n1 = nx.long().cpu().numpy()
+        n2 = ny.long().cpu().numpy()
+        per = 2 * n1 * n2 * (n1 + n2) + 12 * n1 * n2
+        return int((per * steps.cpu().numpy()).sum())
+
+    def k8_case(args, what, reps=3, diverges=False):
+        """K8 on the arguments of one ``ops.random_walk.pair_cg`` call,
+        held at rtol 1e-4 on every pair.  Where lamda mu nu passes 1
+        (``diverges``), f32 CG may amplify rounding without limit on a
+        pair, and only the pairs whose plain CG froze and lies within
+        1e-5 relative of its f64 evaluation are held; the others are
+        counted, with K8's distance from the plain version on them."""
+        i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+        Ax, Ay = args[0].contiguous(), args[1].contiguous()
+        nx, ny, lamda = i32(args[2]), i32(args[3]), args[4]
+        Lx, Ly = (i32(args[5]), i32(args[6])) if len(args) > 6 else (
+            None, None)
+        n_labels = 0 if Lx is None else int(max(Lx.max(), Ly.max())) + 1
+        route = rw_ops.cg_route(Ax.shape[1], Ay.shape[1], Lx is not None)
+        run = lambda: rw_ops.pair_cg_cuda(Ax, Ay, nx, ny, lamda, Lx, Ly)
+        got = run()
+        want, steps = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, lamda, Lx, Ly,
+                                           n_labels, return_steps=True)
+        held = torch.ones_like(want, dtype=torch.bool)
+        if diverges:
+            exact = rw_ops.pair_cg_plain(Ax.double(), Ay.double(), nx, ny,
+                                         lamda, Lx, Ly, n_labels)
+            held = (steps < rw_ops.CG_ITERS) & (
+                (want.double() - exact).abs() <= 1e-5 * exact.abs())
+        rel_all = ((got - want).abs() / want.abs().clamp_min(1e-6)).nan_to_num(
+            float("inf"))
+        d = (got - want).abs()[held]
+        B = int(Ax.shape[0])
+        nbytes = 4 * (Ax.numel() + Ay.numel()) + 8 * B + 4 * B + (
+            0 if Lx is None else 4 * (Lx.numel() + Ly.numel()))
+        case = dict(what=what, pairs=B, V1=int(Ax.shape[1]),
+                    V2=int(Ay.shape[1]), labeled=Lx is not None,
+                    route=route, lamda=lamda,
+                    max_abs_err=float(d.max()) if len(d) else 0.0,
+                    max_rel_err=float(rel_all[held].max()) if len(d) else 0.0,
+                    held_pairs=int(held.sum()),
+                    unfrozen_pairs=int((steps == rw_ops.CG_ITERS).sum()),
+                    unheld_rel_median=(float(rel_all[~held].median())
+                                       if (~held).any() else None),
+                    mean_steps=float(steps.float().mean()),
+                    ms=cuda_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: rw_ops.pair_cg_plain(
+                        Ax, Ay, nx, ny, lamda, Lx, Ly, n_labels), 1, 0),
+                    **bound(nbytes, k8_ops(Ax, Ay, nx, ny, steps),
+                            FP32_OPS_PER_S))
+        check(torch.allclose(got[held], want[held], rtol=1e-4, atol=1e-4),
+              "K8 %s (%d pairs, buckets %d x %d, %s route) == plain CG to "
+              "rtol 1e-4 on %d pairs (largest relative difference %.3g)"
+              % (what, B, Ax.shape[1], Ay.shape[1], route,
+                 case["held_pairs"], case["max_rel_err"]))
+        return case
+
+    k8 = [k8_case(a, "rwl_mutag call %d" % i)
+          for i, (a, _) in enumerate(k8_calls)]
+
+    def captured_k8(kernel, graphs):
+        seen, restore = spied(rw_ops, "pair_cg")
+        try:
+            kernel.fit_transform(graphs)
+        finally:
+            restore()
+        return seen
+
+    rng = np.random.RandomState(5)
+    one_way = []
+    for g in normalize_input(train[:120]):
+        U = np.triu(g.get_adjacency_matrix(), 1)
+        flip = rng.rand(*U.shape) < 0.5
+        one_way.append([np.where(flip, U, 0) + np.where(flip, 0, U).T,
+                        {i: 0 for i in range(g.n)}])
+    k8_other = [k8_case(a, "directed NCI1-scale pairs (RandomWalk("
+                        "lamda=%s) fit, 120 graphs)" % lam,
+                        diverges=lam == 0.1)
+                for lam in (0.01, 0.1)
+                for a, _ in captured_k8(RandomWalk(lamda=lam), one_way)]
+    k8_other += [k8_case(a, "labeled NCI1-scale pairs "
+                         "(RandomWalkLabeled() fit, 120 graphs)")
+                 for a, _ in captured_k8(RandomWalkLabeled(), train[:120])
+                 if a[0].shape[1] == 64 or a[1].shape[1] == 64]
+    check(any(c["V1"] == c["V2"] == 64 and c["labeled"] for c in k8_other),
+          "K8 held at V = 64, labeled")
+    div = [c for c in k8_other if c["lamda"] == 0.1 and not c["labeled"]]
+    check(sum(c["held_pairs"] for c in div) > 0,
+          "K8 held on pairs whose CG converges at RandomWalk()'s lamda 0.1 "
+          "on directed NCI1-scale graphs")
+    print("K8 at RandomWalk()'s lamda 0.1 on directed NCI1-scale pairs: "
+          "%d of %d pairs held (frozen, f32 plain within 1e-5 of f64), %d "
+          "ran every step unfrozen; K8 against the plain version on the "
+          "unheld pairs, median relative difference a call %s"
+          % (sum(c["held_pairs"] for c in div), sum(c["pairs"] for c in div),
+             sum(c["unfrozen_pairs"] for c in div),
+             ["%.3g" % c["unheld_rel_median"] for c in div
+              if c["unheld_rel_median"] is not None]), flush=True)
+    reddit = [g for g in heavy_tailed_graphs(**REDDIT_B, seed=0)
+              if 65 <= g[0] <= 256][:24]
+    by_degree = []
+    for nv, s_, d_ in reddit:
+        A = np.zeros((nv, nv))
+        A[s_, d_] = 1
+        deg = A.sum(1).astype(int)
+        by_degree.append([A, {i: int(deg[i]) for i in range(nv)}])
+    k8_global = [k8_case(a, "REDDIT-B stand-in pairs of 65-256 "
+                         "vertices labeled by degree (RandomWalkLabeled("
+                         "lamda=0.01) fit, 24 graphs)", 1)
+                 for a, _ in captured_k8(RandomWalkLabeled(lamda=0.01),
+                                          by_degree)]
+    check(any(c["route"] == "global" for c in k8_global),
+          "K8's global route held on buckets past 64 (%s)"
+          % sorted({(c["V1"], c["V2"], c["route"]) for c in k8_global}))
+    k8_row = {
+        "name": "rw_cg", "route": "cuda",
+        "source": "grakel_torch/csrc/rw_cg.cu",
+        "replaces": "grakel_tpu/kernels/random_walk.py:56,88,95",
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           k8 + k8_other + k8_global),
+        **{k: sum(c[k] for c in k8) for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations", "library_ms": None,
+        "library": "none: no single PyTorch call runs a pair CG",
+        "summed_over": "every K8 call of the rwl_mutag path (fit, "
+                       "transform, transform diagonal)",
+        "shapes": k8, "directed_and_labeled": k8_other,
+        "global_route": k8_global}
+
+    # ---------------- K9 ----------------------------------------------- #
+    def abs_scale(sx2, mx, nx, sy2, my, ny, lamda):
+        """sum_ij |sx2 sy2 / den| per pair: what f64 sums in another order
+        can differ by, relative."""
+        n1, n2 = int(nx.max()), int(ny.max())
+        lm = lamda * mx[:, :n1].double()
+        out = torch.zeros((mx.shape[0], my.shape[0]), dtype=torch.float64,
+                          device=mx.device)
+        for i in range(n1):
+            den = 1.0 - lm[:, i, None, None] * my[None, :, :n2].double()
+            out += sx2[:, i, None].double().abs() * (
+                sy2[None, :, :n2].double() / den).abs().sum(2)
+        return out
+
+    worst, full = 0.0, 0
+    for a, kw in k9_fit:
+        got = rw_ops.spectral_tile_cuda(*a[:7])
+        want = rw_ops.spectral_tile_plain(*a[:7])
+        scale = abs_scale(*a[:7])
+        worst = max(worst, float(((got - want).abs() / scale).max()))
+        full += a[0].shape[0] == a[3].shape[0] == 256
+    check(worst <= 1e-12 and full > 0,
+          "K9 == plain f64 evaluation on every tile of the rw_nci1scale fit "
+          "(%d of %d full 256 x 256): largest difference %.3g of the sum "
+          "of |terms| (<= 1e-12, above n1 n2 2^-53 at n <= 64)"
+          % (full, len(k9_fit), worst))
+
+    def k9_all(fn):
+        def run():
+            for a, kw in k9_fit:
+                fn(*a[:7])
+        return run
+
+    k9_ops = k9_bytes = 0
+    for a, kw in k9_fit:
+        nx_, ny_ = a[2].long(), a[5].long()
+        k9_ops += 4 * int(nx_.sum()) * int(ny_.sum())
+        k9_bytes += 8 * (a[0].numel() + a[3].numel()) + 4 * (
+            a[2].numel() + a[5].numel()) + 8 * a[0].shape[0] * a[3].shape[0]
+    t = time.perf_counter()
+    k9_row = {
+        "name": "rw_spectral", "route": "cuda",
+        "source": "grakel_torch/csrc/rw_spectral.cu",
+        "replaces": "grakel_tpu/kernels/random_walk.py:134",
+        "max_abs_err": worst,
+        "max_abs_err_is": "largest |kernel - plain| over the sum of |terms| "
+                          "of its entry",
+        "ms": cuda_ms(k9_all(rw_ops.spectral_tile_cuda), 3),
+        "plain_ms": cuda_ms(k9_all(rw_ops.spectral_tile_plain), 1),
+        **bound(k9_bytes, k9_ops, FP64_VECTOR_OPS_PER_S),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the closed form",
+        "summed_over": "the %d K9 calls of the rw_nci1scale fit Gram (%d "
+                       "full 256 x 256 tiles)" % (len(k9_fit), full),
+        "tiles": len(k9_fit), "timing_s": time.perf_counter() - t}
+    for row in (k7_row, k8_row, k9_row):
+        print("%s: %.4f ms, bound %.4f ms by %s, plain %.4f ms, library %s"
+              % (row["name"], row["ms"], row["bound_ms"], row["bound_by"],
+                 row["plain_ms"], row["library"]), flush=True)
+    return [k7_row, k8_row, k9_row]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -792,6 +1160,14 @@ def main():
         for v in k45_ptxas.values()),
         "K4's 4 and K5's 9 kernels built without spills: %s" % k45_ptxas)
 
+    k789_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                  if "canonical" in k or "rw_cg" in k or "rw_spectral" in k}
+    check(len(k789_ptxas) == 10 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k789_ptxas.values()),
+        "K7's 7, K8's 2 and K9's 1 kernels built without spills: %s"
+        % k789_ptxas)
+
     k6_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                 if "hadamard" in k}
     check(len(k6_ptxas) == 14 and all(
@@ -800,6 +1176,8 @@ def main():
         "K6's 14 kernels (10 round route, 4 graph route) built without "
         "spills: %s" % k6_ptxas)
 
+    from grakel_torch.ops import canonical as can_ops
+    from grakel_torch.ops import random_walk as rw_ops
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
@@ -808,15 +1186,19 @@ def main():
                 "nh_round": nh_ops.nh_round_cuda,
                 "jaccard_fold": intersect.jaccard_fold_cuda,
                 "hadamard_graph": hc_ops.hadamard_graph_cuda,
-                "hadamard_step": hc_ops.hadamard_step_cuda}
+                "hadamard_step": hc_ops.hadamard_step_cuda,
+                "canonical": can_ops.canonical_codes_cuda,
+                "rw_cg": rw_ops.pair_cg_cuda,
+                "rw_spectral": rw_ops.spectral_tile_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
+    k8_routes = rw_ops.pair_cg_cuda.route_launches
 
     def run_path(name, fn):
         for c in counters.values():
             c.launches = 0
-        for routes in (k3_routes, k5_routes):
+        for routes in (k3_routes, k5_routes, k8_routes):
             for r in routes:
                 routes[r] = 0
         torch.cuda.synchronize()
@@ -827,6 +1209,7 @@ def main():
         launches = {k: c.launches for k, c in counters.items()}
         launches["floyd_warshall_by_route"] = dict(k3_routes)
         launches["jaccard_fold_by_route"] = dict(k5_routes)
+        launches["rw_cg_by_route"] = dict(k8_routes)
         print("path %s: %.3f s, launches %s" % (name, secs, launches),
               flush=True)
         return out, secs, launches
@@ -955,9 +1338,11 @@ def main():
             lambda: [fn() for _ in range(reps)])
         k1_ms = sum(v for k, v in by_name.items() if "min_gram_kernel" in k)
         k1_n = sum(v for k, v in counts.items() if "min_gram_kernel" in k)
-        return {"ms": cuda_ms(fn, 50), "profiled_device_ms": busy / reps,
-                "k1_device_ms": k1_ms / reps,
-                "other_device_ms": (busy - k1_ms) / reps,
+        # None where the profiler kept no CUDA record of the session
+        per = lambda v: None if busy is None else v / reps
+        return {"ms": cuda_ms(fn, 50), "profiled_device_ms": per(busy),
+                "k1_device_ms": per(k1_ms),
+                "other_device_ms": per((busy or 0.0) - k1_ms),
                 "k1_launches": k1_n / reps,
                 "device_activities": {k[:60]: v / reps
                                       for k, v in by_name.items()}}
@@ -968,12 +1353,14 @@ def main():
           and np.array_equal(stage_levels().cpu().numpy(), Kp_u),
           "PM unlabeled Gram stage, fused and per level, == the path's Gram")
     paths["pm_unlabeled_redditb"]["gram_stage"] = gram_stage
-    print("PM unlabeled Gram stage: fused %.4f ms (K1 %.4f), per level "
-          "%.4f ms (K1 %.4f)" % (
-              gram_stage["fused"]["profiled_device_ms"],
-              gram_stage["fused"]["k1_device_ms"],
-              gram_stage["per_level"]["profiled_device_ms"],
-              gram_stage["per_level"]["k1_device_ms"]), flush=True)
+    print("PM unlabeled Gram stage (profiled ms): fused %s (K1 %s), per "
+          "level %s (K1 %s)" % tuple(
+              "not measured" if v is None else "%.4f" % v
+              for v in (gram_stage["fused"]["profiled_device_ms"],
+                        gram_stage["fused"]["k1_device_ms"],
+                        gram_stage["per_level"]["profiled_device_ms"],
+                        gram_stage["per_level"]["k1_device_ms"])),
+          flush=True)
     # ---------------- ShortestPath: the slice of K3 --------------------- #
     # sparse_counts_gram (WL-SP's late generations) timed where it runs
     sparse_s = []
@@ -1286,7 +1673,9 @@ def main():
             k6_launches_per_call=r["k6"], gram_dtype=str(K.dtype),
             stages_s=None if timer is None else dict(timer.times),
             cpu_s=cpu_s)
-        paths[key].update(warm_runs(lambda: class_run(make, fit, tr), warm))
+        if warm:
+            paths[key].update(warm_runs(lambda: class_run(make, fit, tr),
+                                        warm))
         return r["k"]
 
     hck = class_path("hc_nci1scale", lambda: HadamardCode(n_iter=5), train,
@@ -1313,6 +1702,7 @@ def main():
                data="Cuneiform via read_data (real attributes), fit 200, "
                     "transform %d" % (len(cun) - 200))
     native_phase(class_path, check, paths, train, held, mutag)
+    k789 = slice_gs_rw_phase(class_path, check, paths, train, held, mutag)
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -2345,6 +2735,14 @@ def main():
          "ptxas": k6_ptxas, "shapes": [k6, k6_transform],
          "widths": k6_widths, "hub_batch": k6_hub, "wrap_batch": k6_wrap},
     ]
+    for row in k789:
+        row["launches"] = launches[row["name"]]
+        row["ptxas"] = {k: v for k, v in k789_ptxas.items()
+                        if row["name"] in k}
+    k789[1]["route_launches"] = {
+        r: sum(p["launches"]["rw_cg_by_route"][r] for p in paths.values())
+        for r in k8_routes}
+    kernels += k789
     print(json.dumps({"kernels": kernels}), flush=True)
     print("chip_smoke: %.1f s in all, the build included"
           % (time.perf_counter() - t_start), flush=True)

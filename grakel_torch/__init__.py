@@ -13,8 +13,10 @@ from .batch import GraphBatch
 from .kernels import *          # noqa: F401,F403
 from .kernels import __all__ as _kernels_all
 from .graph_kernels import GraphKernel
+from .isomorphism import canonical_labeling, canonical_form, is_isomorphic
 
 __version__ = "0.1.0"
 
-__all__ = ["Graph", "GraphBatch", "GraphKernel", "use_device"] \
+__all__ = ["Graph", "GraphBatch", "GraphKernel", "use_device",
+           "canonical_labeling", "canonical_form", "is_isomorphic"] \
     + list(_kernels_all)

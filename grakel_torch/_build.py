@@ -60,6 +60,8 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     "grakel_min_gram": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
@@ -75,6 +77,11 @@ _SIGNATURES = {
                              _I, _P],
     "grakel_hadamard_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _P],
+    "grakel_canonical_codes": [_P, _P, _I, _I, _P],
+    "grakel_rw_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P,
+                     _I, _I, _P],
+    "grakel_rw_spectral": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                           _D, _P],
 }
 
 

@@ -58,7 +58,18 @@ State layout, by kernel name:
   hashes with the engine too (the default);
 * ``"SubgraphMatching"``: ``{"graphs": [(n, senders, receivers, weights,
   node_labels, edge_labels), ...]}`` — the fit graphs (its parameters
-  are the constructor's ``params``).
+  are the constructor's ``params``);
+* ``"GraphletSampling"``: ``{"bins": {bin: key}, "bin_of": {key: bin},
+  "X": {(graph, bin): count}, "nx": int}`` and optionally
+  ``"random_state"`` (a ``RandomState.get_state()`` tuple) — the fit
+  bins with their keys (``(s, code)`` for s <= 8, canonical-form
+  ``(n, bytes)`` above), the fit counts, the fit graph count, and the
+  generator's state after fit (a sampling transform draws from it);
+* ``"RandomWalk"`` / ``"RandomWalkLabeled"``: ``{"X": [item, ...]}`` —
+  the parsed fit graphs, each a dict of ``"A"`` (f32 [n, n]), ``"n"``,
+  ``"labels"`` (RandomWalkLabeled) and the spectral data parse computed:
+  ``"s2"`` / ``"mu"``, or ``"mu_max"`` with ``"moments_only"``, or
+  ``"u"`` / ``"w"``.
 """
 
 from __future__ import annotations
@@ -66,11 +77,12 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
-from .kernels import (EdgeHistogram, HadamardCode, NeighborhoodHash,
-                      NeighborhoodSubgraphPairwiseDistance, OddSth,
-                      Propagation, PropagationAttr, PyramidMatch,
-                      ShortestPath, SubgraphMatching, VertexHistogram,
-                      WeisfeilerLehman, WeisfeilerLehmanOptimalAssignment)
+from .kernels import (EdgeHistogram, GraphletSampling, HadamardCode,
+                      NeighborhoodHash, NeighborhoodSubgraphPairwiseDistance,
+                      OddSth, Propagation, PropagationAttr, PyramidMatch,
+                      RandomWalk, RandomWalkLabeled, ShortestPath,
+                      SubgraphMatching, VertexHistogram, WeisfeilerLehman,
+                      WeisfeilerLehmanOptimalAssignment)
 
 __all__ = ["kernel_from_state"]
 
@@ -88,7 +100,10 @@ _CLASSES = {"VertexHistogram": VertexHistogram,
             "OddSth": OddSth,
             "NeighborhoodSubgraphPairwiseDistance":
                 NeighborhoodSubgraphPairwiseDistance,
-            "SubgraphMatching": SubgraphMatching}
+            "SubgraphMatching": SubgraphMatching,
+            "GraphletSampling": GraphletSampling,
+            "RandomWalk": RandomWalk,
+            "RandomWalkLabeled": RandomWalkLabeled}
 
 
 def _graphs(items):
@@ -162,6 +177,16 @@ def kernel_from_state(name, params, state):
         k._ngx = int(state["n"])
     elif name == "SubgraphMatching":
         k.X = k.parse_input(_graphs(state["graphs"]))
+    elif name == "GraphletSampling":
+        k._graph_bins = dict(state["bins"])
+        k._bin_of = dict(state["bin_of"])
+        k.X = {tuple(key): int(v) for key, v in state["X"].items()}
+        k._nx = int(state["nx"])
+        if state.get("random_state") is not None:
+            k.random_state_ = np.random.RandomState()
+            k.random_state_.set_state(state["random_state"])
+    elif name in ("RandomWalk", "RandomWalkLabeled"):
+        k.X = [dict(item) for item in state["X"]]
     elif name == "ShortestPath":
         k._enum = dict(state["enum"])
         # parse in transform mode: the carried enumeration is kept and,

@@ -1,9 +1,7 @@
 """Host-side graph container for grakel_torch.
 
 A copy of ``grakel_tpu/graph.py`` (numpy and scipy only), kept in the
-port so that the port imports nothing of the JAX package.  The
-canonical-labeling and isomorphism methods stay behind until the
-port's ``isomorphism`` module lands.
+port so that the port imports nothing of the JAX package.
 
 A deliberate redesign of the reference's dual-format ``grakel.Graph``
 (reference: grakel/graph.py:25-1537): instead of maintaining both an
@@ -546,6 +544,30 @@ class Graph(object):
         if track:
             return N, level_pairs, first_seen
         return N
+
+    def canonical_labeling(self, use_labels=False):
+        """Canonical position per vertex (bliss-surface replacement;
+        reference _isomorphism/bliss.pyx:313-335).  With ``use_labels``
+        the vertex labels act as an initial coloring the canonical form
+        must respect."""
+        from .isomorphism import canonical_labeling
+        A = self.get_adjacency_matrix()
+        colors = self.get_labels(label_type="vertex") if use_labels \
+            else None
+        return canonical_labeling(A, colors=colors)
+
+    def isomorphic(self, other, use_labels=False):
+        """Exact isomorphism test against another Graph via canonical
+        forms (reference _isomorphism/bliss.pyx:337-358)."""
+        from .isomorphism import is_isomorphic
+        c1 = c2 = None
+        if use_labels:
+            l1 = self.get_labels(label_type="vertex")
+            l2 = other.get_labels(label_type="vertex")
+            c1 = [l1[i] for i in range(self.n)]
+            c2 = [l2[i] for i in range(other.n)]
+        return is_isomorphic(self.get_adjacency_matrix(),
+                             other.get_adjacency_matrix(), c1, c2)
 
     def get_subgraph(self, vertices):
         """Induced subgraph on ``vertices`` with labels remapped to the new

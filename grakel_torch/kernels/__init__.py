@@ -13,6 +13,8 @@ from .propagation import Propagation, PropagationAttr
 from .odd_sth import OddSth
 from .nspd import NeighborhoodSubgraphPairwiseDistance
 from .subgraph_matching import SubgraphMatching
+from .graphlet_sampling import GraphletSampling
+from .random_walk import RandomWalk, RandomWalkLabeled
 
 __all__ = [
     "Kernel",
@@ -31,4 +33,7 @@ __all__ = [
     "OddSth",
     "NeighborhoodSubgraphPairwiseDistance",
     "SubgraphMatching",
+    "GraphletSampling",
+    "RandomWalk",
+    "RandomWalkLabeled",
 ]

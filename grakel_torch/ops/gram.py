@@ -65,12 +65,12 @@ def _mm_t(a, b):
         return a @ b.T
 
 
-def _as_features(x, device):
+def _as_features(x, device, dtype=torch.float32):
     if hasattr(x, "toarray"):  # scipy sparse
         x = x.toarray()
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _needs_f64(x):
@@ -81,20 +81,22 @@ def _needs_f64(x):
             and x.size > 0)
 
 
-def gram_gemm(phi, device=None):
+def gram_gemm(phi, device=None, dtype=torch.float32):
     """K = Phi @ Phi^T (symmetric Gram) on ``device`` (None: the ambient
-    device, else cuda); a float64 numpy ``phi`` stays a host f64
-    product."""
+    device, else cuda) in ``dtype`` (a count Gram passes
+    :func:`count_dtype` of its bound); a float64 numpy ``phi`` stays a
+    host f64 product."""
     if _needs_f64(phi):
         return torch.from_numpy(phi @ phi.T)
-    a = _as_features(phi, resolve_device(device))
+    a = _as_features(phi, resolve_device(device), dtype)
     return _mm_t(a, a)
 
 
-def gram_rect(phi_rows, phi_cols, device=None):
-    """K[i, j] = <phi_rows[i], phi_cols[j]>, truncating/padding the row
-    features to the column feature width (transform semantics: columns =
-    fit graphs; features unseen at fit contribute nothing)."""
+def gram_rect(phi_rows, phi_cols, device=None, dtype=torch.float32):
+    """K[i, j] = <phi_rows[i], phi_cols[j]> in ``dtype``, truncating or
+    padding the row features to the column feature width (transform
+    semantics: columns = fit graphs; features unseen at fit contribute
+    nothing)."""
     if _needs_f64(phi_rows) or _needs_f64(phi_cols):
         def dense64(x):
             if hasattr(x, "toarray"):
@@ -109,8 +111,8 @@ def gram_rect(phi_rows, phi_cols, device=None):
             a = np.pad(a, ((0, 0), (0, d - a.shape[1])))
         return torch.from_numpy(a @ b.T)
     device = resolve_device(device)
-    a = _as_features(phi_rows, device)
-    b = _as_features(phi_cols, device)
+    a = _as_features(phi_rows, device, dtype)
+    b = _as_features(phi_cols, device, dtype)
     d = b.shape[1]
     if a.shape[1] > d:
         a = a[:, :d]

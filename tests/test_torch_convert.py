@@ -103,4 +103,49 @@ def test_sp_state_carry(data, params):
 
 def test_unknown_kernel_rejected():
     with pytest.raises(ValueError):
-        kernel_from_state("RandomWalk", {}, {})
+        kernel_from_state("GraphHopper", {}, {})
+
+
+@pytest.mark.parametrize("params", [
+    {"k": 5, "sampling": {"n_samples": 40}, "random_state": 3},
+    {"k": 4, "normalize": True}], ids=str)
+def test_graphlet_sampling_state_carry(data, params):
+    """A JAX-fitted GraphletSampling (bins, keys, counts and the
+    generator's state after fit) transforms new graphs on the port to the
+    JAX package's transform Gram, bit for bit (integer counts)."""
+    train, test = data
+    kj = grakel_tpu.GraphletSampling(**params).fit(train)
+    state = {"bins": dict(kj._graph_bins), "bin_of": dict(kj._bin_of),
+             "X": dict(kj.X), "nx": kj._nx,
+             "random_state": kj.random_state_.get_state()}
+    Tj = kj.transform(test)
+    with use_device("cpu"):
+        kt = kernel_from_state("GraphletSampling", params, state)
+        Tt = kt.transform(test)
+    np.testing.assert_array_equal(Tt, Tj)
+
+
+@pytest.mark.parametrize("name,params,rtol", [
+    ("RandomWalk", {"lamda": 0.01}, 0), ("RandomWalk", {}, 5e-3),
+    ("RandomWalk", {"p": 3}, 1e-5),
+    ("RandomWalkLabeled", {"normalize": True}, 1e-5)], ids=str)
+def test_random_walk_state_carry(data, name, params, rtol):
+    """The parsed fit items of a JAX-fitted RandomWalk / RandomWalkLabeled
+    (adjacencies, labels, spectra) carried into the port give the JAX
+    package's transform Gram: exactly on the host moment route (rtol 0),
+    to rtol 1e-5 on the f32 pair routes (sums in another order), and to
+    rtol 5e-3 on the spectral tile route, where the JAX package rounds
+    its denominators in f32 and the port evaluates in f64
+    (test_torch_random_walk holds both against the f64 closed form)."""
+    train, test = data
+    kj = getattr(grakel_tpu, name)(**params).fit(train)
+    state = {"X": [dict(it) for it in kj.X]}
+    Tj = kj.transform(test)
+    with use_device("cpu"):
+        kt = kernel_from_state(name, params, state)
+        Tt = kt.transform(test)
+    if rtol == 0:
+        assert kt._spectral_log[-1]["route"] == "moments"
+        np.testing.assert_array_equal(Tt, Tj)
+    else:
+        np.testing.assert_allclose(Tt, Tj, rtol=rtol, atol=1e-6)

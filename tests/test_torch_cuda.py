@@ -17,7 +17,8 @@ from grakel_torch.kernels.base import normalize_input
 from grakel_torch.ops import floyd_warshall as fw
 from grakel_torch.batch import GraphBatch
 from grakel_torch.graph import Graph
-from grakel_torch.ops import hadamard, intersect, nh, wl
+from grakel_torch.ops import canonical, hadamard, intersect, nh, wl
+from grakel_torch.ops import random_walk as rw_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -1113,3 +1114,266 @@ def test_subgraph_matching_on_card_matches_cpu(cuda):
     with use_device("cpu"):
         ref = _run_kernel(grakel_torch.SubgraphMatching(k=3), train, test)
     assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+# --------------------------------------------------------------------- #
+# K7 (canonical codes), K8 (the pair CG solve), K9 (the spectral tile)
+# --------------------------------------------------------------------- #
+
+def _random_masks(s, count, seed):
+    rng = np.random.RandomState(seed)
+    A = (rng.rand(count, s, s) < rng.rand(count, 1, 1)).astype(np.int8)
+    return torch.from_numpy(canonical.adjacency_masks(list(A)))
+
+
+@pytest.mark.parametrize("s", range(2, 9))
+def test_canonical_codes_kernel_bit_identical(cuda, s):
+    """K7 at every size, graphlets of every density (every graph at s <=
+    4; 20000 random ones above), against the plain gather-and-min: equal
+    codes, one launch a call."""
+    if s <= 4:
+        nb = s * (s - 1) // 2
+        adjs = []
+        for bits in range(1 << nb):
+            M = np.zeros((s, s), np.int8)
+            M[np.triu_indices(s, 1)] = [(bits >> k) & 1 for k in range(nb)]
+            adjs.append(M)
+        masks = torch.from_numpy(canonical.adjacency_masks(adjs))
+    else:
+        masks = _random_masks(s, 20000 if s < 8 else 4000, s)
+    before = canonical.canonical_codes_cuda.launches
+    got = canonical.canonical_codes_cuda(masks.to(cuda), s)
+    torch.cuda.synchronize()
+    assert canonical.canonical_codes_cuda.launches == before + 1
+    assert got.dtype == torch.int32
+    want = canonical.canonical_codes_plain(masks, s)
+    assert torch.equal(got.cpu().to(torch.int64), want)
+
+
+def test_canonical_codes_wrapper_checks(cuda):
+    m = _random_masks(5, 10, 0).to(cuda)
+    for bad in (m.to(torch.int32), m[::2], m.view(2, 5)):
+        with pytest.raises(ValueError):
+            canonical.canonical_codes_cuda(bad, 5)
+    for s in (1, 9):
+        with pytest.raises(ValueError):
+            canonical.canonical_codes_cuda(m, s)
+    assert canonical.canonical_codes_cuda(m[:0], 5).shape == (0,)
+    with use_device(cuda):
+        codes = canonical.canonical_codes([np.eye(4)[::-1]] * 3)
+    assert codes.dtype == np.int64 and codes.shape == (3,)
+
+
+def _cg_pairs(seed, B, V1, V2, labels=0, directed=False):
+    """Padded pairs of sparse random graphs (mean degree ~3, so that
+    lamda mu nu < 1 at lamda = 0.02 and CG converges)."""
+    rng = np.random.RandomState(seed)
+    nx = rng.randint(1, V1 + 1, B).astype(np.int32)
+    ny = rng.randint(1, V2 + 1, B).astype(np.int32)
+    nx[0], ny[0] = V1, V2
+
+    def adj(V, n):
+        A = np.zeros((B, V, V), np.float32)
+        for b in range(B):
+            M = (rng.rand(n[b], n[b]) < min(0.2, 3.0 / n[b]))
+            M = M.astype(np.float32)
+            if not directed:
+                M = np.triu(M, 1)
+                M = M + M.T
+            np.fill_diagonal(M, 0)
+            A[b, :n[b], :n[b]] = M
+        return A
+    Ax, Ay = adj(V1, nx), adj(V2, ny)
+    Lx = np.full((B, V1), -1, np.int32)
+    Ly = np.full((B, V2), -2, np.int32)
+    for b in range(B):
+        Lx[b, :nx[b]] = rng.randint(0, max(labels, 1), nx[b])
+        Ly[b, :ny[b]] = rng.randint(0, max(labels, 1), ny[b])
+    return [torch.from_numpy(x) for x in (Ax, Ay, nx, ny, Lx, Ly)]
+
+
+@pytest.mark.parametrize("V1,V2,labels,directed", [
+    (8, 8, 0, False), (16, 32, 0, True), (64, 64, 0, False),
+    (32, 16, 7, False), (64, 64, 5, False), (128, 16, 0, True),
+    (128, 128, 4, False), (256, 64, 3, False)])
+def test_rw_cg_kernel_matches_plain(cuda, V1, V2, labels, directed):
+    """K8 on the route its buckets take (global past 128 x 128, shared
+    below) against the plain batched CG, unlabeled and labeled, directed
+    and not, at lamda = 0.02, where lamda mu nu < 1: f32 sums in another
+    order, rtol 1e-4 on every pair (the iterates stay bounded, so
+    rounding is not amplified; a directed pair may run all 20 steps
+    without freezing)."""
+    Ax, Ay, nx, ny, Lx, Ly = _cg_pairs(V1 + 3 * V2 + labels, 40, V1, V2,
+                                       labels, directed)
+    lab = (Lx, Ly) if labels else (None, None)
+    want = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, 0.02, *lab, labels)
+    c = lambda t: None if t is None else t.to(cuda)
+    route = rw_ops.cg_route(V1, V2, bool(labels))
+    before = dict(rw_ops.pair_cg_cuda.route_launches)
+    got = rw_ops.pair_cg_cuda(c(Ax), c(Ay), c(nx), c(ny), 0.02,
+                              c(lab[0]), c(lab[1]))
+    torch.cuda.synchronize()
+    assert rw_ops.pair_cg_cuda.route_launches[route] == before[route] + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("V1,V2,labels,directed,lamda", [
+    (64, 64, 0, False, 0.05), (64, 64, 0, True, 0.1),
+    (128, 16, 0, True, 0.1), (256, 64, 3, True, 0.1)])
+def test_rw_cg_kernel_where_cg_diverges(cuda, V1, V2, labels, directed,
+                                        lamda):
+    """Where lamda mu nu passes 1 (RandomWalk()'s lamda = 0.1 on
+    directed graphs) most pairs run all 20 steps unfrozen, and f32 CG
+    may amplify rounding on them without limit: no f32 order of the
+    sums, the JAX package's included, fixes their value (the plain
+    version lies up to 100 % from its f64 evaluation at 64 x 64, lamda
+    0.1).  rtol 1e-4 holds only for pairs that converge: K8 is held on
+    the pairs whose plain CG froze and lies within 1e-5 relative of its
+    f64 evaluation, the others at nothing.  Unfrozen pairs differed
+    between K8 and the plain version by 1.03e-4 relative (here, lamda
+    0.05) and by 2.4e-4 where the f32 plain lay within 1e-5 of f64
+    (directed NCI1-scale pairs of 64 vertices, lamda 0.1)."""
+    Ax, Ay, nx, ny, Lx, Ly = _cg_pairs(V1 + 3 * V2 + labels, 40, V1, V2,
+                                       labels, directed)
+    lab = (Lx, Ly) if labels else (None, None)
+    want, steps = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, lamda, *lab,
+                                       labels, return_steps=True)
+    assert (steps == rw_ops.CG_ITERS).any()
+    exact = rw_ops.pair_cg_plain(Ax.double(), Ay.double(), nx, ny, lamda,
+                                 *lab, labels).numpy()
+    held = (steps < rw_ops.CG_ITERS).numpy() & (
+        np.abs(want.numpy() - exact) <= 1e-5 * np.abs(exact))
+    assert held.any()
+    c = lambda t: None if t is None else t.to(cuda)
+    got = rw_ops.pair_cg_cuda(c(Ax), c(Ay), c(nx), c(ny), lamda,
+                              c(lab[0]), c(lab[1])).cpu().numpy()
+    np.testing.assert_allclose(got[held], want.numpy()[held], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_rw_cg_wrapper_checks(cuda):
+    Ax, Ay, nx, ny, Lx, Ly = (t.to(cuda) for t in _cg_pairs(1, 4, 8, 8, 2))
+    with pytest.raises(ValueError):
+        rw_ops.pair_cg_cuda(Ax, Ay, nx.long(), ny, 0.1)
+    with pytest.raises(ValueError):
+        rw_ops.pair_cg_cuda(Ax, Ay, nx, ny, 0.1, Lx, None)
+    with pytest.raises(ValueError):
+        rw_ops.pair_cg_cuda(Ax[:, :4], Ay, nx, ny, 0.1)
+    big = torch.zeros((1, 4097, 4097), device=cuda)
+    n = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="4096"):
+        rw_ops.pair_cg_cuda(big, big, n, n, 0.1)
+
+
+@pytest.mark.parametrize("Bx,By,V1,V2", [
+    (256, 256, 64, 64), (37, 300, 16, 64), (1, 1, 8, 8), (100, 17, 512, 32)])
+def test_rw_spectral_kernel_matches_plain(cuda, Bx, By, V1, V2):
+    """K9 against the plain f64 evaluation on spectra with poles inside
+    the range (lamda mu nu up to ~4): the same rounded terms, f64 sums in
+    another order, rtol 1e-10; written into a block of a larger tensor
+    without touching the rest."""
+    rng = np.random.RandomState(Bx + By + V1)
+
+    def spectra(B, V):
+        n = rng.randint(1, V + 1, B).astype(np.int32)
+        s2 = np.zeros((B, V), np.float32)
+        mu = np.zeros((B, V), np.float32)
+        for b in range(B):
+            s2[b, :n[b]] = rng.rand(n[b]) * 4
+            mu[b, :n[b]] = rng.randn(n[b]) * 2.5
+        return [torch.from_numpy(x) for x in (s2, mu, n)]
+    sx, mx, nx = spectra(Bx, V1)
+    sy, my, ny = spectra(By, V2)
+    want = rw_ops.spectral_tile_plain(sx, mx, nx, sy, my, ny, 0.1)
+    out = torch.full((Bx + 3, By + 5), -7.0, dtype=torch.float64,
+                     device=cuda)
+    before = rw_ops.spectral_tile_cuda.launches
+    c = [t.to(cuda) for t in (sx, mx, nx, sy, my, ny)]
+    rw_ops.spectral_tile_cuda(*c, 0.1, out=out[2:2 + Bx, 1:1 + By])
+    torch.cuda.synchronize()
+    assert rw_ops.spectral_tile_cuda.launches == before + 1
+    got = out.cpu()
+    np.testing.assert_allclose(got[2:2 + Bx, 1:1 + By].numpy(),
+                               want.numpy(), rtol=1e-10, atol=1e-12)
+    got[2:2 + Bx, 1:1 + By] = -7.0
+    assert (got == -7.0).all()
+
+
+@pytest.mark.parametrize("params,data", [
+    ({"k": 5, "sampling": {"n_samples": 150}, "random_state": 42}, "nci"),
+    ({"k": 5}, "mutag"), ({"k": 7, "sampling": {"n_samples": 60},
+                           "random_state": 1, "normalize": True}, "nci")])
+def test_graphlet_sampling_on_card_matches_cpu(cuda, params, data):
+    """GraphletSampling with K7 on the card (one launch a graphlet size
+    and call) equals its CPU run bit for bit."""
+    if data == "nci":
+        train, test = generate_dataset(
+            n_graphs=120, n_graphs_test=10, r_vertices=(10, 50),
+            r_connectivity=(0.07, 0.15), random_state=1234,
+            features=("nl", 37))
+    else:
+        from grakel_torch.datasets import read_data
+        import os
+        d = read_data("MUTAG", path=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "data")).data
+        train, test = d[:40], d[40:50]
+    before = canonical.canonical_codes_cuda.launches
+    got = _run_kernel(grakel_torch.GraphletSampling(**params), train, test)
+    assert canonical.canonical_codes_cuda.launches > before
+    with use_device("cpu"):
+        ref = _run_kernel(grakel_torch.GraphletSampling(**params), train,
+                          test)
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("name,params,kind", [
+    ("RandomWalk", {}, "nci"), ("RandomWalk", {"lamda": 0.01}, "directed"),
+    ("RandomWalkLabeled", {}, "mutag"),
+    ("RandomWalk", {"p": 3}, "mutag"),
+    ("RandomWalkLabeled", {"method_type": "baseline", "lamda": 0.01},
+     "mutag_small")])
+def test_random_walk_on_card_matches_cpu(cuda, name, params, kind):
+    """RandomWalk's routes on the card against its CPU run: the spectral
+    tile route (K9) to rtol 1e-10 (f64 sums in another order), the CG
+    routes (K8) and the library routes (f32) to rtol 1e-4."""
+    import os
+    from grakel_torch.datasets import read_data
+    if kind in ("nci", "directed"):
+        train, test = generate_dataset(
+            n_graphs=300, n_graphs_test=20, r_vertices=(10, 50),
+            r_connectivity=(0.07, 0.15), random_state=1234,
+            features=("nl", 37))
+        if kind == "directed":   # each edge kept in one direction
+            rng = np.random.RandomState(0)
+            one_way = []
+            for g in train[:60]:
+                U = np.triu(normalize_input([g])[0].get_adjacency_matrix(),
+                            1)
+                flip = rng.rand(*U.shape) < 0.5
+                one_way.append([np.where(flip, U, 0)
+                                + np.where(flip, 0, U).T,
+                                {i: 0 for i in range(U.shape[0])}])
+            train, test = one_way[:50], one_way[50:]
+    else:
+        d = read_data("MUTAG", path=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "data")).data
+        train, test = (d[:60], d[60:80]) if kind == "mutag" else \
+            (d[:6], d[6:9])
+    counters = (rw_ops.pair_cg_cuda, rw_ops.spectral_tile_cuda)
+    before = [c.launches for c in counters]
+    got = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    with use_device("cpu"):
+        ref = _run_kernel(getattr(grakel_torch, name)(**params), train,
+                          test)
+    if kind == "nci":
+        assert launched[1] > 0 and launched[0] == 0
+        rtol = 1e-10
+    else:
+        assert launched[1] == 0
+        assert (launched[0] > 0) == ("p" not in params
+                                     and "method_type" not in params)
+        rtol = 1e-4
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol)

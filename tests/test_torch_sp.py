@@ -215,6 +215,31 @@ def test_core_framework_matches_jax(base):
     np.testing.assert_allclose(Ttn, Tjn, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("min_core", [0, 1, 2])
+@pytest.mark.parametrize("base", ["default", "wl"])
+def test_core_framework_min_core_fit_then_transform_matches_jax(base,
+                                                                min_core):
+    """CoreFramework at min_core >= 0 (the core levels below it are left
+    out), called fit -> transform -> diagonal (no fit_transform first),
+    with and without normalize: the JAX package's Grams exactly (integer
+    counts), normalized to rtol 1e-12."""
+    train, test = _data(13, n=36, vmax=16)
+    out = []
+    for mod in (grakel_tpu, grakel_torch):
+        bk = None if base == "default" else (mod.WeisfeilerLehman,
+                                             {"n_iter": 2})
+        for normalize in (False, True):
+            k = mod.CoreFramework(base_graph_kernel=bk, normalize=normalize,
+                                  min_core=min_core)
+            with use_device("cpu"):
+                T = k.fit(train).transform(test)
+                out.append((T,) + tuple(k.diagonal()))
+    (Tj, xj, yj), (Tjn, _, _), (Tt, xt, yt), (Ttn, _, _) = out
+    assert np.array_equal(Tt, Tj)
+    assert np.array_equal(xt, xj) and np.array_equal(yt, yj)
+    np.testing.assert_allclose(Ttn, Tjn, rtol=1e-12, atol=0)
+
+
 def test_wl_shortest_path_matches_jax():
     train, test = _data(12, n=36)
     res = []
