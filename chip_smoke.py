@@ -73,10 +73,11 @@ main paths through the public entry points, at full data size:
   transform), exhaustive ``GraphletSampling(k=5)`` on MUTAG read with
   ``read_data``, fit 150, transform 38 (``gs_mutag``: the native ESU,
   K7 at s = 5), ``RandomWalk()`` on the NCI1-scale set (``rw_nci1scale``:
-  rho = lamda max|mu|^2 past 0.9, so the spectral tile route, K9 a tile;
-  rho and the tiles printed) and ``RandomWalkLabeled()`` on MUTAG, fit
-  150, transform 38 (``rwl_mutag``: K8's labeled CG on its shared route
-  at buckets 16 and 32).  Grams, transforms and diagonals must equal the
+  rho = lamda max|mu|^2 past 0.9, so the spectral tile route: K9 exactly
+  once a Gram call, 3 a run (fit, transform, the transform's diagonal);
+  rho and the plan's tiles printed) and ``RandomWalkLabeled()`` on MUTAG,
+  fit 150, transform 38 (``rwl_mutag``: K8's labeled CG, only its warp
+  route, at buckets 16 and 32, one launch a bucket pair a Gram).  Grams, transforms and diagonals must equal the
   same calls under ``use_device("cpu")``: GraphletSampling's bit for bit,
   RandomWalk's f64 tiles to rtol 1e-8 (f64 sums in another order),
   RandomWalkLabeled's f32 CG to rtol 1e-4.
@@ -207,22 +208,28 @@ time of a call:
   s = 2..8, bit-identical to ``canonical_codes_plain``; bound: 3 integer
   operations a bit read, s! s(s-1)/2 bit reads a graphlet, over 67 TOP/s;
 * K8 (``ops.random_walk.pair_cg_cuda``) at every call of the
-  ``rwl_mutag`` path, on directed NCI1-scale pairs (``RandomWalk(lamda=
-  0.01)``, and ``RandomWalk()``'s lamda 0.1, where the series diverges),
-  on labeled NCI1-scale pairs at V = 64 and on the REDDIT-B stand-in's
-  graphs of 65-256 vertices labeled by degree (the global route), each
-  to rtol 1e-4 of ``pair_cg_plain`` on every pair; at lamda 0.1 on the
-  directed pairs only on those whose plain CG froze and lies within
-  1e-5 of its f64 evaluation (the rest are counted: f32 CG may amplify
-  their rounding without limit);
-  bound: the flops of the steps each pair ran (2 n1 n2 (n1 + n2) a
-  matvec, labeled or not, 12 n1 n2 of vector work) over 67 TFLOP/s
-  fp32;
-* K9 (``ops.random_walk.spectral_tile_cuda``) on every tile of the
-  ``rw_nci1scale`` fit Gram (full 256 x 256 tiles among them), within
-  1e-12 of each entry's sum of |terms| of ``spectral_tile_plain``;
-  bound: 4 f64 operations a term over 34 TFLOP/s.  No single PyTorch
-  call computes K7, K8 or K9: no library time.
+  ``rwl_mutag`` path (graph tables, pairs as table rows; the warp
+  route), on directed NCI1-scale pairs (``RandomWalk(lamda=0.01)``, and
+  ``RandomWalk()``'s lamda 0.1, where the series diverges; warp and
+  shared routes), on labeled NCI1-scale pairs (warp and shared) and on
+  the REDDIT-B stand-in's graphs of 65-256 vertices labeled by degree
+  (the global route), each to rtol 1e-4 of ``pair_cg_plain`` on every
+  pair; at lamda 0.1 on the directed pairs only on those whose plain CG
+  froze and lies within 1e-5 of its f64 evaluation (the rest are
+  counted: f32 CG may amplify their rounding without limit); launches
+  by route printed; its 8 kernels must build without spills.  Bound:
+  the flops of the steps each pair ran (2 n1 n2 (n1 + n2) a matvec,
+  labeled or not, 12 n1 n2 of vector work) over 67 TFLOP/s fp32;
+* K9 (``ops.random_walk.spectral_gram_cuda``) on the ``rw_nci1scale``
+  fit Gram's one launch over its plan, within 1e-12 of each entry's sum
+  of |terms| of ``spectral_gram_plain`` and exactly symmetric; timed
+  (CUDA events around the wrapper, and the kernel's profiler record).
+  Bound: 4 f64 operations a term of the distinct pairs the Gram needs
+  over 34 TFLOP/s, beside the same count over PR 11's launched tiles;
+  and an instruction floor: the FP64 instructions a term takes in the
+  kernel's built inner loop (``cuobjdump -sass``) times the launched
+  terms over the FP64 issue rate.  No single PyTorch call computes K7,
+  K8 or K9: no library time.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -495,6 +502,84 @@ def bound(nbytes, ops, rate):
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "operations" if t_o >= t_b else "bytes",
             "bytes": int(nbytes), "ops": int(ops)}
+
+
+def sass_inner_loop(sass, function):
+    """The FP64 work of the innermost division loop of ``function`` in
+    ``cuobjdump -sass`` output: of each loop (a backward branch's range)
+    its hot path, the instructions no forward conditional branch inside
+    it jumps over (the rare full divisions are such a region); the loop
+    whose hot path holds the most ``MUFU.RCP64H`` (one an f64 division,
+    so one a term), with its instruction count, its FP64-pipe
+    instructions (DFMA, DADD, DMUL, DSETP, DMNMX) and those per term.
+    None when no such loop is found."""
+    body = None
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        if function in part.split("\n", 1)[0]:
+            body = part
+            break
+    if body is None:
+        return None
+    ins = []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m:
+            text = m.group(2).strip()
+            op = re.sub(r"^@!?U?P[T0-9]+\s+", "", text)
+            target = re.search(r"0x([0-9a-f]+)", op)
+            ins.append((int(m.group(1), 16), op.split()[0] if op else "",
+                        text.startswith("@"),
+                        int(target.group(1), 16) if target else None))
+    best = None
+    for addr, op, _, target in ins:
+        if not (op.startswith("BRA") and target is not None
+                and target < addr):
+            continue
+        loop = [x for x in ins if target <= x[0] <= addr]
+        cold = [(a, t) for a, o, pred, t in loop
+                if o.startswith("BRA") and pred and t is not None and t > a]
+        hot = [o for a, o, _, _ in loop
+               if not any(lo < a < hi for lo, hi in cold)]
+        rcp = sum(o.startswith("MUFU.RCP64H") for o in hot)
+        if rcp and (best is None or rcp > best["mufu_rcp64h"]
+                    or (rcp == best["mufu_rcp64h"]
+                        and len(hot) < best["instructions"])):
+            fp64 = sum(o.split(".")[0] in ("DFMA", "DADD", "DMUL", "DSETP",
+                                           "DMNMX") for o in hot)
+            best = {"loop": [target, addr], "instructions": len(hot),
+                    "mufu_rcp64h": rcp, "fp64": fp64,
+                    "fp64_per_term": fp64 / rcp,
+                    "instructions_per_term": len(hot) / rcp}
+    return best
+
+
+def k9_sass_floor(terms):
+    """K9's instruction floor: the FP64 instructions a term takes in the
+    built inner loop (``cuobjdump -sass`` of the kernel library), times
+    ``terms``, over the card's FP64 issue rate (64 lanes a streaming
+    multiprocessor a clock at the maximum SM clock)."""
+    import shutil
+    import torch
+    from grakel_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", _build.build()[0]],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+        return {"error": str(e)}
+    loop = sass_inner_loop(sass, "rw_spectral_gram_kernel")
+    if loop is None:
+        return {"error": "no division loop found in the SASS"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 64 * mhz * 1e6
+    return dict(loop, sm_clock_mhz=mhz, sms=sms, terms=terms,
+                fp64_issue_per_s=rate,
+                floor_ms=terms * loop["fp64_per_term"] / rate * 1e3)
 
 
 def native_phase(class_path, check, paths, train, held, mutag):
@@ -798,7 +883,7 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
           "gs_mutag launched K7 (%d)"
           % paths["gs_mutag"]["launches"]["canonical"])
 
-    k9_seen, restore = spied(rw_ops, "spectral_tile")
+    k9_seen, restore = spied(rw_ops, "spectral_gram")
     try:
         rk = class_path("rw_nci1scale", RandomWalk, train, held, 0, 1,
                         rtol=1e-8, lamda=0.1,
@@ -807,16 +892,16 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         restore()
     lp = paths["rw_nci1scale"]["launches"]
     rw_log = rk._spectral_log
-    check(lp["rw_spectral"] > 0 and lp["rw_cg"] == 0
+    check(lp["rw_spectral"] == len(rw_log) == 3 and lp["rw_cg"] == 0
           and {c["route"] for c in rw_log} == {"tile"},
-          "rw_nci1scale took the spectral tile route (K9 %d launches, K8 "
-          "%d): %s" % (lp["rw_spectral"], lp["rw_cg"], rw_log))
+          "rw_nci1scale launched K9 once a Gram call (%d launches over %d "
+          "calls: fit, transform, the transform's diagonal; K8 %d): %s"
+          % (lp["rw_spectral"], len(rw_log), lp["rw_cg"], rw_log))
     paths["rw_nci1scale"].update(rho=rw_log[0]["rho"],
                                  tiles=[c["tiles"] for c in rw_log])
-    print("rw_nci1scale: rho %.4f, tiles per Gram %s"
+    print("rw_nci1scale: rho %.4f, plan tiles per Gram %s"
           % (rw_log[0]["rho"], [c["tiles"] for c in rw_log]), flush=True)
-    k9_calls = k9_seen[:lp["rw_spectral"]]
-    k9_fit = k9_calls[:rw_log[0]["tiles"]]
+    k9_fit = k9_seen[0][0]   # (rows, cols, plan, lamda) of the fit Gram
 
     k8_seen, restore = spied(rw_ops, "pair_cg")
     try:
@@ -827,12 +912,13 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         restore()
     lp = paths["rwl_mutag"]["launches"]
     k8_calls = k8_seen[:lp["rw_cg"]]
-    pairs = sum(int(a[0].shape[0]) for a, _ in k8_calls)
+    pairs = sum(int(a[4].shape[0]) for a, _ in k8_calls)
     buckets = sorted({(int(a[0].shape[1]), int(a[1].shape[1]))
                       for a, _ in k8_calls})
-    check(lp["rw_cg"] > 0 and lp["rw_cg_by_route"]["global"] == 0,
-          "rwl_mutag launched K8 on its shared route (%d launches, %d "
-          "pairs, buckets %s)" % (lp["rw_cg"], pairs, buckets))
+    check(lp["rw_cg"] > 0 and lp["rw_cg_by_route"]["warp"] == lp["rw_cg"],
+          "rwl_mutag launched only K8's warp route (%d launches, by route "
+          "%s; %d pairs, buckets %s)" % (lp["rw_cg"], lp["rw_cg_by_route"],
+                                         pairs, buckets))
     paths["rwl_mutag"].update(pairs=pairs, buckets=buckets)
 
     # ---------------- K7 ----------------------------------------------- #
@@ -875,49 +961,52 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         "shapes": k7, "random_sizes": k7_sizes}
 
     # ---------------- K8 ----------------------------------------------- #
-    def k8_ops(Ax, Ay, nx, ny, steps):
+    def k8_ops(n1, n2, steps):
         """Flops of the steps each pair ran: per matvec 2 n1 n2 (n1 + n2)
         (labeled too: a label's masks split X's rows and columns, so
         the common labels' products add up to one) and 12 n1 n2 of
         vector work."""
-        n1 = nx.long().cpu().numpy()
-        n2 = ny.long().cpu().numpy()
+        n1, n2 = n1.cpu().numpy(), n2.cpu().numpy()
         per = 2 * n1 * n2 * (n1 + n2) + 12 * n1 * n2
         return int((per * steps.cpu().numpy()).sum())
 
     def k8_case(args, what, reps=3, diverges=False):
-        """K8 on the arguments of one ``ops.random_walk.pair_cg`` call,
-        held at rtol 1e-4 on every pair.  Where lamda mu nu passes 1
-        (``diverges``), f32 CG may amplify rounding without limit on a
-        pair, and only the pairs whose plain CG froze and lies within
-        1e-5 relative of its f64 evaluation are held; the others are
-        counted, with K8's distance from the plain version on them."""
+        """K8 on the arguments of one ``ops.random_walk.pair_cg`` call
+        (graph tables, pairs of table rows), held at rtol 1e-4 on every
+        pair.  Where lamda mu nu passes 1 (``diverges``), f32 CG may
+        amplify rounding without limit on a pair, and only the pairs
+        whose plain CG froze and lies within 1e-5 relative of its f64
+        evaluation are held; the others are counted, with K8's distance
+        from the plain version on them."""
         i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
-        Ax, Ay = args[0].contiguous(), args[1].contiguous()
-        nx, ny, lamda = i32(args[2]), i32(args[3]), args[4]
-        Lx, Ly = (i32(args[5]), i32(args[6])) if len(args) > 6 else (
-            None, None)
-        n_labels = 0 if Lx is None else int(max(Lx.max(), Ly.max())) + 1
-        route = rw_ops.cg_route(Ax.shape[1], Ay.shape[1], Lx is not None)
-        run = lambda: rw_ops.pair_cg_cuda(Ax, Ay, nx, ny, lamda, Lx, Ly)
+        Gx, Gy = args[0].contiguous(), args[1].contiguous()
+        nx, ny, ia, ib = (i32(t) for t in args[2:6])
+        lamda, Lx, Ly, n_labels = args[6], i32(args[7]), i32(args[8]), \
+            args[9]
+        route = rw_ops.cg_route(Gx.shape[1], Gy.shape[1], Lx is not None)
+        run = lambda: rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia, ib, lamda, Lx,
+                                          Ly)
         got = run()
-        want, steps = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, lamda, Lx, Ly,
-                                           n_labels, return_steps=True)
+        plain = lambda G1, G2, steps=False: rw_ops.pair_cg_plain(
+            G1, G2, nx, ny, ia, ib, lamda, Lx, Ly, n_labels,
+            return_steps=steps)
+        want, steps = plain(Gx, Gy, True)
         held = torch.ones_like(want, dtype=torch.bool)
         if diverges:
-            exact = rw_ops.pair_cg_plain(Ax.double(), Ay.double(), nx, ny,
-                                         lamda, Lx, Ly, n_labels)
+            exact = plain(Gx.double(), Gy.double())
             held = (steps < rw_ops.CG_ITERS) & (
                 (want.double() - exact).abs() <= 1e-5 * exact.abs())
         rel_all = ((got - want).abs() / want.abs().clamp_min(1e-6)).nan_to_num(
             float("inf"))
         d = (got - want).abs()[held]
-        B = int(Ax.shape[0])
-        nbytes = 4 * (Ax.numel() + Ay.numel()) + 8 * B + 4 * B + (
-            0 if Lx is None else 4 * (Lx.numel() + Ly.numel()))
-        case = dict(what=what, pairs=B, V1=int(Ax.shape[1]),
-                    V2=int(Ay.shape[1]), labeled=Lx is not None,
-                    route=route, lamda=lamda,
+        B = int(ia.shape[0])
+        nbytes = 4 * (Gx.numel() + Gy.numel() + nx.numel() + ny.numel()
+                      + 3 * B) + (0 if Lx is None else
+                                  4 * (Lx.numel() + Ly.numel()))
+        case = dict(what=what, pairs=B, graphs=(int(Gx.shape[0]),
+                                                int(Gy.shape[0])),
+                    V1=int(Gx.shape[1]), V2=int(Gy.shape[1]),
+                    labeled=Lx is not None, route=route, lamda=lamda,
                     max_abs_err=float(d.max()) if len(d) else 0.0,
                     max_rel_err=float(rel_all[held].max()) if len(d) else 0.0,
                     held_pairs=int(held.sum()),
@@ -926,14 +1015,14 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
                                        if (~held).any() else None),
                     mean_steps=float(steps.float().mean()),
                     ms=cuda_ms(run, reps),
-                    plain_ms=cuda_ms(lambda: rw_ops.pair_cg_plain(
-                        Ax, Ay, nx, ny, lamda, Lx, Ly, n_labels), 1, 0),
-                    **bound(nbytes, k8_ops(Ax, Ay, nx, ny, steps),
+                    plain_ms=cuda_ms(lambda: plain(Gx, Gy), 1, 0),
+                    **bound(nbytes, k8_ops(nx.long()[ia.long()],
+                                           ny.long()[ib.long()], steps),
                             FP32_OPS_PER_S))
         check(torch.allclose(got[held], want[held], rtol=1e-4, atol=1e-4),
               "K8 %s (%d pairs, buckets %d x %d, %s route) == plain CG to "
               "rtol 1e-4 on %d pairs (largest relative difference %.3g)"
-              % (what, B, Ax.shape[1], Ay.shape[1], route,
+              % (what, B, Gx.shape[1], Gy.shape[1], route,
                  case["held_pairs"], case["max_rel_err"]))
         return case
 
@@ -956,16 +1045,20 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         one_way.append([np.where(flip, U, 0) + np.where(flip, 0, U).T,
                         {i: 0 for i in range(g.n)}])
     k8_other = [k8_case(a, "directed NCI1-scale pairs (RandomWalk("
-                        "lamda=%s) fit, 120 graphs)" % lam,
+                        "lamda=%s) fit, 120 graphs)" % lam, 1,
                         diverges=lam == 0.1)
                 for lam in (0.01, 0.1)
                 for a, _ in captured_k8(RandomWalk(lamda=lam), one_way)]
     k8_other += [k8_case(a, "labeled NCI1-scale pairs "
-                         "(RandomWalkLabeled() fit, 120 graphs)")
-                 for a, _ in captured_k8(RandomWalkLabeled(), train[:120])
-                 if a[0].shape[1] == 64 or a[1].shape[1] == 64]
-    check(any(c["V1"] == c["V2"] == 64 and c["labeled"] for c in k8_other),
-          "K8 held at V = 64, labeled")
+                         "(RandomWalkLabeled() fit, 120 graphs)", 1)
+                 for a, _ in captured_k8(RandomWalkLabeled(), train[:120])]
+    check(any(c["V1"] == c["V2"] == 64 and c["labeled"]
+              and c["route"] == "shared" for c in k8_other)
+          and any(c["route"] == "warp" and c["labeled"] for c in k8_other)
+          and any(c["route"] == "warp" and not c["labeled"]
+                  for c in k8_other),
+          "K8 held at V = 64, labeled, on the shared route, and on the warp "
+          "route labeled and directed")
     div = [c for c in k8_other if c["lamda"] == 0.1 and not c["labeled"]]
     check(sum(c["held_pairs"] for c in div) > 0,
           "K8 held on pairs whose CG converges at RandomWalk()'s lamda 0.1 "
@@ -1004,49 +1097,71 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         "bound_by": "operations", "library_ms": None,
         "library": "none: no single PyTorch call runs a pair CG",
         "summed_over": "every K8 call of the rwl_mutag path (fit, "
-                       "transform, transform diagonal)",
+                       "transform, transform diagonal; one a bucket pair "
+                       "a Gram)",
+        "pairs": sum(c["pairs"] for c in k8),
         "shapes": k8, "directed_and_labeled": k8_other,
         "global_route": k8_global}
 
     # ---------------- K9 ----------------------------------------------- #
-    def abs_scale(sx2, mx, nx, sy2, my, ny, lamda):
-        """sum_ij |sx2 sy2 / den| per pair: what f64 sums in another order
-        can differ by, relative."""
-        n1, n2 = int(nx.max()), int(ny.max())
-        lm = lamda * mx[:, :n1].double()
-        out = torch.zeros((mx.shape[0], my.shape[0]), dtype=torch.float64,
-                          device=mx.device)
-        for i in range(n1):
-            den = 1.0 - lm[:, i, None, None] * my[None, :, :n2].double()
-            out += sx2[:, i, None].double().abs() * (
-                sy2[None, :, :n2].double() / den).abs().sum(2)
-        return out
+    def abs_scale(rows, cols, plan, lamda):
+        """sum_ij |sx2 sy2 / den| of every pair, in input order: what f64
+        sums in another order can differ by, relative (256 rows at a
+        time)."""
+        sx, mx, _ = rw_ops.padded_spectra(rows, 0, len(plan.order_r))
+        sy, my, _ = rw_ops.padded_spectra(cols, 0, len(plan.order_c))
+        lm, m2, s2 = lamda * mx.double(), my.double(), sy.double()
+        out = torch.empty((sx.shape[0], sy.shape[0]), dtype=torch.float64,
+                          device=sx.device)
+        for r0 in range(0, sx.shape[0], 256):
+            acc = torch.zeros_like(out[r0:r0 + 256])
+            for i in range(sx.shape[1]):
+                den = 1.0 - lm[r0:r0 + 256, i, None, None] * m2[None]
+                acc += sx[r0:r0 + 256, i, None].double().abs() * (
+                    s2[None] / den).abs().sum(2)
+            out[r0:r0 + 256] = acc
+        K = torch.empty_like(out)
+        r = torch.from_numpy(plan.order_r).to(out.device)
+        c = torch.from_numpy(plan.order_c).to(out.device)
+        K[r[:, None], c[None, :]] = out
+        return K
 
-    worst, full = 0.0, 0
-    for a, kw in k9_fit:
-        got = rw_ops.spectral_tile_cuda(*a[:7])
-        want = rw_ops.spectral_tile_plain(*a[:7])
-        scale = abs_scale(*a[:7])
-        worst = max(worst, float(((got - want).abs() / scale).max()))
-        full += a[0].shape[0] == a[3].shape[0] == 256
-    check(worst <= 1e-12 and full > 0,
-          "K9 == plain f64 evaluation on every tile of the rw_nci1scale fit "
-          "(%d of %d full 256 x 256): largest difference %.3g of the sum "
-          "of |terms| (<= 1e-12, above n1 n2 2^-53 at n <= 64)"
-          % (full, len(k9_fit), worst))
+    rows9, cols9, plan9, lam9 = k9_fit
+    got = rw_ops.spectral_gram_cuda(rows9, cols9, plan9, lam9)
+    want = rw_ops.spectral_gram_plain(rows9, cols9, plan9, lam9)
+    worst = float(((got - want).abs()
+                   / abs_scale(rows9, cols9, plan9, lam9)).max())
+    check(worst <= 1e-12 and torch.equal(got, got.T),
+          "K9 == plain f64 evaluation over the rw_nci1scale fit Gram's %d "
+          "plan tiles, one launch: largest difference %.3g of the sum of "
+          "|terms| (<= 1e-12, above n1 n2 2^-53 at n <= 64), exactly "
+          "symmetric" % (len(plan9.tiles), worst))
+    del want
+    sizes = (rows9[2][1:] - rows9[2][:-1]).long().cpu().numpy()  # plan order
+    t9 = plan9.tiles.astype(np.int64)
+    terms_launched = int(((t9[:, 1] - t9[:, 0]) * (t9[:, 3] - t9[:, 2])
+                          * sizes[t9[:, 1] - 1] * sizes[t9[:, 3] - 1]).sum())
+    terms_needed = int((sizes.sum() ** 2 + (sizes ** 2).sum()) // 2)
 
-    def k9_all(fn):
-        def run():
-            for a, kw in k9_fit:
-                fn(*a[:7])
-        return run
-
-    k9_ops = k9_bytes = 0
-    for a, kw in k9_fit:
-        nx_, ny_ = a[2].long(), a[5].long()
-        k9_ops += 4 * int(nx_.sum()) * int(ny_.sum())
-        k9_bytes += 8 * (a[0].numel() + a[3].numel()) + 4 * (
-            a[2].numel() + a[5].numel()) + 8 * a[0].shape[0] * a[3].shape[0]
+    def pr11_terms(n_in):
+        """The terms PR 11's tiles computed on these graphs: tiles of 256
+        graphs of one bucket pair, buckets in order of first appearance,
+        only a bucket's lower tiles against itself skipped."""
+        groups = {}
+        for i, k in enumerate(n_in):
+            groups.setdefault(rw_ops.bucket(k), []).append(int(k))
+        total = 0
+        for V1, a in groups.items():
+            for V2, b in groups.items():
+                for r0 in range(0, len(a), 256):
+                    for c0 in range(0, len(b), 256):
+                        if V1 == V2 and c0 < r0:
+                            continue
+                        total += sum(a[r0:r0 + 256]) * sum(b[c0:c0 + 256])
+        return total
+    terms_pr11 = pr11_terms(sizes[np.argsort(plan9.order_r)])
+    nb9 = 8 * int(rows9[0].numel()) + 8 * len(sizes) + 8 * len(sizes) ** 2
+    run9 = lambda: rw_ops.spectral_gram_cuda(rows9, cols9, plan9, lam9)
     t = time.perf_counter()
     k9_row = {
         "name": "rw_spectral", "route": "cuda",
@@ -1055,18 +1170,37 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         "max_abs_err": worst,
         "max_abs_err_is": "largest |kernel - plain| over the sum of |terms| "
                           "of its entry",
-        "ms": cuda_ms(k9_all(rw_ops.spectral_tile_cuda), 3),
-        "plain_ms": cuda_ms(k9_all(rw_ops.spectral_tile_plain), 1),
-        **bound(k9_bytes, k9_ops, FP64_VECTOR_OPS_PER_S),
+        "ms": cuda_ms(run9, 3),
+        "device_ms": device_ms(run9, 3, "rw_spectral_gram"),
+        "plain_ms": cuda_ms(lambda: rw_ops.spectral_gram_plain(
+            rows9, cols9, plan9, lam9), 1, 0),
+        **bound(nb9, 4 * terms_needed, FP64_VECTOR_OPS_PER_S),
+        "bound_ms_pr11_count": bound(nb9, 4 * terms_pr11,
+                                     FP64_VECTOR_OPS_PER_S)["bound_ms"],
+        "terms_needed": terms_needed, "terms_launched": terms_launched,
+        "terms_pr11": terms_pr11,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the closed form",
-        "summed_over": "the %d K9 calls of the rw_nci1scale fit Gram (%d "
-                       "full 256 x 256 tiles)" % (len(k9_fit), full),
-        "tiles": len(k9_fit), "timing_s": time.perf_counter() - t}
+        "summed_over": "the one K9 launch of the rw_nci1scale fit Gram "
+                       "(%d plan tiles of up to 32 x 32 graphs; ms: the "
+                       "wrapper's call, device_ms: the kernel's record)"
+                       % len(plan9.tiles),
+        "tiles": len(plan9.tiles)}
+    k9_row["sass"] = k9_sass_floor(terms_launched)
+    k9_row["timing_s"] = time.perf_counter() - t
     for row in (k7_row, k8_row, k9_row):
         print("%s: %.4f ms, bound %.4f ms by %s, plain %.4f ms, library %s"
               % (row["name"], row["ms"], row["bound_ms"], row["bound_by"],
                  row["plain_ms"], row["library"]), flush=True)
+    sass = k9_row["sass"]
+    print("rw_spectral: one launch, %d tiles; kernel record %s ms; terms "
+          "needed %d, launched %d, PR 11's tiles %d; bound %.4f ms over the "
+          "distinct pairs, %.4f ms by PR 11's count; SASS floor %s ms (%s "
+          "FP64 instructions a term in the inner loop)"
+          % (k9_row["tiles"], k9_row["device_ms"], terms_needed,
+             terms_launched, terms_pr11, k9_row["bound_ms"],
+             k9_row["bound_ms_pr11_count"], sass.get("floor_ms"),
+             sass.get("fp64_per_term")), flush=True)
     return [k7_row, k8_row, k9_row]
 
 
@@ -1162,11 +1296,11 @@ def main():
 
     k789_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                   if "canonical" in k or "rw_cg" in k or "rw_spectral" in k}
-    check(len(k789_ptxas) == 10 and all(
+    check(len(k789_ptxas) == 16 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k789_ptxas.values()),
-        "K7's 7, K8's 2 and K9's 1 kernels built without spills: %s"
-        % k789_ptxas)
+        "K7's 7, K8's 8 (2 block routes, 6 warp route) and K9's 1 kernels "
+        "built without spills: %s" % k789_ptxas)
 
     k6_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                 if "hadamard" in k}
@@ -1189,7 +1323,7 @@ def main():
                 "hadamard_step": hc_ops.hadamard_step_cuda,
                 "canonical": can_ops.canonical_codes_cuda,
                 "rw_cg": rw_ops.pair_cg_cuda,
-                "rw_spectral": rw_ops.spectral_tile_cuda}
+                "rw_spectral": rw_ops.spectral_gram_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
@@ -2742,6 +2876,8 @@ def main():
     k789[1]["route_launches"] = {
         r: sum(p["launches"]["rw_cg_by_route"][r] for p in paths.values())
         for r in k8_routes}
+    print("rw_cg: launches by route over the paths %s"
+          % k789[1]["route_launches"], flush=True)
     kernels += k789
     print(json.dumps({"kernels": kernels}), flush=True)
     print("chip_smoke: %.1f s in all, the build included"

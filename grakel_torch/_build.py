@@ -78,10 +78,12 @@ _SIGNATURES = {
     "grakel_hadamard_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _P],
     "grakel_canonical_codes": [_P, _P, _I, _I, _P],
-    "grakel_rw_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P,
-                     _I, _I, _P],
-    "grakel_rw_spectral": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                           _D, _P],
+    "grakel_rw_cg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                     _F, _P, _I, _I, _P],
+    "grakel_rw_cg_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _I, _F, _P, _P],
+    "grakel_rw_spectral_gram": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _P, _L, _D, _P],
 }
 
 

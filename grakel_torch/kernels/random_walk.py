@@ -9,14 +9,16 @@ are equal; the pair numerics run on the kernel's device through
   symmetric adjacencies: the closed form from each graph's spectrum
   (``eigh`` up to ``_EIG_MAX_N`` vertices, 40 power iterations and the
   walk moments above).  With ``rho = lamda * max|mu|^2 <= 0.9`` the Gram
-  is a host f64 product of moment features; above, it is computed in
-  tiles of up to 256 x 256 graphs of one size bucket each, K9 on a card
-  (``ops.random_walk.spectral_tile``), the lower tiles of a bucket
-  against itself skipped and mirrored;
+  is a host f64 product of moment features; above, one
+  ``ops.random_walk.spectral_gram`` call a Gram (K9 on a card, one
+  launch) over a plan of tiles of up to 32 x 32 graphs ordered by size,
+  a symmetric Gram's tiles on or above its diagonal only;
 * fast geometric otherwise (directed graphs, or a diverging series with
   moments-only graphs), and ``RandomWalkLabeled``'s fast geometric:
-  20 CG steps a pair (``ops.random_walk.pair_cg``, K8 on a card) over
-  chunks of 512 pairs of one bucket pair;
+  20 CG steps a pair (``ops.random_walk.pair_cg``, K8 on a card), each
+  graph packed once into its bucket's table (labeled: its vertices
+  sorted by label), one call a (row bucket, column bucket) over the
+  pairs as table rows;
 * ``fast`` + (``p`` or exponential): per-graph spectra at parse
   (``np.linalg.eig``), ``k = (u_i^2)^T f(lamda w_i w_j^T) (u_j^2)``;
 * ``baseline``: the dense Kronecker system, a solve or a matrix
@@ -46,7 +48,7 @@ from ..ops.random_walk import bucket as _bucket
 
 __all__ = ["RandomWalk", "RandomWalkLabeled"]
 
-_CHUNK = 512  # pairs per device call
+_CHUNK = 512  # pairs a device call of the p-step, spectral and baselines
 
 
 class RandomWalk(Kernel):
@@ -150,8 +152,8 @@ class RandomWalk(Kernel):
     _EIG_MAX_N = 512
 
     # ------------------------------------------------------------------ #
-    # graph tiles per device dispatch on the batched spectral path
-    _SPEC_TILE = 256
+    # graphs a side of a tile of the spectral plan (K9 takes at most 32)
+    _SPEC_TILE = rw.K9_TILE
 
     def _spectral_gram(self, rows, cols, symmetric):
         """Batched exact geometric Gram from per-graph (s2, mu).
@@ -161,8 +163,8 @@ class RandomWalk(Kernel):
 
         * rho <= 0.9 — moment features: k = sum_k lamda^k m_x[k] m_y[k]
           with m[k] = sum_i s_i^2 mu_i^k; ONE feature GEMM.
-        * else — tiled rational evaluation (K9, ops.random_walk.
-          spectral_tile), in f64 from the f32 spectra.
+        * else — the rational closed form over a tile plan (K9,
+          ops.random_walk.spectral_gram), in f64 from the f32 spectra.
 
         Each call appends ``{"rho", "route", "tiles"}`` to
         ``self._spectral_log``."""
@@ -213,64 +215,24 @@ class RandomWalk(Kernel):
                                        "tiles": 0})
             return None
 
-        def grouped(items):
-            g = {}
-            for idx, it in enumerate(items):
-                g.setdefault(_bucket(it["n"]), []).append(idx)
-            return g
-        gr, gc = grouped(rows), grouped(cols)
-        K = np.zeros((len(rows), len(cols)), np.float64)
-
-        def packed(items, idxs, V):
-            s2 = np.zeros((len(idxs), V), np.float32)
-            mu = np.zeros((len(idxs), V), np.float32)
-            n = np.zeros(len(idxs), np.int32)
-            for a, i in enumerate(idxs):
-                n[a] = items[i]["n"]
-                s2[a, :n[a]] = items[i]["s2"]
-                mu[a, :n[a]] = items[i]["mu"]
-            return [torch.from_numpy(x).to(dev) for x in (s2, mu, n)]
-
-        # each bucket's spectra go to the device once; the Gram is built
-        # in bucket order there, so a tile is a block of it
+        # one K9 launch over the distinct pairs: the plan orders the
+        # graphs by size and keeps a symmetric Gram's tiles on or above
+        # its diagonal; each side's spectra go to the device once and
+        # the Gram comes back once, mirrored and in input order
         dev = self._device()
-        spec_r = {V: packed(rows, idx, V) for V, idx in gr.items()}
-        spec_c = spec_r if symmetric else {
-            V: packed(cols, idx, V) for V, idx in gc.items()}
-        off_r = np.cumsum([0] + [len(i) for i in gr.values()])
-        off_c = np.cumsum([0] + [len(i) for i in gc.values()])
-        Kd = torch.zeros((len(rows), len(cols)), dtype=torch.float64,
-                         device=dev)
-        T = self._SPEC_TILE
-        tiles = 0
-        for (V1, ridx), ro in zip(gr.items(), off_r):
-            s2r, mur, nr = spec_r[V1]
-            for (V2, cidx), co in zip(gc.items(), off_c):
-                s2c, muc, nc = spec_c[V2]
-                for r0 in range(0, len(ridx), T):
-                    rs = ridx[r0:r0 + T]
-                    r1 = r0 + len(rs)
-                    for c0 in range(0, len(cidx), T):
-                        cs = cidx[c0:c0 + T]
-                        if (symmetric and V1 == V2
-                                and cs[-1] < rs[0]):
-                            continue  # mirror fills it
-                        c1 = c0 + len(cs)
-                        rw.spectral_tile(
-                            s2r[r0:r1], mur[r0:r1], nr[r0:r1], s2c[c0:c1],
-                            muc[c0:c1], nc[c0:c1], float(self.lamda),
-                            out=Kd[ro + r0:ro + r1, co + c0:co + c1])
-                        tiles += 1
+        plan = rw.spectral_plan([it["n"] for it in rows],
+                                [it["n"] for it in cols], symmetric,
+                                self._SPEC_TILE)
+
+        def packed(items, order):
+            return rw.pack_spectra([it["s2"] for it in items],
+                                   [it["mu"] for it in items], order, dev)
+        spec_r = packed(rows, plan.order_r)
+        spec_c = spec_r if symmetric else packed(cols, plan.order_c)
+        K = rw.spectral_gram(spec_r, spec_c, plan, float(self.lamda))
         self._spectral_log.append({"rho": rho, "route": "tile",
-                                   "tiles": tiles})
-        order_r = [i for idx in gr.values() for i in idx]
-        order_c = [j for idx in gc.values() for j in idx]
-        K[np.ix_(order_r, order_c)] = Kd.cpu().numpy()
-        if symmetric:
-            # skipped same-bucket lower-triangle tiles fill by mirror
-            iu = np.triu_indices(len(rows), 1)
-            K[(iu[1], iu[0])] = K[iu]
-        return K
+                                   "tiles": len(plan.tiles)})
+        return K.cpu().numpy()
 
     def _gram(self, px, py=None):
         symmetric = py is None
@@ -283,6 +245,7 @@ class RandomWalk(Kernel):
             K = self._spectral_gram(rows, cols, symmetric)
             if K is not None:
                 return K
+        enum, n_labels = None, 0
         if self._labeled:
             enum = {}
             for it in list(rows) + ([] if symmetric else list(cols)):
@@ -290,6 +253,9 @@ class RandomWalk(Kernel):
                     if lab not in enum:
                         enum[lab] = len(enum)
             n_labels = max(len(enum), 1)
+        if (self.method_type == "fast" and self.p is None
+                and self.kernel_type == "geometric"):
+            return self._cg_gram(rows, cols, symmetric, enum, n_labels)
         K = np.zeros((len(rows), len(cols)), np.float64)
         pairs = []
         for i in range(len(rows)):
@@ -305,13 +271,61 @@ class RandomWalk(Kernel):
         for (V1, V2), ps in groups.items():
             for lo in range(0, len(ps), _CHUNK):
                 chunk = ps[lo:lo + _CHUNK]
-                vals = self._pair_chunk(rows, cols, chunk, V1, V2,
-                                        enum if self._labeled else None,
-                                        n_labels if self._labeled else 0)
+                vals = self._pair_chunk(rows, cols, chunk, V1, V2, enum,
+                                        n_labels)
                 for (i, j), v in zip(chunk, vals):
                     K[i, j] = v
                     if symmetric:
                         K[j, i] = v
+        return K
+
+    def _cg_gram(self, rows, cols, symmetric, enum, n_labels):
+        """The fast geometric Gram by pair CG: each graph packed once into
+        its bucket's table (labeled: vertices sorted by label), one
+        ``ops.random_walk.pair_cg`` call a (row bucket, column bucket)
+        over the pairs of table rows (i <= j when symmetric), every
+        result fetched at once."""
+        dev = self._device()
+
+        def tables(items):
+            by = {}
+            for i, it in enumerate(items):
+                by.setdefault(_bucket(it["n"]), []).append(i)
+            out = {}
+            for V, idx in by.items():
+                labels = None if enum is None else [
+                    [enum[l] for l in items[i]["labels"]] for i in idx]
+                A, n, L = rw.cg_table([items[i]["A"] for i in idx], V,
+                                      labels)
+                out[V] = (np.asarray(idx), [
+                    None if x is None else torch.from_numpy(x).to(dev)
+                    for x in (A, n, L)])
+            return out
+        tr = tables(rows)
+        tc = tr if symmetric else tables(cols)
+        vals, where_r, where_c = [], [], []
+        for ir, (A1, n1, L1) in tr.values():
+            for ic, (A2, n2, L2) in tc.values():
+                I, J = np.meshgrid(np.arange(len(ir)), np.arange(len(ic)),
+                                   indexing="ij")
+                I, J = I.ravel(), J.ravel()
+                if symmetric:
+                    keep = ir[I] <= ic[J]
+                    I, J = I[keep], J[keep]
+                if not len(I):
+                    continue
+                t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+                vals.append(rw.pair_cg(A1, A2, n1, n2, t(I), t(J),
+                                       self.lamda, L1, L2, n_labels))
+                where_r.append(ir[I])
+                where_c.append(ic[J])
+        K = np.zeros((len(rows), len(cols)), np.float64)
+        if vals:
+            v = torch.cat(vals).cpu().numpy()
+            i, j = np.concatenate(where_r), np.concatenate(where_c)
+            K[i, j] = v
+            if symmetric:
+                K[j, i] = v
         return K
 
     def _pair_chunk(self, rows, cols, chunk, V1, V2, enum, n_labels):
@@ -346,15 +360,10 @@ class RandomWalk(Kernel):
             if self.p is not None:
                 return host(rw.pair_pstep_labeled(Ax, Ay, Lx, Ly, nx, ny,
                                                   tuple(self.mu_)))
-            if fast and self.kernel_type == "geometric":
-                return host(rw.pair_cg(Ax, Ay, nx, ny, self.lamda, Lx, Ly,
-                                       n_labels))
             return host(rw.pair_baseline_labeled(
                 Ax, Ay, Lx, Ly, nx, ny, self.lamda,
                 self.kernel_type == "exponential"))
 
-        if fast and self.p is None and self.kernel_type == "geometric":
-            return host(rw.pair_cg(Ax, Ay, nx, ny, self.lamda))
         if fast:  # spectral: p-step or exponential
             ux = np.zeros((B, V1), np.float32)
             wx = np.zeros((B, V1), np.float32)

@@ -2,51 +2,68 @@
 
 The counterpart of the pair numerics of
 ``grakel_tpu/kernels/random_walk.py`` (:48-233, XLA programs there,
-vmapped over chunks of graph pairs).  Every function takes a batch of
-pairs of padded graphs: ``Ax`` [B, V1, V1] and ``Ay`` [B, V2, V2] f32
-adjacencies with their valid sizes ``nx``, ``ny`` (int [B]; a graph's
-vertices are its first n rows), or per-graph spectra.
+vmapped over chunks of graph pairs).
 
 Two of them are hand-written kernels on a card:
 
 * K8 (``csrc/rw_cg.cu``), :func:`pair_cg`: the fast geometric kernel of
   a pair, 20 conjugate-gradient steps on ``(I - lamda Ax (x) Ay) x = 1``
   in matrix form, the sum of x; with labels, the matvec of
-  ``RandomWalkLabeled``.  One block a pair runs every step.  Its
-  plain version :func:`pair_cg_plain` is the JAX package's ``_cg_sum``
-  batched in torch: the fixed loop, the per-pair freeze
+  ``RandomWalkLabeled``.  Its inputs are graph tables, each graph packed
+  once (:func:`cg_table`), and a list of pairs of table rows.  Three
+  routes, picked from the buckets alone (:func:`cg_route`): "warp" (one
+  warp a pair, both buckets up to 32), "shared" and "global" (one block
+  a pair).  Its plain version :func:`pair_cg_plain` gathers the pairs
+  from the tables and runs :func:`pair_cg_batch`, the JAX package's
+  ``_cg_sum`` batched in torch: the fixed loop, the per-pair freeze
   ``sqrt(rs) <= rtol ||b||`` and the zero-denominator guards.
-* K9 (``csrc/rw_spectral.cu``), :func:`spectral_tile`: the closed-form
-  geometric kernel of a tile of graph pairs from each graph's
-  eigenvalues and squared eigenvector sums (``_rw_spectral_tile``),
-  evaluated in f64 from the f32 spectra; :func:`spectral_tile_plain` is
-  the same arithmetic in torch.
+* K9 (``csrc/rw_spectral.cu``), :func:`spectral_gram`: the closed-form
+  geometric kernel of every pair of a Gram from each graph's eigenvalues
+  and squared eigenvector sums (``_rw_spectral_tile``), evaluated in f64
+  from the f32 spectra, in one launch over the tiles of a
+  :func:`spectral_plan` (graphs ordered by size; a symmetric Gram's
+  tiles on or above the diagonal only).  Its plain version
+  :func:`spectral_gram_plain` runs :func:`spectral_tile_plain`, the same
+  arithmetic in torch, over the same plan.
 
 The p-step and exponential spectral forms and the dense baselines
 (Kronecker product, then a solve or a matrix exponential) are library
-work, as in the JAX package: torch calls on the tensors' device, in f32.
+work, as in the JAX package: torch calls on the tensors' device, in f32,
+on batches of pairs of padded graphs (``Ax`` [B, V1, V1], ``Ay`` [B, V2,
+V2] with their valid sizes ``nx``, ``ny``; a graph's vertices are its
+first n rows) or per-graph spectra.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .gram import full_fp32
 
-__all__ = ["bucket", "pair_cg", "pair_cg_plain", "pair_cg_cuda",
-           "cg_route", "k8_smem_bytes", "k8_global_grid", "spectral_tile",
-           "spectral_tile_plain", "spectral_tile_cuda", "pair_spectral",
+__all__ = ["bucket", "cg_table", "pair_cg", "pair_cg_plain",
+           "pair_cg_batch", "pair_cg_cuda", "cg_route", "k8_smem_bytes",
+           "k8_global_grid", "SpectralPlan", "spectral_plan",
+           "pack_spectra", "padded_spectra", "spectral_gram",
+           "spectral_gram_plain", "spectral_gram_cuda",
+           "spectral_tile_plain", "pair_spectral",
            "pair_pstep", "pair_pstep_labeled", "pair_baseline_geometric",
            "pair_baseline_exponential", "pair_baseline_labeled",
-           "CG_ITERS", "CG_RTOL"]
+           "CG_ITERS", "CG_RTOL", "CG_PLAIN_CHUNK", "K8_WARP_MAX",
+           "K9_TILE"]
 
 CG_ITERS = 20      # the reference's maxiter
 CG_RTOL = 1e-6     # the reference's rtol
+CG_PLAIN_CHUNK = 512   # pairs a batch of the plain CG (the JAX vmap chunk)
 
-# K8: a block's shared memory at most for the "shared" route (every
-# matrix of the pair in shared memory); a pair over it takes the
-# "global" route (its matrices in a global scratch of one slot a
-# block).  The largest a block may ask for on an H100.
+# K8: both buckets at most this take the "warp" route (a lane a column of
+# the pair's n1 x n2 matrices).  Above, a block a pair: "shared" while
+# every matrix of the pair fits a block's shared memory, else "global"
+# (its matrices in a global scratch of one slot a block).  The largest
+# shared memory a block may ask for on an H100.
+K8_WARP_MAX = 32
 K8_SMEM_MAX = 232448
 _K8_TILE = 32
 _K8_FIXED = 2 * _K8_TILE * (_K8_TILE + 1) * 4 + 2 * 32 * 4
@@ -55,6 +72,12 @@ _K8_FIXED = 2 * _K8_TILE * (_K8_TILE + 1) * 4 + 2 * 32 * 4
 # may take; fewer blocks each loop over more pairs
 K8_GLOBAL_BLOCKS = 264
 K8_SCRATCH_SHARE = 0.25
+
+# K9: graphs a side of a plan tile at most (a block's 32 x 32 pairs); the
+# largest |lamda| it takes (its divisions are __ddiv_rn's, bit for bit,
+# for f32 spectra and such lamda: csrc/rw_spectral.cu)
+K9_TILE = 32
+K9_LAMDA_MAX = 2.0 ** 64
 
 
 def bucket(n):
@@ -76,10 +99,36 @@ def _sum2(a):
 # K8: the pair CG solve
 # --------------------------------------------------------------------- #
 
-def pair_cg_plain(Ax, Ay, nx, ny, lamda, Lx=None, Ly=None, n_labels=0,
+def cg_table(adjs, V, labels=None):
+    """The graph table of one bucket for :func:`pair_cg`, numpy: f32
+    adjacencies [G, V, V] (zero past each graph's size), int32 sizes [G]
+    and, with ``labels`` (a sequence of int label-id sequences, one id a
+    vertex), int32 labels [G, V] (-1 past the size).  With labels each
+    graph's vertices are sorted by label (stable) and its adjacency is
+    permuted to match, so every label is a contiguous range of vertices,
+    as K8's warp route needs; a kernel value is invariant under a vertex
+    permutation.  Returns (A, n, L), L None without labels."""
+    G = len(adjs)
+    A = np.zeros((G, V, V), np.float32)
+    n = np.zeros(G, np.int32)
+    L = None if labels is None else np.full((G, V), -1, np.int32)
+    for g, a in enumerate(adjs):
+        a = np.asarray(a, np.float32)
+        k = a.shape[0]
+        n[g] = k
+        if labels is not None:
+            lab = np.asarray(labels[g], np.int64)
+            perm = np.argsort(lab, kind="stable")
+            a = a[np.ix_(perm, perm)]
+            L[g, :k] = lab[perm]
+        A[g, :k, :k] = a
+    return A, n, L
+
+
+def pair_cg_batch(Ax, Ay, nx, ny, lamda, Lx=None, Ly=None, n_labels=0,
                   iters=CG_ITERS, rtol=CG_RTOL, return_steps=False):
-    """[B] in ``Ax``'s float type (f32 on the paths): for each pair,
-    ``sum(x)`` after ``iters`` CG steps on
+    """[B] in ``Ax``'s float type (f32 on the paths): for each pair of a
+    batch of padded pairs, ``sum(x)`` after ``iters`` CG steps on
     ``x - lamda Ax x Ay = b`` (b the valid block's indicator, x0 = 0),
     each pair frozen once ``sqrt(rs) <= rtol ||b||``.  With labels
     ``Lx`` [B, V1], ``Ly`` [B, V2] (ids in [0, n_labels)), the matvec is
@@ -140,6 +189,34 @@ def pair_cg_plain(Ax, Ay, nx, ny, lamda, Lx=None, Ly=None, n_labels=0,
     return (_sum2(x), steps) if return_steps else _sum2(x)
 
 
+def pair_cg_plain(Gx, Gy, nx, ny, ia, ib, lamda, Lx=None, Ly=None,
+                  n_labels=0, iters=CG_ITERS, rtol=CG_RTOL,
+                  return_steps=False):
+    """:func:`pair_cg_batch` on the pairs ``(ia[k], ib[k])`` of two graph
+    tables (:func:`cg_table`: ``Gx`` [Gx, V1, V1], ``nx`` [Gx], ``Lx``
+    [Gx, V1]; ``Gy``, ``ny``, ``Ly`` likewise): gathers
+    :data:`CG_PLAIN_CHUNK` pairs at a time (read at call time) and runs
+    the batched loop on them.  Returns [B] (and the steps with
+    ``return_steps``)."""
+    ia = ia.to(torch.int64)
+    ib = ib.to(torch.int64)
+    chunk = CG_PLAIN_CHUNK
+    vals, steps = [], []
+    for lo in range(0, int(ia.shape[0]), chunk):
+        a, b = ia[lo:lo + chunk], ib[lo:lo + chunk]
+        v, s = pair_cg_batch(Gx[a], Gy[b], nx[a], ny[b], lamda,
+                             None if Lx is None else Lx[a],
+                             None if Ly is None else Ly[b], n_labels,
+                             iters, rtol, return_steps=True)
+        vals.append(v)
+        steps.append(s)
+    if not vals:
+        vals = [torch.zeros(0, dtype=Gx.dtype, device=Gx.device)]
+        steps = [torch.zeros(0, dtype=torch.int64, device=Gx.device)]
+    vals, steps = torch.cat(vals), torch.cat(steps)
+    return (vals, steps) if return_steps else vals
+
+
 def k8_smem_bytes(V1, V2, labeled):
     """Dynamic shared memory of a K8 block on the shared route at buckets
     V1, V2: the GEMM staging tiles and reduction slots, both adjacencies,
@@ -149,8 +226,12 @@ def k8_smem_bytes(V1, V2, labeled):
 
 
 def cg_route(V1, V2, labeled):
-    """K8's route at buckets V1, V2: "shared" when a pair's matrices fit a
-    block's shared memory (V1 = V2 = 64 does), else "global"."""
+    """K8's route at buckets V1, V2, from the shapes alone: "warp" when
+    both are at most :data:`K8_WARP_MAX` (32); else "shared" when a
+    pair's matrices fit a block's shared memory (V1 = V2 = 64 does),
+    else "global"."""
+    if V1 <= K8_WARP_MAX and V2 <= K8_WARP_MAX:
+        return "warp"
     return "shared" if k8_smem_bytes(V1, V2, labeled) <= K8_SMEM_MAX \
         else "global"
 
@@ -174,73 +255,151 @@ def _i32(t, dev, shape):
             and tuple(t.shape) == shape and t.is_contiguous())
 
 
-def pair_cg_cuda(Ax, Ay, nx, ny, lamda, Lx=None, Ly=None, iters=CG_ITERS,
-                 rtol=CG_RTOL):
-    """Launch K8 (``csrc/rw_cg.cu``): :func:`pair_cg_plain` on a card, one
-    block a pair, every step in one launch.  ``Ax`` [B, V1, V1], ``Ay``
-    [B, V2, V2] contiguous f32, ``nx``, ``ny`` int32 [B] (1 <= n <= V),
-    labels (with ``Lx`` [B, V1], ``Ly`` [B, V2] int32 ids >= 0 on the
-    valid vertices; no label count is needed) on one CUDA device.  The
+def pair_cg_cuda(Gx, Gy, nx, ny, ia, ib, lamda, Lx=None, Ly=None,
+                 iters=CG_ITERS, rtol=CG_RTOL):
+    """Launch K8 (``csrc/rw_cg.cu``): :func:`pair_cg_plain` on a card,
+    every step of every pair in one launch.  Graph tables ``Gx`` [Gx,
+    V1, V1], ``Gy`` [Gy, V2, V2] contiguous f32, sizes ``nx`` [Gx], ``ny``
+    [Gy] int32 (1 <= n <= V), pairs ``ia``, ``ib`` int32 [B] (rows of
+    the tables), labels (``Lx`` [Gx, V1], ``Ly`` [Gy, V2] int32 ids >= 0
+    on the valid vertices, each graph's ascending as :func:`cg_table`
+    leaves them; no label count is needed) on one CUDA device.  The
     route is :func:`cg_route`'s.  Returns f32 [B]."""
     from .. import _build
-    dev = Ax.device
-    B = Ax.shape[0] if Ax.dim() == 3 else -1
-    V1 = Ax.shape[1] if Ax.dim() == 3 else 0
-    V2 = Ay.shape[1] if Ay.dim() == 3 else 0
+    dev = Gx.device
+    V1 = Gx.shape[1] if Gx.dim() == 3 else 0
+    V2 = Gy.shape[1] if Gy.dim() == 3 else 0
+    B = ia.shape[0] if ia.dim() == 1 else -1
     labeled = Lx is not None
-    if not (dev.type == "cuda" and _f32(Ax, dev, (B, V1, V1))
-            and _f32(Ay, dev, (B, V2, V2)) and _i32(nx, dev, (B,))
-            and _i32(ny, dev, (B,)) and 0 < V1 <= 4096 and 0 < V2 <= 4096
+    if not (dev.type == "cuda" and _f32(Gx, dev, (Gx.shape[0], V1, V1))
+            and _f32(Gy, dev, (Gy.shape[0], V2, V2))
+            and _i32(nx, dev, (Gx.shape[0],))
+            and _i32(ny, dev, (Gy.shape[0],)) and _i32(ia, dev, (B,))
+            and _i32(ib, dev, (B,)) and 0 < V1 <= 4096 and 0 < V2 <= 4096
             and (Ly is not None) == labeled
-            and (not labeled or (_i32(Lx, dev, (B, V1))
-                                 and _i32(Ly, dev, (B, V2))))):
+            and (not labeled or (_i32(Lx, dev, (Gx.shape[0], V1))
+                                 and _i32(Ly, dev, (Gy.shape[0], V2))))):
         raise ValueError("pair_cg_cuda: need contiguous tensors on one CUDA "
-                         "device: f32 Ax [B, V1, V1] and Ay [B, V2, V2] "
-                         "(V <= 4096), int32 nx, ny [B], and int32 Lx "
-                         "[B, V1], Ly [B, V2] together or neither")
+                         "device: f32 tables Gx [Gx, V1, V1] and Gy [Gy, V2, "
+                         "V2] (V <= 4096), int32 sizes nx [Gx], ny [Gy], "
+                         "int32 pairs ia, ib [B], and int32 Lx [Gx, V1], Ly "
+                         "[Gy, V2] together or neither")
     route = cg_route(V1, V2, labeled)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    if route == "shared":
-        scratch, grid = None, B
-        smem = k8_smem_bytes(V1, V2, labeled)
+    lx = Lx.data_ptr() if labeled else None
+    ly = Ly.data_ptr() if labeled else None
+    if route == "warp":
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _build.launch("grakel_rw_cg_warp", dev, Gx.data_ptr(),
+                      Gy.data_ptr(), nx.data_ptr(), ny.data_ptr(), lx, ly,
+                      ia.data_ptr(), ib.data_ptr(), out.data_ptr(), B, V1,
+                      V2, float(lamda), int(iters), float(rtol),
+                      counter.data_ptr())
     else:
-        grid = k8_global_grid(B, V1, V2, torch.cuda.mem_get_info(dev)[0])
-        scratch = torch.empty(grid * 5 * V1 * V2, dtype=torch.float32,
-                              device=dev)
-        smem = _K8_FIXED
-    _build.launch("grakel_rw_cg", dev, Ax.data_ptr(), Ay.data_ptr(),
-                  nx.data_ptr(), ny.data_ptr(),
-                  Lx.data_ptr() if labeled else None,
-                  Ly.data_ptr() if labeled else None, out.data_ptr(), B,
-                  V1, V2, float(lamda), int(iters), float(rtol),
-                  None if scratch is None else scratch.data_ptr(), grid,
-                  smem)
+        if route == "shared":
+            scratch, grid = None, B
+            smem = k8_smem_bytes(V1, V2, labeled)
+        else:
+            grid = k8_global_grid(B, V1, V2,
+                                  torch.cuda.mem_get_info(dev)[0])
+            scratch = torch.empty(grid * 5 * V1 * V2, dtype=torch.float32,
+                                  device=dev)
+            smem = _K8_FIXED
+        _build.launch("grakel_rw_cg", dev, Gx.data_ptr(), Gy.data_ptr(),
+                      nx.data_ptr(), ny.data_ptr(), lx, ly, ia.data_ptr(),
+                      ib.data_ptr(), out.data_ptr(), B, V1, V2,
+                      float(lamda), int(iters), float(rtol),
+                      None if scratch is None else scratch.data_ptr(), grid,
+                      smem)
     pair_cg_cuda.launches += 1
     pair_cg_cuda.route_launches[route] += 1
     return out
 
 
 pair_cg_cuda.launches = 0
-pair_cg_cuda.route_launches = {"shared": 0, "global": 0}
+pair_cg_cuda.route_launches = {"warp": 0, "shared": 0, "global": 0}
 
 
-def pair_cg(Ax, Ay, nx, ny, lamda, Lx=None, Ly=None, n_labels=0):
+def pair_cg(Gx, Gy, nx, ny, ia, ib, lamda, Lx=None, Ly=None, n_labels=0):
     """:func:`pair_cg_plain` for CPU tensors, K8 for CUDA ones."""
-    dev = Ax.device
+    dev = Gx.device
     if dev.type == "cpu":
-        return pair_cg_plain(Ax, Ay, nx, ny, lamda, Lx, Ly, n_labels)
+        return pair_cg_plain(Gx, Gy, nx, ny, ia, ib, lamda, Lx, Ly,
+                             n_labels)
     if dev.type != "cuda":
         raise ValueError("pair_cg: unsupported device %s" % dev)
     i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
-    return pair_cg_cuda(Ax.contiguous(), Ay.contiguous(), i32(nx), i32(ny),
-                        lamda, i32(Lx), i32(Ly))
+    return pair_cg_cuda(Gx.contiguous(), Gy.contiguous(), i32(nx), i32(ny),
+                        i32(ia), i32(ib), lamda, i32(Lx), i32(Ly))
 
 
 # --------------------------------------------------------------------- #
-# K9: the spectral tile
+# K9: the spectral Gram
 # --------------------------------------------------------------------- #
+
+class SpectralPlan(NamedTuple):
+    """K9's tile plan of one Gram.  ``order_r`` / ``order_c`` (int64)
+    give the input row / column at each plan position: the graphs in
+    ascending size (so by bucket, and by size within one), stably.
+    ``tiles`` (int32 [T, 4]) holds each tile's plan-position ranges
+    ``r0, r1, c0, c1``, at most :data:`K9_TILE` a side on the card,
+    heaviest first; a symmetric plan keeps only the tiles on or above
+    the diagonal of the whole ordered Gram, so every unordered pair of
+    graphs lies in one tile (a diagonal tile's entries below its
+    diagonal are its mirror)."""
+    order_r: np.ndarray
+    order_c: np.ndarray
+    tiles: np.ndarray
+    symmetric: bool
+
+
+def spectral_plan(n_rows, n_cols, symmetric, tile=K9_TILE):
+    """The :class:`SpectralPlan` of a Gram of graphs of sizes ``n_rows``
+    against ``n_cols`` (ignored, the rows', when ``symmetric``): square
+    tiles of ``tile`` plan positions, ordered by their padded work
+    (rows x columns x the largest row and column sizes), largest
+    first."""
+    n_rows = np.asarray(n_rows, np.int64)
+    n_cols = n_rows if symmetric else np.asarray(n_cols, np.int64)
+    order_r = np.argsort(n_rows, kind="stable")
+    order_c = order_r if symmetric else np.argsort(n_cols, kind="stable")
+    nr, nc = len(order_r), len(order_c)
+    R, C = np.meshgrid(np.arange(0, nr, tile), np.arange(0, nc, tile),
+                       indexing="ij")
+    R, C = R.ravel(), C.ravel()
+    if symmetric:
+        keep = C >= R
+        R, C = R[keep], C[keep]
+    tiles = np.stack([R, np.minimum(R + tile, nr), C,
+                      np.minimum(C + tile, nc)], 1).astype(np.int32)
+    if len(tiles):
+        sr, sc = n_rows[order_r], n_cols[order_c]
+        work = ((tiles[:, 1] - tiles[:, 0]) * (tiles[:, 3] - tiles[:, 2])
+                * sr[tiles[:, 1] - 1] * sc[tiles[:, 3] - 1])
+        tiles = tiles[np.argsort(-work, kind="stable")]
+    return SpectralPlan(order_r, order_c, tiles.reshape(-1, 4),
+                        bool(symmetric))
+
+
+def pack_spectra(s2, mu, order, device):
+    """The spectra of graphs ``order`` (plan order) back to back, as K9
+    reads them: f32 ``s2`` and ``mu`` [E] (E the eigenvalues of all of
+    them) and int32 offsets [G + 1] (graph g's eigenpairs at
+    ``off[g]:off[g + 1]``), on ``device``.  ``s2`` / ``mu`` are sequences
+    of per-graph arrays in input order."""
+    n = np.array([len(s2[i]) for i in order], np.int64)
+    off = np.zeros(len(order) + 1, np.int64)
+    np.cumsum(n, out=off[1:])
+    if off[-1] >= 1 << 31:
+        raise ValueError("pack_spectra: more than 2^31 eigenvalues")
+    flat = lambda xs: (np.concatenate([np.asarray(xs[i], np.float32)
+                                       for i in order])
+                       if len(order) else np.zeros(0, np.float32))
+    return tuple(torch.from_numpy(x).to(device) for x in
+                 (flat(s2), flat(mu), off.astype(np.int32)))
+
 
 def spectral_tile_plain(sx2, mx, nx, sy2, my, ny, lamda):
     """f64 [Bx, By]: ``K[a, b] = sum_i sum_j sx2[a, i] sy2[b, j] /
@@ -264,57 +423,118 @@ def spectral_tile_plain(sx2, mx, nx, sy2, my, ny, lamda):
     return acc
 
 
-def spectral_tile_cuda(sx2, mx, nx, sy2, my, ny, lamda, out=None):
-    """Launch K9 (``csrc/rw_spectral.cu``): :func:`spectral_tile_plain` on
-    a card, one block a 16 x 16 tile of graph pairs.  ``sx2``, ``mx``
-    [Bx, V1] and ``sy2``, ``my`` [By, V2] contiguous f32, ``nx`` [Bx],
-    ``ny`` [By] int32 (zero spectra past them), all on one CUDA device;
-    ``out`` an f64 [Bx, By] tensor (a view with unit column stride, such
-    as a block of a larger Gram; allocated when None).  Returns ``out``."""
-    from .. import _build
-    dev = mx.device
-    Bx, V1 = mx.shape if mx.dim() == 2 else (-1, 0)
-    By, V2 = my.shape if my.dim() == 2 else (-1, 0)
-    if not (dev.type == "cuda" and _f32(sx2, dev, (Bx, V1))
-            and _f32(mx, dev, (Bx, V1)) and _f32(sy2, dev, (By, V2))
-            and _f32(my, dev, (By, V2)) and _i32(nx, dev, (Bx,))
-            and _i32(ny, dev, (By,)) and 0 < V1 <= 1024 and 0 < V2 <= 1024
-            and Bx < 1 << 20 and By < 1 << 20):
-        raise ValueError("spectral_tile_cuda: need contiguous tensors on one "
-                         "CUDA device: f32 sx2, mx [Bx, V1], sy2, my [By, V2] "
-                         "(V <= 1024), int32 nx [Bx], ny [By]")
-    if out is None:
-        out = torch.empty((Bx, By), dtype=torch.float64, device=dev)
-    elif not (out.device == dev and out.dtype == torch.float64
-              and tuple(out.shape) == (Bx, By) and out.stride(1) == 1):
-        raise ValueError("spectral_tile_cuda: out must be an f64 [Bx, By] "
-                         "tensor with unit column stride on the spectra's "
-                         "device")
-    if Bx and By:
-        _build.launch("grakel_rw_spectral", dev, sx2.data_ptr(),
-                      mx.data_ptr(), nx.data_ptr(), sy2.data_ptr(),
-                      my.data_ptr(), ny.data_ptr(), out.data_ptr(),
-                      out.stride(0), Bx, By, V1, V2, float(lamda))
-        spectral_tile_cuda.launches += 1
+def padded_spectra(spec, lo, hi):
+    """Graphs ``lo:hi`` (plan positions) of packed spectra
+    (:func:`pack_spectra`) as padded f32 s2, mu [hi - lo, n_max] and their
+    int64 sizes."""
+    s2, mu, off = spec
+    o = off[lo:hi + 1].to(torch.int64)
+    n = o[1:] - o[:-1]
+    width = int(n.max()) if len(n) else 0
+    k = torch.arange(width, device=s2.device)
+    valid = k[None, :] < n[:, None]
+    idx = torch.where(valid, o[:-1, None] + k[None, :], 0)
+    take = lambda x: torch.where(valid, x[idx], 0.0) if x.numel() else \
+        torch.zeros(idx.shape, dtype=x.dtype, device=x.device)
+    return take(s2), take(mu), n
+
+
+def spectral_gram_plain(rows, cols, plan, lamda):
+    """f64 [nr, nc] in input order: :func:`spectral_tile_plain` over
+    ``plan``'s tiles (one call a row of tiles: their rows against the
+    columns the row's tiles span) on packed spectra ``rows`` / ``cols``
+    (:func:`pack_spectra` in the plan's orders).  A symmetric plan's
+    entries come from the positions on or above the diagonal: a diagonal
+    tile's lower entries are its upper ones, mirrored in plan order, and
+    every computed entry fills its mirror, as K9 writes them."""
+    dev = rows[0].device
+    nr, nc = len(plan.order_r), len(plan.order_c)
+    out = torch.zeros((nr, nc), dtype=torch.float64, device=dev)
+    order_r = torch.from_numpy(plan.order_r).to(dev)
+    order_c = torch.from_numpy(plan.order_c).to(dev)
+    strips = {}
+    for r0, r1, c0, c1 in plan.tiles.tolist():
+        lo, hi = strips.get((r0, r1), (c0, c1))
+        strips[(r0, r1)] = (min(lo, c0), max(hi, c1))
+    for (r0, r1), (c0, c1) in sorted(strips.items()):
+        sx, mx, n1 = padded_spectra(rows, r0, r1)
+        sy, my, n2 = padded_spectra(cols, c0, c1)
+        T = spectral_tile_plain(sx, mx, n1, sy, my, n2, lamda)
+        ri, ci = order_r[r0:r1], order_c[c0:c1]
+        if plan.symmetric:
+            # the strip starts at its diagonal tile (c0 == r0)
+            d = r1 - r0
+            D = T[:, :d]
+            T[:, :d] = torch.triu(D) + torch.triu(D, 1).T
+            out[ci[:, None], ri[None, :]] = T.T
+        out[ri[:, None], ci[None, :]] = T
     return out
 
 
-spectral_tile_cuda.launches = 0
+def spectral_gram_cuda(rows, cols, plan, lamda):
+    """Launch K9 (``csrc/rw_spectral.cu``): :func:`spectral_gram_plain` on
+    a card, one launch over every tile of ``plan`` (at most
+    :data:`K9_TILE` a side), one block a tile, for |lamda| up to
+    :data:`K9_LAMDA_MAX` (NaN lamda refused).  ``rows`` / ``cols``:
+    packed spectra (:func:`pack_spectra`: f32 s2, mu [E], int32 offsets
+    [G + 1]) in the plan's orders, on one CUDA device (``cols`` may be
+    ``rows``).  Returns the f64 [nr, nc] Gram in input order."""
+    from .. import _build
+
+    def ok(spec, G):
+        if len(spec) != 3:
+            return False
+        s2, mu, off = spec
+        return (s2.dim() == 1 and _f32(s2, dev, tuple(s2.shape))
+                and _f32(mu, dev, tuple(s2.shape))
+                and _i32(off, dev, (G + 1,)))
+    dev = rows[0].device
+    nr, nc = len(plan.order_r), len(plan.order_c)
+    t = plan.tiles
+    if not (dev.type == "cuda" and ok(rows, nr) and ok(cols, nc)
+            and abs(float(lamda)) <= K9_LAMDA_MAX
+            and (not plan.symmetric or nr == nc)
+            and t.ndim == 2 and t.shape[1] == 4
+            and (not len(t) or (
+                (t[:, 0] >= 0).all() and (t[:, 0] < t[:, 1]).all()
+                and (t[:, 1] <= nr).all() and (t[:, 2] >= 0).all()
+                and (t[:, 2] < t[:, 3]).all() and (t[:, 3] <= nc).all()
+                and (t[:, 1] - t[:, 0] <= K9_TILE).all()
+                and (t[:, 3] - t[:, 2] <= K9_TILE).all()))
+            and len(t) < 1 << 31):
+        raise ValueError("spectral_gram_cuda: need packed spectra (f32 s2, "
+                         "mu [E], int32 offsets [G + 1]) on one CUDA device "
+                         "for the plan's rows and columns, plan tiles inside "
+                         "the Gram of at most %d a side, and |lamda| <= "
+                         "2^64" % K9_TILE)
+    out = torch.zeros((nr, nc), dtype=torch.float64, device=dev)
+    if len(t):
+        up = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(dev)
+        tiles, ordr = up(t), up(plan.order_r)
+        ordc = ordr if plan.symmetric else up(plan.order_c)
+        _build.launch("grakel_rw_spectral_gram", dev, rows[0].data_ptr(),
+                      rows[1].data_ptr(), rows[2].data_ptr(),
+                      ordr.data_ptr(), cols[0].data_ptr(),
+                      cols[1].data_ptr(), cols[2].data_ptr(),
+                      ordc.data_ptr(), tiles.data_ptr(), len(t),
+                      int(plan.symmetric), out.data_ptr(), nc,
+                      float(lamda))
+        spectral_gram_cuda.launches += 1
+    return out
 
 
-def spectral_tile(sx2, mx, nx, sy2, my, ny, lamda, out=None):
-    """:func:`spectral_tile_plain` for CPU tensors (into ``out`` when
-    given), K9 for CUDA ones."""
-    dev = mx.device
+spectral_gram_cuda.launches = 0
+
+
+def spectral_gram(rows, cols, plan, lamda):
+    """:func:`spectral_gram_plain` for CPU tensors, K9 for CUDA ones."""
+    dev = rows[0].device
     if dev.type == "cpu":
-        K = spectral_tile_plain(sx2, mx, nx, sy2, my, ny, lamda)
-        if out is None:
-            return K
-        out.copy_(K)
-        return out
+        return spectral_gram_plain(rows, cols, plan, lamda)
     if dev.type != "cuda":
-        raise ValueError("spectral_tile: unsupported device %s" % dev)
-    return spectral_tile_cuda(sx2, mx, nx, sy2, my, ny, lamda, out)
+        raise ValueError("spectral_gram: unsupported device %s" % dev)
+    return spectral_gram_cuda(rows, cols, plan, lamda)
 
 
 # --------------------------------------------------------------------- #

@@ -1164,67 +1164,103 @@ def test_canonical_codes_wrapper_checks(cuda):
     assert codes.dtype == np.int64 and codes.shape == (3,)
 
 
-def _cg_pairs(seed, B, V1, V2, labels=0, directed=False):
-    """Padded pairs of sparse random graphs (mean degree ~3, so that
-    lamda mu nu < 1 at lamda = 0.02 and CG converges)."""
+def _cg_tables(seed, V1, V2, labels=0, directed=False, B=40, extra=0):
+    """Sparse random graphs (mean degree ~3, so that lamda mu nu < 1 at
+    lamda = 0.02 and CG converges), B of each bucket (the first fills its
+    bucket, the others 1..V vertices), packed into two tables with
+    ``cg_table`` (labeled: vertices sorted by label); pair k is (k, k),
+    then ``extra`` random pairs of table rows reuse them.  Returns
+    [Gx, Gy, nx, ny, ia, ib, Lx, Ly] CPU tensors (Lx, Ly None
+    unlabeled)."""
     rng = np.random.RandomState(seed)
-    nx = rng.randint(1, V1 + 1, B).astype(np.int32)
-    ny = rng.randint(1, V2 + 1, B).astype(np.int32)
+    nx = rng.randint(1, V1 + 1, B)
+    ny = rng.randint(1, V2 + 1, B)
     nx[0], ny[0] = V1, V2
 
-    def adj(V, n):
-        A = np.zeros((B, V, V), np.float32)
-        for b in range(B):
-            M = (rng.rand(n[b], n[b]) < min(0.2, 3.0 / n[b]))
-            M = M.astype(np.float32)
+    def adj(n):
+        out = []
+        for k in n:
+            M = (rng.rand(k, k) < min(0.2, 3.0 / k)).astype(np.float32)
             if not directed:
                 M = np.triu(M, 1)
                 M = M + M.T
             np.fill_diagonal(M, 0)
-            A[b, :n[b], :n[b]] = M
-        return A
-    Ax, Ay = adj(V1, nx), adj(V2, ny)
-    Lx = np.full((B, V1), -1, np.int32)
-    Ly = np.full((B, V2), -2, np.int32)
+            out.append(M)
+        return out
+    ax, ay = adj(nx), adj(ny)
+    lx, ly = [], []
     for b in range(B):
-        Lx[b, :nx[b]] = rng.randint(0, max(labels, 1), nx[b])
-        Ly[b, :ny[b]] = rng.randint(0, max(labels, 1), ny[b])
-    return [torch.from_numpy(x) for x in (Ax, Ay, nx, ny, Lx, Ly)]
+        lx.append(rng.randint(0, max(labels, 1), nx[b]))
+        ly.append(rng.randint(0, max(labels, 1), ny[b]))
+    A1, n1, L1 = rw_ops.cg_table(ax, V1, lx if labels else None)
+    A2, n2, L2 = rw_ops.cg_table(ay, V2, ly if labels else None)
+    ia = np.concatenate([np.arange(B), rng.randint(0, B, extra)])
+    ib = np.concatenate([np.arange(B), rng.randint(0, B, extra)])
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    return [t(x) for x in (A1, A2, n1, n2, ia.astype(np.int32),
+                           ib.astype(np.int32), L1, L2)]
+
+
+def _k8(args, lamda, device, **kw):
+    """pair_cg_cuda on ``_cg_tables``'s arguments moved to ``device``."""
+    c = lambda t: None if t is None else t.to(device)
+    Gx, Gy, nx, ny, ia, ib, Lx, Ly = (c(t) for t in args)
+    return rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia, ib, lamda, Lx, Ly, **kw)
 
 
 @pytest.mark.parametrize("V1,V2,labels,directed", [
-    (8, 8, 0, False), (16, 32, 0, True), (64, 64, 0, False),
-    (32, 16, 7, False), (64, 64, 5, False), (128, 16, 0, True),
+    (8, 8, 0, False), (8, 16, 3, False), (16, 32, 0, True),
+    (32, 32, 0, False), (32, 32, 5, True), (32, 16, 7, False),
+    (16, 16, 4, False), (24, 32, 2, False),
+    (64, 64, 0, False), (64, 64, 5, False), (128, 16, 0, True),
     (128, 128, 4, False), (256, 64, 3, False)])
 def test_rw_cg_kernel_matches_plain(cuda, V1, V2, labels, directed):
-    """K8 on the route its buckets take (global past 128 x 128, shared
-    below) against the plain batched CG, unlabeled and labeled, directed
-    and not, at lamda = 0.02, where lamda mu nu < 1: f32 sums in another
-    order, rtol 1e-4 on every pair (the iterates stay bounded, so
-    rounding is not amplified; a directed pair may run all 20 steps
-    without freezing)."""
-    Ax, Ay, nx, ny, Lx, Ly = _cg_pairs(V1 + 3 * V2 + labels, 40, V1, V2,
-                                       labels, directed)
-    lab = (Lx, Ly) if labels else (None, None)
-    want = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, 0.02, *lab, labels)
-    c = lambda t: None if t is None else t.to(cuda)
+    """K8 on the route its buckets take (warp up to 32 x 32, shared to 64
+    x 64, global past) against the plain CG on the same tables and
+    pairs, unlabeled and labeled, directed and not, at lamda = 0.02,
+    where lamda mu nu < 1: f32 sums in another order, rtol 1e-4 on every
+    pair (the iterates stay bounded, so rounding is not amplified; a
+    directed pair may run all 20 steps without freezing).  The pairs
+    freeze on different steps."""
+    args = _cg_tables(V1 + 3 * V2 + labels, V1, V2, labels, directed,
+                      extra=40)
+    want, steps = rw_ops.pair_cg_plain(*args[:6], 0.02, *args[6:], labels,
+                                       return_steps=True)
+    assert len(set(steps.tolist())) > 1
     route = rw_ops.cg_route(V1, V2, bool(labels))
+    assert (route == "warp") == (V1 <= 32 and V2 <= 32)
     before = dict(rw_ops.pair_cg_cuda.route_launches)
-    got = rw_ops.pair_cg_cuda(c(Ax), c(Ay), c(nx), c(ny), 0.02,
-                              c(lab[0]), c(lab[1]))
+    got = _k8(args, 0.02, cuda)
     torch.cuda.synchronize()
-    assert rw_ops.pair_cg_cuda.route_launches[route] == before[route] + 1
+    assert rw_ops.pair_cg_cuda.route_launches == {
+        r: before[r] + (r == route) for r in before}
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("labels", [0, 3])
+def test_rw_cg_warp_route_many_pairs(cuda, labels):
+    """More pairs than the warp route's resident warps (each warp takes
+    pairs from the atomic counter until none is left): every pair
+    written, each to rtol 1e-4 of the plain CG; one launch."""
+    args = _cg_tables(7 + labels, 16, 32, labels, B=50, extra=6000)
+    want = rw_ops.pair_cg_plain(*args[:6], 0.02, *args[6:], labels)
+    before = rw_ops.pair_cg_cuda.route_launches["warp"]
+    got = _k8(args, 0.02, cuda)
+    torch.cuda.synchronize()
+    assert rw_ops.pair_cg_cuda.route_launches["warp"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
 
 
 @pytest.mark.parametrize("V1,V2,labels,directed,lamda", [
     (64, 64, 0, False, 0.05), (64, 64, 0, True, 0.1),
-    (128, 16, 0, True, 0.1), (256, 64, 3, True, 0.1)])
+    (128, 16, 0, True, 0.1), (256, 64, 3, True, 0.1),
+    (32, 32, 0, True, 0.1), (32, 16, 3, True, 0.1)])
 def test_rw_cg_kernel_where_cg_diverges(cuda, V1, V2, labels, directed,
                                         lamda):
     """Where lamda mu nu passes 1 (RandomWalk()'s lamda = 0.1 on
-    directed graphs) most pairs run all 20 steps unfrozen, and f32 CG
+    directed graphs) many pairs run all 20 steps unfrozen, and f32 CG
     may amplify rounding on them without limit: no f32 order of the
     sums, the JAX package's included, fixes their value (the plain
     version lies up to 100 % from its f64 evaluation at 64 x 64, lamda
@@ -1234,70 +1270,165 @@ def test_rw_cg_kernel_where_cg_diverges(cuda, V1, V2, labels, directed,
     between K8 and the plain version by 1.03e-4 relative (here, lamda
     0.05) and by 2.4e-4 where the f32 plain lay within 1e-5 of f64
     (directed NCI1-scale pairs of 64 vertices, lamda 0.1)."""
-    Ax, Ay, nx, ny, Lx, Ly = _cg_pairs(V1 + 3 * V2 + labels, 40, V1, V2,
-                                       labels, directed)
-    lab = (Lx, Ly) if labels else (None, None)
-    want, steps = rw_ops.pair_cg_plain(Ax, Ay, nx, ny, lamda, *lab,
-                                       labels, return_steps=True)
+    args = _cg_tables(V1 + 3 * V2 + labels, V1, V2, labels, directed)
+    want, steps = rw_ops.pair_cg_plain(*args[:6], lamda, *args[6:], labels,
+                                       return_steps=True)
     assert (steps == rw_ops.CG_ITERS).any()
-    exact = rw_ops.pair_cg_plain(Ax.double(), Ay.double(), nx, ny, lamda,
-                                 *lab, labels).numpy()
+    exact = rw_ops.pair_cg_plain(args[0].double(), args[1].double(),
+                                 *args[2:6], lamda, *args[6:],
+                                 labels).numpy()
     held = (steps < rw_ops.CG_ITERS).numpy() & (
         np.abs(want.numpy() - exact) <= 1e-5 * np.abs(exact))
     assert held.any()
-    c = lambda t: None if t is None else t.to(cuda)
-    got = rw_ops.pair_cg_cuda(c(Ax), c(Ay), c(nx), c(ny), lamda,
-                              c(lab[0]), c(lab[1])).cpu().numpy()
+    got = _k8(args, lamda, cuda).cpu().numpy()
     np.testing.assert_allclose(got[held], want.numpy()[held], rtol=1e-4,
                                atol=1e-4)
 
 
 def test_rw_cg_wrapper_checks(cuda):
-    Ax, Ay, nx, ny, Lx, Ly = (t.to(cuda) for t in _cg_pairs(1, 4, 8, 8, 2))
+    Gx, Gy, nx, ny, ia, ib, Lx, Ly = (
+        None if t is None else t.to(cuda) for t in _cg_tables(1, 8, 8, 2,
+                                                               B=4))
     with pytest.raises(ValueError):
-        rw_ops.pair_cg_cuda(Ax, Ay, nx.long(), ny, 0.1)
+        rw_ops.pair_cg_cuda(Gx, Gy, nx.long(), ny, ia, ib, 0.1)
     with pytest.raises(ValueError):
-        rw_ops.pair_cg_cuda(Ax, Ay, nx, ny, 0.1, Lx, None)
+        rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia, ib.long(), 0.1)
     with pytest.raises(ValueError):
-        rw_ops.pair_cg_cuda(Ax[:, :4], Ay, nx, ny, 0.1)
+        rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia, ib[:3], 0.1)
+    with pytest.raises(ValueError):
+        rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia, ib, 0.1, Lx, None)
+    with pytest.raises(ValueError):
+        rw_ops.pair_cg_cuda(Gx[:, :4], Gy, nx, ny, ia, ib, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        rw_ops.pair_cg_cuda(Gx.cpu(), Gy.cpu(), nx.cpu(), ny.cpu(),
+                            ia.cpu(), ib.cpu(), 0.1)
     big = torch.zeros((1, 4097, 4097), device=cuda)
     n = torch.ones(1, dtype=torch.int32, device=cuda)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="4096"):
-        rw_ops.pair_cg_cuda(big, big, n, n, 0.1)
+        rw_ops.pair_cg_cuda(big, big, n, n, z, z, 0.1)
+    assert rw_ops.pair_cg_cuda(Gx, Gy, nx, ny, ia[:0], ib[:0],
+                               0.1).shape == (0,)
 
 
-@pytest.mark.parametrize("Bx,By,V1,V2", [
-    (256, 256, 64, 64), (37, 300, 16, 64), (1, 1, 8, 8), (100, 17, 512, 32)])
-def test_rw_spectral_kernel_matches_plain(cuda, Bx, By, V1, V2):
-    """K9 against the plain f64 evaluation on spectra with poles inside
-    the range (lamda mu nu up to ~4): the same rounded terms, f64 sums in
-    another order, rtol 1e-10; written into a block of a larger tensor
-    without touching the rest."""
-    rng = np.random.RandomState(Bx + By + V1)
+def _spectra(rng, B, Vmax):
+    """Random spectra with poles inside the range at lamda 0.1 (lamda mu
+    nu up to ~4): per-graph f32 s2, mu lists of 1..Vmax eigenpairs."""
+    n = rng.randint(1, Vmax + 1, B)
+    n[0] = Vmax
+    s2 = [(rng.rand(k) * 4).astype(np.float32) for k in n]
+    mu = [(rng.randn(k) * 2.5).astype(np.float32) for k in n]
+    return n, s2, mu
 
-    def spectra(B, V):
-        n = rng.randint(1, V + 1, B).astype(np.int32)
-        s2 = np.zeros((B, V), np.float32)
-        mu = np.zeros((B, V), np.float32)
-        for b in range(B):
-            s2[b, :n[b]] = rng.rand(n[b]) * 4
-            mu[b, :n[b]] = rng.randn(n[b]) * 2.5
-        return [torch.from_numpy(x) for x in (s2, mu, n)]
-    sx, mx, nx = spectra(Bx, V1)
-    sy, my, ny = spectra(By, V2)
-    want = rw_ops.spectral_tile_plain(sx, mx, nx, sy, my, ny, 0.1)
-    out = torch.full((Bx + 3, By + 5), -7.0, dtype=torch.float64,
-                     device=cuda)
-    before = rw_ops.spectral_tile_cuda.launches
-    c = [t.to(cuda) for t in (sx, mx, nx, sy, my, ny)]
-    rw_ops.spectral_tile_cuda(*c, 0.1, out=out[2:2 + Bx, 1:1 + By])
+
+def _abs_scale(rows, cols, plan, lamda):
+    """sum_ij |sx2 sy2 / den| of every pair, f64, in input order: what
+    f64 sums in another order can differ by, relative."""
+    sx, mx, _ = rw_ops.padded_spectra(rows, 0, len(plan.order_r))
+    sy, my, _ = rw_ops.padded_spectra(cols, 0, len(plan.order_c))
+    out = torch.zeros((sx.shape[0], sy.shape[0]), dtype=torch.float64,
+                      device=sx.device)
+    for i in range(sx.shape[1]):
+        den = 1.0 - lamda * mx[:, i, None, None].double() * my[None].double()
+        out += sx[:, i, None].double().abs() * (
+            sy[None].double() / den).abs().sum(2)
+    K = torch.empty_like(out)
+    r = torch.from_numpy(plan.order_r).to(out.device)
+    c = torch.from_numpy(plan.order_c).to(out.device)
+    K[r[:, None], c[None, :]] = out
+    return K
+
+
+@pytest.mark.parametrize("nr,nc,Vmax,symmetric", [
+    (300, 300, 64, True), (37, 300, 16, False), (1, 1, 8, True),
+    (1, 70, 40, False), (70, 1, 40, False), (40, 40, 512, True),
+    (9, 33, 512, False), (65, 65, 130, True)])
+def test_rw_spectral_kernel_matches_plain(cuda, nr, nc, Vmax, symmetric):
+    """K9's one launch over a plan's tiles against the plain plan Gram on
+    spectra with poles inside the range, buckets 8 to 512 (eigenvalues
+    past 64 taken in chunks), symmetric (exactly) and rectangular, a side
+    of one graph: the same rounded terms, f64 sums in another order,
+    within 1e-12 of each entry's sum of |terms| and to rtol 1e-10."""
+    rng = np.random.RandomState(nr + nc + Vmax)
+    n_r, s2r, mur = _spectra(rng, nr, Vmax)
+    n_c, s2c, muc = (n_r, s2r, mur) if symmetric else _spectra(rng, nc,
+                                                               Vmax)
+    plan = rw_ops.spectral_plan(n_r, n_c, symmetric)
+    rows = rw_ops.pack_spectra(s2r, mur, plan.order_r, "cpu")
+    cols = rows if symmetric else rw_ops.pack_spectra(s2c, muc,
+                                                      plan.order_c, "cpu")
+    want = rw_ops.spectral_gram_plain(rows, cols, plan, 0.1)
+    c = lambda spec: tuple(t.to(cuda) for t in spec)
+    rows_d = c(rows)
+    cols_d = rows_d if symmetric else c(cols)
+    before = rw_ops.spectral_gram_cuda.launches
+    got = rw_ops.spectral_gram_cuda(rows_d, cols_d, plan, 0.1)
     torch.cuda.synchronize()
-    assert rw_ops.spectral_tile_cuda.launches == before + 1
-    got = out.cpu()
-    np.testing.assert_allclose(got[2:2 + Bx, 1:1 + By].numpy(),
-                               want.numpy(), rtol=1e-10, atol=1e-12)
-    got[2:2 + Bx, 1:1 + By] = -7.0
-    assert (got == -7.0).all()
+    assert rw_ops.spectral_gram_cuda.launches == before + 1
+    scale = _abs_scale(rows_d, cols_d, plan, 0.1).cpu()
+    got = got.cpu()
+    assert got.shape == (nr, nc)
+    assert ((got - want).abs() <= 1e-12 * scale).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    if symmetric:
+        assert torch.equal(got, got.T)
+
+
+def test_rw_spectral_terms_bit_identical(cuda):
+    """Graphs of one eigenpair make every Gram entry one term, s1 * (s2 /
+    (1 - lam m1 m2)): K9 equals the plain version bit for bit, its split
+    division (fast path, check, full division) giving __ddiv_rn's
+    quotients.  Zero, f32-denormal, tiny and huge s2, eigenvalues that
+    make a denominator exactly zero (0.5 * 2 * 1) or tiny, and 2000
+    random ones."""
+    rng = np.random.RandomState(3)
+    s2 = [0.0, 1e-40, 1e-30, 1e-8, 0.5, 3.0, 50.0, 1e30]
+    mu = [0.0, 1e-20, -1e-20, 0.5, -0.5, 1.0, 2.0, -2.0, 1.0000001, 1e20]
+    grid = [(a, b) for a in s2 for b in mu]
+    rand = list(zip(10.0 ** rng.uniform(-30, 3, 2000),
+                    rng.choice([-1, 1], 2000) * 10.0 ** rng.uniform(
+                        -20, 2, 2000)))
+    pairs = grid + rand
+    s2l = [np.array([a], np.float32) for a, _ in pairs]
+    mul = [np.array([b], np.float32) for _, b in pairs]
+    n = np.ones(len(pairs), np.int64)
+    plan = rw_ops.spectral_plan(n[:len(grid)], n, False)
+    rows = rw_ops.pack_spectra(s2l[:len(grid)], mul[:len(grid)],
+                               plan.order_r, "cpu")
+    cols = rw_ops.pack_spectra(s2l, mul, plan.order_c, "cpu")
+    want = rw_ops.spectral_gram_plain(rows, cols, plan, 0.5)
+    got = rw_ops.spectral_gram_cuda(tuple(t.to(cuda) for t in rows),
+                                    tuple(t.to(cuda) for t in cols), plan,
+                                    0.5).cpu()
+    assert torch.isinf(want).any() and torch.isnan(want).any()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), int((~same).sum())
+
+
+def test_rw_spectral_gram_wrapper_checks(cuda):
+    rng = np.random.RandomState(0)
+    n, s2, mu = _spectra(rng, 40, 20)
+    plan = rw_ops.spectral_plan(n, None, True)
+    spec = rw_ops.pack_spectra(s2, mu, plan.order_r, cuda)
+    for bad_plan in (rw_ops.spectral_plan(n, None, True, 33),
+                     plan._replace(tiles=plan.tiles + 8),
+                     rw_ops.spectral_plan(n, n[:39], False)):
+        with pytest.raises(ValueError):
+            rw_ops.spectral_gram_cuda(spec, spec, bad_plan, 0.1)
+    for bad in ((spec[0].double(), spec[1], spec[2]),
+                (spec[0], spec[1], spec[2][:-1]),
+                (spec[0], spec[1][:-1], spec[2])):
+        with pytest.raises(ValueError):
+            rw_ops.spectral_gram_cuda(bad, bad, plan, 0.1)
+    for lamda in (2.0 ** 65, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="lamda"):
+            rw_ops.spectral_gram_cuda(spec, spec, plan, lamda)
+    before = rw_ops.spectral_gram_cuda.launches
+    empty = rw_ops.spectral_plan([], None, True)
+    none = rw_ops.pack_spectra([], [], empty.order_r, cuda)
+    assert rw_ops.spectral_gram_cuda(none, none, empty, 0.1).shape == (0, 0)
+    assert rw_ops.spectral_gram_cuda.launches == before
 
 
 @pytest.mark.parametrize("params,data", [
@@ -1335,8 +1466,9 @@ def test_graphlet_sampling_on_card_matches_cpu(cuda, params, data):
      "mutag_small")])
 def test_random_walk_on_card_matches_cpu(cuda, name, params, kind):
     """RandomWalk's routes on the card against its CPU run: the spectral
-    tile route (K9) to rtol 1e-10 (f64 sums in another order), the CG
-    routes (K8) and the library routes (f32) to rtol 1e-4."""
+    tile route (K9, one launch a Gram) to rtol 1e-10 (f64 sums in another
+    order), the CG routes (K8; MUTAG's labeled pairs all on the warp
+    route) and the library routes (f32) to rtol 1e-4."""
     import os
     from grakel_torch.datasets import read_data
     if kind in ("nci", "directed"):
@@ -1360,20 +1492,25 @@ def test_random_walk_on_card_matches_cpu(cuda, name, params, kind):
             os.path.dirname(os.path.abspath(__file__)), "data")).data
         train, test = (d[:60], d[60:80]) if kind == "mutag" else \
             (d[:6], d[6:9])
-    counters = (rw_ops.pair_cg_cuda, rw_ops.spectral_tile_cuda)
+    counters = (rw_ops.pair_cg_cuda, rw_ops.spectral_gram_cuda)
     before = [c.launches for c in counters]
+    warp = rw_ops.pair_cg_cuda.route_launches["warp"]
     got = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
     launched = [c.launches - b for c, b in zip(counters, before)]
+    warp = rw_ops.pair_cg_cuda.route_launches["warp"] - warp
     with use_device("cpu"):
         ref = _run_kernel(getattr(grakel_torch, name)(**params), train,
                           test)
     if kind == "nci":
-        assert launched[1] > 0 and launched[0] == 0
+        # one K9 launch a Gram: fit, transform, the transform's diagonal
+        assert launched[1] == 3 and launched[0] == 0
         rtol = 1e-10
     else:
         assert launched[1] == 0
         assert (launched[0] > 0) == ("p" not in params
                                      and "method_type" not in params)
+        if kind == "mutag" and launched[0]:
+            assert warp == launched[0]    # MUTAG: buckets 16 and 32
         rtol = 1e-4
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol)

@@ -147,10 +147,11 @@ def _closed_form(rows, cols, lamda):
 @pytest.mark.parametrize("normalize", [False, True])
 def test_spectral_tile_route_against_closed_form(nci, normalize,
                                                  monkeypatch):
-    """The tile route on NCI1-scale graphs, tiles of 8 graphs (every
-    bucket pair has several, same-bucket lower tiles are skipped and
-    mirrored): the port to rtol 1e-9 of the f64 closed form, and no
-    farther from it than the JAX package on any entry."""
+    """The tile route on NCI1-scale graphs, a plan of tiles of 8 graphs
+    (the fit Gram's 21 tiles on or above the diagonal of the size-ordered
+    Gram, mirrored in plan order): the port to rtol 1e-9 of the f64
+    closed form, and no farther from it than the JAX package on any
+    entry."""
     train, test = nci
     monkeypatch.setattr(grakel_torch.RandomWalk, "_SPEC_TILE", 8)
     params = {"normalize": normalize}
@@ -247,6 +248,12 @@ def _mask(n, V):
     return (np.arange(V)[None, :] < n[:, None]).astype(np.float32)
 
 
+def _identity(B):
+    """The pair list (k, k): a batch of pairs as two tables."""
+    k = torch.arange(B, dtype=torch.int32)
+    return k, k
+
+
 @pytest.mark.parametrize("V1,V2,directed", [(8, 16, False), (32, 32, False),
                                             (16, 64, True)])
 def test_pair_cg_plain_matches_cg_geometric(V1, V2, directed):
@@ -255,7 +262,7 @@ def test_pair_cg_plain_matches_cg_geometric(V1, V2, directed):
     ref = jax.vmap(lambda a, b, c, d: jrw._pair_cg_geometric(
         a, b, c, d, lamda))(Ax, Ay, _mask(nx, V1), _mask(ny, V2))
     ours = trw.pair_cg_plain(*(torch.from_numpy(x) for x in
-                               (Ax, Ay, nx, ny)), lamda)
+                               (Ax, Ay, nx, ny)), *_identity(24), lamda)
     assert ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
@@ -269,7 +276,8 @@ def test_pair_cg_plain_labeled_matches_cg_labeled(V1, V2, L):
         a, b, c, d, e, f, L, lamda))(Ax, Ay, Lx, Ly, _mask(nx, V1),
                                      _mask(ny, V2))
     t = [torch.from_numpy(x) for x in (Ax, Ay, nx, ny, Lx, Ly)]
-    ours = trw.pair_cg_plain(t[0], t[1], t[2], t[3], lamda, t[4], t[5], L)
+    ours = trw.pair_cg_plain(t[0], t[1], t[2], t[3], *_identity(16), lamda,
+                             t[4], t[5], L)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
 
@@ -283,7 +291,7 @@ def test_pair_cg_freezes_and_guards_as_jax():
     nx = np.array([1, 5, 8], np.int32)
     ny = np.array([1, 3, 8], np.int32)
     ours = trw.pair_cg_plain(*(torch.from_numpy(x) for x in
-                               (Ax, Ay, nx, ny)), 0.1)
+                               (Ax, Ay, nx, ny)), *_identity(B), 0.1)
     np.testing.assert_array_equal(ours.numpy(), (nx * ny).astype(np.float32))
     ref = jax.vmap(lambda a, b, c, d: jrw._pair_cg_geometric(a, b, c, d, 0.1)
                    )(Ax, Ay, _mask(nx, V), _mask(ny, V))
@@ -315,11 +323,13 @@ def test_spectral_tile_plain_against_closed_form_and_jax(nci):
     err_jax = np.abs(ref - exact)
     assert err_jax.max() > 1e3 * err_ours.max()
     assert (err_ours <= err_jax + 1e-12 * np.abs(exact)).all()
-    out = torch.full((len(items) + 2, len(items) + 3), -1.0,
-                     dtype=torch.float64)
-    trw.spectral_tile(*t, *t, 0.1, out=out[1:-1, 2:-1])
-    assert torch.equal(out[1:-1, 2:-1], ours)
-    assert (out[0] == -1).all() and (out[:, :2] == -1).all()
+    # the plain Gram over a plan of 8-graph tiles: the same terms, summed
+    # over other paddings, so held as the tile route is (rtol 1e-9)
+    plan = trw.spectral_plan(n, None, True, 8)
+    spec = trw.pack_spectra([it["s2"] for it in items],
+                            [it["mu"] for it in items], plan.order_r, "cpu")
+    gram = trw.spectral_gram(spec, spec, plan, 0.1)
+    np.testing.assert_allclose(gram.numpy(), exact, rtol=1e-9, atol=0)
 
 
 @pytest.mark.parametrize("mu,exponential", [((1.0, 0.1, 0.01), False),
@@ -388,8 +398,186 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     Ax, Ay, nx, ny, Lx, Ly = (torch.from_numpy(x) for x in
                               _pairs(2, 4, 8, 8, labels=2))
     with pytest.raises(ValueError, match="CUDA"):
-        trw.pair_cg_cuda(Ax, Ay, nx, ny, 0.1)
-    s = torch.zeros(3, 8)
-    n = torch.ones(3, dtype=torch.int32)
+        trw.pair_cg_cuda(Ax, Ay, nx, ny, *_identity(4), 0.1)
+    plan = trw.spectral_plan([3, 1, 2], None, True)
+    spec = trw.pack_spectra([np.ones(n) for n in (3, 1, 2)],
+                            [np.ones(n) for n in (3, 1, 2)], plan.order_r,
+                            "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        trw.spectral_tile_cuda(s, s, n, s, s, n, 0.1)
+        trw.spectral_gram_cuda(spec, spec, plan, 0.1)
+
+
+# --------------------------------------------------------------------- #
+# K9's tile plan and K8's graph tables
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("symmetric,nr,nc,tile", [
+    (True, 1, 1, 32), (True, 70, 70, 32), (True, 45, 45, 8),
+    (False, 5, 70, 32), (False, 33, 1, 8), (False, 40, 17, 7)])
+def test_spectral_plan_covers_every_pair_once(symmetric, nr, nc, tile):
+    """Graphs in ascending size (stable); tiles of at most ``tile`` a side,
+    heaviest first; with K9's write rule (symmetric: a <= b in plan
+    positions and its mirror) every pair of the Gram is written once."""
+    rng = np.random.RandomState(nr + nc + tile)
+    n_r = rng.randint(1, 60, nr)
+    n_c = n_r if symmetric else rng.randint(1, 60, nc)
+    plan = trw.spectral_plan(n_r, None if symmetric else n_c, symmetric,
+                             tile)
+    for order, n in ((plan.order_r, n_r), (plan.order_c, n_c)):
+        assert sorted(order) == list(range(len(n)))
+        key = list(zip(n[order], order))
+        assert key == sorted(key)
+    t = plan.tiles
+    assert t.dtype == np.int32 and t.shape[1] == 4
+    assert ((t[:, 1] - t[:, 0] >= 1) & (t[:, 1] - t[:, 0] <= tile)).all()
+    assert ((t[:, 3] - t[:, 2] >= 1) & (t[:, 3] - t[:, 2] <= tile)).all()
+    work = ((t[:, 1] - t[:, 0]) * (t[:, 3] - t[:, 2])
+            * n_r[plan.order_r][t[:, 1] - 1] * n_c[plan.order_c][t[:, 3] - 1])
+    assert (np.diff(work) <= 0).all()
+    count = np.zeros((nr, nc), np.int64)
+    for r0, r1, c0, c1 in t:
+        a, b = np.meshgrid(np.arange(r0, r1), np.arange(c0, c1),
+                           indexing="ij")
+        a, b = a.ravel(), b.ravel()
+        if symmetric:
+            a, b = a[a <= b], b[a <= b]
+            off = a != b
+            np.add.at(count, (plan.order_c[b[off]], plan.order_r[a[off]]), 1)
+        np.add.at(count, (plan.order_r[a], plan.order_c[b]), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("order", ["as_generated", "largest_first"])
+def test_spectral_gram_plain_against_closed_form(nci, symmetric, order):
+    """The plain Gram over a plan of 8-graph tiles on the NCI1-scale
+    spectra (poles inside the range at lamda 0.1) equals the f64 closed
+    form to rtol 1e-9, as the tile route's test holds it, symmetric (and
+    then exactly symmetric) and rectangular.  ``largest_first`` feeds the
+    graphs in descending size, so plan order reverses input order: a
+    mirror taken in input order instead of plan order fails there."""
+    with use_device("cpu"):
+        items = grakel_torch.RandomWalk().fit(nci[0]).X
+    if order == "largest_first":
+        items = sorted(items, key=lambda it: -it["n"])
+    rows = items if symmetric else items[5:18]
+    cols = items
+    plan = trw.spectral_plan([it["n"] for it in rows],
+                             [it["n"] for it in cols], symmetric, 8)
+    if order == "largest_first":
+        assert (plan.order_r[:len(rows) // 2]
+                > plan.order_r[len(rows) // 2:].max()).all()
+    pack = lambda its, o: trw.pack_spectra(
+        [it["s2"] for it in its], [it["mu"] for it in its], o, "cpu")
+    spec_r = pack(rows, plan.order_r)
+    spec_c = spec_r if symmetric else pack(cols, plan.order_c)
+    K = trw.spectral_gram_plain(spec_r, spec_c, plan, 0.1).numpy()
+    assert K.shape == (len(rows), len(cols))
+    np.testing.assert_allclose(K, _closed_form(rows, cols, 0.1), rtol=1e-9,
+                               atol=0)
+    if symmetric:
+        assert np.array_equal(K, K.T)
+
+
+def _tables(seed, G1, G2, V1, V2, labels, B):
+    """Two random graph tables (mean degree ~3; labels unsorted in [0,
+    labels)) and B pairs of their rows, as numpy arrays and the per-graph
+    lists they came from."""
+    rng = np.random.RandomState(seed)
+
+    def graphs(G, V):
+        adjs, labs = [], []
+        for _ in range(G):
+            n = rng.randint(1, V + 1)
+            M = (rng.rand(n, n) < min(0.2, 3.0 / n)).astype(np.float32)
+            M = np.triu(M, 1)
+            adjs.append(M + M.T)
+            labs.append(rng.randint(0, max(labels, 1), n))
+        return adjs, labs
+    gx, gy = graphs(G1, V1), graphs(G2, V2)
+    ia = rng.randint(0, G1, B).astype(np.int32)
+    ib = rng.randint(0, G2, B).astype(np.int32)
+    return gx, gy, ia, ib
+
+
+@pytest.mark.parametrize("labels", [0, 4])
+def test_pair_cg_plain_tables_equal_batch_bit_for_bit(labels, monkeypatch):
+    """The table-and-index plain CG gathers its pairs and runs the batched
+    loop: bit for bit the batched loop on the gathered pairs, in one
+    chunk and in chunks of 7 pairs (a label a chunk lacks adds exact
+    zeros)."""
+    gx, gy, ia, ib = _tables(labels + 1, 9, 7, 16, 32, labels, 40)
+    lab = lambda g: g[1] if labels else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    A1, n1, L1 = (t(a) for a in trw.cg_table(gx[0], 16, lab(gx)))
+    A2, n2, L2 = (t(a) for a in trw.cg_table(gy[0], 32, lab(gy)))
+    ia_t, ib_t = t(ia), t(ib)
+    a, b = ia_t.long(), ib_t.long()
+    want = trw.pair_cg_batch(A1[a], A2[b], n1[a], n2[b], 0.05,
+                             None if L1 is None else L1[a],
+                             None if L2 is None else L2[b], labels)
+    for chunk in (trw.CG_PLAIN_CHUNK, 7):
+        monkeypatch.setattr(trw, "CG_PLAIN_CHUNK", chunk)
+        got = trw.pair_cg_plain(A1, A2, n1, n2, ia_t, ib_t, 0.05, L1, L2,
+                                labels)
+        assert torch.equal(got, want)
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert trw.pair_cg_plain(A1, A2, n1, n2, empty, empty, 0.05, L1, L2,
+                             labels).shape == (0,)
+
+
+@pytest.mark.parametrize("case", ["random", "x_holds_more", "y_holds_more"])
+def test_label_sorted_tables_match_cg_labeled(case):
+    """Each graph's vertices sorted by label at packing (``cg_table``:
+    labels contiguous and ascending, the adjacency permuted to match):
+    the plain CG on the tables equals the JAX package's
+    ``_pair_cg_labeled`` on the unsorted padded pairs, to the labeled
+    test's rtol 1e-5, also where x holds labels y lacks or the reverse."""
+    L = 3
+    gx, gy, ia, ib = _tables(11 + len(case), 12, 10, 16, 32, L, 30)
+    extra = {"x_holds_more": gx, "y_holds_more": gy}.get(case)
+    if extra is not None:
+        for labs in extra[1]:
+            labs[:(len(labs) + 1) // 2] = L    # a label only this side has
+    n_labels = L + (extra is not None)
+    A1, n1, L1 = trw.cg_table(gx[0], 16, gx[1])
+    A2, n2, L2 = trw.cg_table(gy[0], 32, gy[1])
+    for g, (adj, labs) in enumerate(zip(*gx)):
+        k = len(labs)
+        perm = np.argsort(labs, kind="stable")
+        assert (np.diff(L1[g, :k]) >= 0).all() and (L1[g, k:] == -1).all()
+        assert np.array_equal(A1[g, :k, :k], adj[np.ix_(perm, perm)])
+        assert n1[g] == k and not A1[g, k:].any()
+    t = torch.from_numpy
+    ours = trw.pair_cg_plain(t(A1), t(A2), t(n1), t(n2), t(ia), t(ib), 0.05,
+                             t(L1), t(L2), n_labels)
+
+    def padded(g, idx, V, fill):
+        A = np.zeros((len(idx), V, V), np.float32)
+        Lb = np.full((len(idx), V), fill, np.int32)
+        m = np.zeros((len(idx), V), np.float32)
+        for b, i in enumerate(idx):
+            k = len(g[1][i])
+            A[b, :k, :k] = g[0][i]
+            Lb[b, :k] = g[1][i]
+            m[b, :k] = 1
+        return A, Lb, m
+    Ax, Lx, bx = padded(gx, ia, 16, -1)
+    Ay, Ly, by = padded(gy, ib, 32, -2)
+    ref = jax.vmap(lambda a, b, c, d, e, f: jrw._pair_cg_labeled(
+        a, b, c, d, e, f, n_labels, 0.05))(Ax, Ay, Lx, Ly, bx, by)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_cg_route_is_warp_exactly_up_to_32():
+    """K8's warp route takes every pair of buckets up to 32 x 32 and no
+    other; the block routes split the rest by shared memory."""
+    for V1 in (1, 8, 16, 31, 32, 33, 64, 128):
+        for V2 in (8, 32, 33, 64):
+            for labeled in (False, True):
+                route = trw.cg_route(V1, V2, labeled)
+                assert (route == "warp") == (V1 <= 32 and V2 <= 32)
+                if route != "warp":
+                    assert route == ("shared" if trw.k8_smem_bytes(
+                        V1, V2, labeled) <= trw.K8_SMEM_MAX else "global")
