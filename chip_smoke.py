@@ -87,16 +87,20 @@ after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
 CUDA-core K1 (``min_gram``) exactly once (its four levels weighted and
 concatenated into one call) and no K1-tc, labeled PM the kernels its
 levels' routes name (``ops.intersect.min_gram_route``: one K1 call for
-the levels that take K1, one K1-tc call for each other level), and
+the levels that take K1, ONE K1-tc call and one expansion launch,
+``threshold_expand``, for all the other levels, each column weighted by
+its level's integer weight; with every level on K1-tc, K1-tc exactly
+once), and
 every ShortestPath path K3 (``floyd_warshall``), ``hc_nci1scale`` K6's
 graph route (``hadamard_graph``) once in fit_transform and once in
 transform and its round route (``hadamard_step``) never, the other
 HadamardCode / Propagation paths neither, each NH path K4 once a
 parse on its graph route (``nh_graph``; no launch of its round route
 ``nh_round``), K5 (``jaccard_fold``) once a Gram (the fit Gram on its
-triangle route, the transform's on its rect route) and one K1-tc or K1
-call a round, as the rounds' routes name (printed with each round's
-W'/L).  The unlabeled PM Gram
+triangle route, the transform's on its rect route), one K1 call a
+round routed to K1 and ONE K1-tc launch a Gram for the rounds routed to
+K1-tc (printed with each round's W'/L; K1-tc twice a path), with one
+expansion launch a side.  The unlabeled PM Gram
 stage (K1 and the torch ops up to the f64 result) is then timed and
 profiled as it runs, one fused K1 call, beside the same stage with one
 K1 call and a torch fold per level.  WL-VH, the PM paths and SP on the NCI1-scale set
@@ -127,17 +131,31 @@ time of a call:
   3.35 TB/s and operations (2 L per distinct entry: n (n + 1) / 2 when
   symmetric) over 67 TFLOP/s fp32; yardstick ``torch.cdist(p=1)``
   (sum_l min(a, b) = (sum a + sum b - |a - b|_1) / 2);
-* K1-tc at the four labeled levels (symmetric, as PyramidMatch's
-  fit_transform calls it), at their transform shape, at the NH simple
-  path's six calls (its fit Gram's three rounds, 4110 x 4110 over L =
-  256, and its transform's, 64 x 4110) and a ragged rectangular case,
-  exactly, with the alpha / accumulate epilogue; its
-  expansion timed apart.  Bound: the larger of the products the
-  function needs (2 W' per Gram entry, n (n + 1) / 2 distinct entries
-  when symmetric) over 1979 TOP/s int8 and the int8 inputs plus the f32
-  output over 3.35 TB/s; yardstick ``torch._int_mm`` on the same
-  indicators (the port never calls it; it computes the full square),
-  and ``torch.cdist(p=1)`` for the function;
+* K1-tc as the entry points call it, the expansion kernel included
+  (one launch a side; one for a symmetric weighted call's weighted and
+  0/1 indicators): the labeled PM fit_transform call (its levels
+  concatenated, each column weighted by its level's integer weight, one
+  launch, symmetric: the tiles on or above the diagonal) and the same
+  fused form at the transform shape of a 10-fold split (411 x 3699);
+  each labeled level alone (symmetric and at the transform shape), for
+  the earlier per-level mma.sync design, kept as
+  ``csrc/min_gram_tc_mma.cu`` and timed beside on the same inputs, and
+  for the break-even ratio against
+  K1; the NH simple path's two calls (its fit Gram's three rounds,
+  4110 x 4110 over L = 256, in one launch, and its transform's, 3 x 64
+  x 4110, with a sweep of every tile instantiation), the mma.sync design (one
+  launch a round) beside; a ragged rectangular case, unweighted and
+  weighted, and a weighted symmetric one.  Each is held against its
+  plain version exactly, with the alpha / accumulate epilogue, and the
+  expansion against its plain version bit for bit.  Bound: the larger
+  of the products the function needs (2 W' per Gram entry, n (n + 1) /
+  2 distinct entries when symmetric, every round) over 1979 TOP/s int8
+  and the int8 indicators plus the f32 output over 3.35 TB/s (the fused
+  call's, and the per-level count: each level's indicators and Gram);
+  yardstick ``torch._int_mm`` on the same indicators (the port never
+  calls it; it computes the full square, one call a round).  K1-tc's 4
+  instantiations, the expansion and the mma.sync kernel must build without
+  spills;
 * K2 over the NCI1-scale batch's CSR, generations 0-2, keys and the
   hashes unpacked from them bit-identical to the plain versions; its
   wrapper's host time per call beside;
@@ -194,8 +212,9 @@ time of a call:
   without spills.  Bound: the larger of the bytes the call must move
   (each valid node's row index, tag and offset, each edge's target and
   the table read once, the keys written once) over 3.35 TB/s and ~24
-  integer operations an element a generation over 67 TOP/s; the
-  earlier per-generation count beside it; no PyTorch call computes the
+  integer operations an element a generation over the INT32 pipe's rate
+  (132 SMs x 64 lanes x 1.98 GHz); the earlier per-generation count and
+  the same count at 67 TOP/s beside it; no PyTorch call computes the
   hash (no library time), the int32 ``index_add_`` of the neighbours'
   rows (the neighbour sum alone) is timed beside;
 * ``min_intersection_gram_rounds`` (the Pallas kernel's second reach, R
@@ -205,8 +224,15 @@ time of a call:
   ``rounds`` entry;
 * K7 (``ops.canonical.canonical_codes_cuda``) at the three calls of the
   ``gs_nci1scale`` fit parse and on 100,000 random graphlets at each size
-  s = 2..8, bit-identical to ``canonical_codes_plain``; bound: 3 integer
-  operations a bit read, s! s(s-1)/2 bit reads a graphlet, over 67 TOP/s;
+  s = 2..8 (at s = 8 with the table in shared memory and read through
+  L1, both timed), bit-identical to ``canonical_codes_plain``; bound:
+  s! permutations a graphlet of 3 integer operations a column and one
+  for the minimum, over the INT32 pipe's rate (132 SMs x 64 lanes x
+  1.98 GHz), the earlier count (3 operations a bit read, s(s-1)/2 bit reads
+  a permutation) beside at that rate and at 67 TOP/s; and an
+  instruction floor: the INT32-pipe instructions a permutation takes in
+  the built walk (``cuobjdump -sass``) times s! a graphlet over the
+  INT32 issue rate;
 * K8 (``ops.random_walk.pair_cg_cuda``) at every call of the
   ``rwl_mutag`` path (graph tables, pairs as table rows; the warp
   route), on directed NCI1-scale pairs (``RandomWalk(lamda=0.01)``, and
@@ -255,6 +281,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_GRAPHS, N_LABELS, SEED, N_HELD = 4110, 37, 1234, 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# H100 SXM INT32 pipe: 64 lanes a clock an SM (NVIDIA's Hopper white
+# paper), 132 SMs, at the maximum SM clock of 1980 MHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 FP64_OPS_PER_S = 67e12         # H100 SXM fp64 tensor cores (DGEMM)
 FP64_VECTOR_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores
@@ -419,12 +448,15 @@ def profiled(fn):
     return wall, busy / 1e3, by_name, counts
 
 
-def kernel_records(fn, reps):
+def kernel_records(fn, reps, want=()):
     """torch.profiler's CUDA records over ``reps`` calls of ``fn()``:
     ({name: total ms}, {name: count}).  The profiler has left out up to
     a few dozen of a session's kernel records on an H100, all of them in
     short sessions; 64 short spin kernels before the calls and after
-    them, each batch waited for, take that loss instead."""
+    them, each batch waited for, take that loss instead.  A session has
+    still kept no record of the kernel measured (a K5 call, once):
+    when no record's name holds one of ``want``, the session is run
+    again, at most twice."""
     import torch
 
     def pad():
@@ -440,7 +472,10 @@ def kernel_records(fn, reps):
         pad()
 
     fn()
-    _, _, by_name, counts = profiled(run)
+    for _ in range(3):
+        _, _, by_name, counts = profiled(run)
+        if not want or any(w in k for k in by_name for w in want):
+            break
     return by_name, counts
 
 
@@ -449,7 +484,7 @@ def device_ms(fn, reps, kernel, per_call=1):
     whose name contains ``kernel``, launched ``per_call`` times a call,
     from torch.profiler over ``reps`` calls: the kernel records' mean
     times ``per_call`` (None when the profiler saw none)."""
-    by_name, counts = kernel_records(fn, reps)
+    by_name, counts = kernel_records(fn, reps, (kernel,))
     hits = [k for k in by_name if kernel in k]
     n = sum(counts[k] for k in hits)
     return per_call * sum(by_name[k] for k in hits) / n if n else None
@@ -504,15 +539,10 @@ def bound(nbytes, ops, rate):
             "bytes": int(nbytes), "ops": int(ops)}
 
 
-def sass_inner_loop(sass, function):
-    """The FP64 work of the innermost division loop of ``function`` in
-    ``cuobjdump -sass`` output: of each loop (a backward branch's range)
-    its hot path, the instructions no forward conditional branch inside
-    it jumps over (the rare full divisions are such a region); the loop
-    whose hot path holds the most ``MUFU.RCP64H`` (one an f64 division,
-    so one a term), with its instruction count, its FP64-pipe
-    instructions (DFMA, DADD, DMUL, DSETP, DMNMX) and those per term.
-    None when no such loop is found."""
+def sass_instructions(sass, function):
+    """(address, opcode, predicated, branch target or None) of each
+    instruction of the first function in ``cuobjdump -sass`` output whose
+    name contains ``function``; None when there is none."""
     body = None
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         if function in part.split("\n", 1)[0]:
@@ -530,7 +560,13 @@ def sass_inner_loop(sass, function):
             ins.append((int(m.group(1), 16), op.split()[0] if op else "",
                         text.startswith("@"),
                         int(target.group(1), 16) if target else None))
-    best = None
+    return ins
+
+
+def hot_loops(ins):
+    """Each loop of ``ins`` (a backward branch's range) as (start, end,
+    its hot path's opcodes: the instructions no forward conditional
+    branch inside the loop jumps over)."""
     for addr, op, _, target in ins:
         if not (op.startswith("BRA") and target is not None
                 and target < addr):
@@ -538,28 +574,77 @@ def sass_inner_loop(sass, function):
         loop = [x for x in ins if target <= x[0] <= addr]
         cold = [(a, t) for a, o, pred, t in loop
                 if o.startswith("BRA") and pred and t is not None and t > a]
-        hot = [o for a, o, _, _ in loop
-               if not any(lo < a < hi for lo, hi in cold)]
+        yield target, addr, [o for a, o, _, _ in loop
+                             if not any(lo < a < hi for lo, hi in cold)]
+
+
+def sass_inner_loop(sass, function):
+    """The FP64 work of the innermost division loop of ``function`` in
+    ``cuobjdump -sass`` output: of each loop its hot path (the rare full
+    divisions are a cold region); the loop whose hot path holds the most
+    ``MUFU.RCP64H`` (one an f64 division, so one a term), with its
+    instruction count, its FP64-pipe instructions (DFMA, DADD, DMUL,
+    DSETP, DMNMX) and those per term.  None when no such loop is found."""
+    ins = sass_instructions(sass, function)
+    if ins is None:
+        return None
+    best = None
+    for start, end, hot in hot_loops(ins):
         rcp = sum(o.startswith("MUFU.RCP64H") for o in hot)
         if rcp and (best is None or rcp > best["mufu_rcp64h"]
                     or (rcp == best["mufu_rcp64h"]
                         and len(hot) < best["instructions"])):
             fp64 = sum(o.split(".")[0] in ("DFMA", "DADD", "DMUL", "DSETP",
                                            "DMNMX") for o in hot)
-            best = {"loop": [target, addr], "instructions": len(hot),
+            best = {"loop": [start, end], "instructions": len(hot),
                     "mufu_rcp64h": rcp, "fp64": fp64,
                     "fp64_per_term": fp64 / rcp,
                     "instructions_per_term": len(hot) / rcp}
     return best
 
 
-def k9_sass_floor(terms):
-    """K9's instruction floor: the FP64 instructions a term takes in the
-    built inner loop (``cuobjdump -sass`` of the kernel library), times
-    ``terms``, over the card's FP64 issue rate (64 lanes a streaming
-    multiprocessor a clock at the maximum SM clock)."""
+# opcodes that leave the INT32 pipe free: memory, control, barriers and
+# the uniform datapath
+_NOT_INT = ("LD", "ST", "BRA", "EXIT", "BAR", "BSSY", "BSYNC", "WARPSYNC",
+            "NOP", "S2R", "S2UR", "CS2R", "DEPBAR", "RET", "CALL", "U")
+
+
+def k7_loop(sass, s, shared):
+    """K7's walk in the built library: the loop of
+    ``canonical_codes_kernel<s, shared>`` whose hot path reads the most
+    table words (LDS when the table is in shared memory, LDG when read
+    through L1, by width), its instructions, those that issue on the
+    INT32 pipe's way (memory, control and the uniform datapath left out)
+    and those per permutation (one table word a permutation).  Where the
+    compiler unrolled the whole walk (s! small) there is no such loop:
+    then the whole function, over s! permutations."""
+    ins = sass_instructions(sass, "canonical_codes_kernelILi%dELb%dE"
+                            % (s, int(shared)))
+    if ins is None:
+        return None
+    load = "LDS" if shared else "LDG"
+    best = None
+    for start, end, hot in hot_loops(ins):
+        words = sum({"64": 2, "128": 4}.get(o.split(".")[-1], 1)
+                    for o in hot if o.startswith(load))
+        if words and (best is None or words > best["table_words"]):
+            alu = sum(not o.startswith(_NOT_INT) for o in hot)
+            best = {"loop": [start, end], "instructions": len(hot),
+                    "table_words": words, "int_instructions": alu,
+                    "int_per_permutation": alu / words}
+    if best is None:
+        fact = int(np.prod(np.arange(1, s + 1)))
+        alu = sum(not o.startswith(_NOT_INT) for _, o, _, _ in ins)
+        best = {"loop": None, "instructions": len(ins),
+                "table_words": fact, "int_instructions": alu,
+                "int_per_permutation": alu / fact}
+    return best
+
+
+def sass_of_library():
+    """``cuobjdump -sass`` of the built kernel library and the card's
+    maximum SM clock (MHz), or an error string."""
     import shutil
-    import torch
     from grakel_torch import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
@@ -571,7 +656,19 @@ def k9_sass_floor(terms):
              "--format=csv,noheader,nounits"], capture_output=True,
             text=True, timeout=60).stdout.split()[0])
     except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
-        return {"error": str(e)}
+        return None, None, str(e)
+    return sass, mhz, None
+
+
+def k9_sass_floor(terms):
+    """K9's instruction floor: the FP64 instructions a term takes in the
+    built inner loop (``cuobjdump -sass`` of the kernel library), times
+    ``terms``, over the card's FP64 issue rate (64 lanes a streaming
+    multiprocessor a clock at the maximum SM clock)."""
+    import torch
+    sass, mhz, err = sass_of_library()
+    if err:
+        return {"error": err}
     loop = sass_inner_loop(sass, "rw_spectral_gram_kernel")
     if loop is None:
         return {"error": "no division loop found in the SASS"}
@@ -580,6 +677,33 @@ def k9_sass_floor(terms):
     return dict(loop, sm_clock_mhz=mhz, sms=sms, terms=terms,
                 fp64_issue_per_s=rate,
                 floor_ms=terms * loop["fp64_per_term"] / rate * 1e3)
+
+
+def k7_sass_floor(cases):
+    """K7's instruction floor for each case (s, graphlets, table in
+    shared memory): the INT32-pipe instructions a permutation takes in
+    the built walk (``cuobjdump -sass``), times s! permutations a
+    graphlet, over the card's INT32 issue rate (64 lanes a streaming
+    multiprocessor a clock at the maximum SM clock).  Returns (floors in
+    ms, one per case, and the loops read), or (None, error)."""
+    import torch
+    sass, mhz, err = sass_of_library()
+    if err:
+        return None, {"error": err}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 64 * mhz * 1e6
+    loops, floors = {}, []
+    for s, graphlets, shared in cases:
+        key = "s%d_%s" % (s, "shared" if shared else "global")
+        if key not in loops:
+            loops[key] = k7_loop(sass, s, shared)
+        lp = loops[key]
+        fact = int(np.prod(np.arange(1, s + 1)))
+        floors.append(None if lp is None else
+                      graphlets * fact * lp["int_per_permutation"]
+                      / rate * 1e3)
+    return floors, {"loops": loops, "sm_clock_mhz": mhz, "sms": sms,
+                    "int32_issue_per_s": rate}
 
 
 def native_phase(class_path, check, paths, train, held, mutag):
@@ -928,14 +1052,34 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         torch.cuda.synchronize()
         B = int(masks.shape[0])
         fact = int(np.prod(np.arange(1, s + 1)))
+        # the function's work, at the INT32 pipe's rate: a permutation's
+        # key takes 3 integer operations a column (two shifts, an
+        # and-or: a column's bit of every row at once) and 1 for the
+        # minimum; the earlier count (3 operations a bit read, s(s-1)/2 bit
+        # reads a permutation) beside, at this rate and at the fp32 rate
+        ops = B * fact * (3 * (s - 1) + 1)
+        bit_ops = 3 * B * fact * s * (s - 1) // 2
         case = dict(what=what, s=s, graphlets=B,
                     differing=int((got.long() != want).sum()),
                     ms=cuda_ms(lambda: can_ops.canonical_codes_cuda(
                         masks, s), reps),
                     plain_ms=cuda_ms(lambda: can_ops.canonical_codes_plain(
                         masks, s), 1, 0) if time_plain else None,
-                    **bound(12 * B, 3 * B * fact * s * (s - 1) // 2,
-                            FP32_OPS_PER_S))
+                    **bound(12 * B, ops, INT32_OPS_PER_S),
+                    bound_ms_bit_count=bound(12 * B, bit_ops,
+                                             INT32_OPS_PER_S)["bound_ms"],
+                    bound_ms_fp32_rate=bound(12 * B, bit_ops,
+                                             FP32_OPS_PER_S)["bound_ms"])
+        if s == 8:   # the table's two placements
+            for shared in (True, False):
+                def placed(shared=shared):
+                    return can_ops.canonical_codes_cuda(masks, s,
+                                                        shared=shared)
+                other = placed()
+                torch.cuda.synchronize()
+                case["differing"] += int((other.long() != want).sum())
+                case["ms_shared" if shared else "ms_l1"] = cuda_ms(placed,
+                                                                   reps)
         check(case["differing"] == 0, "K7 %s (s = %d, %d graphlets) == "
               "plain gather-and-min bit for bit" % (what, s, B))
         return case
@@ -948,16 +1092,28 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
         masks = torch.from_numpy(can_ops.adjacency_masks(list(A))).cuda()
         k7_sizes.append(k7_case(masks, s, "100000 random graphlets", 3,
                                 time_plain=False))
+    floors, k7_sass = k7_sass_floor(
+        [(c["s"], c["graphlets"], c["s"] < 8 or can_ops.K7_S8_SHARED)
+         for c in k7 + k7_sizes])
+    for c, f in zip(k7 + k7_sizes, floors or [None] * len(k7 + k7_sizes)):
+        c["sass_floor_ms"] = f
+    print("K7 walk in SASS: %s" % json.dumps(k7_sass), flush=True)
     k7_row = {
         "name": "canonical", "route": "cuda",
         "source": "grakel_torch/csrc/canonical.cu",
         "replaces": "grakel_tpu/ops/canonical.py:50",
         "max_abs_err": max(c["differing"] for c in k7 + k7_sizes),
-        **{k: sum(c[k] for c in k7) for k in ("ms", "plain_ms", "bound_ms")},
+        **{k: sum(c[k] for c in k7) for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_ms_bit_count",
+                                              "bound_ms_fp32_rate")},
+        "sass_floor_ms": None if floors is None else sum(
+            c["sass_floor_ms"] for c in k7),
+        "sass": k7_sass,
         "bound_by": "operations", "library_ms": None,
         "library": "none: no single PyTorch call computes a canonical code",
         "summed_over": "the three K7 calls of the gs_nci1scale fit parse "
                        "(graphlet sizes 3, 4, 5)",
+        "s8_table": {k: k7_sizes[-1].get(k) for k in ("ms_shared", "ms_l1")},
         "shapes": k7, "random_sizes": k7_sizes}
 
     # ---------------- K8 ----------------------------------------------- #
@@ -1296,11 +1452,21 @@ def main():
 
     k789_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                   if "canonical" in k or "rw_cg" in k or "rw_spectral" in k}
-    check(len(k789_ptxas) == 16 and all(
+    check(len(k789_ptxas) == 17 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k789_ptxas.values()),
-        "K7's 7, K8's 8 (2 block routes, 6 warp route) and K9's 1 kernels "
-        "built without spills: %s" % k789_ptxas)
+        "K7's 8 (s = 2..8, s = 8 on both table placements), K8's 8 (2 "
+        "block routes, 6 warp route) and K9's 1 kernels built without "
+        "spills: %s" % k789_ptxas)
+    tc_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                if "min_gram_tc" in k or "threshold_expand" in k}
+    check(len(tc_ptxas) == len(intersect.TC_TILES) + 2 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in tc_ptxas.values()),
+        "K1-tc's %d kernels (its %d tiles, the expansion, the mma.sync "
+        "design) "
+        "built without spills: %s" % (len(intersect.TC_TILES) + 2,
+                                      len(intersect.TC_TILES), tc_ptxas))
 
     k6_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                 if "hadamard" in k}
@@ -1314,6 +1480,7 @@ def main():
     from grakel_torch.ops import random_walk as rw_ops
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
+                "threshold_expand": intersect.threshold_expand_cuda,
                 "wl_hash_refine": wl_ops.wl_hash_refine_cuda,
                 "floyd_warshall": fw_ops.floyd_warshall_cuda,
                 "nh_graph": nh_ops.nh_graph_cuda,
@@ -1420,19 +1587,24 @@ def main():
                       "stages_s": dict(pm.timer_.times)}
         Kref, mats = level_grams(pm, intersect.min_gram_plain)
         # fit_transform's level routes: the levels that take K1 go in one
-        # K1 call, each other level in a K1-tc call of its own
+        # K1 call, the other levels (weights up to 127) in ONE K1-tc call,
+        # its expansion one launch (weighted and 0/1 indicators together)
         maxima = [M.amax(0).cpu().numpy() for M in mats]
         routes = [intersect.min_gram_route(mx, mx, True, True)
                   for mx in maxima]
         paths[key]["level_routes"] = routes
+        tc_levels = int("min_gram_tc" in routes)
         want = {"min_gram": int("min_gram" in routes),
-                "min_gram_tc": routes.count("min_gram_tc")}
-        check(launches["min_gram"] == want["min_gram"]
-              and launches["min_gram_tc"] == want["min_gram_tc"],
-              "%s launched K1 %d and K1-tc %d times, as its level routes %s "
-              "name" % (name, launches["min_gram"], launches["min_gram_tc"],
-                        routes))
-        if not kw["with_labels"]:
+                "min_gram_tc": tc_levels, "threshold_expand": tc_levels}
+        check(all(launches[k] == v for k, v in want.items()),
+              "%s launched K1 %d, K1-tc %d and the expansion %d times, as "
+              "its level routes %s name (%s)"
+              % (name, launches["min_gram"], launches["min_gram_tc"],
+                 launches["threshold_expand"], routes, want))
+        if kw["with_labels"]:
+            check(launches["min_gram_tc"] == 1,
+                  "%s launched K1-tc exactly once for its Gram" % name)
+        else:
             check(launches["min_gram"] == 1 and launches["min_gram_tc"] == 0,
                   "%s launched K1 exactly once for its Gram" % name)
         check(Kp.shape == (n, n) and np.isfinite(Kp).all()
@@ -1663,20 +1835,30 @@ def main():
                 q["round"], q["fit_route"], q["fit_w_ratio"],
                 q["transform_route"], q["transform_w_ratio"])
             for q in rounds)), flush=True)
-        tc = sum((q["fit_route"] == "min_gram_tc")
-                 + (q["transform_route"] == "min_gram_tc") for q in rounds)
+        # the rounds that take K1-tc: ONE K1-tc launch a Gram (fit,
+        # transform), one expansion launch a side
+        tc_fit = any(q["fit_route"] == "min_gram_tc" for q in rounds)
+        tc_tr = any(q["transform_route"] == "min_gram_tc" for q in rounds)
+        k1_rounds = sum((q["fit_route"] == "min_gram")
+                        + (q["transform_route"] == "min_gram")
+                        for q in rounds)
+        want = {"min_gram_tc": tc_fit + tc_tr, "min_gram": k1_rounds,
+                "threshold_expand": tc_fit + 2 * tc_tr}
         folds = launches["jaccard_fold_by_route"]
         check(launches["nh_graph"] == 2 and launches["nh_round"] == 0
               and launches["jaccard_fold"] == 2
               and folds["triangle"] == folds["rect"] == 1
-              and launches["min_gram_tc"] == tc
-              and launches["min_gram"] == 2 * k.R - tc,
+              and all(launches[c] == v for c, v in want.items()),
               "%s launched K4 %d times on the graph route (one a parse, 2 "
               "parses) and %d on the round route, K5 %d (one a Gram: %s), "
-              "K1-tc %d and K1 %d (as the rounds' routes name: %d and %d)"
+              "K1-tc %d, the expansion %d and K1 %d (as the rounds' routes "
+              "name: %s)"
               % (key, launches["nh_graph"], launches["nh_round"],
                  launches["jaccard_fold"], folds, launches["min_gram_tc"],
-                 launches["min_gram"], tc, 2 * k.R - tc))
+                 launches["threshold_expand"], launches["min_gram"], want))
+        check(launches["min_gram_tc"] == 2,
+              "%s launched K1-tc once a rounds call (%d in 2 calls)"
+              % (key, launches["min_gram_tc"]))
         check(K.shape == (N_GRAPHS, N_GRAPHS) and Kt.shape == (N_HELD,
                                                                 N_GRAPHS)
               and np.isfinite(K).all() and np.isfinite(Kt).all()
@@ -1936,76 +2118,197 @@ def main():
                                       device="cuda"), alpha=3.0)
 
     # ---------------- K1-tc against its plain version ------------------- #
-    def tc_case(A, B):
+    def old_expand(X, cols):
+        """The earlier expansion: an f32 gather of the source columns, compared
+        into int8 by torch (the [n, W'] f32 intermediate included)."""
+        return (X.index_select(1, cols[0]) >= cols[1]).view(torch.int8)
+
+    def tc_bound(R, n, m, W, Wp, sym, in_bytes):
+        """The function's own work: 2 W' operations a distinct Gram entry
+        (n (n + 1) / 2 of them when symmetric) a round; the indicators
+        read once and the f32 Gram stack written once."""
+        ops = 2.0 * W * (n * (n + 1) / 2 if sym else n * m)
+        return ops, in_bytes + 4.0 * R * n * m
+
+    def tc_case(A, B, weights=None, reps=20, sweep=False, mma=False):
+        """K1-tc as the entry points call it: A, B [n, L] or [R, n, L]
+        counts (B is A: symmetric), ``weights`` on A's indicators; the
+        expansion (one launch a side, one for both when symmetric and
+        weighted) and ONE product launch, against the plain version
+        exactly (and the alpha / out epilogue), timed beside the plain
+        version, ``torch._int_mm`` on the same indicators (one call a
+        round, the full square), the bound and, with ``mma``, the earlier
+        design on the same inputs (its torch expansion and its mma.sync
+        kernel, one call a round)."""
         sym = B is A
-        n, L = A.shape
-        m = B.shape[0]
-        max_a, max_b, integer = intersect.column_stats(A, B)
-        route = intersect.min_gram_route(max_a, max_b, integer, sym)
+        A3 = A if A.dim() == 3 else A[None]
+        B3 = A3 if sym else (B if B.dim() == 3 else B[None])
+        R, n, L = A3.shape
+        m = B3.shape[1]
+        max_a, max_b, integer = intersect._round_stats(A3, B3)
         T = np.minimum(max_a, max_b)
-        cols = torch.from_numpy(intersect.threshold_columns(T)).cuda()
+        routes = [intersect.min_gram_route(max_a[r], max_b[r], integer[r],
+                                           sym) for r in range(R)]
+        cols = torch.from_numpy(intersect.threshold_columns(
+            T if A.dim() == 3 else T[0], weights)).cuda()
 
         def expand():
-            EA = intersect.expand_thresholds(A, cols)
-            return EA, (EA if sym else intersect.expand_thresholds(B, cols))
+            if weights is None:
+                EA = intersect.expand_thresholds(A, cols)
+                return EA, (EA if sym else intersect.expand_thresholds(
+                    B, cols))
+            if sym:
+                return intersect.expand_thresholds(A, cols, indicators=True)
+            return (intersect.expand_thresholds(A, cols),
+                    intersect.expand_thresholds(B, cols, weighted=False))
 
+        n_exp = intersect.threshold_expand_cuda.launches
         EA, EB = expand()
-        W, Wp = int(T.sum()), EA.shape[1]
-        K = intersect.min_gram_tc_cuda(EA, EB)
-        R = intersect.min_gram_threshold_plain(A, B)
-        out = K.clone()
-        intersect.min_gram_tc_cuda(EA, EB, out=out, alpha=3.0)
-        torch.cuda.synchronize()
-        err = float((K - R).abs().max()) if K.numel() else 0.0
-        check(torch.equal(K, R) and torch.equal(out, K + 3.0 * R),
-              "K1-tc %dx%dx%d (W' %d, padded %d, %s, route %s) == plain, "
-              "K += 3 I too; max abs err %g"
-              % (n, m, L, W, Wp, "symmetric" if sym else "rect", route, err))
-        # torch._int_mm wants the second operand's columns a multiple of 8;
-        # it computes the full product, where K1-tc computes only the
-        # block tiles on or above the diagonal when B is A
-        EBp = torch.zeros((-(-m // 8) * 8, Wp), dtype=torch.int8,
-                          device=A.device)
-        EBp[:m] = EB
-        reps = 20
-        # the function's own work: a symmetric Gram has n (n + 1) / 2
-        # distinct entries; the indicators read once, the f32 Gram
-        # written once
-        ops = 2.0 * W * (n * (n + 1) / 2 if sym else n * m)
-        nbytes = (n if sym else n + m) * Wp + 4.0 * n * m
-        t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        return {"n": n, "m": m, "L": L, "w_expanded": W, "w_padded": Wp,
-                "symmetric": sym, "route": route, "max_abs_err": err,
-                "ops": ops, "bytes": nbytes,
-                "ms": cuda_ms(lambda: intersect.min_gram_tc_cuda(EA, EB),
-                              reps),
-                "device_ms": device_ms(
-                    lambda: intersect.min_gram_tc_cuda(EA, EB), reps,
-                    "min_gram_tc_kernel"),
-                "wrapper_ms": host_ms(
-                    lambda: intersect.min_gram_tc_cuda(EA, EB), reps),
-                "expansion_ms": cuda_ms(expand, reps),
-                "plain_ms": cuda_ms(
-                    lambda: intersect.min_gram_threshold_plain(A, B), 3),
-                "library_ms": cuda_ms(lambda: torch._int_mm(EA, EBp.t()),
-                                      reps),
-                "cdist_ms": cuda_ms(lambda: torch.cdist(A, B, p=1), 3),
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        n_exp = intersect.threshold_expand_cuda.launches - n_exp
+        W = int(T.sum(1).max())
+        Wp = int(EA.shape[-1])
 
-    tc = [tc_case(A, A) for A in pm_mats["pm_labeled"]]
-    tc_rect = [tc_case(A, B) for A, B in rect]
+        def call():
+            return intersect.min_gram_tc_cuda(EA, EB, symmetric=sym)
+
+        def whole():
+            return intersect.min_gram_tc_cuda(*expand(), symmetric=sym)
+
+        n_tc = intersect.min_gram_tc_cuda.launches
+        K = call()
+        n_tc = intersect.min_gram_tc_cuda.launches - n_tc
+        P = intersect.min_gram_threshold_plain(A, A if sym else B, weights)
+        out = K.clone()
+        intersect.min_gram_tc_cuda(EA, EB, out=out, alpha=3.0,
+                                   symmetric=sym)
+        pa, pb = (intersect.expand_thresholds_plain(A, cols, indicators=True)
+                  if weights is not None and sym else
+                  (intersect.expand_thresholds_plain(A, cols),
+                   intersect.expand_thresholds_plain(
+                       A if sym else B, cols, weighted=False)))
+        torch.cuda.synchronize()
+        err = float((K - P).abs().max()) if K.numel() else 0.0
+        differing = int((EA != pa).sum() + (EB != pb).sum())
+        what = "%s%s %s W' %d (padded %d)%s" % (
+            "%d x " % R if A.dim() == 3 else "", n, "x %d" % m, W, Wp,
+            ", weighted" if weights is not None else "")
+        check(torch.equal(K, P) and torch.equal(out, K + 3.0 * P)
+              and differing == 0 and n_tc == 1,
+              "K1-tc %s, %s, one launch (%d), expansion %d launch(es) == "
+              "plain bit for bit (%d differing bytes); product == plain, K "
+              "+= 3 I too; max abs err %g"
+              % (what, "symmetric" if sym else "rect", n_tc, n_exp,
+                 differing, err))
+        # torch._int_mm wants the second operand's columns a multiple of
+        # 8; it computes the full square, one call a round
+        E2 = EB if EB.dim() == 3 else EB[None]
+        E1 = EA if EA.dim() == 3 else EA[None]
+        EBp = torch.zeros((R, -(-m // 8) * 8, Wp), dtype=torch.int8,
+                          device="cuda")
+        EBp[:, :m] = E2
+        in_bytes = float(EA.numel() + (0 if EB is EA else EB.numel()))
+        ops, nbytes = tc_bound(R, n, m, float(T.sum()), Wp, sym, in_bytes)
+        row = {"R": R, "n": n, "m": m, "L": L, "w_expanded": W,
+               "w_expanded_rounds": T.sum(1).astype(int).tolist(),
+               "w_padded": Wp, "symmetric": sym,
+               "weighted": weights is not None, "routes": routes,
+               "tile": intersect.TC_TILES[intersect.tc_tile(R, n, m, sym)],
+               "launches": n_tc, "expansion_launches": n_exp,
+               "max_abs_err": err, "expansion_differing": differing,
+               "ms": cuda_ms(call, reps),
+               "device_ms": device_ms(call, reps, "min_gram_tc_kernel"),
+               "wrapper_ms": host_ms(call, reps),
+               "expansion_ms": cuda_ms(expand, reps),
+               "with_expansion_ms": cuda_ms(whole, reps),
+               "expansion_plain_ms": cuda_ms(
+                   lambda: intersect.expand_thresholds_plain(A, cols), 3),
+               "plain_ms": cuda_ms(lambda: intersect.min_gram_threshold_plain(
+                   A, A if sym else B, weights), 3),
+               "library_ms": cuda_ms(lambda: [torch._int_mm(
+                   E1[r], EBp[r].t()) for r in range(R)], reps),
+               "ops": ops, "bytes": nbytes,
+               **{k: v for k, v in bound(nbytes, ops,
+                                         INT8_OPS_PER_S).items()
+                  if k in ("bound_ms", "bound_by")},
+               "expansion_bytes": 4.0 * A3.numel() + (
+                   0 if sym else 4.0 * B3.numel()) + in_bytes}
+        row["expansion_bound_ms"] = (row["expansion_bytes"]
+                                     / HBM_BYTES_PER_S * 1e3)
+        if mma and weights is None:
+            c2 = [cols] if A.dim() == 2 else list(cols)
+
+            def mma_expand():
+                EA2 = [old_expand(A3[r], c2[r][:2]) for r in range(R)]
+                return EA2, (EA2 if sym else [old_expand(B3[r], c2[r][:2])
+                                              for r in range(R)])
+
+            EA2, EB2 = mma_expand()
+
+            def mma_call():
+                return [intersect.min_gram_tc_mma_cuda(
+                    EA2[r], EA2[r] if sym else EB2[r]) for r in range(R)]
+
+            K2 = torch.stack(mma_call())
+            torch.cuda.synchronize()
+            check(torch.equal(K2, P if P.dim() == 3 else P[None]),
+                  "K1-tc's mma.sync design (%d launch(es)) %s == plain"
+                  % (R, what))
+            row.update(mma_ms=cuda_ms(mma_call, reps),
+                       mma_expansion_ms=cuda_ms(mma_expand, reps))
+        if sweep:
+            row["tile_sweep"] = []
+            for tile, shape in sorted(intersect.TC_TILES.items()):
+                def tcall(tile=tile):
+                    return intersect.min_gram_tc_cuda(EA, EB, symmetric=sym,
+                                                      tile=tile)
+                row["tile_sweep"].append({
+                    "tile": shape, "bit_identical": torch.equal(tcall(), P),
+                    "ms": cuda_ms(tcall, reps)})
+            check(all(t["bit_identical"] for t in row["tile_sweep"]),
+                  "K1-tc %s bit-identical at every tile" % what)
+        return row
+
+    # PyramidMatch labeled: each level alone (the earlier one call a level, and
+    # the break-even against K1), symmetric as fit_transform and at the
+    # transform shape of a 10-fold split
+    tc = [tc_case(A, A, mma=True) for A in pm_mats["pm_labeled"]]
+    tc_rect = [tc_case(A, B, mma=True) for A, B in rect]
+    # ... and the path's call: the K1-tc levels concatenated, each column
+    # weighted by its level's integer weight, ONE launch; and the same
+    # fused form at the transform shape
+    pm_l = pm_fit["pm_labeled"][0]
+    l_scale = float(2 ** max(pm_l.L - 1, 0))
+    l_wts = [int(round(c * l_scale)) for c in pm_l._level_coeffs()]
+    l_routes = paths["pm_labeled_nci1scale"]["level_routes"]
+    l_tc = [j for j, r in enumerate(l_routes) if r == "min_gram_tc"]
+    pm_cat = torch.cat([pm_mats["pm_labeled"][j] for j in l_tc],
+                       1).contiguous()
+    pm_w = np.concatenate([np.full(pm_mats["pm_labeled"][j].shape[1],
+                                   l_wts[j]) for j in l_tc])
+    tc_pm = tc_case(pm_cat, pm_cat, pm_w, reps=10)
+    tc_pm_rect = tc_case(pm_cat[N_GRAPHS - n_test:].contiguous(),
+                         pm_cat[:N_GRAPHS - n_test].contiguous(), pm_w,
+                         reps=10)
+    # the per-level count of the fused call's bound: each level's own
+    # indicators and Gram (the earlier calls)
+    tc_pm["bound_ms_per_level_count"] = sum(
+        tc[j]["bound_ms"] for j in range(len(tc)) if j in l_tc)
+    tc_pm_rect["bound_ms_per_level_count"] = sum(
+        tc_rect[j]["bound_ms"] for j in range(len(tc_rect)) if j in l_tc)
     ia = rng.randint(0, 9, (1000, 333)).astype(np.float32)
     ib = rng.randint(0, 9, (777, 333)).astype(np.float32)
-    tc_ragged = tc_case(torch.from_numpy(ia).cuda(),
-                        torch.from_numpy(ib).cuda())
+    Ia, Ib = torch.from_numpy(ia).cuda(), torch.from_numpy(ib).cuda()
+    w333 = rng.randint(1, 128, 333)
+    tc_ragged = tc_case(Ia, Ib, reps=5)
+    tc_ragged_w = [tc_case(Ia, Ib, w333, reps=5),
+                   tc_case(Ia, Ia, w333, reps=5)]
     # the two routes' break-even W' / L at each labeled level, symmetric
     # (fit_transform) and rectangular (transform): K1's time per original
     # column over K1-tc's (expansion included) per expanded column
     for c, s in zip(tc + tc_rect, k1_labeled + k1_rect):
         c["k1_ms"] = s["ms"]
         c["break_even_ratio"] = (s["ms"] / c["L"]) / (
-            (c["ms"] + c["expansion_ms"]) / c["w_expanded"])
+            c["with_expansion_ms"] / c["w_expanded"])
     be_sym = min(c["break_even_ratio"] for c in tc)
     be_rect = min(c["break_even_ratio"] for c in tc_rect)
     # the code's limits are the floors of these readings taken on an H100
@@ -2018,19 +2321,23 @@ def main():
           "rectangular limit %g, break-even %.2f (W'/L %s route to %s)"
           % (intersect._TC_MAX_RATIO_SYM, be_sym,
              [round(c["w_expanded"] / c["L"], 2) for c in tc],
-             [c["route"] for c in tc], intersect._TC_MAX_RATIO_RECT,
+             [c["routes"][0] for c in tc], intersect._TC_MAX_RATIO_RECT,
              be_rect, [round(c["w_expanded"] / c["L"], 2) for c in tc_rect],
-             [c["route"] for c in tc_rect]))
+             [c["routes"][0] for c in tc_rect]))
 
     # K1-tc at the NH simple path's calls: its fit Gram's three rounds
-    # (symmetric 4110 x 4110 over L = 256) and its transform's (64 x 4110)
+    # (symmetric 4110 x 4110 over L = 256) in ONE launch and its
+    # transform's (64 x 4110) in one, with a tile sweep at the transform
+    # shape and the mma.sync design (one call a round) beside
     nhk = nh_kernels["nh_nci1scale"]
-    Xh = [x.float() for x in nhk.X["hists"]]
-    tc_nh = [tc_case(A, A) for A in Xh] + [
-        tc_case(y.float(), A) for y, A in zip(nhk._Y["hists"], Xh)]
-    check(all(c["route"] == "min_gram_tc" for c in tc_nh), "NH's six K1-tc "
-          "calls route to K1-tc (%s)" % [c["route"] for c in tc_nh])
-    del Xh
+    Xh = nhk.X["hists"].float().contiguous()
+    Yh = nhk._Y["hists"].float().contiguous()
+    tc_nh = [tc_case(Xh, Xh, mma=True), tc_case(Yh, Xh, sweep=True,
+                                                 mma=True)]
+    check(all(r == "min_gram_tc" for c in tc_nh for r in c["routes"]),
+          "NH's rounds all route to K1-tc (%s)"
+          % [c["routes"] for c in tc_nh])
+    del Xh, Yh
 
     # ---------------- K2 against its plain versions --------------------- #
     batch = GraphBatch.from_graphs(normalize_input(train),
@@ -2070,7 +2377,7 @@ def main():
         a call (route tile: fw_tile once; per_k: fw_init once and fw_step
         V times; blocked: fw_init once and each phase once a round), and
         the number of records seen (None, 0 when none)."""
-        by_name, counts = kernel_records(fn, reps)
+        by_name, counts = kernel_records(fn, reps, ("fw_",))
         nt = -(-V // fw_ops.BLOCKED_TILE)
         per_call = {"tile": {"fw_tile": 1},
                     "per_k": {"fw_init": 1, "fw_step": V},
@@ -2242,7 +2549,7 @@ def main():
         # each input once (label, validity, graph id, offset a node; the
         # target an edge), the R histograms written once
         nbytes = 13.0 * N + 4 + 4.0 * E + 4.0 * R * n * L
-        by_name, _ = kernel_records(call, 20)
+        by_name, _ = kernel_records(call, 20, ("nh_graph", "nh_round"))
         hits = [k for k in by_name if "nh_graph" in k or "nh_round" in k]
         wrapper = host_ms(call, 20)
         # the sleep outlasts enqueueing 100 calls twice over (the host
@@ -2491,13 +2798,13 @@ def main():
         nbytes = 12.0 * nodes + 4 + 4.0 * E + 4.0 * table.numel() \
             + 8.0 * n_iter * nodes
         ops = 24.0 * nodes * D * n_iter + 1.0 * E * D * (n_iter - 1)
-        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         # the earlier count, a generation at a time: every row, tag and
         # key moved each generation, and each propagating one its offsets,
         # its targets and the new rows
         per_gen = n_iter * (4.0 * nodes * D + 12.0 * nodes) + (n_iter - 1) \
             * (4.0 * (nodes + 1) + 4.0 * E + 4.0 * nodes * D)
-        by_name, _ = kernel_records(call, 20)
+        by_name, _ = kernel_records(call, 20, ("hadamard_",))
         hits = [k for k in by_name if "hadamard_" in k]
         wrapper = host_ms(call, 20)
         # the sleep outlasts enqueueing the timed calls twice over (the
@@ -2520,7 +2827,10 @@ def main():
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "bound_ms_per_generation_count": 1e3 * max(
-                    t_ops, per_gen / HBM_BYTES_PER_S)}
+                    t_ops, per_gen / HBM_BYTES_PER_S),
+                # the same operations at the fp32 rate
+                "bound_ms_fp32_rate": 1e3 * max(ops / FP32_OPS_PER_S,
+                                                t_bytes)}
         check(row_["device_ms"] is not None, "K6 %s, D = %d: device time "
               "from the profiler's records (%s ms, kernels %s)"
               % (what, D, row_["device_ms"], hits))
@@ -2745,35 +3055,79 @@ def main():
          "replaces": "grakel_tpu/ops/intersect.py:55",
          "mirrors": "grakel_tpu/ops/intersect.py:244 (_min_gram_gemm)",
          "launches": launches["min_gram_tc"],
-         "max_abs_err": max(c["max_abs_err"]
-                            for c in tc + tc_nh + [tc_ragged]),
-         "ms": total(tc, "ms"), "device_ms": total(tc, "device_ms"),
-         "wrapper_ms": total(tc, "wrapper_ms"),
-         "expansion_ms": total(tc, "expansion_ms"),
-         "plain_ms": total(tc, "plain_ms"),
-         "bound_ms": total(tc, "bound_ms"),
-         "bound_by": row_bound_by(tc, INT8_OPS_PER_S, "bytes"),
-         "library_ms": total(tc, "library_ms"),
-         "library": "torch._int_mm on the same indicators",
-         "cdist_ms": total(tc, "cdist_ms"),
-         "k1_ms": total(tc, "k1_ms"),
+         "max_abs_err": max(c["max_abs_err"] for c in
+                            tc + tc_rect + tc_nh + [tc_pm, tc_pm_rect,
+                                                    tc_ragged] + tc_ragged_w),
+         # the main path's call (PM labeled fit_transform: its K1-tc
+         # levels weighted and concatenated, ONE launch), the expansion
+         # included
+         "ms": tc_pm["with_expansion_ms"],
+         "kernel_ms": tc_pm["ms"], "device_ms": tc_pm["device_ms"],
+         "wrapper_ms": tc_pm["wrapper_ms"],
+         "expansion_ms": tc_pm["expansion_ms"],
+         "plain_ms": tc_pm["plain_ms"],
+         "bound_ms": tc_pm["bound_ms"], "bound_by": tc_pm["bound_by"],
+         "bound_ms_per_level_count": tc_pm["bound_ms_per_level_count"],
+         "library_ms": tc_pm["library_ms"],
+         "library": "torch._int_mm on the same indicators (the full square)",
+         "mma_design": {
+             "summed_over": "the mma.sync design at the same levels: one "
+                            "torch expansion and one mma.sync launch a "
+                            "level",
+             "ms": total(tc, "mma_ms"),
+             "expansion_ms": total(tc, "mma_expansion_ms"),
+             "transform_ms": total(tc_rect, "mma_ms"),
+             "transform_expansion_ms": total(tc_rect, "mma_expansion_ms")},
+         "per_level": {
+             "summed_over": "the four labeled levels, one call each "
+                            "(the break-even against K1)",
+             **{k: total(tc, k) for k in (
+                 "ms", "with_expansion_ms", "bound_ms", "library_ms",
+                 "k1_ms")}},
          "break_even_ratio": be_sym, "break_even_ratio_rect": be_rect,
-         "summed_over": "one call per labeled PM level",
+         "summed_over": "the one K1-tc call of the PM labeled "
+                        "fit_transform Gram: %d levels, %d x %d, W' %d, "
+                        "weighted, symmetric, its expansion (one launch) "
+                        "included" % (len(l_tc), N_GRAPHS, N_GRAPHS,
+                                      tc_pm["w_expanded"]),
+         "pm_fused": tc_pm, "pm_fused_transform": tc_pm_rect,
          "nh_calls": {
-             "summed_over": "the NH simple path's six calls: its fit "
+             "summed_over": "the NH simple path's two calls: its fit "
                             "Gram's three rounds (4110 x 4110, symmetric) "
-                            "and its transform's (64 x 4110)",
+                            "in one launch and its transform's (3 x 64 x "
+                            "4110) in one",
              **{k: total(tc_nh, k) for k in (
-                 "ms", "device_ms", "expansion_ms", "plain_ms", "bound_ms",
-                 "library_ms")},
+                 "ms", "with_expansion_ms", "device_ms", "expansion_ms",
+                 "plain_ms", "bound_ms", "library_ms", "mma_ms",
+                 "mma_expansion_ms")},
              "bound_by": row_bound_by(tc_nh, INT8_OPS_PER_S, "bytes"),
-             "fit": {k: total(tc_nh[:3], k) for k in (
-                 "ms", "bound_ms", "library_ms")},
-             "transform": {k: total(tc_nh[3:], k) for k in (
-                 "ms", "bound_ms", "library_ms")},
+             "fit": {k: tc_nh[0][k] for k in (
+                 "ms", "with_expansion_ms", "bound_ms", "library_ms",
+                 "mma_ms")},
+             "transform": {k: tc_nh[1][k] for k in (
+                 "ms", "with_expansion_ms", "bound_ms", "library_ms",
+                 "mma_ms", "tile_sweep")},
              "shapes": tc_nh},
+         "ptxas": tc_ptxas,
          "shapes": tc, "transform_shapes": tc_rect,
-         "ragged_rect_check": tc_ragged},
+         "ragged_rect_check": tc_ragged, "ragged_weighted": tc_ragged_w},
+        {"name": "threshold_expand", "route": "cuda",
+         "source": "grakel_torch/csrc/min_gram_tc.cu",
+         "replaces": "grakel_tpu/ops/intersect.py:244 (the indicators of "
+                     "_min_gram_gemm)",
+         "launches": launches["threshold_expand"],
+         "max_abs_err": max(c["expansion_differing"] for c in
+                            tc + tc_rect + tc_nh + [tc_pm, tc_pm_rect,
+                                                    tc_ragged] + tc_ragged_w),
+         "ms": tc_pm["expansion_ms"],
+         "plain_ms": tc_pm["expansion_plain_ms"],
+         "bound_ms": tc_pm["expansion_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "library": "none: no single PyTorch call writes the indicators",
+         "summed_over": "the expansion of the PM labeled fit_transform "
+                        "call: the weighted and the 0/1 indicators in one "
+                        "launch (the f32 counts read, both written once)",
+         "nh_calls_ms": total(tc_nh, "expansion_ms")},
         {"name": "wl_hash_refine", "route": "cuda",
          "source": "grakel_torch/csrc/wl_hash.cu",
          "replaces": "grakel_tpu/ops/wl.py:71",
@@ -2853,6 +3207,7 @@ def main():
          **{k: k6[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
                                "bound_ms", "bound_by",
                                "bound_ms_per_generation_count",
+                               "bound_ms_fp32_rate",
                                "index_add_ms", "five_launch_ms",
                                "planner_ms")},
          "library_ms": None,
@@ -2879,6 +3234,9 @@ def main():
     print("rw_cg: launches by route over the paths %s"
           % k789[1]["route_launches"], flush=True)
     kernels += k789
+    check(all(r["launches"] > 0 for r in kernels),
+          "every kernel of the line launched on the paths: %s"
+          % {r["name"]: r["launches"] for r in kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print("chip_smoke: %.1f s in all, the build included"
           % (time.perf_counter() - t_start), flush=True)

@@ -65,7 +65,10 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     "grakel_min_gram": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    "grakel_min_gram_tc": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "grakel_min_gram_tc": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "grakel_min_gram_tc_mma": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "grakel_threshold_expand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P],
     "grakel_wl_hash_refine": [_P, _P, _P, _P, _I, _P],
     "grakel_floyd_warshall": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grakel_nh_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -77,7 +80,7 @@ _SIGNATURES = {
                              _I, _P],
     "grakel_hadamard_graph": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                               _P],
-    "grakel_canonical_codes": [_P, _P, _I, _I, _P],
+    "grakel_canonical_codes": [_P, _P, _P, _I, _I, _I, _P],
     "grakel_rw_cg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                      _F, _P, _I, _I, _P],
     "grakel_rw_cg_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,

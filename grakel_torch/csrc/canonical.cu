@@ -6,26 +6,31 @@
 //   code(p) = sum over pairs k = (i, j), i < j in row order, of
 //             A[p[i], p[j]] << k                      (s(s-1)/2 <= 28 bits)
 // The JAX program gathers a [B, s!, s(s-1)/2] tensor through a
-// permutation table (40320 x 28 indices at s = 8: 1.1 MB, which fits
-// neither constant memory nor one block's shared memory) and reduces it.
+// permutation table and reduces it.
 //
-// Design: no table.  A graphlet comes as one 64-bit adjacency mask (bit
-// u * 8 + v for edge u-v), held in registers; a group of G lanes owns a
-// graphlet (G = 1, 2, 4, 8 for s = 2..5, a whole warp from s = 6) and
-// each lane a contiguous range of the permutations in lexicographic
-// order.  A lane decodes its first permutation from its index (the
-// factorial number system) and steps to the next one in place; a
-// permutation is packed four bits an element into one 32-bit word, so
-// the walk uses shifts and no array (no local memory).  Each permutation's
-// code reads its s(s-1)/2 bits from the mask.  The group reduces the
-// minimum with shuffles (__reduce_min_sync for a whole warp).  Codes are
-// integers: bit-identical to the JAX program and to the plain version
-// (ops/canonical.py canonical_codes_plain).
+// Design: a table walked in lockstep, a lane a graphlet.  The table
+// (ops/canonical.py perm_table) lists every permutation of s vertices in
+// lexicographic order, p_i packed four bits an element into one uint32;
+// for s <= 7 (at most 5,040 words, 20 KB) a block copies it into shared
+// memory, and at s = 8 (161,280 bytes) into the 227 KB opt-in (one block
+// an SM) or, on the other placement, it is read through L1 (__ldg).  All
+// lanes of a warp read the same entry at the same step (a broadcast), so
+// no lane diverges and there is no group reduction: each lane keeps the
+// minimum of its own graphlet.  A graphlet comes as one 64-bit adjacency
+// mask (byte u = row u, bit v for edge u-v), held in two registers.  For
+// a permutation p the rows are permuted by one byte permute (PRMT) a
+// four rows, whose selector is the packed entry itself; then for each
+// column j, bit p_j of every row byte goes to bit j (two shifts) and the
+// rows i < j are kept (one and-or): bit 8 i + j of the key is A[p_i][p_j].
+// The key's bits are the code's in the same order of significance, so
+// the minimum key is the minimum code's; it is packed into the code once
+// a graphlet.  Codes are integers: bit-identical to the JAX program and
+// to the plain version (ops/canonical.py canonical_codes_plain).
 //
-// What bounds it on an H100: integer operations, s! * s(s-1)/2 bit reads
-// (a shift, a mask and an or each) per graphlet against 12 bytes moved;
-// at s = 5, the GraphletSampling main path, that is 1200 bit reads per
-// graphlet, and the launch and the host side of the call dominate.
+// What bounds it on an H100: integer instructions on the INT32 pipe (64
+// lanes a clock an SM), against 12 bytes moved a graphlet; at s = 5, the
+// GraphletSampling main path, 120 permutations of ~25 instructions a
+// graphlet.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,132 +42,137 @@ __host__ __device__ constexpr int factorial(int s) {
   return s <= 1 ? 1 : s * factorial(s - 1);
 }
 
-__device__ __forceinline__ uint32_t get4(uint32_t p, int i) {
-  return (p >> (4 * i)) & 15u;
+// bit j of the row bytes i < min(j, 4) (rows 0-3), and of rows 4 .. j-1
+// in the high word
+__host__ __device__ constexpr uint32_t lo_rows(int j) {
+  uint32_t m = 0u;
+  for (int i = 0; i < (j < 4 ? j : 4); ++i) m |= 1u << (8 * i + j);
+  return m;
 }
 
-__device__ __forceinline__ uint32_t set4(uint32_t p, int i, uint32_t v) {
-  return (p & ~(15u << (4 * i))) | (v << (4 * i));
+__host__ __device__ constexpr uint32_t hi_rows(int j) {
+  uint32_t m = 0u;
+  for (int i = 4; i < j; ++i) m |= 1u << (8 * (i - 4) + j);
+  return m;
 }
 
-// The permutation of rank `rank` in lexicographic order, packed.
+// The key of the graphlet (lo: rows 0-3, hi: rows 4-7 of its mask) under
+// the packed permutation w: bit 8 i + j (i < j < S) is A[p_i][p_j]; the
+// low word holds rows 0-3, the high word rows 4-7.
 template <int S>
-__device__ uint32_t decode(int rank) {
-  uint32_t avail = (1u << S) - 1u, p = 0u;
+__device__ __forceinline__ void perm_key(uint32_t lo, uint32_t hi,
+                                         uint32_t w, uint32_t& k0,
+                                         uint32_t& k1) {
+  const uint32_t r0 = __byte_perm(lo, hi, w);   // rows p_0 .. p_3
+  const uint32_t r1 = S > 5 ? __byte_perm(lo, hi, w >> 16) : 0u;
+  k0 = 0u;
+  k1 = 0u;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const int f = factorial(S - 1 - i);
-    int d = rank / f;
-    rank -= d * f;
-    int x = 0;
-    for (;; ++x) {
-      if ((avail >> x) & 1u) {
-        if (d == 0) break;
-        --d;
-      }
-    }
-    avail &= ~(1u << x);
-    p = set4(p, i, (uint32_t)x);
+  for (int j = 1; j < S; ++j) {
+    const uint32_t pj = (w >> (4 * j)) & 15u;
+    k0 |= ((r0 >> pj) << j) & lo_rows(j);
+    if (S > 5 && j > 4) k1 |= ((r1 >> pj) << j) & hi_rows(j);
   }
-  return p;
 }
 
-// The next permutation in lexicographic order (std::next_permutation);
-// called only where one exists.
+// the code of a key: bit k for the k-th pair (i, j) in row order
 template <int S>
-__device__ uint32_t next_perm(uint32_t p) {
-  int i = S - 2;
-  while (i >= 0 && get4(p, i) >= get4(p, i + 1)) --i;
-  if (i < 0) return p;
-  int j = S - 1;
-  while (get4(p, j) <= get4(p, i)) --j;
-  const uint32_t a = get4(p, i), b = get4(p, j);
-  p = set4(set4(p, i, b), j, a);
-  for (int lo = i + 1, hi = S - 1; lo < hi; ++lo, --hi) {
-    const uint32_t x = get4(p, lo), y = get4(p, hi);
-    p = set4(set4(p, lo, y), hi, x);
-  }
-  return p;
-}
-
-template <int S>
-__device__ __forceinline__ uint32_t code_of(uint64_t mask, uint32_t p) {
+__device__ __forceinline__ int code_of_key(uint32_t k0, uint32_t k1) {
   uint32_t code = 0u;
   int k = 0;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const uint32_t row = (uint32_t)(mask >> (8 * get4(p, i))) & 0xFFu;
+  for (int i = 0; i < S; ++i)
 #pragma unroll
     for (int j = i + 1; j < S; ++j) {
-      code |= ((row >> get4(p, j)) & 1u) << k;
+      const uint32_t word = i < 4 ? k0 : k1;
+      code |= ((word >> (8 * (i & 3) + j)) & 1u) << k;
       ++k;
     }
-  }
-  return code;
+  return (int)code;
 }
 
-template <int S, int G>
+template <int S, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 canonical_codes_kernel(const long long* __restrict__ masks,
+                       const uint32_t* __restrict__ table,
                        int* __restrict__ codes, int n) {
   constexpr int P = factorial(S);
-  constexpr int kPer = (P + G - 1) / G;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int g = (int)(t / G);
-  const int lane = (int)(t % G);
-  const bool active = g < n;
-  const uint64_t mask = active ? (uint64_t)masks[g] : 0ull;
-  uint32_t best = 0xFFFFFFFFu;
-  const int lo = lane * kPer;
-  const int hi = lo + kPer < P ? lo + kPer : P;
-  if (active && lo < hi) {
-    uint32_t p = decode<S>(lo);
-    for (int r = lo;;) {
-      const uint32_t c = code_of<S>(mask, p);
-      best = c < best ? c : best;
-      if (++r == hi) break;
-      p = next_perm<S>(p);
+  extern __shared__ uint32_t tab_s[];
+  const uint32_t* tab = table;
+  if (kShared) {
+    for (int i = threadIdx.x; i < P; i += kThreads) tab_s[i] = table[i];
+    __syncthreads();
+    tab = tab_s;
+  }
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n) return;   // after the block's last barrier
+  const uint64_t mask = (uint64_t)masks[g];
+  const uint32_t lo = (uint32_t)mask, hi = (uint32_t)(mask >> 32);
+  // the minimum by selects, no branch: up to s = 5 rows 0-3 hold every
+  // pair and the key is its low word
+  uint64_t best = ~0ull;
+#pragma unroll 4
+  for (int p = 0; p < P; ++p) {
+    const uint32_t w = kShared ? tab[p] : __ldg(tab + p);
+    uint32_t k0, k1;
+    perm_key<S>(lo, hi, w, k0, k1);
+    if (S <= 5) {
+      best = k0 < (uint32_t)best ? k0 : best;
+    } else {
+      const uint64_t key = ((uint64_t)k1 << 32) | k0;
+      best = key < best ? key : best;
     }
   }
-  // every lane of the warp reaches the reduction (no early return)
-  if (G == 32) {
-    best = __reduce_min_sync(0xFFFFFFFFu, best);
-  } else {
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const uint32_t o = __shfl_xor_sync(0xFFFFFFFFu, best, off, G);
-      best = o < best ? o : best;
-    }
-  }
-  if (active && lane == 0) codes[g] = (int)best;
+  codes[g] = code_of_key<S>((uint32_t)best, (uint32_t)(best >> 32));
 }
 
-template <int S, int G>
-int launch(const long long* masks, int* codes, int n, cudaStream_t stream) {
-  const long long threads = (long long)n * G;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  canonical_codes_kernel<S, G><<<blocks, kThreads, 0, stream>>>(masks, codes,
-                                                                 n);
+template <int S, bool kShared>
+int launch(const long long* masks, const uint32_t* table, int* codes, int n,
+           cudaStream_t stream) {
+  const int smem = kShared ? factorial(S) * 4 : 0;
+  if (smem > 48 * 1024) {   // s = 8 in shared memory: the opt-in
+    static bool smem_set[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64 || !smem_set[dev]) {
+      err = cudaFuncSetAttribute(canonical_codes_kernel<S, kShared>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev >= 0 && dev < 64) smem_set[dev] = true;
+    }
+  }
+  const int blocks = (n + kThreads - 1) / kThreads;
+  canonical_codes_kernel<S, kShared><<<blocks, kThreads, smem, stream>>>(
+      masks, table, codes, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // masks [n] i64 (bit u * 8 + v for edge u-v, symmetric, no diagonal);
-// codes [n] i32 output; 2 <= s <= 8.  Launches on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for another s).
-extern "C" int grakel_canonical_codes(const long long* masks, int* codes,
-                                      int n, int s, void* stream) {
+// table [s!] u32, the permutations in lexicographic order packed four
+// bits an element; codes [n] i32 output; 2 <= s <= 8; shared != 0 copies
+// the table into shared memory (s <= 7 always do).  Launches on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
+// another s).
+extern "C" int grakel_canonical_codes(const long long* masks,
+                                      const uint32_t* table, int* codes,
+                                      int n, int s, int shared,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
   switch (s) {
-    case 2: return launch<2, 1>(masks, codes, n, st);
-    case 3: return launch<3, 2>(masks, codes, n, st);
-    case 4: return launch<4, 4>(masks, codes, n, st);
-    case 5: return launch<5, 8>(masks, codes, n, st);
-    case 6: return launch<6, 32>(masks, codes, n, st);
-    case 7: return launch<7, 32>(masks, codes, n, st);
-    case 8: return launch<8, 32>(masks, codes, n, st);
+    case 2: return launch<2, true>(masks, table, codes, n, st);
+    case 3: return launch<3, true>(masks, table, codes, n, st);
+    case 4: return launch<4, true>(masks, table, codes, n, st);
+    case 5: return launch<5, true>(masks, table, codes, n, st);
+    case 6: return launch<6, true>(masks, table, codes, n, st);
+    case 7: return launch<7, true>(masks, table, codes, n, st);
+    case 8:
+      return shared ? launch<8, true>(masks, table, codes, n, st)
+                    : launch<8, false>(masks, table, codes, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -290,8 +290,11 @@ class PyramidMatch(Kernel):
         the weighted sum is exact in f32: each level is routed
         (``min_gram_route`` on its own column maxima), the levels that
         take K1 are scaled by w_p (w min(a, b) = min(w a, w b)) and
-        concatenated along L for ONE K1 call, and the K1-tc levels add
-        into its result with their weights in their own epilogues.  From
+        concatenated along L for ONE K1 call, and the K1-tc levels are
+        concatenated too, for ONE K1-tc call whose expanded columns carry
+        their level's w_p as their int8 value (w_p <= 127; heavier levels
+        fold in one call each, w_p in the epilogue), adding into K1's
+        result in its epilogue.  From
         2^24 on, each level's f32 Gram is computed apart (exact while the
         level stays below 2^24) and the levels are folded in f64, as the
         JAX package's per-level path does.  One division by 2^(L-1)
@@ -344,11 +347,27 @@ class PyramidMatch(Kernel):
             Wb = Wa if sym else np.concatenate(
                 [cj * Mb for cj, _, Mb, _ in group], axis=1)
             Kacc = min_intersection_gram(*upload(Wa, Wb), route="min_gram")
-        for (cj, Ma, Mb, mx), r in zip(levels, routes):
-            if r == "min_gram_tc":
+        tc = [lv for lv, r in zip(levels, routes) if r == "min_gram_tc"]
+        # the K1-tc levels whose weight is an int8 indicator value:
+        # concatenated for ONE K1-tc call, each column carrying its
+        # level's weight; heavier weights (L > 8) fold in one call each
+        fused = [lv for lv in tc if lv[0] <= intersect._TC_MAX_WEIGHT]
+        if fused:
+            Ma = np.concatenate([lv[1] for lv in fused], axis=1)
+            Mb = Ma if sym else np.concatenate([lv[2] for lv in fused],
+                                               axis=1)
+            mx = tuple(np.concatenate([lv[3][k] for lv in fused])
+                       for k in (0, 1))
+            w = np.concatenate([np.full(lv[1].shape[1], lv[0])
+                                for lv in fused])
+            Kacc = min_intersection_gram(
+                *upload(Ma, Mb), count_max=mx, out=Kacc,
+                route="min_gram_tc", weights=w)
+        for cj, Ma, Mb, mx in tc:
+            if cj > intersect._TC_MAX_WEIGHT:
                 Kacc = min_intersection_gram(
                     *upload(Ma, Mb), count_max=mx, out=Kacc, alpha=cj,
-                    route=r)
+                    route="min_gram_tc")
         return Kacc.to(torch.float64) / scale
 
     def _sparse_gram(self, px, py=None):

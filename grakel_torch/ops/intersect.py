@@ -12,8 +12,12 @@ package chooses between its threshold GEMM and its Pallas kernel
   width: the threshold-indicator identity
   ``sum_l min(a_l, b_l) = sum_l sum_{t <= T_l} [a_l >= t] [b_l >= t]``
   turns the Gram into one 0/1 product, computed on the tensor cores by
-  the hand-written kernel K1-tc (``csrc/min_gram_tc.cu``) over int8
-  indicators with s32 sums: exact;
+  the hand-written kernel K1-tc (``csrc/min_gram_tc.cu``, wgmma fed by
+  TMA) over int8 indicators with s32 sums: exact.  The indicators are
+  written as int8 by a hand kernel beside it (:func:`expand_thresholds`,
+  one launch for every round or level of a call); a column may carry an
+  integer weight up to 127 as its value (``weights=``), so a weighted sum
+  of Grams, PyramidMatch's levels, is one product;
 * **everything else** (real values, large counts, expansions too wide to
   pay): the CUDA-core kernel K1 (``csrc/min_gram.cu``, the port of the
   Pallas kernel ``_min_gram_kernel``), accumulating in f32 as the Pallas
@@ -32,7 +36,8 @@ the pair-tiled broadcast-min-reduce of the JAX package's
 NeighborhoodHash's Gram adds two functions over R rounds of histograms
 A [R, n, L]: :func:`min_intersection_gram_rounds` (the Pallas kernel's
 second reach, ``_min_gram_rounds_impl``: one K1 call a round by default,
-as the JAX function takes the Pallas kernel on every accelerator) and
+as the JAX function takes the Pallas kernel on every accelerator; routed,
+every round that takes K1-tc goes through ONE batched launch) and
 :func:`jaccard_gram_rounds` (``_jaccard_rounds_impl``): the rounds'
 Grams from :func:`min_intersection_gram_rounds`, each round routed,
 then the Jaccard fold K5 (``csrc/jaccard.cu``, plain version
@@ -46,8 +51,10 @@ import torch
 
 __all__ = ["min_intersection_gram", "min_gram_route", "min_gram_plain",
            "min_gram_threshold_plain", "min_gram_cuda", "min_gram_tc_cuda",
-           "k1_tile", "column_stats", "threshold_columns",
-           "expand_thresholds", "min_intersection_gram_rounds",
+           "k1_tile", "tc_tile", "TC_TILES", "column_stats",
+           "threshold_columns", "expand_thresholds",
+           "expand_thresholds_plain", "threshold_expand_cuda",
+           "min_intersection_gram_rounds",
            "jaccard_gram_rounds", "jaccard_fold_plain", "jaccard_fold_cuda",
            "K5_TILE"]
 
@@ -56,16 +63,21 @@ _GEMM_MAX_T = 2048
 # K1-tc is taken while W' <= ratio * L, one ratio per call form.
 # chip_smoke.py measures the break-even ratio at the labeled NCI1-scale
 # levels: the W' / L at which K1-tc, its expansion included, costs as
-# much device time as K1.  On an H100 80GB HBM3 at 700 W (PERF.md):
-# symmetric 4110 x 4110 (fit_transform; both kernels compute the block
-# triangle) 8.82 to 9.62; rectangular 411 x 3699 (transform of a 10-fold
-# split; K1-tc expands A and B) 3.09 to 3.26.  Each limit is the floor
-# of its smallest reading.  They are verified at these shapes only: a
-# smaller transform batch expands B for fewer products and favours K1.
-_TC_MAX_RATIO_SYM = 8.0
-_TC_MAX_RATIO_RECT = 3.0
-# K1-tc's rows are staged in 16-byte copies: W' pads to a multiple
+# much device time as K1.  On an H100 80GB HBM3 at 700 W (PERF.md), with
+# the wgmma K1-tc and its expansion kernel: symmetric 4110 x 4110
+# (fit_transform; both kernels compute the block triangle) 13.73 to
+# 17.21; rectangular 411 x 3699 (transform of a 10-fold split; K1-tc
+# expands A and B) 7.81 to 9.76 (the mma.sync design: 8.82 to 9.62 and 3.09 to
+# 3.26).  Each limit is the floor of its smallest reading.  They are
+# verified at these shapes only: a smaller transform batch expands B
+# for fewer products and favours K1.
+_TC_MAX_RATIO_SYM = 13.0
+_TC_MAX_RATIO_RECT = 7.0
+# K1-tc's rows are read by TMA, whose row strides are multiples of 16
+# bytes: W' pads to a multiple
 _TC_K_ALIGN = 16
+# a column's weight is its int8 indicator value
+_TC_MAX_WEIGHT = 127
 
 
 def min_gram_plain(A, B, tile=64):
@@ -128,53 +140,117 @@ def column_stats(A, B):
     return max_a[0], max_b[0], bool(integer[0])
 
 
-def threshold_columns(T, align=_TC_K_ALIGN):
+def _check_weights(weights, L):
+    """``weights`` as int64 numpy [L]: integers in 0.._TC_MAX_WEIGHT."""
+    w = np.asarray(weights)
+    if w.shape != (L,) or not np.all(w == np.floor(w)) \
+            or (w.size and (w.min() < 0 or w.max() > _TC_MAX_WEIGHT)):
+        raise ValueError("weights must be %d integers in 0..%d (an int8 "
+                         "indicator value)" % (L, _TC_MAX_WEIGHT))
+    return w.astype(np.int64)
+
+
+def threshold_columns(T, weights=None, align=_TC_K_ALIGN):
     """The expanded columns for per-column thresholds ``T`` (nonnegative
     integers, length L): int32 [2, W'p] of (source column, threshold)
     with ``E[:, w] = A[:, src[w]] >= thr[w]``, columns ``(l, t)`` for
-    t = 1..T_l in l order, then zero columns (threshold 2^31 - 1) up to
-    a multiple of ``align``."""
+    t = 1..T_l in l order, then zero columns (source 0, threshold 2^31 -
+    1) up to a multiple of ``align``.  ``weights`` (length L, integers
+    0..127) adds a third row, each column's value ``weights[src[w]]``
+    (0 on the padding).  T [R, L] (rounds) gives [R, 2 or 3, W'p], every
+    round padded to the widest one's W'p."""
     T = np.asarray(T).astype(np.int64)
+    if T.ndim == 2:
+        parts = [threshold_columns(t, weights, align) for t in T]
+        wp = max([p.shape[1] for p in parts], default=0)
+        rows = 2 if weights is None else 3
+        cols = np.zeros((len(parts), rows, wp), np.int32)
+        cols[:, 1] = np.iinfo(np.int32).max
+        for r, p in enumerate(parts):
+            cols[r, :, :p.shape[1]] = p
+        return cols
     width = int(T.sum())
-    cols = np.zeros((2, -(-width // align) * align), np.int32)
+    rows = 2 if weights is None else 3
+    cols = np.zeros((rows, -(-width // align) * align), np.int32)
     cols[1, width:] = np.iinfo(np.int32).max
     cols[0, :width] = np.repeat(np.arange(T.size), T)
     starts = np.cumsum(T) - T
     cols[1, :width] = np.arange(width) - np.repeat(starts, T) + 1
+    if weights is not None:
+        cols[2, :width] = _check_weights(weights, T.size)[cols[0, :width]]
     return cols
 
 
-def expand_thresholds(X, cols):
-    """0/1 int8 [n, W'p] indicators ``X[:, cols[0]] >= cols[1]`` of f32
-    X [n, L], with ``cols`` from :func:`threshold_columns` on X's
-    device."""
-    return (X.index_select(1, cols[0]) >= cols[1]).view(torch.int8)
+def expand_thresholds_plain(X, cols, weighted=True, indicators=False):
+    """Plain PyTorch threshold expansion: int8 ``E[..., i, w] = X[...,
+    i, src_w] >= thr_w`` times the column's value (``cols``' third row
+    when ``weighted`` and present, else 1), for f32 X [n, L] with cols
+    [2 or 3, W'p], or X [R, n, L] with cols [R, 2 or 3, W'p] (one set a
+    round), on X's device.  ``indicators`` returns (E, the 0/1
+    indicators).  Works on any device."""
+    batched = X.dim() == 3
+    Xb, cb = (X, cols) if batched else (X[None], cols[None])
+    R, n, _ = Xb.shape
+    W = cb.shape[-1]
+    src = cb[:, 0].long()[:, None, :].expand(R, n, W)
+    hit = torch.gather(Xb, 2, src) >= cb[:, 1][:, None, :]
+    E01 = hit.to(torch.int8)
+    E = E01
+    if weighted and cb.shape[1] == 3:
+        E = torch.where(hit, cb[:, 2][:, None, :],
+                        torch.zeros((), dtype=cb.dtype,
+                                    device=cb.device)).to(torch.int8)
+    if not batched:
+        E, E01 = E[0], E01[0]
+    return (E, E01) if indicators else E
+
+
+def expand_thresholds(X, cols, weighted=True, indicators=False):
+    """The int8 indicators of :func:`expand_thresholds_plain` (same
+    arguments, ``cols`` from :func:`threshold_columns` on X's device):
+    the expansion kernel (:func:`threshold_expand_cuda`, one launch) for
+    CUDA tensors, the plain version for CPU tensors."""
+    if X.device.type == "cuda":
+        return threshold_expand_cuda(X, cols, weighted, indicators)
+    return expand_thresholds_plain(X, cols, weighted, indicators)
 
 
 def _indicator_product_plain(EA, EB):
-    """Exact E_A E_B^T of 0/1 indicators as f32: an f64 product, exact
-    while W' < 2^53."""
-    return (EA.to(torch.float64) @ EB.to(torch.float64).T).to(torch.float32)
+    """Exact E_A E_B^T of int8 indicators (values to 127) as f32: an
+    f64 product, exact while the sums stay below 2^53; [n, k] x [m, k]
+    or batched [R, n, k] x [R, m, k]."""
+    return torch.matmul(EA.to(torch.float64),
+                        EB.to(torch.float64).transpose(-1, -2)).to(
+                            torch.float32)
 
 
-def min_gram_threshold_plain(A, B):
+def min_gram_threshold_plain(A, B, weights=None):
     """Plain PyTorch min-intersection Gram of nonnegative integer-valued
-    A [n, L] and B [m, L] by the threshold expansion K1-tc computes
-    (:func:`threshold_columns`, :func:`expand_thresholds`) and an exact
-    f64 product.  Works on any device; f32 [n, m]."""
+    A [n, L] and B [m, L], or of each round of A [R, n, L] and B [R, m,
+    L], by the threshold expansion K1-tc computes
+    (:func:`threshold_columns`, :func:`expand_thresholds_plain`) and an
+    exact f64 product; with ``weights`` (L integers 0..127) ``sum_l
+    weights[l] min(A[i, l], B[j, l])``, the weights on A's indicators.
+    Works on any device; f32 [n, m] or [R, n, m]."""
+    batched = A.dim() == 3
     A = A.to(torch.float32).contiguous()
     B = B.to(torch.float32).contiguous()
-    if A.shape[0] == 0 or B.shape[0] == 0 or A.shape[1] == 0:
-        return torch.zeros((A.shape[0], B.shape[0]), dtype=torch.float32,
-                           device=A.device)
-    max_a, max_b, integer = column_stats(A, B)
-    if not integer:
+    A3, B3 = (A, B) if batched else (A[None], B[None])
+    R, n, L = A3.shape
+    m = B3.shape[1]
+    if n == 0 or m == 0 or L == 0 or R == 0:
+        K = torch.zeros((R, n, m), dtype=torch.float32, device=A.device)
+        return K if batched else K[0]
+    max_a, max_b, integer = _round_stats(A3, B3)
+    if not integer.all():
         raise ValueError("min_gram_threshold_plain: inputs must be "
                          "nonnegative integers")
-    cols = torch.from_numpy(threshold_columns(np.minimum(max_a, max_b)))
-    cols = cols.to(A.device)
-    return _indicator_product_plain(expand_thresholds(A, cols),
-                                    expand_thresholds(B, cols))
+    cols = torch.from_numpy(threshold_columns(np.minimum(max_a, max_b),
+                                              weights)).to(A.device)
+    K = _indicator_product_plain(
+        expand_thresholds_plain(A3, cols),
+        expand_thresholds_plain(B3, cols, weighted=False))
+    return K if batched else K[0]
 
 
 # --------------------------------------------------------------------- #
@@ -253,49 +329,178 @@ def min_gram_cuda(A, B, out=None, alpha=1.0, tile=None):
 min_gram_cuda.launches = 0
 
 
-def min_gram_tc_cuda(EA, EB, out=None, alpha=1.0):
-    """Launch K1-tc (``csrc/min_gram_tc.cu``): ``alpha * EA @ EB.T`` as
-    f32 [n, m], added into ``out`` (f32 [n, m], contiguous) when given.
-    ``EA`` [n, k] and ``EB`` [m, k] are contiguous 0/1 int8 CUDA tensors
-    on one device with k a multiple of 16; ``EB is EA`` computes the
-    upper block triangle and mirrors it.  Returns the result tensor."""
+# K1-tc's instantiations (csrc/min_gram_tc.cu): id -> (tile rows BM,
+# tile columns BN); BM / 64 consumer warpgroups, BN the wgmma width
+TC_TILES = {0: (128, 128), 1: (64, 64), 2: (64, 128), 3: (128, 256)}
+# a call's grid should have a block for at least half the SMs of an H100
+# (132): a wider tile reads fewer operand bytes from L2 a product, and at
+# NH's transform shape (3 x 64 x 4110) 99 blocks of 64 x 128 ran faster
+# than 195 of 64 x 64 (chip_smoke.py's tile sweep, PERF.md)
+_TC_FILL_BLOCKS = 66
+
+
+def tc_tile(R, n, m, symmetric):
+    """The K1-tc instantiation (a ``TC_TILES`` id) for R rounds of an n x
+    m Gram: the first of 128 x 256, 128 x 128, 64 x 128, 64 x 64 (64-row
+    tiles only when n <= 64) whose grid (R times the tiles that hold an
+    entry on or above the diagonal when ``symmetric``, else the
+    rectangle's) has at least ``_TC_FILL_BLOCKS`` blocks, else the
+    smallest."""
+    def blocks(t):
+        bm, bn = TC_TILES[t]
+        tn, tm = -(-n // bm), -(-m // bn)
+        if symmetric:
+            f = bn // bm
+            return R * (f * tm * (tm + 1) // 2 - (f * tm - tn))
+        return R * tn * tm
+    order = [3, 0, 2, 1] if n > 64 else [2, 1]
+    for t in order:
+        if blocks(t) >= _TC_FILL_BLOCKS:
+            return t
+    return order[-1]
+
+
+def min_gram_tc_cuda(EA, EB, out=None, alpha=1.0, symmetric=None,
+                     tile=None):
+    """Launch K1-tc (``csrc/min_gram_tc.cu``): ``alpha * EA @ EB^T`` as
+    f32 [n, m], added into ``out`` when given, for int8 ``EA`` [n, k] and
+    ``EB`` [m, k], or for each round of ``EA`` [R, n, k] and ``EB`` [R, m,
+    k] into [R, n, m] in ONE launch.  Contiguous CUDA tensors on one
+    device, k a multiple of 16, values up to 127 (s32 sums, f32 exact
+    below 2^24).  ``symmetric`` (default: ``EB is EA``) is the caller's
+    promise that each product is symmetric (EA may carry column weights
+    of EB's indicators) and needs n == m: only the tiles that hold an
+    entry on or above the diagonal are computed, and mirrored.  ``tile``
+    (a ``TC_TILES`` id) overrides
+    :func:`tc_tile`, for measurements.  Returns the result tensor."""
     from .. import _build
     dev = EA.device
     if dev.type != "cuda" or EB.device != dev:
         raise ValueError("min_gram_tc_cuda: EA and EB must be CUDA tensors "
                          "on one device")
     for X, name in ((EA, "EA"), (EB, "EB")):
-        if X.dtype != torch.int8 or X.dim() != 2 or not X.is_contiguous():
-            raise ValueError("min_gram_tc_cuda: %s must be a contiguous 2-D "
-                             "int8 tensor" % name)
-    n, k = EA.shape
-    m = EB.shape[0]
-    if EB.shape[1] != k or k % _TC_K_ALIGN:
+        if X.dtype != torch.int8 or X.dim() not in (2, 3) \
+                or X.dim() != EA.dim() or not X.is_contiguous() \
+                or X.data_ptr() % 16:
+            raise ValueError("min_gram_tc_cuda: %s must be a contiguous, "
+                             "16-byte aligned 2-D or 3-D int8 tensor, as "
+                             "the other" % name)
+    batched = EA.dim() == 3
+    R = EA.shape[0] if batched else 1
+    n, k = EA.shape[-2:]
+    m = EB.shape[-2]
+    if EB.shape[-1] != k or k % _TC_K_ALIGN or (batched
+                                                and EB.shape[0] != R):
         raise ValueError("min_gram_tc_cuda: EA and EB need one width, a "
-                         "multiple of %d (got %d and %d)"
-                         % (_TC_K_ALIGN, k, EB.shape[1]))
-    if max(n, m, k) >= 1 << 31 or (n + 127) // 128 > 65535:
-        raise ValueError("min_gram_tc_cuda: shape (%d, %d, %d) out of range"
-                         % (n, m, k))
+                         "multiple of %d, and one round count (got %s and "
+                         "%s)" % (_TC_K_ALIGN, tuple(EA.shape),
+                                  tuple(EB.shape)))
+    sym = EB is EA if symmetric is None else bool(symmetric)
+    if sym and n != m:
+        raise ValueError("min_gram_tc_cuda: a symmetric call needs n == m")
+    if max(n, m, k, R) >= 1 << 31:
+        raise ValueError("min_gram_tc_cuda: shape %s x %s out of range"
+                         % (tuple(EA.shape), tuple(EB.shape)))
+    if tile is None:
+        tile = tc_tile(R, n, m, sym)
+    elif tile not in TC_TILES:
+        raise ValueError("min_gram_tc_cuda: no tile %r (have %s)"
+                         % (tile, sorted(TC_TILES)))
+    shape = (R, n, m) if batched else (n, m)
     if out is None:
-        out, accumulate = torch.empty((n, m), dtype=torch.float32,
+        out, accumulate = torch.empty(shape, dtype=torch.float32,
                                       device=dev), 0
     else:
-        if out.shape != (n, m) or out.dtype != torch.float32 \
+        if tuple(out.shape) != shape or out.dtype != torch.float32 \
                 or out.device != dev or not out.is_contiguous():
             raise ValueError("min_gram_tc_cuda: out must be a contiguous "
-                             "f32 [%d, %d] tensor on %s" % (n, m, dev))
+                             "f32 %s tensor on %s" % (list(shape), dev))
         accumulate = 1
-    if n == 0 or m == 0:
+    if n == 0 or m == 0 or R == 0:
         return out
     _build.launch("grakel_min_gram_tc", dev, EA.data_ptr(), EB.data_ptr(),
-                  out.data_ptr(), n, m, k, float(alpha), accumulate,
-                  int(EB is EA))
+                  out.data_ptr(), R, n, m, k, float(alpha), accumulate,
+                  int(sym), tile)
     min_gram_tc_cuda.launches += 1
     return out
 
 
 min_gram_tc_cuda.launches = 0
+
+
+def min_gram_tc_mma_cuda(EA, EB):
+    """Launch the earlier mma.sync design of K1-tc
+    (``csrc/min_gram_tc_mma.cu``: one launch a 2-D product, the full
+    square's tiles with those below the diagonal returning when ``EB is
+    EA``): ``EA @ EB^T`` as f32 for 2-D arguments of
+    :func:`min_gram_tc_cuda`.  Kept for measurement only
+    (``chip_smoke.py`` times it beside K1-tc); no path calls it."""
+    from .. import _build
+    if EA.dim() != 2 or EB.dim() != 2 or EA.dtype != torch.int8 \
+            or EB.dtype != torch.int8 or EA.device.type != "cuda" \
+            or EB.device != EA.device or not EA.is_contiguous() \
+            or not EB.is_contiguous() or EA.shape[1] != EB.shape[1] \
+            or EA.shape[1] % _TC_K_ALIGN:
+        raise ValueError("min_gram_tc_mma_cuda: need contiguous 2-D int8 "
+                         "CUDA tensors of one width, a multiple of %d"
+                         % _TC_K_ALIGN)
+    n, k = EA.shape
+    m = EB.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=EA.device)
+    if n and m:
+        _build.launch("grakel_min_gram_tc_mma", EA.device, EA.data_ptr(),
+                      EB.data_ptr(), out.data_ptr(), n, m, k, 1.0, 0,
+                      int(EB is EA))
+        min_gram_tc_mma_cuda.launches += 1
+    return out
+
+
+min_gram_tc_mma_cuda.launches = 0
+
+
+def threshold_expand_cuda(X, cols, weighted=True, indicators=False):
+    """Launch the expansion kernel beside K1-tc (``csrc/min_gram_tc.cu``
+    ``grakel_threshold_expand``): :func:`expand_thresholds_plain`'s int8
+    indicators, equal bit for bit, for contiguous f32 X [n, L] with int32
+    ``cols`` [2 or 3, W'p], or X [R, n, L] with cols [R, 2 or 3, W'p], on
+    one CUDA device (W'p a multiple of 4; the values, ``cols``' third
+    row, at most 127 as :func:`threshold_columns` writes them).  One
+    launch writes E and, with ``indicators``, the 0/1 indicators beside
+    it: returns (E, E01)."""
+    from .. import _build
+    dev = X.device
+    if not (dev.type == "cuda" and cols.device == dev
+            and X.dtype == torch.float32 and cols.dtype == torch.int32
+            and X.is_contiguous() and cols.is_contiguous()
+            and X.dim() in (2, 3) and cols.dim() == X.dim()
+            and cols.shape[-2] in (2, 3) and cols.shape[-1] % 4 == 0
+            and (X.dim() == 2 or cols.shape[0] == X.shape[0])
+            and max(X.shape) < 1 << 31 and cols.shape[-1] < 1 << 31):
+        raise ValueError("threshold_expand_cuda: need contiguous f32 X [n, "
+                         "L] (or [R, n, L]) and int32 cols [2 or 3, W'p] "
+                         "(or [R, 2 or 3, W'p]), W'p a multiple of 4, on "
+                         "one CUDA device")
+    batched = X.dim() == 3
+    R = X.shape[0] if batched else 1
+    n, L = X.shape[-2:]
+    W = cols.shape[-1]
+    use_val = int(weighted and cols.shape[-2] == 3)
+    shape = (R, n, W) if batched else (n, W)
+    E = torch.empty(shape, dtype=torch.int8, device=dev)
+    E01 = torch.empty(shape, dtype=torch.int8, device=dev) \
+        if indicators and use_val else None
+    if n and W and R:
+        _build.launch("grakel_threshold_expand", dev, X.data_ptr(),
+                      cols.data_ptr(), E.data_ptr(),
+                      0 if E01 is None else E01.data_ptr(), R, n, L, W,
+                      cols.shape[-2], use_val)
+        threshold_expand_cuda.launches += 1
+    if indicators:
+        return E, (E if E01 is None else E01)
+    return E
+
+
+threshold_expand_cuda.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -310,13 +515,40 @@ def _fold(K, out, alpha):
     return K if alpha == 1.0 else K.mul_(alpha)
 
 
+def _threshold_gram(A, B, T, weights=None, out=None, alpha=1.0):
+    """The threshold route for each round of A [R, n, L] and B [R, m, L]
+    (None: B is A) on one device, thresholds T [R, L] (numpy): one
+    expansion launch a side (one for both when B is A and weighted), then
+    ONE K1-tc launch for all rounds on CUDA tensors, the exact f64
+    product on CPU tensors.  ``weights`` (L integers 0..127) go on A's
+    indicators.  Returns ``alpha * K`` [R, n, m], or adds it into
+    ``out``."""
+    sym = B is None
+    cols = torch.from_numpy(threshold_columns(T, weights)).to(
+        A.device, non_blocking=True)   # from pageable memory: staged at once
+    if weights is None:
+        EA = expand_thresholds(A, cols)
+        EB = EA if sym else expand_thresholds(B, cols)
+    elif sym:
+        EA, EB = expand_thresholds(A, cols, indicators=True)
+    else:
+        EA = expand_thresholds(A, cols)
+        EB = expand_thresholds(B, cols, weighted=False)
+    if A.device.type == "cuda":
+        return min_gram_tc_cuda(EA, EB, out, alpha, symmetric=sym)
+    return _fold(_indicator_product_plain(EA, EB), out, alpha)
+
+
 def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
-                          out=None, alpha=1.0, route=None):
+                          out=None, alpha=1.0, route=None, weights=None):
     """K[i, j] = sum_l min(A[i, l], B[j, l]); B defaults to A.
 
     A: [n, L], B: [m, L] tensors on one device, taken as f32.  Returns
     ``alpha * K`` as an f32 [n, m] tensor on that device, or adds it into
-    ``out`` (f32 [n, m]) and returns ``out``.
+    ``out`` (f32 [n, m]) and returns ``out``.  ``weights`` (L integers
+    0..127) weight the columns: ``K[i, j] = sum_l weights[l] min(A[i, l],
+    B[j, l])``, on K1-tc as its indicators' values, on K1 as the columns
+    scaled (w min(a, b) = min(w a, w b)).
 
     The route (:func:`min_gram_route`) needs the column maxima and
     whether every entry is a nonnegative integer; they are read from the
@@ -328,8 +560,8 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     the device data.  Inputs that break it give a wrong Gram.  ``route``
     (``"min_gram"`` or ``"min_gram_tc"``) names the kernel instead of
     routing; ``"min_gram"`` reads nothing, ``"min_gram_tc"`` needs counts
-    as above.  CUDA tensors launch K1-tc or K1; CPU tensors take their
-    plain versions."""
+    as above.  CUDA tensors launch K1-tc (after the expansion kernel) or
+    K1; CPU tensors take their plain versions."""
     sym = B is None or B is A
     B = A if B is None else B
     if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
@@ -343,6 +575,8 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("min_intersection_gram: unsupported device %s"
                          % dev)
+    if weights is not None:
+        weights = _check_weights(weights, A.shape[1])
     A = A.to(torch.float32).contiguous()
     B = A if sym else B.to(torch.float32).contiguous()
     n, m = A.shape[0], B.shape[0]
@@ -369,15 +603,14 @@ def min_intersection_gram(A, B=None, tile=64, *, count_max=None,
             raise ValueError("min_intersection_gram: route min_gram_tc "
                              "needs nonnegative integer inputs")
     if route == "min_gram_tc":
-        # from pageable memory a non-blocking copy is staged at once and
-        # waits for nothing queued on the card
-        cols = torch.from_numpy(threshold_columns(
-            np.minimum(max_a, max_b))).to(dev, non_blocking=True)
-        EA = expand_thresholds(A, cols)
-        EB = EA if sym else expand_thresholds(B, cols)
-        if dev.type == "cuda":
-            return min_gram_tc_cuda(EA, EB, out, alpha)
-        return _fold(_indicator_product_plain(EA, EB), out, alpha)
+        K = _threshold_gram(A[None], None if sym else B[None],
+                            np.minimum(max_a, max_b)[None], weights,
+                            None if out is None else out[None], alpha)
+        return K[0] if out is None else out
+    if weights is not None:
+        w = torch.from_numpy(weights.astype(np.float32)).to(dev)
+        A = A * w
+        B = A if sym else B * w
     if dev.type == "cuda":
         return min_gram_cuda(A, B, out, alpha)
     return _fold(min_gram_plain(A, B, tile), out, alpha)
@@ -406,15 +639,18 @@ def min_intersection_gram_rounds(A, B=None, *, route="min_gram",
     The counterpart of ``grakel_tpu/ops/intersect.py:
     min_intersection_gram_rounds``, which returns its PADDED device
     array for the caller to slice; this returns the unpadded stack.
-    One :func:`min_intersection_gram` call a round, each adding into its
-    slice of one zeroed stack through the kernels' ``out=`` epilogue.
     ``route="min_gram"`` (the default) takes K1 every round, as the JAX
-    function takes the Pallas kernel on every accelerator; ``route=None``
-    routes each round with :func:`min_gram_route` on its column maxima:
-    ``count_max=(max_a, max_b)``, numpy [R, L] each, under
-    :func:`min_intersection_gram`'s contract (nonnegative integer counts
-    with these maxima, not checked), or else read with the integer check
-    for all rounds in one device-to-host copy."""
+    function takes the Pallas kernel on every accelerator: one K1 call a
+    round, each adding into its slice of one zeroed stack through K1's
+    ``out=`` epilogue.  ``route=None`` routes each round with
+    :func:`min_gram_route` on its column maxima: ``count_max=(max_a,
+    max_b)``, numpy [R, L] each, under :func:`min_intersection_gram`'s
+    contract (nonnegative integer counts with these maxima, not checked),
+    or else read with the integer check for all rounds in one
+    device-to-host copy.  The rounds that take K1-tc go through one
+    expansion launch a side and ONE K1-tc launch, which stores their
+    Grams into the stack (every round's expansion padded to the widest
+    round's W'); the rounds that take K1 stay K1 calls."""
     sym = B is None or B is A
     B = A if B is None else B
     _check_rounds(A, B, "min_intersection_gram_rounds")
@@ -425,20 +661,31 @@ def min_intersection_gram_rounds(A, B=None, *, route="min_gram",
     B = A if sym else B.to(torch.float32).contiguous()
     R, n, _ = A.shape
     m = B.shape[1]
-    out = torch.zeros((R, n, m), dtype=torch.float32, device=A.device)
     if R == 0 or n == 0 or m == 0:
-        return out
-    kws = [{"route": "min_gram"}] * R
+        return torch.zeros((R, n, m), dtype=torch.float32, device=A.device)
+    tc = []
     if route is None:
         if count_max is None:
             max_a, max_b, integer = _round_stats(A, B)
         else:
             (max_a, max_b), integer = count_max, [True] * R
-        kws = [{"count_max": (max_a[r], max_b[r])} if integer[r]
-               else {"route": "min_gram"} for r in range(R)]
-    for r in range(R):
+        max_a, max_b = np.asarray(max_a), np.asarray(max_b)
+        tc = [r for r in range(R) if integer[r] and min_gram_route(
+            max_a[r], max_b[r], True, sym) == "min_gram_tc"]
+    k1 = [r for r in range(R) if r not in tc]
+    if not k1:
+        T = np.minimum(max_a, max_b)
+        return _threshold_gram(A, None if sym else B, T)
+    out = torch.zeros((R, n, m), dtype=torch.float32, device=A.device)
+    if tc:
+        idx = torch.tensor(tc, device=A.device)
+        At = A.index_select(0, idx)
+        T = np.minimum(max_a[tc], max_b[tc])
+        out[idx] = _threshold_gram(
+            At, None if sym else B.index_select(0, idx), T)
+    for r in k1:
         min_intersection_gram(A[r], None if sym else B[r], out=out[r],
-                              **kws[r])
+                              route="min_gram")
     return out
 
 

@@ -30,7 +30,7 @@ def cuda():
     return torch.device("cuda")
 
 
-# counts below 9 give W' ~ 8 L, above the rectangular route limit (3 L):
+# counts below 9 give W' ~ 8 L, above the rectangular route limit (7 L):
 # these calls take the CUDA-core K1; counts below 3 (W' <= 2 L) and the
 # 1 x 1 case (W' = 3 L) take K1-tc
 @pytest.mark.parametrize("n,m,L,hi,route", [
@@ -98,6 +98,148 @@ def test_min_gram_tc_kernel_matches_threshold_plain(cuda, n, m, L, hi, sym):
     assert torch.equal(intersect.min_gram_tc_cuda(EA, EB, alpha=4.0),
                        4.0 * R)
     assert intersect.min_gram_tc_cuda.launches == before + 3
+
+
+def _tc_counts(rng, R, n, L, hi, device):
+    X = torch.tensor(rng.randint(0, hi, (R, n, L)), dtype=torch.float32,
+                     device=device)
+    X[:, : n // 10] = 0               # all-zero rows
+    X[:, :, ::7] = 0                  # all-zero columns
+    return X
+
+
+# skinny and ragged n (one tile row of 64 and its neighbours) against
+# ragged m, widths whose W' is no multiple of 32 (nor of 128, the stage)
+@pytest.mark.parametrize("n,m,L,hi", [
+    (1, 77, 5, 4), (63, 1001, 40, 3), (64, 130, 33, 5), (65, 65, 29, 4),
+    (300, 257, 64, 9), (129, 129, 100, 3)])
+def test_min_gram_tc_batched_weighted_every_tile(cuda, n, m, L, hi):
+    """K1-tc against its plain version exactly, at every instantiation:
+    R rounds in one launch (rect, and symmetric when n == m, the block
+    triangle mirrored), weighted indicators (symmetric: weights on EA,
+    EB the 0/1 indicators of the same counts), the alpha / out epilogue;
+    the expansion kernel against its plain version bit for bit."""
+    rng = np.random.RandomState(n * 13 + m + L)
+    R = 3
+    A = _tc_counts(rng, R, n, L, hi, cuda)
+    B = _tc_counts(rng, R, m, L, hi, cuda)
+    T = np.minimum(A.amax(1).cpu().numpy(), B.amax(1).cpu().numpy())
+    w = rng.randint(1, 128, L)
+    cols = torch.from_numpy(intersect.threshold_columns(T, w)).to(cuda)
+    ne = intersect.threshold_expand_cuda.launches
+    EA, EA01 = intersect.expand_thresholds(A, cols, indicators=True)
+    EB = intersect.expand_thresholds(B, cols, weighted=False)
+    assert intersect.threshold_expand_cuda.launches == ne + 2
+    pa, pa01 = intersect.expand_thresholds_plain(A, cols, indicators=True)
+    assert torch.equal(EA, pa) and torch.equal(EA01, pa01)
+    assert torch.equal(EB, intersect.expand_thresholds_plain(
+        B, cols, weighted=False))
+    want = intersect._indicator_product_plain(EA, EB)
+    assert torch.equal(want, intersect.min_gram_threshold_plain(A, B, w))
+    base = torch.tensor(rng.randint(0, 50, (R, n, m)), dtype=torch.float32,
+                        device=cuda)
+    for tile in sorted(intersect.TC_TILES):
+        before = intersect.min_gram_tc_cuda.launches
+        K = intersect.min_gram_tc_cuda(EA, EB, tile=tile)
+        out = base.clone()
+        got = intersect.min_gram_tc_cuda(EA, EB, out=out, alpha=3.0,
+                                         tile=tile)
+        K2 = intersect.min_gram_tc_cuda(EA[1], EB[1], tile=tile)
+        torch.cuda.synchronize()
+        assert intersect.min_gram_tc_cuda.launches == before + 3
+        assert torch.equal(K, want), tile
+        assert got is out and torch.equal(out, base + 3.0 * want), tile
+        assert torch.equal(K2, want[1]), tile
+    if n != m:
+        return
+    # symmetric: A's weighted indicators against its own 0/1 ones
+    wsym = intersect._indicator_product_plain(EA, EA01)
+    for tile in sorted(intersect.TC_TILES):
+        Ks = intersect.min_gram_tc_cuda(EA, EA01, symmetric=True, tile=tile)
+        Ku = intersect.min_gram_tc_cuda(EA01, EA01, tile=tile)
+        out = base.clone()
+        intersect.min_gram_tc_cuda(EA, EA01, out=out, alpha=0.5,
+                                   symmetric=True, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(Ks, wsym) and torch.equal(Ks, Ks.transpose(1, 2))
+        assert torch.equal(Ku, intersect._indicator_product_plain(EA01, EA01))
+        assert torch.equal(out, base + 0.5 * wsym), tile
+
+
+def test_min_gram_tc_wrapper_refusals(cuda):
+    E = torch.ones((2, 4, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E, E[0])                 # 3-D with 2-D
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E, E[:1].contiguous())   # round counts
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E[0], E[0][:3].contiguous(),
+                                   symmetric=True)          # n != m
+    with pytest.raises(ValueError, match="tile"):
+        intersect.min_gram_tc_cuda(E, E, tile=9)            # no such tile
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E.view(torch.uint8), E)  # dtype
+    with pytest.raises(ValueError):
+        intersect.min_gram_tc_cuda(E.cpu(), E.cpu())        # device
+    X = torch.ones((4, 6), device=cuda)
+    cols = torch.from_numpy(intersect.threshold_columns(
+        np.full(6, 2), np.full(6, 9))).to(cuda)
+    for bad in ((X.double(), cols), (X, cols.long()), (X.cpu(), cols.cpu()),
+                (X.t(), cols), (X[None], cols), (X, cols[:, :6])):
+        with pytest.raises(ValueError):
+            intersect.threshold_expand_cuda(*bad)
+    with pytest.raises(ValueError, match="weights"):
+        intersect.min_intersection_gram(X, weights=np.full(6, 128),
+                                        route="min_gram_tc")
+    with pytest.raises(ValueError, match="weights"):
+        intersect.threshold_columns(np.full(6, 2), np.full(6, 200))
+
+
+def test_rounds_one_tc_launch_per_call(cuda):
+    """min_intersection_gram_rounds(route=None) with every round on
+    K1-tc: one expansion launch a side and ONE K1-tc launch that stores
+    the stack, symmetric and rectangular, equal to the CPU run."""
+    rng = np.random.RandomState(9)
+    A = _tc_counts(rng, 3, 200, 256, 3, cuda)
+    B = _tc_counts(rng, 3, 64, 256, 3, cuda)
+    for Y in (None, B):
+        n0 = (intersect.min_gram_tc_cuda.launches,
+              intersect.threshold_expand_cuda.launches,
+              intersect.min_gram_cuda.launches)
+        K = intersect.min_intersection_gram_rounds(A, Y, route=None)
+        torch.cuda.synchronize()
+        assert (intersect.min_gram_tc_cuda.launches - n0[0],
+                intersect.threshold_expand_cuda.launches - n0[1],
+                intersect.min_gram_cuda.launches - n0[2]) == (
+                    1, 1 if Y is None else 2, 0)
+        Kc = intersect.min_intersection_gram_rounds(
+            A.cpu(), None if Y is None else Y.cpu(), route=None)
+        assert torch.equal(K.cpu(), Kc)
+
+
+def test_pm_labeled_one_tc_launch_per_gram(cuda, monkeypatch):
+    """Labeled PyramidMatch with every level on K1-tc (the route limits
+    set past any W' / L): ONE K1-tc launch for the fit_transform Gram and
+    one for the transform's (its levels' weights as indicator values), no
+    K1, and the Grams equal the CPU's bit for bit."""
+    monkeypatch.setattr(intersect, "_TC_MAX_RATIO_SYM", float("inf"))
+    monkeypatch.setattr(intersect, "_TC_MAX_RATIO_RECT", float("inf"))
+    train, test = generate_dataset(n_graphs=120, n_graphs_test=20,
+                                   r_vertices=(5, 40), random_state=3,
+                                   features=("nl", 5))
+    train, test = normalize_input(train), normalize_input(test)
+    k = grakel_torch.PyramidMatch(with_labels=True)
+    n1, ntc = intersect.min_gram_cuda.launches, \
+        intersect.min_gram_tc_cuda.launches
+    K = k.fit_transform(train)
+    assert intersect.min_gram_tc_cuda.launches == ntc + 1
+    T = k.transform(test)
+    assert intersect.min_gram_tc_cuda.launches == ntc + 2
+    assert intersect.min_gram_cuda.launches == n1
+    with use_device("cpu"):
+        kc = grakel_torch.PyramidMatch(with_labels=True)
+        Kc, Tc = kc.fit_transform(train), kc.transform(test)
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
 
 
 def _k1_inputs(seed, n, L, integer, device):
@@ -664,8 +806,9 @@ def test_jaccard_fold_kernel_bit_identical(cuda, R, n, m, route):
 
 @pytest.mark.parametrize("sym", [True, False])
 def test_jaccard_gram_rounds_on_card(cuda, sym):
-    """jaccard_gram_rounds on the card: one routed kernel call a round
-    and one K5 launch, equal to the CPU run bit for bit."""
+    """jaccard_gram_rounds on the card: one K1 call a round that routes
+    to K1 and ONE K1-tc launch for the rounds that route to K1-tc, one K5
+    launch, equal to the CPU run bit for bit."""
     rng = np.random.RandomState(4)
     A = torch.tensor(rng.randint(0, 4, (3, 300, 256)), dtype=torch.float32,
                      device=cuda)
@@ -680,7 +823,10 @@ def test_jaccard_gram_rounds_on_card(cuda, sym):
     K = intersect.jaccard_gram_rounds(A, B, va=va, vb=vb)
     torch.cuda.synchronize()
     got = [c.launches - b for c, b in zip(counters, before)]
-    assert got[0] + got[1] == 3 and got[2] == 1
+    n_tc = sum(intersect.min_gram_route(
+        A[r].amax(0).cpu().numpy(), B[r].amax(0).cpu().numpy(), True,
+        sym) == "min_gram_tc" for r in range(3))
+    assert got == [3 - n_tc, int(n_tc > 0), 1]
     route = "triangle" if sym else "rect"
     assert intersect.jaccard_fold_cuda.route_launches[route] == \
         routes[route] + 1
@@ -717,7 +863,16 @@ def test_min_intersection_gram_rounds_on_card(cuda, integer, sym):
 def test_nh_path_launches_on_card(cuda):
     """NeighborhoodHash fit_transform on the card: one K4 launch a parse
     (the graph route), one K5 launch a Gram (the triangle route for the
-    fit Gram, rect for the transform's), one K1 or K1-tc call a round."""
+    fit Gram, rect for the transform's), one K1 call a round that routes
+    to K1 and ONE K1-tc launch a Gram for the rounds that route to
+    K1-tc."""
+
+    def want(Y, X, sym):
+        tc = sum(intersect.min_gram_route(
+            Y[r].amax(0).cpu().numpy(), X[r].amax(0).cpu().numpy(), True,
+            sym) == "min_gram_tc" for r in range(X.shape[0]))
+        return X.shape[0] - tc, int(tc > 0)
+
     train, test = generate_dataset(n_graphs=60, n_graphs_test=10,
                                    r_vertices=(5, 30), random_state=8,
                                    features=("nl", 6))
@@ -733,11 +888,15 @@ def test_nh_path_launches_on_card(cuda):
     k.fit_transform(train)
     torch.cuda.synchronize()
     assert [c.launches for c in counters[:3]] == [1, 0, 1]
-    assert counters[3].launches + counters[4].launches == 4
+    X = k.X["hists"]
+    fit = want(X, X, True)
+    assert (counters[3].launches, counters[4].launches) == fit
     assert folds == {"rect": 0, "pair": 0, "triangle": 1}
     k.transform(test)
     assert [c.launches for c in counters[:3]] == [2, 0, 2]
-    assert counters[3].launches + counters[4].launches == 8
+    tr = want(k._Y["hists"], X, False)
+    assert (counters[3].launches, counters[4].launches) == (
+        fit[0] + tr[0], fit[1] + tr[1])
     assert folds == {"rect": 1, "pair": 0, "triangle": 1}
 
 
@@ -1148,6 +1307,29 @@ def test_canonical_codes_kernel_bit_identical(cuda, s):
     assert got.dtype == torch.int32
     want = canonical.canonical_codes_plain(masks, s)
     assert torch.equal(got.cpu().to(torch.int64), want)
+    if s == 8:   # the table's other placement
+        other = canonical.canonical_codes_cuda(
+            masks.to(cuda), s, shared=not canonical.K7_S8_SHARED)
+        assert torch.equal(other.cpu().to(torch.int64), want)
+
+
+@pytest.mark.parametrize("s", range(2, 9))
+def test_canonical_codes_kernel_edge_cases(cuda, s):
+    """The empty and the complete graphlet, and batches that fill no
+    whole warp or block (1, 31, 33, 257 graphlets), at every size and
+    both table placements at s = 8: the codes of the plain version."""
+    adjs = [np.zeros((s, s), np.int8), 1 - np.eye(s, dtype=np.int8)]
+    rng = np.random.RandomState(s)
+    adjs += list((rng.rand(255, s, s) < 0.5).astype(np.int8))
+    masks = torch.from_numpy(canonical.adjacency_masks(adjs))
+    want = canonical.canonical_codes_plain(masks, s)
+    assert want[0] == 0 and want[1] == (1 << s * (s - 1) // 2) - 1
+    for count in (1, 2, 31, 33, 257):
+        for shared in ((True, False) if s == 8 else (None,)):
+            got = canonical.canonical_codes_cuda(masks[:count].to(cuda), s,
+                                                 shared=shared)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu().to(torch.int64), want[:count])
 
 
 def test_canonical_codes_wrapper_checks(cuda):

@@ -73,6 +73,37 @@ def test_canonical_codes_plain_matches_codes_impl(s):
         tcan.canonical_codes_plain(masks, s).numpy(), ref)
 
 
+@pytest.mark.parametrize("s", range(2, 9))
+def test_perm_table_lists_permutations_in_order(s):
+    """K7's table: the s! permutations in itertools' lexicographic order,
+    element i of each at bits 4 i .. 4 i + 3 of one uint32."""
+    table = tcan.perm_table(s)
+    perms = list(itertools.permutations(range(s)))
+    assert table.dtype == np.uint32 and table.shape == (len(perms),)
+    unpacked = [tuple(int(w >> (4 * i)) & 15 for i in range(s))
+                for w in table.tolist()]
+    assert unpacked == perms
+    assert all(int(w) >> (4 * s) == 0 for w in table.tolist())
+
+
+@pytest.mark.parametrize("s", range(2, 9))
+def test_canonical_codes_walk_plain_equals_codes_impl(s):
+    """K7's table walk (the key of each permutation, its minimum, packed
+    into the code), in torch, equals the plain gather-and-min and the JAX
+    package's ``_codes_impl``, on random graphlets with the empty and the
+    complete graphlet among them."""
+    adjs = _graphlets(s, 60 if s < 8 else 12, 3 * s + 1)
+    adjs[0][:] = 0
+    adjs[1][:] = 1 - np.eye(s, dtype=adjs[1].dtype)
+    masks = torch.from_numpy(tcan.adjacency_masks(adjs))
+    walk = tcan.canonical_codes_walk_plain(masks, s)
+    np.testing.assert_array_equal(
+        walk.numpy(), tcan.canonical_codes_plain(masks, s).numpy())
+    flat = np.stack(adjs).reshape(len(adjs), s * s).astype(np.int32)
+    np.testing.assert_array_equal(
+        walk.numpy(), np.asarray(jcan._codes_impl(jnp.asarray(flat), s)))
+
+
 def test_canonical_codes_isomorphism_classes():
     """Every permutation of a graphlet has its code; at s = 5 the codes
     of all graphs split into the 34 isomorphism classes."""

@@ -89,10 +89,12 @@ def _spy(monkeypatch):
     orig = pm_mod.min_intersection_gram
 
     def spy(A, B=None, *a, **k):
+        w = k.get("weights")
         calls.append({"L": A.shape[1], "route": k.get("route"),
                       "alpha": k.get("alpha", 1.0),
                       "out": k.get("out") is not None,
-                      "sym": B is A})
+                      "sym": B is A,
+                      "weights": None if w is None else list(w)})
         return orig(A, B, *a, **k)
 
     monkeypatch.setattr(pm_mod, "min_intersection_gram", spy)
@@ -104,7 +106,8 @@ def _spy(monkeypatch):
 def test_levels_joining_the_k1_group(monkeypatch, route, rect):
     """Every level the route sends to K1 joins one K1 call whose width is
     the sum of theirs (weights folded into the matrix, alpha 1, made
-    first); every other level is one K1-tc call with its weight, added
+    first); every other level joins one K1-tc call whose width is the sum
+    of theirs, each column carrying its level's weight (alpha 1), added
     into that result."""
     _force(monkeypatch, route)
     calls = _spy(monkeypatch)
@@ -120,11 +123,12 @@ def test_levels_joining_the_k1_group(monkeypatch, route, rect):
     want = []
     if k1:
         want.append({"L": sum(k1), "route": "min_gram", "alpha": 1.0,
-                     "out": False, "sym": not rect})
-    for w in tc:
-        want.append({"L": w, "route": "min_gram_tc",
-                     "alpha": float(weights[widths.index(w)]),
-                     "out": bool(k1) or w != tc[0], "sym": not rect})
+                     "out": False, "sym": not rect, "weights": None})
+    if tc:
+        want.append({"L": sum(tc), "route": "min_gram_tc", "alpha": 1.0,
+                     "out": bool(k1), "sym": not rect,
+                     "weights": [weights[widths.index(w)] for w in tc
+                                 for _ in range(w)]})
     assert calls == want
 
 
@@ -207,3 +211,25 @@ def test_entry_route_rejects():
     (1, 1, True, 1), (1, 10 ** 6, False, 0)])
 def test_k1_tile_choice(n, m, sym, tile):
     assert k1_tile(n, m, sym) == tile
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["fit", "transform"])
+def test_heavy_level_weights_fold_apart(monkeypatch, rect):
+    """L = 9: the deepest levels' integer weights pass 127, the largest
+    int8 indicator value, so those levels take a K1-tc call each with
+    the weight as alpha, after one weighted call over the others; the
+    Gram still equals the JAX package's exactly."""
+    _force(monkeypatch, "all_tc")
+    calls = _spy(monkeypatch)
+    kt, kj, px, py = _pair(True, rect, L=9, d=2)
+    with use_device("cpu"):
+        got = kt._combined_gram(px, py).numpy()
+    np.testing.assert_array_equal(got, kj._combine(
+        kj._intersections(px, py)))
+    weights = [round(c * 2 ** 8) for c in kt._level_coeffs()]
+    heavy = [w for w in weights if w > 127]
+    assert heavy and len(calls) == 1 + len(heavy)
+    assert calls[0]["weights"] is not None and calls[0]["alpha"] == 1.0
+    assert max(calls[0]["weights"]) <= 127
+    assert [c["alpha"] for c in calls[1:]] == [float(w) for w in heavy]
+    assert all(c["weights"] is None and c["out"] for c in calls[1:])
