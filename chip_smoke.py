@@ -80,7 +80,27 @@ main paths through the public entry points, at full data size:
   route, at buckets 16 and 32, one launch a bucket pair a Gram).  Grams, transforms and diagonals must equal the
   same calls under ``use_device("cpu")``: GraphletSampling's bit for bit,
   RandomWalk's f64 tiles to rtol 1e-8 (f64 sums in another order),
-  RandomWalkLabeled's f32 CG to rtol 1e-4.
+  RandomWalkLabeled's f32 CG to rtol 1e-4;
+* SvmTheta, LovaszTheta, GraphHopper and MultiscaleLaplacian, the slice
+  of K10-K14 (``slice_theta_phase``): ``SvmTheta(random_state=42)``
+  (``svmtheta_nci1scale``; K10 and K11 once a slab, one K10 and one K11
+  launch a slab) and ``LovaszTheta(random_state=42)``
+  (``lovasz_nci1scale``; 300 K12 and 301 K14 launches a size bucket a
+  parse, K13 once a parse) on the 4110 NCI1-scale graphs and the 64
+  held-out ones, ``GraphHopper()`` (``gh_cuneiform``, the linear Gram
+  one f64 GEMM on the card) and ``MultiscaleLaplacian(random_state=42)``
+  (``ml_cuneiform``, host numpy) on Cuneiform read with ``read_data``,
+  fit 200, transform 67.  Against ``use_device("cpu")``: SvmTheta to
+  rtol 2e-2 on its first 512 fit and 16 held-out graphs (f32 solves:
+  the shifted K is singular, so the one-class minimizer may be a set,
+  and two f32 trajectories stop at different points of it: 1.28e-2 at
+  full size on an H100; cut: the CPU's solve takes ~15 s at full
+  size), LovaszTheta to rtol 2e-2 on its first 64 fit and 8
+  held-out graphs (cut: the CPU's SDP and cone loop take minutes at
+  full size; the card's eigendecomposition differs from LAPACK's in the
+  last bits and the cone iteration resolves exact ties by them),
+  GraphHopper to rtol 1e-10 (an f64 GEMM), MultiscaleLaplacian bit for
+  bit on fit 30, transform 10 (cut: ~11 s a run at full size).
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -255,7 +275,26 @@ time of a call:
   and an instruction floor: the FP64 instructions a term takes in the
   kernel's built inner loop (``cuobjdump -sass``) times the launched
   terms over the FP64 issue rate.  No single PyTorch call computes K7,
-  K8 or K9: no library time.
+  K8 or K9: no library time;
+* K10 on every slab of the ``svmtheta_nci1scale`` fit parse and K11
+  (``ops.svm_qp.lanczos_cuda``, ``fista_cuda``) on the first slab of
+  each bucket (its plain version takes ~1.5 s a slab), on route "global" on
+  its widest slab and on a V = 256 slab of the REDDIT-B stand-in (its
+  own route "global"): K10's shift and step from its Ritz extremes to
+  1e-4 of the plain version's, K11's K a and objective a^T K a (unique
+  at the optimum; the alphas may differ along a minimizer set) to 1e-4,
+  its alphas feasible to 1e-4.  Bounds: the dense GEMVs and vector work of every step
+  over 67 TFLOP/s; K12 (``ops.lovasz_sdp.dr_step_cuda``) on each size
+  bucket's DR state at its 150th step of the ``lovasz_nci1scale`` fit
+  parse, both routes, Y, X and R to 1e-4 (bound: 2 V^3 + 12 V^2 flops a
+  graph), with the eigendecomposition's time beside it; K13
+  (``min_cone_cuda``) on the fit parse's subsets to 1e-5 on both routes
+  (bound: 3 d m + 3 d flops a step); K14 (``jacobi_eigh_cuda``) on the
+  same DR reflections and on random matrices with half their rows
+  padded, against ``torch.linalg.eigh`` (its plain version and the one
+  library call): sorted eigenvalues and PSD projections to 1e-4 of the
+  largest |eigenvalue| (bound: 9 V^3 flops a matrix, the dense direct
+  method's count).  Their 9 kernels must build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -951,6 +990,20 @@ def native_phase(class_path, check, paths, train, held, mutag):
     paths["sm_mutag"]["native_checks_s"] = time.perf_counter() - t
 
 
+def spied(module, name, keep=lambda a, kw: (a, kw)):
+    """Record ``keep(args, kwargs)`` of every call of ``module.name``, a
+    dispatcher in front of a kernel's wrapper (the wrappers count their
+    launches under their own names, so they stay in place).  Returns
+    (records, restore)."""
+    real, seen = getattr(module, name), []
+
+    def spy(*a, **kw):
+        seen.append(keep(a, kw))
+        return real(*a, **kw)
+    setattr(module, name, spy)
+    return seen, lambda: setattr(module, name, real)
+
+
 def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
     """The slice of the isomorphism layer and the random walks:
     GraphletSampling (``gs_nci1scale``, ``gs_mutag``), RandomWalk
@@ -967,18 +1020,6 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
     from grakel_torch.ops import canonical as can_ops
     from grakel_torch.ops import random_walk as rw_ops
     n, nh = len(train), len(held)
-
-    def spied(module, name):
-        """Record every call of ``module.name``, a dispatcher in front of
-        a kernel's wrapper (the wrappers count their launches under their
-        own names, so they stay in place).  Returns (calls, restore)."""
-        real, seen = getattr(module, name), []
-
-        def spy(*a, **kw):
-            seen.append((a, kw))
-            return real(*a, **kw)
-        setattr(module, name, spy)
-        return seen, lambda: setattr(module, name, real)
 
     # ---------------- the four paths --------------------------------- #
     k7_seen, restore = spied(gs_mod, "canonical_codes")
@@ -1360,6 +1401,396 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
     return [k7_row, k8_row, k9_row]
 
 
+def slice_theta_phase(class_path, check, paths, train, held, cun):
+    """The slice of the theta kernels, GraphHopper and MultiscaleLaplacian:
+    ``SvmTheta(random_state=42)`` (``svmtheta_nci1scale``) and
+    ``LovaszTheta(random_state=42)`` (``lovasz_nci1scale``) on the
+    NCI1-scale set, ``GraphHopper()`` (``gh_cuneiform``) and
+    ``MultiscaleLaplacian(random_state=42)`` (``ml_cuneiform``) on
+    Cuneiform, fit 200, transform 67, each against its
+    ``use_device("cpu")`` run; then K10 and K11 held against their plain
+    versions on the svmtheta path's slabs, K12 on the lovasz path's DR
+    steps and K13 on its subsets, each on both of its routes.  Returns
+    the four kernels' rows of the ``kernels`` line."""
+    import torch
+    from grakel_torch import (GraphHopper, LovaszTheta, MultiscaleLaplacian,
+                              SvmTheta)
+    from grakel_torch.kernels import lovasz_theta as lt_mod
+    from grakel_torch.ops import lovasz_sdp, svm_qp
+    n, nh = len(train), len(held)
+
+    # ---------------- the four paths --------------------------------- #
+    # K10 and K11 take each slab's K; K11's other inputs are kept too
+    k10_seen, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
+    k11_seen, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:7])
+    try:
+        class_path("svmtheta_nci1scale", lambda: SvmTheta(random_state=42),
+                   train, held, 0, 1, rtol=2e-2,
+                   compare_on=(train[:512], held[:16]), random_state=42,
+                   data="NCI1-scale, fit %d, transform %d; held against "
+                        "the CPU on the first 512 and 16 (cut: the CPU's "
+                        "f32 solve takes ~15 s at full size)" % (n, nh))
+    finally:
+        r10()
+        r11()
+    lp = paths["svmtheta_nci1scale"]["launches"]
+    check(lp["svm_lanczos"] == lp["svm_fista"] > 0
+          and lp["lovasz_dr_step"] == lp["lovasz_min_cone"] == 0,
+          "svmtheta_nci1scale launched K10 and K11 once a slab (%d, %d)"
+          % (lp["svm_lanczos"], lp["svm_fista"]))
+    k10_calls = k10_seen[:lp["svm_lanczos"]]
+    k11_calls = k11_seen[:lp["svm_fista"]]
+    sizes = np.cumsum([int(K.shape[0]) for K, _ in k10_calls])
+    slabs = int(np.searchsorted(sizes, n)) + 1   # the fit parse's calls
+
+    # K12: each bucket's DR state at its 150th step of the fit parse;
+    # K13: the fit parse's subsets
+    k12_state, k12_count = {}, {}
+
+    def keep12(a, kw):
+        V = int(a[0].shape[-1])
+        k12_count[V] = k12_count.get(V, 0) + 1
+        if k12_count[V] == 150 and V not in k12_state:
+            k12_state[V] = tuple(x.clone() for x in a[:6])
+    _, r12 = spied(lovasz_sdp, "dr_step", keep12)
+    k13_seen, r13 = spied(lt_mod, "min_cone", lambda a, kw: a[0])
+    fit_c, tr_c = train[:64], held[:8]
+    try:
+        class_path("lovasz_nci1scale", lambda: LovaszTheta(random_state=42),
+                   train, held, 0, 0, rtol=2e-2, compare_on=(fit_c, tr_c),
+                   random_state=42,
+                   data="NCI1-scale, fit %d, transform %d; held against "
+                        "the CPU on the first %d and %d (cut: the CPU's "
+                        "SDP and cone loop take minutes at full size)"
+                   % (n, nh, len(fit_c), len(tr_c)))
+    finally:
+        r12()
+        r13()
+    lp = paths["lovasz_nci1scale"]["launches"]
+    buckets = lp["lovasz_dr_step"] // 300
+    check(lp["lovasz_dr_step"] > 0 and lp["lovasz_dr_step"] % 300 == 0
+          and lp["lovasz_jacobi_eigh"] == 301 * buckets
+          and lp["lovasz_min_cone"] == 2 and lp["svm_fista"] == 0,
+          "lovasz_nci1scale launched K12 300 times a size bucket (%d), K14 "
+          "301 (%d: each step's and theta's eigh) and K13 once a parse (%d)"
+          % (lp["lovasz_dr_step"], lp["lovasz_jacobi_eigh"],
+             lp["lovasz_min_cone"]))
+    k13_fit = k13_seen[0]
+    paths["lovasz_nci1scale"].update(
+        subsets_fit=int(k13_fit.shape[0]), d=int(k13_fit.shape[1]),
+        dr_buckets=sorted(k12_state))
+
+    class_path("gh_cuneiform", GraphHopper, cun[:200], cun[200:], 0, 1,
+               rtol=1e-10, kernel_type="linear",
+               data="Cuneiform via read_data (real attributes), fit 200, "
+                    "transform %d; the Gram one f64 GEMM on the card"
+                    % (len(cun) - 200))
+    class_path("ml_cuneiform", lambda: MultiscaleLaplacian(random_state=42),
+               cun[:200], cun[200:], 0, 0, random_state=42,
+               compare_on=(cun[:30], cun[200:210]),
+               data="Cuneiform via read_data, fit 200, transform %d (host "
+                    "numpy: no device program); held against the CPU on "
+                    "fit 30, transform 10 (cut: ~11 s a run at full size)"
+                    % (len(cun) - 200))
+    for key in ("gh_cuneiform", "ml_cuneiform"):
+        lp = paths[key]["launches"]
+        check(all(lp[k] == 0 for k in ("svm_lanczos", "svm_fista",
+                                       "lovasz_dr_step", "lovasz_min_cone",
+                                       "lovasz_jacobi_eigh")),
+              "%s launched none of K10-K14" % key)
+
+    # ---------------- K10 and K11 ---------------------------------------- #
+    def err_shift(a, b):
+        return max(float((x - y).abs().max()) for x, y in
+                   zip(svm_qp.spectral_shift(*a), svm_qp.spectral_shift(*b)))
+
+    def k10_case(K, v0, what, route=None, reps=3):
+        S, V = int(K.shape[0]), int(K.shape[1])
+        run = lambda: svm_qp.lanczos_cuda(K, v0, route=route)
+        got = run()
+        want = svm_qp.lanczos_plain(K, v0)
+        m = int(got[0].shape[1])
+        # a step: the dense GEMV (2 V^2) and 10 V of vector work
+        ops = S * m * (2 * V * V + 10 * V)
+        return dict(what=what, S=S, V=V,
+                    route=route or svm_qp.svm_route(V),
+                    max_abs_err=err_shift(got, want),
+                    max_abs_err_is="largest difference of (scale, dadd, L), "
+                                   "the Ritz extremes' use",
+                    ms=cuda_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: svm_qp.lanczos_plain(K, v0), 1,
+                                     0),
+                    **bound(4 * (S * V * V + S * V + 2 * S * m), ops,
+                            FP32_OPS_PER_S))
+
+    def k11_case(args, what, route=None, reps=3):
+        K, _, u, s_t, scale, dadd = args[:6]
+        S, V = int(K.shape[0]), int(K.shape[1])
+        run = lambda: svm_qp.fista_cuda(*args, route=route)
+        got = run()
+        want = svm_qp.fista_plain(*args)
+
+        def kx(a):
+            return scale[:, None] * torch.bmm(K, a[:, :, None])[:, :, 0] \
+                + dadd[:, None] * a
+        unique = max(float((kx(got) - kx(want)).abs().max()),
+                     float(((got * kx(got)).sum(1)
+                            - (want * kx(want)).sum(1)).abs().max()))
+        feasible = max(float((got.sum(1) - s_t).abs().max()),
+                       float((-got).clamp_min(0).max()),
+                       float((got - u).clamp_min(0).max()))
+        # an iteration: the GEMV (2 V^2), the step (6 V), min/max (2 V),
+        # 30 bisection steps (4 V each) and the update (5 V)
+        ops = S * 300 * (2 * V * V + 133 * V)
+        return dict(what=what, S=S, V=V,
+                    route=route or svm_qp.svm_route(V),
+                    max_abs_err=unique,
+                    max_abs_err_is="largest difference of K a and of the "
+                                   "objective a^T K a (unique at the "
+                                   "optimum of a convex QP)",
+                    alpha_max_abs_diff=float((got - want).abs().max()),
+                    infeasibility=feasible,
+                    ms=cuda_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: svm_qp.fista_plain(*args), 1, 0),
+                    **bound(4 * (S * V * V + 4 * S * V + 4 * S), ops,
+                            FP32_OPS_PER_S))
+
+    k10 = [k10_case(K, v0, "svmtheta_nci1scale fit slab %d" % i)
+           for i, (K, v0) in enumerate(k10_calls[:slabs])]
+    # K11's plain version takes ~1.5 s a slab on the card (66,000 small
+    # launches): it is held on the first slab of each bucket
+    firsts = [i for i in range(slabs) if i == 0 or k11_calls[i][0].shape[1]
+              != k11_calls[i - 1][0].shape[1]]
+    k11 = [k11_case(k11_calls[i], "svmtheta_nci1scale fit slab %d (the "
+                    "first of bucket V = %d)" % (i, k11_calls[i][0].shape[1]))
+           for i in firsts]
+    # the other route on the path's widest slab, and a V = 256 slab of the
+    # REDDIT-B stand-in (129-256 vertices: route "global" on its own)
+    wide = max(range(slabs), key=lambda i: k10_calls[i][0].shape[1])
+    k10.append(k10_case(*k10_calls[wide], "the widest fit slab, route "
+                        "global", route="global"))
+    k11.append(k11_case(k11_calls[wide], "the widest fit slab, route "
+                        "global", route="global"))
+    big = []
+    for nv, s_, d_ in heavy_tailed_graphs(**REDDIT_B, seed=0):
+        if 129 <= nv <= 256 and len(big) < 32:
+            A = np.zeros((nv, nv))
+            A[s_, d_] = 1
+            big.append(A)
+    seen10, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
+    seen11, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:7])
+    try:
+        svm_qp.one_class_alphas(big, device="cuda")
+    finally:
+        r10()
+        r11()
+    k10.append(k10_case(*seen10[0], "REDDIT-B stand-in, 32 graphs of "
+                        "129-256 vertices"))
+    k11.append(k11_case(seen11[0], "REDDIT-B stand-in, 32 graphs of "
+                        "129-256 vertices"))
+    check({c["route"] for c in k10} == {"shared", "global"}
+          and all(c["max_abs_err"] <= 1e-4 for c in k10),
+          "K10 == plain Lanczos on both routes: the shift and step from "
+          "its Ritz extremes to 1e-4 (largest %.3g)"
+          % max(c["max_abs_err"] for c in k10))
+    check(all(c["max_abs_err"] <= 1e-4 and c["infeasibility"] <= 1e-4
+              for c in k11),
+          "K11 == plain FISTA on both routes: K a and the objective to 1e-4 "
+          "(largest %.3g), feasible to 1e-4; the alphas, which may differ "
+          "along a minimizer set, differ by up to %.3g"
+          % (max(c["max_abs_err"] for c in k11),
+             max(c["alpha_max_abs_diff"] for c in k11)))
+    K0, v00 = k10_calls[0]
+    a0 = k11_calls[0]
+    dev10 = device_ms(lambda: svm_qp.lanczos_cuda(K0, v00), 3, "svm_lanczos")
+    dev11 = device_ms(lambda: svm_qp.fista_cuda(*a0), 3, "svm_fista")
+    rows = []
+    for name, cases, main_n, replaces, dev, call in (
+            ("svm_lanczos", k10, slabs, "grakel_tpu/ops/svm_qp.py:93", dev10,
+             lambda: svm_qp.lanczos_cuda(K0, v00)),
+            ("svm_fista", k11, len(firsts), "grakel_tpu/ops/svm_qp.py:116",
+             dev11, lambda: svm_qp.fista_cuda(*a0))):
+        main = cases[:main_n]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "grakel_torch/csrc/svm_qp.cu", "replaces": replaces,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: sum(c[k] for c in main) for k in ("ms", "plain_ms",
+                                                    "bound_ms")},
+            "bound_by": "operations", "library_ms": None,
+            "library": "none: no single PyTorch call runs the loop",
+            "device_ms_slab0": dev, "wrapper_ms_slab0": host_ms(call, 20),
+            "summed_over": "%d calls of the svmtheta_nci1scale fit parse "
+                           "(one a slab; %s)" % (main_n, "every slab" if
+                                                 main_n == slabs else
+                                                 "the first of each bucket, "
+                                                 "of %d" % slabs),
+            "shapes": cases})
+
+    # ---------------- K12 ----------------------------------------------- #
+    def k12_case(state, what, route=None, reps=20):
+        E, nn, Y, X, w, U = state
+        B, V = int(E.shape[0]), int(E.shape[-1])
+        Yk, Xk = Y.clone(), X.clone()
+        R = lovasz_sdp.dr_step_cuda(E, nn, Yk, Xk, w, U, route=route)
+        pY, pX, pR = lovasz_sdp.dr_step_plain(E, nn, Y, X, w, U)
+        err = max(float((a - b).abs().max())
+                  for a, b in ((Yk, pY), (Xk, pX), (R, pR)))
+        Yk, Xk = Y.clone(), X.clone()
+        run = lambda: lovasz_sdp.dr_step_cuda(E, nn, Yk, Xk, w, U,
+                                              route=route)
+        Rin = (2 * X - Y).contiguous()
+        return dict(what=what, B=B, V=V,
+                    route=route or lovasz_sdp.k12_route(V), max_abs_err=err,
+                    ms=cuda_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: lovasz_sdp.dr_step_plain(
+                        E, nn, Y, X, w, U), 3),
+                    eigh_ms=cuda_ms(lambda: lovasz_sdp.sym_eigh(Rin), 3),
+                    **bound(4 * B * (7 * V * V + V) + 4 * B,
+                            B * (2 * V ** 3 + 12 * V * V), FP32_OPS_PER_S))
+
+    def k14_case(M, what, reps=3):
+        """K14 on M [B, V, V] against torch.linalg.eigh (its plain
+        version, and the one library call): the sorted eigenvalues and
+        the PSD projections U diag(max(w, 0)) U^T, which are unique, to
+        1e-4 of the largest |eigenvalue|; U's orthogonality."""
+        B, V = int(M.shape[0]), int(M.shape[-1])
+        w, U = lovasz_sdp.jacobi_eigh_cuda(M)
+        lw, lU = torch.linalg.eigh(M)
+        scale = float(lw.abs().max())
+
+        def psd(w, U):
+            return (U * w.clamp_min(0)[:, None, :]) @ U.transpose(-1, -2)
+        eye = torch.eye(V, device=M.device)
+        err = max(float((w.sort(-1).values - lw).abs().max()),
+                  float((psd(w, U) - psd(lw, lU)).abs().max())) / scale
+        library = cuda_ms(lambda: torch.linalg.eigh(M), 1)
+        return dict(what=what, B=B, V=V, max_abs_err=err,
+                    max_abs_err_is="largest difference of the sorted "
+                                   "eigenvalues and the PSD projections, "
+                                   "over the largest |eigenvalue|",
+                    orthogonality=float((U.transpose(-1, -2) @ U - eye)
+                                        .abs().max()),
+                    ms=cuda_ms(lambda: lovasz_sdp.jacobi_eigh_cuda(M), reps),
+                    plain_ms=library, library_ms=library,
+                    **bound(4 * B * (2 * V * V + V), B * 9 * V ** 3,
+                            FP32_OPS_PER_S))
+
+    k12 = [k12_case(k12_state[V], "lovasz_nci1scale fit, bucket V = %d, "
+                    "DR step 150" % V) for V in sorted(k12_state)]
+    k12 += [k12_case(k12_state[V], "the same state, route %s" % (
+        "global" if lovasz_sdp.k12_route(V) == "shared" else "shared"),
+        route="global" if lovasz_sdp.k12_route(V) == "shared" else "shared")
+        for V in sorted(k12_state)[-1:]]
+    check(all(c["max_abs_err"] <= 1e-4 for c in k12)
+          and {c["route"] for c in k12} == {"shared", "global"},
+          "K12 == plain DR step (Y, X, R) to 1e-4 on both routes "
+          "(largest %.3g)" % max(c["max_abs_err"] for c in k12))
+    main12 = [c for c in k12[:len(k12_state)]]
+    E0 = k12_state[sorted(k12_state)[-1]]
+    k12_row = {
+        "name": "lovasz_dr_step", "route": "cuda",
+        "source": "grakel_torch/csrc/lovasz.cu",
+        "replaces": "grakel_tpu/ops/lovasz_sdp.py:58",
+        "max_abs_err": max(c["max_abs_err"] for c in k12),
+        **{k: sum(c[k] for c in main12) for k in ("ms", "plain_ms",
+                                                  "bound_ms", "eigh_ms")},
+        "bound_by": max(main12, key=lambda c: c["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call takes the step",
+        "device_ms_widest": device_ms(lambda: lovasz_sdp.dr_step_cuda(
+            *(x.clone() if i in (2, 3) else x for i, x in enumerate(E0))),
+            5, "lovasz_dr_step"),
+        "eigh_share": None,
+        "summed_over": "one DR iteration of each size bucket of the "
+                       "lovasz_nci1scale fit parse (one launch a bucket; "
+                       "the path runs 300 a bucket a parse)",
+        "shapes": k12}
+    k12_row["eigh_share"] = k12_row["eigh_ms"] / (k12_row["eigh_ms"]
+                                                  + k12_row["ms"])
+    k14 = [k14_case((2 * k12_state[V][3] - k12_state[V][2]).contiguous(),
+                    "lovasz_nci1scale fit, bucket V = %d, the reflection of "
+                    "DR step 150" % V) for V in sorted(k12_state)]
+    rng = np.random.RandomState(14)
+    for V, B in ((4, 64), (128, 64)):
+        M = torch.from_numpy(rng.randn(B, V, V).astype(np.float32)).cuda()
+        M = M + M.transpose(-1, -2)
+        M[:, :, V // 2:] = 0      # half padded, as a bucket's small graphs
+        M[:, V // 2:, :] = 0
+        k14.append(k14_case(M, "random symmetric, V = %d, half padding" % V))
+    check(all(c["max_abs_err"] <= 1e-4 and c["orthogonality"] <= 1e-4
+              for c in k14),
+          "K14 == torch.linalg.eigh: sorted eigenvalues and PSD projections "
+          "to 1e-4 of the largest |eigenvalue| (largest %.3g), U orthogonal "
+          "to 1e-4" % max(c["max_abs_err"] for c in k14))
+    Mw = (2 * E0[3] - E0[2]).contiguous()
+    k14_row = {
+        "name": "lovasz_jacobi_eigh", "route": "cuda",
+        "source": "grakel_torch/csrc/lovasz.cu",
+        "replaces": "grakel_tpu/ops/lovasz_sdp.py:44",
+        "max_abs_err": max(c["max_abs_err"] for c in k14),
+        **{k: sum(c[k] for c in k14[:len(k12_state)]) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": max(k14[:len(k12_state)],
+                        key=lambda c: c["bound_ms"])["bound_by"],
+        "library": "torch.linalg.eigh on the same matrices (its plain "
+                   "version too)",
+        "device_ms_widest": device_ms(
+            lambda: lovasz_sdp.jacobi_eigh_cuda(Mw), 3, "jacobi_eigh"),
+        "summed_over": "one eigendecomposition of each size bucket of the "
+                       "lovasz_nci1scale fit parse (one launch a bucket; "
+                       "the path runs 301 a bucket a parse)",
+        "shapes": k14}
+
+    # ---------------- K13 ----------------------------------------------- #
+    def k13_case(A, what, route=None, reps=3):
+        S, d, m = (int(x) for x in A.shape)
+        run = lambda: lovasz_sdp.min_cone_cuda(A, route=route)
+        got = run()
+        want = lovasz_sdp.min_cone_plain(A)
+        # a step: d m subtract-multiply-adds, the argmax, d updates
+        ops = S * 400 * (3 * d * m + 3 * d) + S * 3 * d * m
+        return dict(what=what, S=S, d=d, m=m,
+                    route=route or lovasz_sdp.k13_route(d, m),
+                    max_abs_err=float((got - want).abs().max()),
+                    differing=int((got != want).sum()),
+                    ms=cuda_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: lovasz_sdp.min_cone_plain(A), 1,
+                                     0),
+                    **bound(4 * S * d * m + 4 * S, ops, FP32_OPS_PER_S))
+
+    k13 = [k13_case(k13_fit, "lovasz_nci1scale fit parse, every subset"),
+           k13_case(k13_fit[:20000], "the first 20000 of them, route "
+                    "global", route="global")]
+    check(all(c["max_abs_err"] <= 1e-5 for c in k13),
+          "K13 == plain cone loop on both routes to 1e-5 (the same far "
+          "columns; largest %.3g)" % max(c["max_abs_err"] for c in k13))
+    k13_row = {
+        "name": "lovasz_min_cone", "route": "cuda",
+        "source": "grakel_torch/csrc/lovasz.cu",
+        "replaces": "grakel_tpu/kernels/lovasz_theta.py:48",
+        "max_abs_err": max(c["max_abs_err"] for c in k13),
+        **{k: k13[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "bound_by")},
+        "device_ms": device_ms(lambda: lovasz_sdp.min_cone_cuda(k13_fit), 2,
+                               "lovasz_min_cone"),
+        "library_ms": None,
+        "library": "none: no single PyTorch call runs the iteration",
+        "summed_over": "the one K13 launch of the lovasz_nci1scale fit "
+                       "parse (%d subsets)" % k13[0]["S"],
+        "shapes": k13}
+    rows += [k12_row, k13_row, k14_row]
+    for row in rows:
+        print("%s: %.4f ms, bound %.4f ms by %s, plain %.4f ms"
+              % (row["name"], row["ms"], row["bound_ms"], row["bound_by"],
+                 row["plain_ms"]), flush=True)
+    print("lovasz_dr_step: eigh %.4f ms beside the kernel's %.4f ms an "
+          "iteration over the fit buckets (eigh share %.3f)"
+          % (k12_row["eigh_ms"], k12_row["ms"], k12_row["eigh_share"]),
+          flush=True)
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1475,9 +1906,18 @@ def main():
         for v in k6_ptxas.values()),
         "K6's 14 kernels (10 round route, 4 graph route) built without "
         "spills: %s" % k6_ptxas)
+    k1013_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                   if "svm_" in k or "lovasz_" in k}
+    check(len(k1013_ptxas) == 9 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k1013_ptxas.values()),
+        "K10-K13's 8 kernels (each on its shared and global route) and "
+        "K14 built without spills: %s" % k1013_ptxas)
 
     from grakel_torch.ops import canonical as can_ops
+    from grakel_torch.ops import lovasz_sdp as lovasz_ops
     from grakel_torch.ops import random_walk as rw_ops
+    from grakel_torch.ops import svm_qp as svm_ops
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "threshold_expand": intersect.threshold_expand_cuda,
@@ -1490,7 +1930,12 @@ def main():
                 "hadamard_step": hc_ops.hadamard_step_cuda,
                 "canonical": can_ops.canonical_codes_cuda,
                 "rw_cg": rw_ops.pair_cg_cuda,
-                "rw_spectral": rw_ops.spectral_gram_cuda}
+                "rw_spectral": rw_ops.spectral_gram_cuda,
+                "svm_lanczos": svm_ops.lanczos_cuda,
+                "svm_fista": svm_ops.fista_cuda,
+                "lovasz_dr_step": lovasz_ops.dr_step_cuda,
+                "lovasz_min_cone": lovasz_ops.min_cone_cuda,
+                "lovasz_jacobi_eigh": lovasz_ops.jacobi_eigh_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
@@ -1944,14 +2389,17 @@ def main():
                 "k6": tuple(tuple(b - a for a, b in zip(x, y))
                             for x, y in ((n0, n1), (n1, n2)))}
 
-    def class_path(key, make, fit, tr, k6, warm, rtol=None, **info):
+    def class_path(key, make, fit, tr, k6, warm, rtol=None, compare_on=None,
+                   **info):
         """Drive ``make()``'s kernel on the card (a path: counts read
         around it) and on the CPU: finite Grams of the right shapes,
         diag(K) == diagonal(), K6's graph route launched ``k6`` times in
         fit_transform and ``k6`` in transform and its round route never,
         every output equal to the CPU run's bit for bit (to ``rtol``
-        when given: f64 products summed in another order); then ``warm``
-        warm runs."""
+        when given: f64 products summed in another order, or f32
+        solvers); ``compare_on`` = (fit', tr') holds a card run on those
+        against the CPU instead (a cut where the CPU run is slow); then
+        ``warm`` warm runs."""
         r, secs, launches = run_path(key, lambda: class_run(make, fit, tr))
         K, d, Kt = r["out"][:3]
         check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
@@ -1964,23 +2412,29 @@ def main():
               "route, round route) %s times in fit_transform and transform "
               "((%d, 0) each wanted)" % (key, r["k6"], k6))
         t = time.perf_counter()
-        c = class_run(make, fit, tr, "cpu")
+        if compare_on is None:
+            card = r["out"]
+            c = class_run(make, fit, tr, "cpu")
+        else:
+            card = class_run(make, *compare_on)["out"]
+            c = class_run(make, *compare_on, "cpu")
         cpu_s = time.perf_counter() - t
         if rtol is None:
             check(all(np.array_equal(a, b)
-                      for a, b in zip(r["out"], c["out"])),
+                      for a, b in zip(card, c["out"])),
                   "%s Grams and diagonals == use_device('cpu') ones bit "
                   "for bit" % key)
         else:
             err = max(float(np.max(np.abs(np.asarray(a, np.float64) - b)
                                    / np.maximum(np.abs(b), 1e-300),
                                    initial=0.0))
-                      for a, b in zip(r["out"], c["out"]))
+                      for a, b in zip(card, c["out"]))
             check(all(np.allclose(a, b, rtol=rtol, atol=0)
-                      for a, b in zip(r["out"], c["out"])),
+                      for a, b in zip(card, c["out"])),
                   "%s Grams and diagonals == use_device('cpu') ones to "
                   "rtol %g (largest relative difference %.3g)"
                   % (key, rtol, err))
+            info = dict(info, cpu_max_rel_diff=err)
         timer = getattr(r["k"], "timer_", None)
         paths[key] = dict(
             info, graphs=len(fit), held_out=len(tr), wall_s=secs,
@@ -2019,6 +2473,11 @@ def main():
                     "transform %d" % (len(cun) - 200))
     native_phase(class_path, check, paths, train, held, mutag)
     k789 = slice_gs_rw_phase(class_path, check, paths, train, held, mutag)
+    print("chip_smoke: %.1f s before the theta phase"
+          % (time.perf_counter() - t_start), flush=True)
+    k1013 = slice_theta_phase(class_path, check, paths, train, held, cun)
+    print("chip_smoke: %.1f s after it" % (time.perf_counter() - t_start),
+          flush=True)
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -3234,6 +3693,11 @@ def main():
     print("rw_cg: launches by route over the paths %s"
           % k789[1]["route_launches"], flush=True)
     kernels += k789
+    for row, key in zip(k1013, ("svm_lanczos", "svm_fista", "lovasz_dr_step",
+                                "lovasz_min_cone", "lovasz_jacobi_eigh")):
+        row["launches"] = launches[key]
+        row["ptxas"] = {k: v for k, v in k1013_ptxas.items() if key in k}
+    kernels += k1013
     check(all(r["launches"] > 0 for r in kernels),
           "every kernel of the line launched on the paths: %s"
           % {r["name"]: r["launches"] for r in kernels})

@@ -69,7 +69,19 @@ State layout, by kernel name:
   the parsed fit graphs, each a dict of ``"A"`` (f32 [n, n]), ``"n"``,
   ``"labels"`` (RandomWalkLabeled) and the spectral data parse computed:
   ``"s2"`` / ``"mu"``, or ``"mu_max"`` with ``"moments_only"``, or
-  ``"u"`` / ``"w"``.
+  ``"u"`` / ``"w"``;
+* ``"SvmTheta"`` / ``"LovaszTheta"``: ``{"X": [phi [levels, 1], ...]}``,
+  LovaszTheta also ``"d": int`` (the labelling's row count), and
+  optionally ``"random_state"`` (a ``RandomState.get_state()`` tuple) —
+  the fit graphs' sampled features and the generator's state after fit
+  (transform draws its subsets from it);
+* ``"GraphHopper"``: ``{"X": [(M [n, D, D], attributes [n, a]) or (M,
+  attributes, squared norms [n]), ...], "max_diam": int}`` — the fit
+  graphs' hopper tensors and attributes and the fit diameter bound;
+* ``"MultiscaleLaplacian"``: ``{"X": [(S_inv [P, P], logdet), ...],
+  "data_level": {0: ksi [features, P], l: ({m: (S_inv, logdet)}, Q),
+  ...}}`` — the fit graphs' final FLG terms and the per-level bases
+  transform replays.
 """
 
 from __future__ import annotations
@@ -77,12 +89,13 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
-from .kernels import (EdgeHistogram, GraphletSampling, HadamardCode,
+from .kernels import (EdgeHistogram, GraphHopper, GraphletSampling,
+                      HadamardCode, LovaszTheta, MultiscaleLaplacian,
                       NeighborhoodHash, NeighborhoodSubgraphPairwiseDistance,
                       OddSth, Propagation, PropagationAttr, PyramidMatch,
                       RandomWalk, RandomWalkLabeled, ShortestPath,
-                      SubgraphMatching, VertexHistogram, WeisfeilerLehman,
-                      WeisfeilerLehmanOptimalAssignment)
+                      SubgraphMatching, SvmTheta, VertexHistogram,
+                      WeisfeilerLehman, WeisfeilerLehmanOptimalAssignment)
 
 __all__ = ["kernel_from_state"]
 
@@ -103,7 +116,11 @@ _CLASSES = {"VertexHistogram": VertexHistogram,
             "SubgraphMatching": SubgraphMatching,
             "GraphletSampling": GraphletSampling,
             "RandomWalk": RandomWalk,
-            "RandomWalkLabeled": RandomWalkLabeled}
+            "RandomWalkLabeled": RandomWalkLabeled,
+            "SvmTheta": SvmTheta,
+            "LovaszTheta": LovaszTheta,
+            "GraphHopper": GraphHopper,
+            "MultiscaleLaplacian": MultiscaleLaplacian}
 
 
 def _graphs(items):
@@ -187,6 +204,27 @@ def kernel_from_state(name, params, state):
             k.random_state_.set_state(state["random_state"])
     elif name in ("RandomWalk", "RandomWalkLabeled"):
         k.X = [dict(item) for item in state["X"]]
+    elif name in ("SvmTheta", "LovaszTheta"):
+        k.X = [np.asarray(p, np.float64) for p in state["X"]]
+        if name == "LovaszTheta":
+            k.d_ = int(state["d"])
+        if state.get("random_state") is not None:
+            k.random_state_ = np.random.RandomState()
+            k.random_state_.set_state(state["random_state"])
+    elif name == "GraphHopper":
+        k.X = [tuple(np.asarray(a, np.float64) for a in item)
+               for item in state["X"]]
+        k._max_diam = int(state["max_diam"])
+    elif name == "MultiscaleLaplacian":
+        k.X = [(np.asarray(S, np.float64), float(ld))
+               for S, ld in state["X"]]
+        levels = state["data_level"]
+        k._data_level = {0: np.asarray(levels[0], np.float64)}
+        for lev in range(1, k.L + 1):
+            C, Q = levels[lev]
+            k._data_level[lev] = (
+                {int(m): (np.asarray(S, np.float64), float(ld))
+                 for m, (S, ld) in C.items()}, np.asarray(Q, np.float64))
     elif name == "ShortestPath":
         k._enum = dict(state["enum"])
         # parse in transform mode: the carried enumeration is kept and,

@@ -15,6 +15,10 @@ from .nspd import NeighborhoodSubgraphPairwiseDistance
 from .subgraph_matching import SubgraphMatching
 from .graphlet_sampling import GraphletSampling
 from .random_walk import RandomWalk, RandomWalkLabeled
+from .svm_theta import SvmTheta
+from .lovasz_theta import LovaszTheta
+from .graph_hopper import GraphHopper
+from .multiscale_laplacian import MultiscaleLaplacian
 
 __all__ = [
     "Kernel",
@@ -36,4 +40,8 @@ __all__ = [
     "GraphletSampling",
     "RandomWalk",
     "RandomWalkLabeled",
+    "SvmTheta",
+    "LovaszTheta",
+    "GraphHopper",
+    "MultiscaleLaplacian",
 ]

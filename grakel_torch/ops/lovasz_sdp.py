@@ -1,0 +1,344 @@
+"""Batched Lovász-theta SDP and minimum enclosing cones on the device.
+
+The counterpart of ``grakel_tpu/ops/lovasz_sdp.py`` and of the
+minimum-enclosing-cone loop of ``grakel_tpu/kernels/lovasz_theta.py``
+(``_min_cone_jit``).
+
+The SDP: the primal
+
+    theta(G) = max <J, X>  s.t.  X PSD, tr X = 1,
+               X_ij = 0 for every non-adjacent pair i != j
+
+by Douglas-Rachford splitting between the affine set (zero the
+off-support entries, shift the diagonal to trace 1) and the PSD cone
+(eigenvalue clipping), 300 iterations, over a batch of graphs padded to
+one size V.  An iteration is one batched eigendecomposition of the
+reflection R = 2X - Y (:func:`sym_eigh`: on a card K14, a batched
+Jacobi in ``csrc/lovasz.cu``, up to 128 rows, where
+``torch.linalg.eigh`` runs cuSOLVER a matrix at a time; on the CPU
+``torch.linalg.eigh``, its plain version) and one launch of K12
+(``csrc/lovasz.cu``, plain version :func:`dr_step_plain`), which
+rebuilds Z = V diag(max(w, 0)) V^T, steps Y <- Y + Z - X, projects the
+next X = proj_affine(Y + J) with its trace, and writes the next R.  The dual slack the labelling needs
+is (Y - X) / step at the fixed point, with its fixed entries snapped
+(diagonal theta - 1, edges -1), as in the JAX package.
+
+The cones: for each sampled subset (the columns A [d, m] of a graph's
+orthonormal labelling), the Badoiu-Clarkson minimum-enclosing-ball
+iteration c <- c + (far - c)/(k + 2), 400 steps from the first column,
+``far`` the first column farthest from c; then the smallest cosine of
+a column with the normalized centre.  K13 (``csrc/lovasz.cu``, plain
+version :func:`min_cone_plain`) runs every step of a warp's subset in
+one launch.
+
+On a CUDA tensor :func:`sym_eigh`, :func:`dr_step` and
+:func:`min_cone` launch their kernels or raise (past 128 rows
+:func:`sym_eigh` takes ``torch.linalg.eigh`` on the card); the plain
+versions serve CPU tensors.  All f32, as
+the JAX programs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+__all__ = ["lovasz_theta_batch", "dr_step", "dr_step_plain",
+           "dr_step_cuda", "min_cone", "min_cone_plain", "min_cone_cuda",
+           "sym_eigh", "jacobi_eigh_cuda", "proj_affine", "k12_route",
+           "k13_route", "K12_SMEM_BUDGET", "K13_SMEM_BUDGET", "MEC_ITERS",
+           "JACOBI_MAX_V"]
+
+MEC_ITERS = 400
+# K14 holds a matrix and its eigenvector rows in shared memory: up to
+# 128 rows
+JACOBI_MAX_V = 128
+JACOBI_SWEEPS = 16
+# K12 stages a graph's eigenvectors in shared memory within this budget
+# (V <= 128); larger V reads them from device memory
+K12_SMEM_BUDGET = 160 * 1024
+# K13 stages each warp's subset columns in shared memory within this
+# budget for its block of four warps; larger subsets read them from
+# device memory
+K13_SMEM_BUDGET = 96 * 1024
+
+
+def k12_route(V):
+    """K12's route for padded size ``V``: "shared" while the eigenvector
+    matrix [V, V] f32 and the clipped eigenvalues fit
+    :data:`K12_SMEM_BUDGET`, else "global"."""
+    return "shared" if (V * V + V) * 4 <= K12_SMEM_BUDGET else "global"
+
+
+def k13_route(d, m):
+    """K13's route for subsets of ``m`` columns of length ``d``:
+    "shared" while four warps' subsets and centres, 4 (d m + d) f32, fit
+    :data:`K13_SMEM_BUDGET`, else "global"."""
+    return "shared" if 16 * (d * m + d) <= K13_SMEM_BUDGET else "global"
+
+
+def _masks(E, n):
+    """(J, dvalid, keep, nvalid) of a padded batch: J the n x n block of
+    ones, dvalid its diagonal, keep the support of X (edges and the
+    valid diagonal), nvalid max(n, 1) [B, 1, 1]."""
+    B, V, _ = E.shape
+    valid = (torch.arange(V, device=E.device)[None, :]
+             < n.to(E.device)[:, None]).to(E.dtype)
+    J = valid[:, :, None] * valid[:, None, :]
+    dvalid = torch.diag_embed(valid)
+    keep = (E > 0) | (dvalid > 0)
+    nvalid = torch.clamp(valid.sum(1), min=1.0)[:, None, None]
+    return J, dvalid, keep, nvalid
+
+
+def proj_affine(M, dvalid, keep, nvalid):
+    """Zero M off the support, then shift its valid diagonal to trace
+    1."""
+    X = torch.where(keep, M, torch.zeros_like(M))
+    tr = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    return X + (1.0 - tr) / nvalid * dvalid
+
+
+def _proj_psd(M):
+    w, U = sym_eigh(M)
+    w = torch.clamp(w, min=0.0)
+    return (U * w[..., None, :]) @ U.transpose(-1, -2)
+
+
+# --------------------------------------------------------------------- #
+# K14: the eigendecomposition; K12: one Douglas-Rachford step around it
+# --------------------------------------------------------------------- #
+
+def jacobi_eigh_cuda(M, max_sweeps=JACOBI_SWEEPS):
+    """Launch K14 (``csrc/lovasz.cu``): the eigenpairs of the symmetric
+    matrices M [B, V, V] (contiguous f32 on a CUDA device, V a power of
+    two, 2 <= V <= :data:`JACOBI_MAX_V`; the lower triangles are read, as
+    ``torch.linalg.eigh`` reads them) by cyclic Jacobi, a block a
+    matrix.  Returns (w [B, V], U [B, V, V]) with M = U diag(w) U^T: the
+    eigenvalues unsorted, U column-major (a transposed view of the
+    kernel's eigenvector rows, the layout :func:`dr_step_cuda` takes)."""
+    from .. import _build
+    dev = M.device
+    B = M.shape[0] if M.dim() == 3 else -1
+    V = M.shape[-1] if M.dim() == 3 else 0
+    if not (dev.type == "cuda" and _f32(M, dev, (B, V, V))
+            and 2 <= V <= JACOBI_MAX_V and V & (V - 1) == 0
+            and max_sweeps >= 0):
+        raise ValueError("jacobi_eigh_cuda: need a contiguous f32 M [B, V, "
+                         "V] on a CUDA device, V a power of two, 2 <= V <= "
+                         "%d" % JACOBI_MAX_V)
+    w = torch.empty((B, V), dtype=torch.float32, device=dev)
+    Ut = torch.empty((B, V, V), dtype=torch.float32, device=dev)
+    if B:
+        _build.launch("grakel_lovasz_jacobi_eigh", dev, M.data_ptr(),
+                      w.data_ptr(), Ut.data_ptr(), B, V, int(max_sweeps))
+        jacobi_eigh_cuda.launches += 1
+    return w, Ut.transpose(-1, -2)
+
+
+jacobi_eigh_cuda.launches = 0
+
+
+def sym_eigh(M):
+    """Eigenpairs (w, U) of the symmetric f32 matrices M [B, V, V]:
+    ``torch.linalg.eigh`` (the plain version) for CPU tensors, K14 for
+    CUDA ones of a power-of-two size up to :data:`JACOBI_MAX_V` rows
+    (LovaszTheta's buckets), ``torch.linalg.eigh`` otherwise."""
+    V = M.shape[-1]
+    if M.device.type == "cuda" and 2 <= V <= JACOBI_MAX_V \
+            and V & (V - 1) == 0:
+        return jacobi_eigh_cuda(M.contiguous())
+    return torch.linalg.eigh(M)
+
+
+def dr_step_plain(E, n, Y, X, w, U, step=1.0):
+    """One DR iteration given eigh(2X - Y) = (w, U): Z = U diag(max(w,
+    0)) U^T, Y' = Y + Z - X, X' = proj_affine(Y' + step J) and R' = 2X' -
+    Y'.  E [B, V, V] f32 edges (0/1, zero diagonal, zero outside the n x
+    n block), n [B] sizes.  Returns (Y', X', R')."""
+    J, dvalid, keep, nvalid = _masks(E, n)
+    Z = (U * torch.clamp(w, min=0.0)[:, None, :]) @ U.transpose(-1, -2)
+    Y = Y + Z - X
+    X = proj_affine(Y + step * J, dvalid, keep, nvalid)
+    return Y, X, 2.0 * X - Y
+
+
+def _f32(t, dev, shape):
+    return (t.device == dev and t.dtype == torch.float32
+            and tuple(t.shape) == shape and t.is_contiguous())
+
+
+def dr_step_cuda(E, n, Y, X, w, U, step=1.0, route=None):
+    """Launch K12 (``csrc/lovasz.cu``): :func:`dr_step_plain` on a card,
+    a block a graph, in place: Y and X take Y' and X', and R' is
+    returned.  E, Y, X [B, V, V], w [B, V] contiguous f32, n [B] int32
+    and the eigenvectors U [B, V, V] f32 whose transpose is contiguous
+    (the column-major U ``torch.linalg.eigh`` returns on a card; the
+    kernel reads the eigenvectors as rows), on one CUDA device;
+    ``route`` ("shared" / "global", default :func:`k12_route`) overrides
+    where they are read from, for measurements."""
+    from .. import _build
+    dev = E.device
+    B = E.shape[0] if E.dim() == 3 else -1
+    V = E.shape[1] if E.dim() == 3 else 0
+    Ut = U.transpose(-1, -2)
+    if not (dev.type == "cuda" and 0 < V <= 4096
+            and all(_f32(t, dev, (B, V, V)) for t in (E, Y, X, Ut))
+            and _f32(w, dev, (B, V)) and n.device == dev
+            and n.dtype == torch.int32 and tuple(n.shape) == (B,)):
+        raise ValueError("dr_step_cuda: need contiguous f32 E, Y, X [B, V, "
+                         "V], a column-major f32 U [B, V, V] (a contiguous "
+                         "transpose), f32 w [B, V] and int32 n [B] on one "
+                         "CUDA device (V <= 4096)")
+    route = route or k12_route(V)
+    R = torch.empty_like(Y)
+    if B:
+        _build.launch("grakel_lovasz_dr_step", dev, E.data_ptr(),
+                      n.data_ptr(), Y.data_ptr(), X.data_ptr(), w.data_ptr(),
+                      Ut.data_ptr(), R.data_ptr(), B, V, float(step),
+                      int(route == "shared"))
+        dr_step_cuda.launches += 1
+        dr_step_cuda.route_launches[route] += 1
+    return R
+
+
+dr_step_cuda.launches = 0
+dr_step_cuda.route_launches = {"shared": 0, "global": 0}
+
+
+def dr_step(E, n, Y, X, w, U, step=1.0):
+    """One DR step: :func:`dr_step_plain` for CPU tensors, K12 (in
+    place) for CUDA ones.  Returns (Y', X', R')."""
+    if E.device.type == "cpu":
+        return dr_step_plain(E, n, Y, X, w, U, step)
+    if E.device.type != "cuda":
+        raise ValueError("dr_step: unsupported device %s" % E.device)
+    Ut = U.transpose(-1, -2).contiguous()
+    R = dr_step_cuda(E, n, Y, X, w.contiguous(), Ut.transpose(-1, -2), step)
+    return Y, X, R
+
+
+def _theta(E, n, iters, step):
+    """theta [B] and the snapped dual slack S [B, V, V] (the JAX
+    package's ``_theta_impl``)."""
+    J, dvalid, keep, nvalid = _masks(E, n)
+    Y = torch.zeros_like(E)
+    X = proj_affine(Y + step * J, dvalid, keep, nvalid)
+    R = 2.0 * X - Y
+    for _ in range(iters):
+        w, U = sym_eigh(R)
+        Y, X, R = dr_step(E, n, Y, X, w, U, step)
+    theta = (J * _proj_psd(X)).sum((-2, -1))
+    S = (Y - X) / step
+    V = E.shape[-1]
+    eye = torch.eye(V, dtype=E.dtype, device=E.device)[None]
+    S = torch.where(dvalid > 0, theta[:, None, None] - 1.0, S)
+    S = torch.where(E > 0, -torch.ones_like(S), S)
+    S = torch.where(J > 0, S, eye.expand_as(S))
+    return theta, S
+
+
+def lovasz_theta_batch(adjs, ns, iters=300, step=1.0, device=None):
+    """theta + PSD dual slack S for a batch of graphs padded to equal
+    size, on ``device`` (default: the ambient device, else cuda).
+
+    adjs: [B, V, V] 0/1 adjacency (symmetric); ns: [B] true sizes.
+    Returns numpy (theta [B], S [B, V, V]) with S's fixed entries
+    snapped (diag = theta - 1, edges = -1); S may carry O(1e-5) negative
+    eigenvalues from float32 — downstream Cholesky callers regularize.
+    """
+    dev = resolve_device(device)
+    adjs = np.asarray(adjs)
+    B, V, _ = adjs.shape
+    E = (adjs > 0).astype(np.float32)
+    for b in range(B):
+        np.fill_diagonal(E[b], 0.0)
+    ns = np.asarray(ns, np.int64)
+    inside = np.arange(V)[None, :] < ns[:, None]
+    E *= inside[:, :, None] & inside[:, None, :]
+    t, S = _theta(torch.from_numpy(E).to(dev),
+                  torch.from_numpy(ns.astype(np.int32)).to(dev), iters, step)
+    return t.cpu().numpy(), S.cpu().numpy()
+
+
+# --------------------------------------------------------------------- #
+# K13: minimum enclosing cones
+# --------------------------------------------------------------------- #
+
+def _sq_dist(A, c):
+    """d2[s, j] = sum_i (A[s, i, j] - c[s, i])^2 in f32, summed over i
+    in order with one rounding a term, as a fused multiply-add does
+    (the square of an f32 difference is exact in f64, so the f64 add
+    rounded to f32 is the fused result except at double-rounding
+    ties).  This is the order XLA-CPU takes for d <= 17 and the order
+    of K13, whose argmax it must reproduce: the Badoiu-Clarkson
+    iteration meets exact ties in exact arithmetic (two points
+    equidistant from their midpoint), so the far column, and with it
+    the centre, is decided by the last bit of d2."""
+    diff = (A - c[:, :, None]).double()
+    sq = diff * diff
+    acc = torch.zeros_like(sq[:, 0, :], dtype=torch.float32)
+    for i in range(A.shape[1]):
+        acc = (acc.double() + sq[:, i, :]).float()
+    return acc
+
+
+def min_cone_plain(A, iters=MEC_ITERS):
+    """Badoiu-Clarkson minimum-enclosing-ball centres of the subsets A
+    [S, d, m] f32 (``iters`` steps from the first column; ``far`` the
+    first farthest column, by :func:`_sq_dist`), normalized, and each
+    subset's smallest cosine with its centre: t [S] f32."""
+    S, d, m = A.shape
+    c = A[:, :, 0].clone()
+    # the step's divisor as a device tensor: a Python scalar divisor is a
+    # multiplication by its reciprocal on a card (another rounding)
+    dens = torch.arange(2, iters + 2, dtype=A.dtype, device=A.device)
+    for k in range(iters):
+        d2 = _sq_dist(A, c)
+        f = torch.argmax(d2, dim=1)
+        far = torch.gather(A, 2, f[:, None, None].expand(S, d, 1))[:, :, 0]
+        c = c + (far - c) / dens[k]
+    nc = torch.linalg.vector_norm(c, dim=1, keepdim=True)
+    c = torch.where(nc > 0, c / torch.clamp(nc, min=1e-30),
+                    torch.zeros_like(c))
+    return torch.einsum("sdm,sd->sm", A, c).min(1).values
+
+
+def min_cone_cuda(A, iters=MEC_ITERS, route=None):
+    """Launch K13 (``csrc/lovasz.cu``): :func:`min_cone_plain` on a
+    card, a warp a subset, every step in one launch.  A [S, d, m]
+    contiguous f32 on a CUDA device (1 <= m <= 32); ``route`` ("shared"
+    / "global", default :func:`k13_route`) overrides where the columns
+    are read from, for measurements.  Returns t [S] f32."""
+    from .. import _build
+    dev = A.device
+    if not (dev.type == "cuda" and A.dim() == 3
+            and A.dtype == torch.float32 and A.is_contiguous()
+            and 1 <= A.shape[2] <= 32 and 1 <= A.shape[1] <= 8192):
+        raise ValueError("min_cone_cuda: need a contiguous f32 A [S, d, m] "
+                         "on a CUDA device (1 <= m <= 32, 1 <= d <= 8192)")
+    S, d, m = A.shape
+    route = route or k13_route(d, m)
+    t = torch.empty(S, dtype=torch.float32, device=dev)
+    if S:
+        _build.launch("grakel_lovasz_min_cone", dev, A.data_ptr(),
+                      t.data_ptr(), S, d, m, int(iters),
+                      int(route == "shared"))
+        min_cone_cuda.launches += 1
+        min_cone_cuda.route_launches[route] += 1
+    return t
+
+
+min_cone_cuda.launches = 0
+min_cone_cuda.route_launches = {"shared": 0, "global": 0}
+
+
+def min_cone(A, iters=MEC_ITERS):
+    """:func:`min_cone_plain` for CPU tensors, K13 for CUDA ones."""
+    if A.device.type == "cpu":
+        return min_cone_plain(A, iters)
+    if A.device.type != "cuda":
+        raise ValueError("min_cone: unsupported device %s" % A.device)
+    return min_cone_cuda(A.contiguous(), iters)

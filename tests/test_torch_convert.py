@@ -103,7 +103,7 @@ def test_sp_state_carry(data, params):
 
 def test_unknown_kernel_rejected():
     with pytest.raises(ValueError):
-        kernel_from_state("GraphHopper", {}, {})
+        kernel_from_state("NoSuchKernel", {}, {})
 
 
 @pytest.mark.parametrize("params", [

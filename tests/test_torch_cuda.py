@@ -1696,3 +1696,295 @@ def test_random_walk_on_card_matches_cpu(cuda, name, params, kind):
         rtol = 1e-4
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol)
+
+
+# --------------------------------------------------------------------- #
+# K10-K13: SvmTheta's one-class solve, LovaszTheta's DR step and cones
+# --------------------------------------------------------------------- #
+
+def _svm_slab(S, V, p, seed, cuda):
+    """A slab as ``ops.svm_qp.one_class_alphas`` builds it: symmetric 0/1
+    K [S, V, V] on graphs of 2..V vertices, the box u, s = n / 2 and the
+    libsvm start a0."""
+    rng = np.random.RandomState(seed)
+    K = np.zeros((S, V, V), np.float32)
+    u = np.zeros((S, V), np.float32)
+    for g in range(S):
+        n = rng.randint(2, V + 1)
+        A = np.triu(rng.rand(n, n) < p, 1)
+        K[g, :n, :n] = A | A.T
+        u[g, :n] = 1.0
+    s = 0.5 * u.sum(1)
+    a0 = np.clip(s[:, None] - np.arange(V)[None, :], 0, 1).astype(
+        np.float32) * u
+    return [torch.from_numpy(x).to(cuda) for x in (K, u, s, a0)]
+
+
+@pytest.mark.parametrize("S,V,p,route", [
+    (37, 8, 0.5, None), (64, 32, 0.2, None), (20, 128, 0.1, None),
+    (5, 256, 0.05, None), (16, 32, 0.3, "global"), (9, 64, 0.6, "global")])
+def test_svm_lanczos_kernel_matches_plain(cuda, S, V, p, route):
+    """K10's extremal Ritz values (what the solve reads) equal the plain
+    version's to 1e-4: without reorthogonalization the later Lanczos
+    coefficients of two summation orders drift apart, the spectrum's ends
+    do not."""
+    from grakel_torch.ops import svm_qp
+    K, u, s, a0 = _svm_slab(S, V, p, S + V, cuda)
+    v0 = svm_qp.start_vector(u)
+    before = dict(svm_qp.lanczos_cuda.route_launches)
+    al, be = svm_qp.lanczos_cuda(K, v0, route=route)
+    want = route or svm_qp.svm_route(V)
+    assert svm_qp.lanczos_cuda.route_launches[want] == before[want] + 1
+    pal, pbe = svm_qp.lanczos_plain(K, v0)
+    assert torch.isfinite(al).all() and torch.isfinite(be).all()
+    torch.testing.assert_close(al[:, :3], pal[:, :3], rtol=1e-4, atol=1e-4)
+    for got, ref in zip(svm_qp.spectral_shift(al, be),
+                        svm_qp.spectral_shift(pal, pbe)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,V,p,route", [
+    (37, 8, 0.5, None), (64, 32, 0.2, None), (20, 128, 0.1, None),
+    (5, 256, 0.05, None), (16, 32, 0.3, "global"), (9, 64, 0.6, "global")])
+def test_svm_fista_kernel_matches_plain(cuda, S, V, p, route):
+    """K11 against the plain FISTA on the same slab: the constraints hold,
+    the objective and K a (unique at the optimum of a convex QP) agree to
+    1e-4, and the alphas to 1e-3 (the shifted K is singular, so the
+    minimizer may be a set, along which rounding drifts)."""
+    from grakel_torch.ops import svm_qp
+    K, u, s, a0 = _svm_slab(S, V, p, 3 * S + V, cuda)
+    scale, dadd, L = svm_qp.spectral_shift(
+        *svm_qp.lanczos_plain(K, svm_qp.start_vector(u)))
+    before = svm_qp.fista_cuda.launches
+    a = svm_qp.fista_cuda(K, a0, u, s, scale, dadd, L, route=route)
+    assert svm_qp.fista_cuda.launches == before + 1
+    ref = svm_qp.fista_plain(K, a0, u, s, scale, dadd, L)
+    assert (a >= -1e-6).all() and (a <= u + 1e-6).all()
+    torch.testing.assert_close(a.sum(1), s, rtol=1e-5, atol=1e-4)
+
+    def kx(x):
+        return scale[:, None] * torch.bmm(K, x[:, :, None])[:, :, 0] \
+            + dadd[:, None] * x
+    torch.testing.assert_close(kx(a), kx(ref), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close((a * kx(a)).sum(1), (ref * kx(ref)).sum(1),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(a, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_svm_wrappers_check_inputs(cuda):
+    from grakel_torch.ops import svm_qp
+    K, u, s, a0 = _svm_slab(4, 16, 0.3, 0, cuda)
+    with pytest.raises(ValueError):
+        svm_qp.lanczos_cuda(K.cpu(), u.cpu())
+    with pytest.raises(ValueError):
+        svm_qp.lanczos_cuda(K.double(), u)
+    with pytest.raises(ValueError):
+        svm_qp.fista_cuda(K, a0, u, s[:3], s, s, s)
+    before = (svm_qp.lanczos_cuda.launches, svm_qp.fista_cuda.launches)
+    al, be = svm_qp.lanczos(K, svm_qp.start_vector(u))
+    svm_qp.one_class_fista(K, a0, u, s, *svm_qp.spectral_shift(al, be))
+    assert (svm_qp.lanczos_cuda.launches,
+            svm_qp.fista_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _dr_inputs(B, V, seed, cuda):
+    """A DR state: edges E and sizes n as ``lovasz_theta_batch`` pads
+    them, random symmetric Y, X and the eigh of 2X - Y."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(seed)
+    n = rng.randint(1, V + 1, B)
+    E = np.zeros((B, V, V), np.float32)
+    for b in range(B):
+        A = np.triu(rng.rand(n[b], n[b]) < 0.4, 1)
+        E[b, :n[b], :n[b]] = A | A.T
+    Y = rng.randn(B, V, V).astype(np.float32)
+    X = rng.randn(B, V, V).astype(np.float32)
+    Y, X = Y + Y.transpose(0, 2, 1), X + X.transpose(0, 2, 1)
+    E, Y, X = (torch.from_numpy(x).to(cuda) for x in (E, Y, X))
+    n = torch.from_numpy(n.astype(np.int32)).to(cuda)
+    w, U = torch.linalg.eigh(2 * X - Y)
+    return E, n, Y, X, w, U
+
+
+@pytest.mark.parametrize("B,V,route", [
+    (3, 4, None), (50, 16, None), (17, 64, None), (6, 128, None),
+    (2, 256, None), (11, 16, "global"), (5, 128, "global")])
+def test_lovasz_dr_step_kernel_matches_plain(cuda, B, V, route):
+    """K12 (in place) against the plain DR step on the same eigh: Y, X and
+    R to 1e-4 (f32 length-V dot products in another order)."""
+    from grakel_torch.ops import lovasz_sdp
+    E, n, Y, X, w, U = _dr_inputs(B, V, B + V, cuda)
+    pY, pX, pR = lovasz_sdp.dr_step_plain(E, n, Y, X, w, U)
+    Yk, Xk = Y.clone(), X.clone()
+    before = dict(lovasz_sdp.dr_step_cuda.route_launches)
+    R = lovasz_sdp.dr_step_cuda(E, n, Yk, Xk, w, U, route=route)
+    want = route or lovasz_sdp.k12_route(V)
+    assert lovasz_sdp.dr_step_cuda.route_launches[want] == before[want] + 1
+    for got, ref in ((Yk, pY), (Xk, pX), (R, pR)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,d,m,route", [
+    (1, 3, 2, None), (1000, 15, 8, None), (333, 113, 8, None),
+    (70, 40, 5, None), (9, 1000, 8, None), (100, 33, 8, "global"),
+    (5, 20, 32, None)])
+def test_lovasz_min_cone_kernel_matches_plain(cuda, S, d, m, route):
+    """K13 against the plain cone loop on subsets shaped as LovaszTheta
+    builds them (unit columns, the first repeated as padding): the far
+    columns are the same choices (the distances are summed in the same
+    order with one rounding a term), so t agrees to 1e-5 (the final
+    norm and dot products in another order)."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(S + d)
+    A = rng.randn(S, d, m).astype(np.float32)
+    A /= np.linalg.norm(A, axis=1, keepdims=True)
+    A[:, :, m // 2:] = A[:, :, :1]
+    A = torch.from_numpy(A).to(cuda)
+    before = dict(lovasz_sdp.min_cone_cuda.route_launches)
+    t = lovasz_sdp.min_cone_cuda(A, route=route)
+    want = route or lovasz_sdp.k13_route(d, m)
+    assert lovasz_sdp.min_cone_cuda.route_launches[want] == before[want] + 1
+    torch.testing.assert_close(t, lovasz_sdp.min_cone_plain(A), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,V,kind", [
+    (5, 2, "random"), (40, 4, "random"), (64, 16, "padded"),
+    (100, 32, "random"), (30, 64, "psd_low_rank"), (12, 128, "padded"),
+    (8, 64, "repeated")])
+def test_lovasz_jacobi_eigh_kernel_matches_eigh(cuda, B, V, kind):
+    """K14 against torch.linalg.eigh (its plain version): the sorted
+    eigenvalues, the PSD projection U diag(max(w, 0)) U^T (unique even
+    where eigenvalues repeat) and U's orthogonality, to 1e-4 of the
+    largest |eigenvalue|; only the lower triangle is read."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(B + V)
+    M = rng.randn(B, V, V).astype(np.float32)
+    if kind == "psd_low_rank":       # a DR iterate near convergence
+        M = M[:, :, :3] @ M[:, :, :3].transpose(0, 2, 1)
+    elif kind == "repeated":
+        Q = np.linalg.qr(M.astype(np.float64))[0]
+        w = np.repeat(rng.randn(B, V // 8), 8, axis=1)
+        M = ((Q * w[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32)
+    else:
+        M = M + M.transpose(0, 2, 1)
+        if kind == "padded":
+            M[:, V // 2:, :] = 0
+            M[:, :, V // 2:] = 0
+    M = torch.from_numpy(np.ascontiguousarray(M)).to(cuda)
+    upper_garbage = M.clone()
+    iu = torch.triu_indices(V, V, 1)
+    upper_garbage[:, iu[0], iu[1]] = 7.0
+    before = lovasz_sdp.jacobi_eigh_cuda.launches
+    w, U = lovasz_sdp.jacobi_eigh_cuda(upper_garbage)
+    assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 1
+    lw, lU = torch.linalg.eigh(M)
+    scale = float(lw.abs().max())
+    torch.testing.assert_close(w.sort(-1).values, lw, rtol=0,
+                               atol=1e-4 * scale)
+
+    def psd(w, U):
+        return (U * w.clamp_min(0)[:, None, :]) @ U.transpose(-1, -2)
+    torch.testing.assert_close(psd(w, U), psd(lw, lU), rtol=0,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(U.transpose(-1, -2) @ U,
+                               torch.eye(V, device=cuda).expand(B, V, V),
+                               rtol=0, atol=1e-4)
+    # sym_eigh routes CUDA tensors of up to 128 rows to K14
+    lovasz_sdp.sym_eigh(M)
+    assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 2
+
+
+def test_lovasz_wrappers_check_inputs(cuda):
+    from grakel_torch.ops import lovasz_sdp
+    E, n, Y, X, w, U = _dr_inputs(2, 8, 0, cuda)
+    with pytest.raises(ValueError):
+        lovasz_sdp.dr_step_cuda(E, n.long(), Y, X, w, U)
+    with pytest.raises(ValueError):
+        lovasz_sdp.dr_step_cuda(E.cpu(), n, Y, X, w, U)
+    with pytest.raises(ValueError):
+        lovasz_sdp.min_cone_cuda(torch.zeros(3, 4, 33, device=cuda))
+    with pytest.raises(ValueError):
+        lovasz_sdp.min_cone_cuda(torch.zeros(3, 4, 2, device=cuda).double())
+    with pytest.raises(ValueError):
+        lovasz_sdp.jacobi_eigh_cuda(torch.zeros(3, 5, 5, device=cuda))
+    with pytest.raises(ValueError):
+        lovasz_sdp.jacobi_eigh_cuda(torch.zeros(3, 256, 256, device=cuda))
+
+
+def test_lovasz_theta_batch_on_card(cuda):
+    """The card's SDP (301 K14 and 300 K12 launches) against its CPU run
+    and the golden theta(C5) = sqrt(5)."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(5)
+    B, V = 9, 16
+    adjs = np.zeros((B, V, V), np.float32)
+    ns = rng.randint(3, V + 1, B)
+    for b in range(B):
+        A = np.triu(rng.rand(ns[b], ns[b]) < 0.4, 1)
+        adjs[b, :ns[b], :ns[b]] = A | A.T
+    adjs[0] = 0
+    for i in range(5):
+        adjs[0, i, (i + 1) % 5] = adjs[0, (i + 1) % 5, i] = 1
+    ns[0] = 5
+    before = (lovasz_sdp.dr_step_cuda.launches,
+              lovasz_sdp.jacobi_eigh_cuda.launches)
+    t, S = lovasz_sdp.lovasz_theta_batch(adjs, ns, device=cuda)
+    assert lovasz_sdp.dr_step_cuda.launches == before[0] + 300
+    assert lovasz_sdp.jacobi_eigh_cuda.launches == before[1] + 301
+    tc, Sc = lovasz_sdp.lovasz_theta_batch(adjs, ns, device="cpu")
+    np.testing.assert_allclose(t, tc, atol=1e-4)
+    np.testing.assert_allclose(S, Sc, atol=1e-4)
+    assert abs(t[0] - np.sqrt(5)) < 1e-4
+
+
+def _attributed(n_fit, n_tr):
+    import os
+    from grakel_torch.datasets import read_data
+    d = read_data("Cuneiform", path=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data"),
+        prefer_attr_nodes=True).data
+    return d[:n_fit], d[n_fit:n_fit + n_tr]
+
+
+@pytest.mark.parametrize("name,params,rtol", [
+    ("SvmTheta", {"random_state": 3}, 2e-3),
+    ("SvmTheta", {"random_state": 3, "normalize": True}, 2e-3),
+    ("LovaszTheta", {"random_state": 3, "max_dim": 60}, 2e-2),
+    ("GraphHopper", {}, 1e-10),
+    ("GraphHopper", {"kernel_type": "gaussian", "normalize": True}, 0),
+    ("MultiscaleLaplacian", {"random_state": 3}, 0)])
+def test_theta_hopper_multiscale_on_card_match_cpu(cuda, name, params,
+                                                   rtol):
+    """The slice's classes on the card against their CPU runs.
+    SvmTheta: the alphas come from K10 and K11 in f32, so its sampled
+    features agree to the solver's 2e-3 (the JAX package's bound against
+    libsvm).  LovaszTheta: the card's eigh differs from LAPACK's in the
+    last bits and the cone iteration resolves exact ties by them, so a
+    subset's cosine may move by ~1e-3: 2e-2.  GraphHopper: the linear
+    Gram is one f64 GEMM on the card (1e-10), the gaussian one the host
+    pair loop (equal); MultiscaleLaplacian runs on the host (equal)."""
+    from grakel_torch.ops import lovasz_sdp, svm_qp
+    if name in ("GraphHopper", "MultiscaleLaplacian"):
+        train, test = _attributed(40, 10)
+    else:
+        train, test = generate_dataset(
+            n_graphs=60, n_graphs_test=8, r_vertices=(10, 50),
+            r_connectivity=(0.07, 0.15), random_state=1234,
+            features=("nl", 37))
+    counters = (svm_qp.lanczos_cuda, svm_qp.fista_cuda,
+                lovasz_sdp.dr_step_cuda, lovasz_sdp.min_cone_cuda)
+    before = [c.launches for c in counters]
+    got = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    if name == "SvmTheta":
+        assert launched[0] == launched[1] > 0 and launched[2:] == [0, 0]
+    elif name == "LovaszTheta":
+        assert launched[:2] == [0, 0] and launched[2] % 300 == 0 \
+            and launched[2] > 0 and launched[3] == 2
+    else:
+        assert launched == [0, 0, 0, 0]
+    with use_device("cpu"):
+        ref = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol)

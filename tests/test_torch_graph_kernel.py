@@ -60,8 +60,8 @@ def test_graph_kernel_default_is_shortest_path():
     assert type(gk.kernel_) is grakel_torch.ShortestPath
 
 
-@pytest.mark.parametrize("spec", ["graph_hopper", "no_such_kernel",
-                                  [{"name": "WL"}, "GH"]], ids=str)
+@pytest.mark.parametrize("spec", ["graph_hoper", "no_such_kernel",
+                                  [{"name": "WL"}, "GHX"]], ids=str)
 def test_graph_kernel_unported_or_unknown_name_lists_names(spec):
     with pytest.raises(ValueError, match="available:.*shortest_path"):
         grakel_torch.GraphKernel(kernel=spec).initialize()

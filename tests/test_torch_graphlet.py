@@ -20,6 +20,11 @@ from grakel_torch import use_device
 from grakel_torch.datasets import generate_dataset, read_data
 from grakel_torch.kernels import graphlet_sampling as tgs
 from grakel_tpu.datasets import read_data as jax_read_data
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

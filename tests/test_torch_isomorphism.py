@@ -21,6 +21,11 @@ from grakel_torch.ops import consubg as tcs
 from grakel_tpu import isomorphism as jiso
 from grakel_tpu.ops import canonical as jcan
 from grakel_tpu.ops import consubg as jcs
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def rand_graph(n, p, seed):

@@ -14,6 +14,11 @@ import pytest
 import grakel_tpu.native as jn
 import grakel_torch.native as tn
 from grakel_torch import _build
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,11 @@ from grakel_torch.kernels.nspd import (NeighborhoodSubgraphPairwiseDistance
                                        as NSPD, ap_hash)
 from grakel_torch.native import _ap_hash_py
 from grakel_torch.ops import gram as gram_ops
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

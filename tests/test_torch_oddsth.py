@@ -16,6 +16,11 @@ from grakel_torch.estimator import NotFittedError
 from grakel_torch.kernels.odd_sth import OddSth
 from grakel_torch.ops.gram import (shared_cols_gram_rect, sparse_counts_gram,
                                    split_weighted_singletons)
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 @pytest.fixture(scope="module")

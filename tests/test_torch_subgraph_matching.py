@@ -16,6 +16,11 @@ from grakel_torch.convert import kernel_from_state
 from grakel_torch.datasets import read_data
 from grakel_torch.kernels.subgraph_matching import SubgraphMatching
 from grakel_torch.native import _clique_values_py, clique_values
+from jax_native_ref import jax_native  # noqa: F401 (fixture)
+
+# the expected values come from grakel_tpu's native engine: load it
+# first (see jax_native_ref)
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
