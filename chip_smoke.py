@@ -83,11 +83,12 @@ main paths through the public entry points, at full data size:
   RandomWalkLabeled's f32 CG to rtol 1e-4;
 * SvmTheta, LovaszTheta, GraphHopper and MultiscaleLaplacian, the slice
   of K10-K14 (``slice_theta_phase``): ``SvmTheta(random_state=42)``
-  (``svmtheta_nci1scale``; K10 and K11 once a slab, one K10 and one K11
-  launch a slab) and ``LovaszTheta(random_state=42)``
-  (``lovasz_nci1scale``; 300 K12 and 301 K14 launches a size bucket a
-  parse, K13 once a parse) on the 4110 NCI1-scale graphs and the 64
-  held-out ones, ``GraphHopper()`` (``gh_cuneiform``, the linear Gram
+  (``svmtheta_nci1scale``; K10 once a slab, K11 once a size bucket a
+  parse, ``torch.linalg.eigvalsh`` never on the card) and
+  ``LovaszTheta(random_state=42)`` (``lovasz_nci1scale``; 300 K12 and
+  301 K14 launches a size bucket a parse, K14 from the step before's
+  eigenvectors at steps 2-300, K13 once a parse) on the 4110 NCI1-scale
+  graphs and the 64 held-out ones, ``GraphHopper()`` (``gh_cuneiform``, the linear Gram
   one f64 GEMM on the card) and ``MultiscaleLaplacian(random_state=42)``
   (``ml_cuneiform``, host numpy) on Cuneiform read with ``read_data``,
   fit 200, transform 67.  Against ``use_device("cpu")``: SvmTheta to
@@ -276,25 +277,40 @@ time of a call:
   kernel's built inner loop (``cuobjdump -sass``) times the launched
   terms over the FP64 issue rate.  No single PyTorch call computes K7,
   K8 or K9: no library time;
-* K10 on every slab of the ``svmtheta_nci1scale`` fit parse and K11
-  (``ops.svm_qp.lanczos_cuda``, ``fista_cuda``) on the first slab of
-  each bucket (its plain version takes ~1.5 s a slab), on route "global" on
-  its widest slab and on a V = 256 slab of the REDDIT-B stand-in (its
-  own route "global"): K10's shift and step from its Ritz extremes to
-  1e-4 of the plain version's, K11's K a and objective a^T K a (unique
-  at the optimum; the alphas may differ along a minimizer set) to 1e-4,
-  its alphas feasible to 1e-4.  Bounds: the dense GEMVs and vector work of every step
-  over 67 TFLOP/s; K12 (``ops.lovasz_sdp.dr_step_cuda``) on each size
-  bucket's DR state at its 150th step of the ``lovasz_nci1scale`` fit
-  parse, both routes, Y, X and R to 1e-4 (bound: 2 V^3 + 12 V^2 flops a
-  graph), with the eigendecomposition's time beside it; K13
-  (``min_cone_cuda``) on the fit parse's subsets to 1e-5 on both routes
-  (bound: 3 d m + 3 d flops a step); K14 (``jacobi_eigh_cuda``) on the
-  same DR reflections and on random matrices with half their rows
-  padded, against ``torch.linalg.eigh`` (its plain version and the one
-  library call): sorted eigenvalues and PSD projections to 1e-4 of the
-  largest |eigenvalue| (bound: 9 V^3 flops a matrix, the dense direct
-  method's count).  Their 9 kernels must build without spills.
+* K10 (``ops.svm_qp.lanczos_cuda``) on every slab of the
+  ``svmtheta_nci1scale`` fit parse, on route "global" on its widest slab
+  and on a V = 256 slab of the REDDIT-B stand-in (its own route
+  "global"): its shift and step from its Ritz extremes to 1e-4 of the
+  plain version's; K11 (``fista_cuda``) on each fit bucket's one launch
+  (route "warp"), on route "block" on the widest bucket and on the V =
+  256 stand-in slab (its own route "block"), against ``spectral_shift``
+  + ``fista_plain``: K a and the objective a^T K a (unique at the
+  optimum; the alphas may differ along a minimizer set) to 1e-4, the
+  alphas feasible to 1e-4 and to 1e-3 of ``fista_plain``'s on the
+  kernel's own shift, the tridiagonal's extremes to 1e-6 of the largest
+  |eigenvalue| of f64 ``eigvalsh``'s and to 1e-4 of the plain version's
+  f32 ``eigvalsh`` (timed beside K11 as ``shift_library_ms``: it is the
+  shift's part alone, so K11 has no library time).  Bounds: K10's dense
+  GEMVs and vector work of every step over 67 TFLOP/s, K11's with K y
+  as K's nnz adds (K is 0/1; beside it PR 14's dense count); K12 (``ops.lovasz_sdp.dr_step_cuda``) on
+  each size bucket's DR state at its 150th step of the
+  ``lovasz_nci1scale`` fit parse, both routes, Y, X and R to 1e-4
+  (bound: 2 V^3 + 12 V^2 flops a graph), with the eigendecomposition's
+  time beside it; K13 (``min_cone_cuda``) on the
+  fit parse's subsets to 1e-5 on both routes (bound: 3 d m + 3 d flops a
+  step); K14 (``jacobi_eigh_cuda``) on the same DR reflections, from
+  step 149's eigenvectors as the path runs it and from the identity, and
+  on random matrices with half their rows padded, from the identity and
+  from a random orthogonal basis, against ``torch.linalg.eigh`` (its
+  plain version and the one library call): sorted eigenvalues and PSD
+  projections to 1e-4 of the largest |eigenvalue|, U orthogonal to 1e-4,
+  also after the path's 300 steps of rotations (bound: 9 V^3 flops a
+  matrix, the dense direct method's count); each fit bucket's DR solve
+  run again with K14's sweeps logged step by step, and the DR solve of
+  a V = 128 bucket (64 REDDIT-B stand-in graphs of 65-128 vertices),
+  which the NCI1-scale buckets never reach, with U's orthogonality and
+  K14's accuracy at its step 300.  Their 13 kernels
+  must build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -1420,9 +1436,12 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     n, nh = len(train), len(held)
 
     # ---------------- the four paths --------------------------------- #
-    # K10 and K11 take each slab's K; K11's other inputs are kept too
+    # K10 takes each slab's K, K11 each bucket's bit rows and the rest of
+    # its inputs; torch.linalg.eigvalsh must not run on the card
     k10_seen, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
-    k11_seen, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:7])
+    k11_seen, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:6])
+    eigvalsh_seen, r_ev = spied(torch.linalg, "eigvalsh",
+                                lambda a, kw: a[0].device.type)
     try:
         class_path("svmtheta_nci1scale", lambda: SvmTheta(random_state=42),
                    train, held, 0, 1, rtol=2e-2,
@@ -1433,25 +1452,50 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     finally:
         r10()
         r11()
+        r_ev()
     lp = paths["svmtheta_nci1scale"]["launches"]
-    check(lp["svm_lanczos"] == lp["svm_fista"] > 0
-          and lp["lovasz_dr_step"] == lp["lovasz_min_cone"] == 0,
-          "svmtheta_nci1scale launched K10 and K11 once a slab (%d, %d)"
-          % (lp["svm_lanczos"], lp["svm_fista"]))
     k10_calls = k10_seen[:lp["svm_lanczos"]]
     k11_calls = k11_seen[:lp["svm_fista"]]
     sizes = np.cumsum([int(K.shape[0]) for K, _ in k10_calls])
     slabs = int(np.searchsorted(sizes, n)) + 1   # the fit parse's calls
+    # K11 once a size bucket a parse: the fit parse's calls cover its n
+    # graphs in increasing V, the transform's its nh
+    k11_sizes = np.cumsum([int(a[0].shape[0]) for a in k11_calls])
+    fit11 = int(np.searchsorted(k11_sizes, n)) + 1
+    k11_v = [int(a[0].shape[1]) for a in k11_calls]
+    check(lp["svm_lanczos"] > 0 and 0 < lp["svm_fista"] < lp["svm_lanczos"]
+          and lp["lovasz_dr_step"] == lp["lovasz_min_cone"] == 0
+          and len(k11_calls) == lp["svm_fista"]
+          and k11_sizes[fit11 - 1] == n and k11_sizes[-1] == n + nh
+          and all(k11_v[i] < k11_v[i + 1] for i in range(fit11 - 1))
+          and all(k11_v[i] < k11_v[i + 1]
+                  for i in range(fit11, len(k11_v) - 1)),
+          "svmtheta_nci1scale launched K10 once a slab (%d) and K11 once a "
+          "size bucket a parse (%d: buckets %s in fit, %s in transform)"
+          % (lp["svm_lanczos"], lp["svm_fista"], k11_v[:fit11],
+             k11_v[fit11:]))
+    check("cuda" not in eigvalsh_seen,
+          "svmtheta_nci1scale called torch.linalg.eigvalsh on no CUDA "
+          "tensor (%d calls, all on the CPU run)" % len(eigvalsh_seen))
+    paths["svmtheta_nci1scale"].update(
+        k11_buckets_fit=k11_v[:fit11], k11_buckets_transform=k11_v[fit11:],
+        eigvalsh_calls_on_card=eigvalsh_seen.count("cuda"))
 
     # K12: each bucket's DR state at its 150th step of the fit parse;
     # K13: the fit parse's subsets
-    k12_state, k12_count = {}, {}
+    # K14: step 149's eigenvectors (the warm start of step 150) and step
+    # 300's (their orthogonality after the loop's rotations)
+    k12_state, k12_count, k14_prev, k14_last = {}, {}, {}, {}
 
     def keep12(a, kw):
         V = int(a[0].shape[-1])
         k12_count[V] = k12_count.get(V, 0) + 1
+        if k12_count[V] == 149 and V not in k14_prev:
+            k14_prev[V] = a[5].clone()
         if k12_count[V] == 150 and V not in k12_state:
             k12_state[V] = tuple(x.clone() for x in a[:6])
+        if k12_count[V] == 300 and V not in k14_last:
+            k14_last[V] = a[5].clone()
     _, r12 = spied(lovasz_sdp, "dr_step", keep12)
     k13_seen, r13 = spied(lt_mod, "min_cone", lambda a, kw: a[0])
     fit_c, tr_c = train[:64], held[:8]
@@ -1524,11 +1568,24 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                             FP32_OPS_PER_S))
 
     def k11_case(args, what, route=None, reps=3):
-        K, _, u, s_t, scale, dadd = args[:6]
-        S, V = int(K.shape[0]), int(K.shape[1])
+        """K11 on one bucket's inputs (Kb, a0, u, s, al, be) against its
+        plain version, spectral_shift + fista_plain on the dense K."""
+        Kb, _, u, s_t, al, be = args
+        S, V, m = int(Kb.shape[0]), int(Kb.shape[1]), int(al.shape[1])
         run = lambda: svm_qp.fista_cuda(*args, route=route)
-        got = run()
-        want = svm_qp.fista_plain(*args)
+        got, lam = svm_qp.fista_cuda(*args, route=route)
+        K = svm_qp.dense_from_bits(Kb, V)
+        scale, dadd, L = svm_qp.spectral_shift(al, be)
+        plain = lambda: svm_qp.fista_plain(
+            K, args[1], u, s_t, *svm_qp.spectral_shift(al, be))
+        want = plain()
+        lmin, lmax = svm_qp.tridiagonal_extremes(al, be)
+        dmin, dmax = (x.to(al.device).float() for x in
+                      svm_qp.tridiagonal_extremes(al.double().cpu(),
+                                                  be.double().cpu()))
+        same_shift = svm_qp.fista_plain(
+            K, args[1], u, s_t,
+            *svm_qp.shift_from_extremes(lam[:, 0], lam[:, 1]))
 
         def kx(a):
             return scale[:, None] * torch.bmm(K, a[:, :, None])[:, :, 0] \
@@ -1539,38 +1596,64 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         feasible = max(float((got.sum(1) - s_t).abs().max()),
                        float((-got).clamp_min(0).max()),
                        float((got - u).clamp_min(0).max()))
-        # an iteration: the GEMV (2 V^2), the step (6 V), min/max (2 V),
-        # 30 bisection steps (4 V each) and the update (5 V)
-        ops = S * 300 * (2 * V * V + 133 * V)
+        big = float(torch.maximum(dmin.abs(), dmax.abs()).max().clamp_min(1))
+        T = torch.diag_embed(al) + torch.diag_embed(be[:, :m - 1], 1) \
+            + torch.diag_embed(be[:, :m - 1], -1)
+        nnz = int(K.sum())
+        # an iteration: K y as K's nnz adds (K is 0/1: the kernel adds the
+        # set entries of its bit rows), the step (6 V), min/max (2 V), 30
+        # bisection steps (4 V each) and the update (5 V); beside it PR
+        # 14's count, the dense GEMV's 2 V^2
+        ops_dense = S * 300 * (2 * V * V + 133 * V)
+        ops = 300 * (nnz + 133 * S * V)
+        nbytes = 4 * (Kb.numel() + 3 * S * V + S + 2 * S * m + 2 * S)
         return dict(what=what, S=S, V=V,
-                    route=route or svm_qp.svm_route(V),
+                    route=route or svm_qp.k11_route(V),
                     max_abs_err=unique,
                     max_abs_err_is="largest difference of K a and of the "
                                    "objective a^T K a (unique at the "
                                    "optimum of a convex QP)",
+                    extremes_err=max(float((lam[:, 0] - dmin).abs().max()),
+                                     float((lam[:, 1] - dmax).abs().max()))
+                    / big,
+                    extremes_err_plain=max(
+                        float((lam[:, 0] - lmin).abs().max()),
+                        float((lam[:, 1] - lmax).abs().max())) / big,
+                    extremes_err_is="largest difference of lambda_min and "
+                                    "lambda_max from f64 eigvalsh's (_plain: "
+                                    "from the plain version's f32 "
+                                    "eigvalsh's), over the largest "
+                                    "|eigenvalue| (at least 1)",
+                    shift_differs=int(sum(int((x != y).sum()) for x, y in zip(
+                        svm_qp.shift_from_extremes(lam[:, 0], lam[:, 1]),
+                        (scale, dadd, L)))),
                     alpha_max_abs_diff=float((got - want).abs().max()),
+                    alpha_diff_same_shift=float((got - same_shift).abs()
+                                                .max()),
                     infeasibility=feasible,
                     ms=cuda_ms(run, reps),
-                    plain_ms=cuda_ms(lambda: svm_qp.fista_plain(*args), 1, 0),
-                    **bound(4 * (S * V * V + 4 * S * V + 4 * S), ops,
-                            FP32_OPS_PER_S))
+                    plain_ms=cuda_ms(plain, 1, 0),
+                    shift_library_ms=cuda_ms(
+                        lambda: torch.linalg.eigvalsh(T), 1),
+                    bound_ms_dense=bound(nbytes, ops_dense,
+                                         FP32_OPS_PER_S)["bound_ms"],
+                    nnz=nnz, **bound(nbytes, ops, FP32_OPS_PER_S))
 
     k10 = [k10_case(K, v0, "svmtheta_nci1scale fit slab %d" % i)
            for i, (K, v0) in enumerate(k10_calls[:slabs])]
-    # K11's plain version takes ~1.5 s a slab on the card (66,000 small
-    # launches): it is held on the first slab of each bucket
-    firsts = [i for i in range(slabs) if i == 0 or k11_calls[i][0].shape[1]
-              != k11_calls[i - 1][0].shape[1]]
-    k11 = [k11_case(k11_calls[i], "svmtheta_nci1scale fit slab %d (the "
-                    "first of bucket V = %d)" % (i, k11_calls[i][0].shape[1]))
-           for i in firsts]
-    # the other route on the path's widest slab, and a V = 256 slab of the
-    # REDDIT-B stand-in (129-256 vertices: route "global" on its own)
+    # K11: one launch a fit bucket, all its slabs
+    k11 = [k11_case(k11_calls[i], "svmtheta_nci1scale fit bucket V = %d "
+                    "(its one launch, %d graphs)"
+                    % (k11_v[i], k11_calls[i][0].shape[0]))
+           for i in range(fit11)]
+    # the other route on the path's widest slab and bucket, and a V = 256
+    # slab of the REDDIT-B stand-in (129-256 vertices: K10's route
+    # "global", K11's "block" on their own)
     wide = max(range(slabs), key=lambda i: k10_calls[i][0].shape[1])
     k10.append(k10_case(*k10_calls[wide], "the widest fit slab, route "
                         "global", route="global"))
-    k11.append(k11_case(k11_calls[wide], "the widest fit slab, route "
-                        "global", route="global"))
+    k11.append(k11_case(k11_calls[fit11 - 1], "the widest fit bucket, route "
+                        "block", route="block"))
     big = []
     for nv, s_, d_ in heavy_tailed_graphs(**REDDIT_B, seed=0):
         if 129 <= nv <= 256 and len(big) < 32:
@@ -1578,7 +1661,7 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
             A[s_, d_] = 1
             big.append(A)
     seen10, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
-    seen11, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:7])
+    seen11, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:6])
     try:
         svm_qp.one_class_alphas(big, device="cuda")
     finally:
@@ -1593,23 +1676,42 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
           "K10 == plain Lanczos on both routes: the shift and step from "
           "its Ritz extremes to 1e-4 (largest %.3g)"
           % max(c["max_abs_err"] for c in k10))
-    check(all(c["max_abs_err"] <= 1e-4 and c["infeasibility"] <= 1e-4
-              for c in k11),
-          "K11 == plain FISTA on both routes: K a and the objective to 1e-4 "
-          "(largest %.3g), feasible to 1e-4; the alphas, which may differ "
-          "along a minimizer set, differ by up to %.3g"
+    check({c["route"] for c in k11} == {"warp", "block"}
+          and all(c["max_abs_err"] <= 1e-4 and c["infeasibility"] <= 1e-4
+                  and c["extremes_err"] <= 1e-6
+                  and c["extremes_err_plain"] <= 1e-4
+                  and c["alpha_diff_same_shift"] <= 1e-3 for c in k11),
+          "K11 == plain shift + FISTA on both routes: K a and the objective "
+          "to 1e-4 (largest %.3g), feasible to 1e-4, the tridiagonal's "
+          "extremes to 1e-6 of the largest |eigenvalue| of f64 eigvalsh's "
+          "(largest %.3g) and to 1e-4 of the plain f32 eigvalsh's (%.3g; "
+          "shifts differing in %d values), the alphas to 1e-3 of "
+          "fista_plain's on the kernel's shift (%.3g; on the plain shift, "
+          "along a minimizer set, up to %.3g)"
           % (max(c["max_abs_err"] for c in k11),
+             max(c["extremes_err"] for c in k11),
+             max(c["extremes_err_plain"] for c in k11),
+             sum(c["shift_differs"] for c in k11),
+             max(c["alpha_diff_same_shift"] for c in k11),
              max(c["alpha_max_abs_diff"] for c in k11)))
     K0, v00 = k10_calls[0]
     a0 = k11_calls[0]
     dev10 = device_ms(lambda: svm_qp.lanczos_cuda(K0, v00), 3, "svm_lanczos")
     dev11 = device_ms(lambda: svm_qp.fista_cuda(*a0), 3, "svm_fista")
     rows = []
-    for name, cases, main_n, replaces, dev, call in (
+    for name, cases, main_n, replaces, dev, call, lib, summed in (
             ("svm_lanczos", k10, slabs, "grakel_tpu/ops/svm_qp.py:93", dev10,
-             lambda: svm_qp.lanczos_cuda(K0, v00)),
-            ("svm_fista", k11, len(firsts), "grakel_tpu/ops/svm_qp.py:116",
-             dev11, lambda: svm_qp.fista_cuda(*a0))):
+             lambda: svm_qp.lanczos_cuda(K0, v00),
+             "none: no single PyTorch call runs the loop",
+             "%d calls of the svmtheta_nci1scale fit parse (one a slab; "
+             "every slab)" % slabs),
+            ("svm_fista", k11, fit11, "grakel_tpu/ops/svm_qp.py:114", dev11,
+             lambda: svm_qp.fista_cuda(*a0),
+             "none: no single PyTorch call runs the FISTA loop (the "
+             "shift's part alone, torch.linalg.eigvalsh on the buckets' "
+             "[S, 64, 64] tridiagonals, is shift_library_ms)",
+             "the %d launches of the svmtheta_nci1scale fit parse (one a "
+             "size bucket, its %d slabs' graphs)" % (fit11, slabs))):
         main = cases[:main_n]
         rows.append({
             "name": name, "route": "cuda",
@@ -1617,18 +1719,18 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: sum(c[k] for c in main) for k in ("ms", "plain_ms",
                                                     "bound_ms")},
-            "bound_by": "operations", "library_ms": None,
-            "library": "none: no single PyTorch call runs the loop",
-            "device_ms_slab0": dev, "wrapper_ms_slab0": host_ms(call, 20),
-            "summed_over": "%d calls of the svmtheta_nci1scale fit parse "
-                           "(one a slab; %s)" % (main_n, "every slab" if
-                                                 main_n == slabs else
-                                                 "the first of each bucket, "
-                                                 "of %d" % slabs),
-            "shapes": cases})
+            "bound_by": max(main, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None, "library": lib,
+            "device_ms_call0": dev, "wrapper_ms_call0": host_ms(call, 20),
+            "summed_over": summed, "shapes": cases})
+    for k in ("bound_ms_dense", "shift_library_ms"):
+        rows[1][k] = sum(c[k] for c in k11[:fit11])
 
     # ---------------- K12 ----------------------------------------------- #
-    def k12_case(state, what, route=None, reps=20):
+    def k12_case(state, what, U0, route=None, reps=20):
+        """K12 on a DR state against its plain version; beside it the
+        step's eigendecomposition as the path runs it (K14 from the step
+        before's eigenvectors ``U0``)."""
         E, nn, Y, X, w, U = state
         B, V = int(E.shape[0]), int(E.shape[-1])
         Yk, Xk = Y.clone(), X.clone()
@@ -1645,17 +1747,19 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                     ms=cuda_ms(run, reps),
                     plain_ms=cuda_ms(lambda: lovasz_sdp.dr_step_plain(
                         E, nn, Y, X, w, U), 3),
-                    eigh_ms=cuda_ms(lambda: lovasz_sdp.sym_eigh(Rin), 3),
+                    eigh_ms=cuda_ms(lambda: lovasz_sdp.sym_eigh(Rin, U0), 3),
                     **bound(4 * B * (7 * V * V + V) + 4 * B,
                             B * (2 * V ** 3 + 12 * V * V), FP32_OPS_PER_S))
 
-    def k14_case(M, what, reps=3):
-        """K14 on M [B, V, V] against torch.linalg.eigh (its plain
-        version, and the one library call): the sorted eigenvalues and
-        the PSD projections U diag(max(w, 0)) U^T, which are unique, to
-        1e-4 of the largest |eigenvalue|; U's orthogonality."""
+    def k14_case(M, what, U0=None, reps=3):
+        """K14 on M [B, V, V] (from the identity, or from the basis U0)
+        against torch.linalg.eigh (its plain version, and the one library
+        call): the sorted eigenvalues and the PSD projections U diag(max(w,
+        0)) U^T, which are unique, to 1e-4 of the largest |eigenvalue|;
+        U's orthogonality; the sweeps each matrix took."""
         B, V = int(M.shape[0]), int(M.shape[-1])
-        w, U = lovasz_sdp.jacobi_eigh_cuda(M)
+        sw = torch.zeros(B, dtype=torch.int32, device=M.device)
+        w, U = lovasz_sdp.jacobi_eigh_cuda(M, U0, sweeps=sw)
         lw, lU = torch.linalg.eigh(M)
         scale = float(lw.abs().max())
 
@@ -1665,21 +1769,26 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         err = max(float((w.sort(-1).values - lw).abs().max()),
                   float((psd(w, U) - psd(lw, lU)).abs().max())) / scale
         library = cuda_ms(lambda: torch.linalg.eigh(M), 1)
-        return dict(what=what, B=B, V=V, max_abs_err=err,
+        sw = sw.cpu().numpy()
+        return dict(what=what, B=B, V=V, start="identity" if U0 is None
+                    else "basis", max_abs_err=err,
                     max_abs_err_is="largest difference of the sorted "
                                    "eigenvalues and the PSD projections, "
                                    "over the largest |eigenvalue|",
                     orthogonality=float((U.transpose(-1, -2) @ U - eye)
                                         .abs().max()),
-                    ms=cuda_ms(lambda: lovasz_sdp.jacobi_eigh_cuda(M), reps),
+                    sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()),
+                    ms=cuda_ms(lambda: lovasz_sdp.jacobi_eigh_cuda(M, U0),
+                               reps),
                     plain_ms=library, library_ms=library,
                     **bound(4 * B * (2 * V * V + V), B * 9 * V ** 3,
                             FP32_OPS_PER_S))
 
     k12 = [k12_case(k12_state[V], "lovasz_nci1scale fit, bucket V = %d, "
-                    "DR step 150" % V) for V in sorted(k12_state)]
+                    "DR step 150" % V, k14_prev[V]) for V in sorted(k12_state)]
     k12 += [k12_case(k12_state[V], "the same state, route %s" % (
         "global" if lovasz_sdp.k12_route(V) == "shared" else "shared"),
+        k14_prev[V],
         route="global" if lovasz_sdp.k12_route(V) == "shared" else "shared")
         for V in sorted(k12_state)[-1:]]
     check(all(c["max_abs_err"] <= 1e-4 for c in k12)
@@ -1708,39 +1817,161 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         "shapes": k12}
     k12_row["eigh_share"] = k12_row["eigh_ms"] / (k12_row["eigh_ms"]
                                                   + k12_row["ms"])
-    k14 = [k14_case((2 * k12_state[V][3] - k12_state[V][2]).contiguous(),
-                    "lovasz_nci1scale fit, bucket V = %d, the reflection of "
-                    "DR step 150" % V) for V in sorted(k12_state)]
+    # the DR reflection of step 150 of each fit bucket, from step 149's
+    # eigenvectors as the path runs it, and from the identity
+    refl = {V: (2 * k12_state[V][3] - k12_state[V][2]).contiguous()
+            for V in sorted(k12_state)}
+    k14 = [k14_case(refl[V], "lovasz_nci1scale fit, bucket V = %d, the "
+                    "reflection of DR step 150, from step 149's "
+                    "eigenvectors" % V, U0=k14_prev[V])
+           for V in sorted(k12_state)]
+    k14_cold = [k14_case(refl[V], "the same, from the identity")
+                for V in sorted(k12_state)]
     rng = np.random.RandomState(14)
     for V, B in ((4, 64), (128, 64)):
         M = torch.from_numpy(rng.randn(B, V, V).astype(np.float32)).cuda()
         M = M + M.transpose(-1, -2)
         M[:, :, V // 2:] = 0      # half padded, as a bucket's small graphs
         M[:, V // 2:, :] = 0
-        k14.append(k14_case(M, "random symmetric, V = %d, half padding" % V))
+        k14_cold.append(k14_case(M, "random symmetric, V = %d, half "
+                                 "padding" % V))
+        Q = torch.linalg.qr(torch.from_numpy(rng.randn(B, V, V)))[0]
+        k14_cold.append(k14_case(M, "the same from a random orthogonal "
+                                 "basis", U0=Q.float().cuda().transpose(
+                                     -1, -2).contiguous().transpose(-1, -2)))
+    def dr_solve_logged(E, nn):
+        """One bucket's DR solve (``_theta``) with K14's sweeps logged a
+        call: a spy in place of ``sym_eigh``, K14's dispatcher, that hands
+        each call to K14 as the dispatcher does at these sizes (V <= 128)
+        with a sweep-count tensor.  Returns (seconds, sweeps [301, B]:
+        the 300 steps' and theta's, (M, U0, U) of DR step 300)."""
+        log, at300 = [], []
+        real = lovasz_sdp.sym_eigh
+
+        def logged(M, U0=None):
+            sw = torch.zeros(M.shape[0], dtype=torch.int32, device=M.device)
+            w, U = lovasz_sdp.jacobi_eigh_cuda(M.contiguous(), U0,
+                                               sweeps=sw)
+            log.append(sw)
+            if len(log) == 300:
+                at300.append((M.contiguous(), U0, U))
+            return w, U
+        lovasz_sdp.sym_eigh = logged
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lovasz_sdp._theta(E, nn, 300, 1.0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            lovasz_sdp.sym_eigh = real
+        return dt, torch.stack(log).cpu().numpy(), at300[0]
+
+    def sweep_stats(S, dr_s):
+        """Mean sweeps of the DR steps started from the identity (1, 101,
+        201) and of the warm ones by how far they lie from the last cold
+        one (2-10 and 11-100 after it), the most, and the histogram."""
+        k = np.arange(300) % lovasz_sdp.JACOBI_RESTART
+        return {"dr_solve_s": dr_s,
+                "sweeps_mean": {name: float(S[:300][sel].mean())
+                                for name, sel in (
+                                    ("from the identity", k == 0),
+                                    ("warm, 2-10 after", (k > 0) & (k < 10)),
+                                    ("warm, 11-100 after", k >= 10))},
+                "sweeps_max": int(S[:300].max()),
+                "histogram": np.bincount(S[:300].ravel()).tolist()}
+
+    # the loop's orthogonality after 300 steps of rotations, and each
+    # bucket's DR solve again with its sweeps logged step by step
+    orth = {V: float((U.transpose(-1, -2) @ U - torch.eye(
+        V, device=U.device)).abs().max()) for V, U in k14_last.items()}
+    by_step = {}
+    for V in sorted(k12_state):
+        E, nn = k12_state[V][:2]
+        dr_s, S, _ = dr_solve_logged(E, nn)
+        by_step[V] = sweep_stats(S, dr_s)
+        print("lovasz_jacobi_eigh: bucket V = %d, DR solve %.3f s, mean "
+              "sweeps by step %s, histogram %s" % (
+                  V, dr_s, by_step[V]["sweeps_mean"],
+                  by_step[V]["histogram"]), flush=True)
+    # K14 takes a V = 128 bucket warm too, which the NCI1-scale buckets
+    # (V <= 64) never reach: the 300-step DR solve of 64 graphs of the
+    # REDDIT-B stand-in with 65-128 vertices, U's orthogonality at step
+    # 300 and that step's decomposition from step 299's eigenvectors
+    wide = [(nv, s_, d_) for nv, s_, d_ in
+            heavy_tailed_graphs(**REDDIT_B, seed=0) if 65 <= nv <= 128][:64]
+    E128 = np.zeros((len(wide), 128, 128), np.float32)
+    for b, (nv, s_, d_) in enumerate(wide):
+        E128[b, s_, d_] = 1
+        E128[b, d_, s_] = 1
+        np.fill_diagonal(E128[b], 0)
+    dr_s, S, (M300, U299, U300) = dr_solve_logged(
+        torch.from_numpy(E128).cuda(),
+        torch.tensor([g[0] for g in wide], dtype=torch.int32).cuda())
+    wide_stats = sweep_stats(S, dr_s)
+    eye128 = torch.eye(128, device=U300.device)
+    wide_orth = float((U300.transpose(-1, -2) @ U300 - eye128).abs().max())
+    # the same solve with every step after the first warm: the drift the
+    # restarts bound
+    every = lovasz_sdp.JACOBI_RESTART
+    lovasz_sdp.JACOBI_RESTART = 1 << 30
+    try:
+        _, _, (_, _, U300w) = dr_solve_logged(
+            torch.from_numpy(E128).cuda(),
+            torch.tensor([g[0] for g in wide], dtype=torch.int32).cuda())
+    finally:
+        lovasz_sdp.JACOBI_RESTART = every
+    wide_stats["orthogonality_no_restart"] = float(
+        (U300w.transpose(-1, -2) @ U300w - eye128).abs().max())
+    k14_cold.append(k14_case(M300, "REDDIT-B stand-in, 64 graphs of 65-128 "
+                             "vertices (bucket V = 128), the reflection of "
+                             "DR step 300, from step 299's eigenvectors",
+                             U0=U299))
+    print("lovasz_jacobi_eigh: REDDIT-B stand-in bucket V = 128 (%d graphs), "
+          "DR solve %.3f s, mean sweeps by step %s, U off orthogonal by "
+          "%.3g at step 300 (%.3g with no restart)"
+          % (len(wide), dr_s, wide_stats["sweeps_mean"], wide_orth,
+             wide_stats["orthogonality_no_restart"]), flush=True)
+    orth["128 (REDDIT-B stand-in)"] = wide_orth
     check(all(c["max_abs_err"] <= 1e-4 and c["orthogonality"] <= 1e-4
-              for c in k14),
-          "K14 == torch.linalg.eigh: sorted eigenvalues and PSD projections "
-          "to 1e-4 of the largest |eigenvalue| (largest %.3g), U orthogonal "
-          "to 1e-4" % max(c["max_abs_err"] for c in k14))
-    Mw = (2 * E0[3] - E0[2]).contiguous()
+              for c in k14 + k14_cold)
+          and all(v <= 1e-4 for v in orth.values()),
+          "K14 == torch.linalg.eigh from the identity and from a basis: "
+          "sorted eigenvalues and PSD projections to 1e-4 of the largest "
+          "|eigenvalue| (largest %.3g), U orthogonal to 1e-4 (largest "
+          "%.3g; %s at DR step 300)" % (
+              max(c["max_abs_err"] for c in k14 + k14_cold),
+              max(c["orthogonality"] for c in k14 + k14_cold), orth))
+    Mw = refl[sorted(refl)[-1]]
+    Uw = k14_prev[sorted(refl)[-1]]
     k14_row = {
         "name": "lovasz_jacobi_eigh", "route": "cuda",
         "source": "grakel_torch/csrc/lovasz.cu",
         "replaces": "grakel_tpu/ops/lovasz_sdp.py:44",
-        "max_abs_err": max(c["max_abs_err"] for c in k14),
-        **{k: sum(c[k] for c in k14[:len(k12_state)]) for k in (
+        "max_abs_err": max(c["max_abs_err"] for c in k14 + k14_cold),
+        **{k: sum(c[k] for c in k14) for k in (
             "ms", "plain_ms", "library_ms", "bound_ms")},
-        "bound_by": max(k14[:len(k12_state)],
-                        key=lambda c: c["bound_ms"])["bound_by"],
+        "bound_by": max(k14, key=lambda c: c["bound_ms"])["bound_by"],
+        "cold_ms": sum(c["ms"] for c in k14_cold[:len(k14)]),
+        "sweeps_warm": {c["V"]: (c["sweeps_mean"], c["sweeps_max"])
+                        for c in k14},
+        "sweeps_cold": {c["V"]: (c["sweeps_mean"], c["sweeps_max"])
+                        for c in k14_cold[:len(k14)]},
+        "orthogonality_step_300": orth, "sweeps_by_step": by_step,
+        "sweeps_by_step_v128": wide_stats,
+        "dr_solve_s": sum(v["dr_solve_s"] for v in by_step.values()),
         "library": "torch.linalg.eigh on the same matrices (its plain "
                    "version too)",
         "device_ms_widest": device_ms(
-            lambda: lovasz_sdp.jacobi_eigh_cuda(Mw), 3, "jacobi_eigh"),
+            lambda: lovasz_sdp.jacobi_eigh_cuda(Mw, Uw), 3, "jacobi_eigh"),
         "summed_over": "one eigendecomposition of each size bucket of the "
-                       "lovasz_nci1scale fit parse (one launch a bucket; "
-                       "the path runs 301 a bucket a parse)",
-        "shapes": k14}
+                       "lovasz_nci1scale fit parse at DR step 150, from "
+                       "step 149's eigenvectors as the path runs its "
+                       "warm steps (one launch a bucket; the path runs "
+                       "301 a bucket a parse: every JACOBI_RESTART-th "
+                       "step, the first among them, and theta's from the "
+                       "identity)",
+        "shapes": k14 + k14_cold}
 
     # ---------------- K13 ----------------------------------------------- #
     def k13_case(A, what, route=None, reps=3):
@@ -1787,6 +2018,16 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     print("lovasz_dr_step: eigh %.4f ms beside the kernel's %.4f ms an "
           "iteration over the fit buckets (eigh share %.3f)"
           % (k12_row["eigh_ms"], k12_row["ms"], k12_row["eigh_share"]),
+          flush=True)
+    print("lovasz_jacobi_eigh: %.4f ms from step 149's eigenvectors, %.4f "
+          "ms from the identity, over the fit buckets at DR step 150; "
+          "sweeps (mean, max) %s and %s; the fit parse's DR solve %.3f s"
+          % (k14_row["ms"], k14_row["cold_ms"], k14_row["sweeps_warm"],
+             k14_row["sweeps_cold"], k14_row["dr_solve_s"]), flush=True)
+    print("svm_fista: %.4f ms over %d launches (the shift's eigvalsh alone "
+          "%.4f ms), bound %.4f ms (K's nnz), %.4f ms (the dense product's "
+          "count)" % (rows[1]["ms"], fit11, rows[1]["shift_library_ms"],
+                      rows[1]["bound_ms"], rows[1]["bound_ms_dense"]),
           flush=True)
     return rows
 
@@ -1908,11 +2149,13 @@ def main():
         "spills: %s" % k6_ptxas)
     k1013_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                    if "svm_" in k or "lovasz_" in k}
-    check(len(k1013_ptxas) == 9 and all(
+    check(len(k1013_ptxas) == 13 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k1013_ptxas.values()),
-        "K10-K13's 8 kernels (each on its shared and global route) and "
-        "K14 built without spills: %s" % k1013_ptxas)
+        "K10's, K12's and K13's 6 kernels (each on its shared and global "
+        "route), K11's 5 (warp route at V = 8, 16, 32, 64; block route) "
+        "and K14's 2 (a warp, a block a matrix) built without spills: %s"
+        % k1013_ptxas)
 
     from grakel_torch.ops import canonical as can_ops
     from grakel_torch.ops import lovasz_sdp as lovasz_ops

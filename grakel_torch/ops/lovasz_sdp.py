@@ -15,8 +15,10 @@ off-support entries, shift the diagonal to trace 1) and the PSD cone
 one size V.  An iteration is one batched eigendecomposition of the
 reflection R = 2X - Y (:func:`sym_eigh`: on a card K14, a batched
 Jacobi in ``csrc/lovasz.cu``, up to 128 rows, where
-``torch.linalg.eigh`` runs cuSOLVER a matrix at a time; on the CPU
-``torch.linalg.eigh``, its plain version) and one launch of K12
+``torch.linalg.eigh`` runs cuSOLVER a matrix at a time, started from
+the step before's eigenvectors but every :data:`JACOBI_RESTART`-th
+step; on the CPU ``torch.linalg.eigh``, its
+plain version) and one launch of K12
 (``csrc/lovasz.cu``, plain version :func:`dr_step_plain`), which
 rebuilds Z = V diag(max(w, 0)) V^T, steps Y <- Y + Z - X, projects the
 next X = proj_affine(Y + J) with its trace, and writes the next R.  The dual slack the labelling needs
@@ -49,13 +51,19 @@ __all__ = ["lovasz_theta_batch", "dr_step", "dr_step_plain",
            "dr_step_cuda", "min_cone", "min_cone_plain", "min_cone_cuda",
            "sym_eigh", "jacobi_eigh_cuda", "proj_affine", "k12_route",
            "k13_route", "K12_SMEM_BUDGET", "K13_SMEM_BUDGET", "MEC_ITERS",
-           "JACOBI_MAX_V"]
+           "JACOBI_MAX_V", "JACOBI_RESTART"]
 
 MEC_ITERS = 400
 # K14 holds a matrix and its eigenvector rows in shared memory: up to
 # 128 rows
 JACOBI_MAX_V = 128
 JACOBI_SWEEPS = 16
+# the DR loop starts K14 from the identity every this many steps, from
+# the step before's eigenvectors otherwise: each warm call's rotations
+# add to U's drift from orthogonality (the checks allow 1e-4), and a
+# restart every 100 steps halves the drift at the 64-row buckets
+# (chip_smoke.py measures it with and without restarts; PERF.md)
+JACOBI_RESTART = 100
 # K12 stages a graph's eigenvectors in shared memory within this budget
 # (V <= 128); larger V reads them from device memory
 K12_SMEM_BUDGET = 160 * 1024
@@ -111,14 +119,21 @@ def _proj_psd(M):
 # K14: the eigendecomposition; K12: one Douglas-Rachford step around it
 # --------------------------------------------------------------------- #
 
-def jacobi_eigh_cuda(M, max_sweeps=JACOBI_SWEEPS):
+def jacobi_eigh_cuda(M, U0=None, max_sweeps=JACOBI_SWEEPS, sweeps=None):
     """Launch K14 (``csrc/lovasz.cu``): the eigenpairs of the symmetric
     matrices M [B, V, V] (contiguous f32 on a CUDA device, V a power of
     two, 2 <= V <= :data:`JACOBI_MAX_V`; the lower triangles are read, as
-    ``torch.linalg.eigh`` reads them) by cyclic Jacobi, a block a
-    matrix.  Returns (w [B, V], U [B, V, V]) with M = U diag(w) U^T: the
-    eigenvalues unsorted, U column-major (a transposed view of the
-    kernel's eigenvector rows, the layout :func:`dr_step_cuda` takes)."""
+    ``torch.linalg.eigh`` reads them) by cyclic Jacobi, a warp a matrix
+    up to 16 rows, a block past.  Returns (w [B, V], U [B, V, V]) with M
+    = U diag(w) U^T: the eigenvalues unsorted, U column-major (a
+    transposed view of the kernel's eigenvector rows, the layout
+    :func:`dr_step_cuda` takes).
+
+    ``U0``: a start basis in that same layout (an earlier call's U: an
+    orthogonal [B, V, V] whose transpose is contiguous); the sweeps then
+    run on U0^T M U0 and their rotations accumulate into U0, so a basis
+    that nearly diagonalizes M leaves few sweeps.  ``sweeps``: an int32
+    [B] tensor on the device that takes each matrix's sweep count."""
     from .. import _build
     dev = M.device
     B = M.shape[0] if M.dim() == 3 else -1
@@ -129,11 +144,26 @@ def jacobi_eigh_cuda(M, max_sweeps=JACOBI_SWEEPS):
         raise ValueError("jacobi_eigh_cuda: need a contiguous f32 M [B, V, "
                          "V] on a CUDA device, V a power of two, 2 <= V <= "
                          "%d" % JACOBI_MAX_V)
+    U0t = None
+    if U0 is not None:
+        U0t = U0.transpose(-1, -2) if U0.dim() == 3 else U0
+        if not _f32(U0t, dev, (B, V, V)):
+            raise ValueError("jacobi_eigh_cuda: U0 must be an f32 [B, V, V] "
+                             "on M's device whose transpose is contiguous "
+                             "(the U an earlier call returned)")
+    if sweeps is not None and not (
+            sweeps.device == dev and sweeps.dtype == torch.int32
+            and tuple(sweeps.shape) == (B,) and sweeps.is_contiguous()):
+        raise ValueError("jacobi_eigh_cuda: sweeps must be a contiguous "
+                         "int32 [B] on M's device")
     w = torch.empty((B, V), dtype=torch.float32, device=dev)
     Ut = torch.empty((B, V, V), dtype=torch.float32, device=dev)
     if B:
         _build.launch("grakel_lovasz_jacobi_eigh", dev, M.data_ptr(),
-                      w.data_ptr(), Ut.data_ptr(), B, V, int(max_sweeps))
+                      None if U0t is None else U0t.data_ptr(), w.data_ptr(),
+                      Ut.data_ptr(),
+                      None if sweeps is None else sweeps.data_ptr(), B, V,
+                      int(max_sweeps))
         jacobi_eigh_cuda.launches += 1
     return w, Ut.transpose(-1, -2)
 
@@ -141,15 +171,16 @@ def jacobi_eigh_cuda(M, max_sweeps=JACOBI_SWEEPS):
 jacobi_eigh_cuda.launches = 0
 
 
-def sym_eigh(M):
+def sym_eigh(M, U0=None):
     """Eigenpairs (w, U) of the symmetric f32 matrices M [B, V, V]:
     ``torch.linalg.eigh`` (the plain version) for CPU tensors, K14 for
     CUDA ones of a power-of-two size up to :data:`JACOBI_MAX_V` rows
-    (LovaszTheta's buckets), ``torch.linalg.eigh`` otherwise."""
+    (LovaszTheta's buckets), started from ``U0`` when given,
+    ``torch.linalg.eigh`` otherwise (which ignores ``U0``)."""
     V = M.shape[-1]
     if M.device.type == "cuda" and 2 <= V <= JACOBI_MAX_V \
             and V & (V - 1) == 0:
-        return jacobi_eigh_cuda(M.contiguous())
+        return jacobi_eigh_cuda(M.contiguous(), U0)
     return torch.linalg.eigh(M)
 
 
@@ -222,13 +253,17 @@ def dr_step(E, n, Y, X, w, U, step=1.0):
 
 def _theta(E, n, iters, step):
     """theta [B] and the snapped dual slack S [B, V, V] (the JAX
-    package's ``_theta_impl``)."""
+    package's ``_theta_impl``).  On a card each step's eigendecomposition
+    starts from the step before's eigenvectors (the reflection moves
+    little from one step to the next), every :data:`JACOBI_RESTART`-th
+    one (the first among them) and theta's from the identity."""
     J, dvalid, keep, nvalid = _masks(E, n)
     Y = torch.zeros_like(E)
     X = proj_affine(Y + step * J, dvalid, keep, nvalid)
     R = 2.0 * X - Y
-    for _ in range(iters):
-        w, U = sym_eigh(R)
+    U = None
+    for k in range(iters):
+        w, U = sym_eigh(R, U if k % JACOBI_RESTART else None)
         Y, X, R = dr_step(E, n, Y, X, w, U, step)
     theta = (J * _proj_psd(X)).sum((-2, -1))
     S = (Y - X) / step

@@ -11,26 +11,33 @@ where K = (A > 1e-10) with zero diagonal, spectrally shifted to be PSD
 
 Graphs bucket by padded size V (a power of two >= 8) and slabs of at
 most ``s_cap`` graphs, as in the JAX package (a graph's slab position
-seeds its Lanczos start vector, so the slabs are the same).  A slab runs:
+seeds its Lanczos start vector, so the slabs are the same).  A bucket
+runs:
 
-* the densify: one ``index_add_`` of the slab's edges into a zeroed
-  [S, V, V] f32 tensor on the device;
-* K10 (``csrc/svm_qp.cu``, plain version :func:`lanczos_plain`): m = 64
+* per slab, the densify (one ``index_add_`` of the slab's edges into a
+  zeroed [S, V, V] f32 tensor on the device; only K10 reads K dense)
+  and K10
+  (``csrc/svm_qp.cu``, plain version :func:`lanczos_plain`): m = 64
   Lanczos steps without reorthogonalization, alpha and beta [S, m];
-* the [S, m, m] tridiagonal's extremal eigenvalues, one batched
-  ``torch.linalg.eigvalsh``, and the spectral shift (scale, dadd, the
-  FISTA step 1/L);
-* K11 (``csrc/svm_qp.cu``, plain version :func:`fista_plain`): 300
-  FISTA iterations on the dual, each projected onto {0 <= a <= u,
-  sum a = s} by 30 bisection steps on the simplex shift, warm-started
-  at libsvm's own initial point a_i = clip(nu*n - i, 0, 1).
+* once over the bucket, K's rows as bit masks (:func:`adjacency_bits`,
+  one ``index_add_``) and K11 (``csrc/svm_qp.cu``): each graph's warp
+  finds the extremal eigenvalues of its [m, m] tridiagonal by Sturm
+  counts and takes the spectral shift (scale, dadd, the FISTA step 1/L)
+  from them, then runs 300 FISTA iterations on the dual, each projected
+  onto {0 <= a <= u, sum a = s} by 30 bisection steps on the simplex
+  shift, warm-started at libsvm's own initial point a_i = clip(nu*n -
+  i, 0, 1).  Its plain version is :func:`spectral_shift` (one batched
+  ``torch.linalg.eigvalsh``) and :func:`fista_plain` on the dense K;
+* one fetch of the bucket's alphas.
 
 On a CUDA tensor :func:`lanczos` and :func:`one_class_fista` launch
-their kernels (one launch a slab each) or raise; the plain versions
-serve CPU tensors.  All f32, as the JAX program.
+their kernels or raise; the plain versions serve CPU tensors.  All f32,
+as the JAX program (the eigenvalue search in f64, to the f32 rounding).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,7 +46,10 @@ from ..device import resolve_device
 
 __all__ = ["one_class_alphas", "lanczos", "lanczos_plain", "lanczos_cuda",
            "one_class_fista", "fista_plain", "fista_cuda", "start_vector",
-           "spectral_shift", "svm_route", "SVM_SMEM_BUDGET"]
+           "spectral_shift", "shift_from_extremes", "tridiagonal_extremes",
+           "adjacency_bits", "dense_from_bits", "fista_momenta", "svm_route",
+           "k11_route",
+           "SVM_SMEM_BUDGET", "K11_WARP_MAX_V"]
 
 _LANCZOS_M = 64
 _FISTA_ITERS = 300
@@ -48,10 +58,11 @@ _MIN_WEIGHT = 1e-10
 _EIG_TOL = 1e-6
 _SLAB_BYTES = 1 << 30
 
-# K10 and K11 hold a graph's K in shared memory while K and the
-# kernels' vectors fit this budget (V <= 128); larger V reads K from
-# device memory
+# K10 holds a graph's K in shared memory while K and the kernel's
+# vectors fit this budget (V <= 128); larger V reads K from device memory
 SVM_SMEM_BUDGET = 200 * 1024
+# K11 runs a warp a graph up to this padded size, a block a graph past it
+K11_WARP_MAX_V = 64
 
 
 def _pow2(x):
@@ -59,9 +70,9 @@ def _pow2(x):
 
 
 def svm_route(V):
-    """K10's and K11's route for padded size ``V``: "shared" while the
-    graph's K [V, V] f32 and six f32 vectors of V fit
-    :data:`SVM_SMEM_BUDGET`, else "global"."""
+    """K10's route for padded size ``V``: "shared" while the graph's K
+    [V, V] f32 and six f32 vectors of V fit :data:`SVM_SMEM_BUDGET`, else
+    "global"."""
     return "shared" if (V * V + 6 * V) * 4 <= SVM_SMEM_BUDGET else "global"
 
 
@@ -186,69 +197,169 @@ def fista_plain(K, a0, u, s_target, scale, dadd, L, iters=_FISTA_ITERS,
     return a
 
 
-def fista_cuda(K, a0, u, s_target, scale, dadd, L, iters=_FISTA_ITERS,
-               bisect=_BISECT_ITERS, route=None):
-    """Launch K11 (``csrc/svm_qp.cu``): :func:`fista_plain` on a card, a
-    block a graph, every iteration and bisection step in one launch.
-    Arguments as :func:`fista_plain`, contiguous f32 on one CUDA device;
-    ``route`` as in :func:`lanczos_cuda`.  Returns a [S, V] f32."""
-    from .. import _build
-    dev = K.device
-    S = K.shape[0] if K.dim() == 3 else -1
-    V = K.shape[1] if K.dim() == 3 else 0
-    if not (dev.type == "cuda" and _f32(K, dev, (S, V, V))
-            and all(_f32(x, dev, (S, V)) for x in (a0, u))
-            and all(_f32(x, dev, (S,)) for x in (s_target, scale, dadd, L))
-            and 0 < V <= 8192 and iters >= 0 and bisect >= 0):
-        raise ValueError("fista_cuda: need contiguous f32 K [S, V, V], a0 "
-                         "and u [S, V], s_target, scale, dadd and L [S] on "
-                         "one CUDA device (V <= 8192)")
-    route = route or svm_route(V)
-    out = torch.empty((S, V), dtype=torch.float32, device=dev)
-    if S:
-        _build.launch("grakel_svm_fista", dev, K.data_ptr(), a0.data_ptr(),
-                      u.data_ptr(), s_target.data_ptr(), scale.data_ptr(),
-                      dadd.data_ptr(), L.data_ptr(), out.data_ptr(), S, V,
-                      int(iters), int(bisect), int(route == "shared"))
-        fista_cuda.launches += 1
-        fista_cuda.route_launches[route] += 1
+def k11_route(V):
+    """K11's route for padded size ``V``: "warp" (a warp a graph, K's rows
+    as bit masks in registers) up to V = 64, "block" (a block a graph)
+    past it."""
+    return "warp" if V <= K11_WARP_MAX_V else "block"
+
+
+def adjacency_bits(flat, S, V, device):
+    """K [S, V, V] (0/1) as bit rows: int32 [S, V, ceil(V / 32)], bit j %
+    32 of word j // 32 of row (g, i) set where K[g, i, j] = 1.  ``flat``:
+    the distinct flat positions g V^2 + i V + j of the ones (numpy
+    int64).  One ``index_add_`` on ``device``: each one adds its own bit,
+    so the sums are the bitwise or."""
+    W = (V + 31) // 32
+    g_i, j = np.divmod(np.asarray(flat, np.int64), V)
+    words = torch.from_numpy(g_i * W + j // 32).to(device)
+    bits = torch.from_numpy(
+        np.left_shift(np.uint32(1), (j % 32).astype(np.uint32))
+        .view(np.int32)).to(device)
+    Kb = torch.zeros(S * V * W, dtype=torch.int32, device=device)
+    Kb.index_add_(0, words, bits)
+    return Kb.view(S, V, W)
+
+
+def dense_from_bits(Kb, V):
+    """The f32 K [S, V, V] of bit rows ``Kb`` [S, V, ceil(V / 32)]."""
+    S, _, W = Kb.shape
+    sh = torch.arange(32, dtype=torch.int32, device=Kb.device)
+    K = (Kb[:, :, :, None] >> sh) & 1
+    return K.reshape(S, V, W * 32)[:, :, :V].to(torch.float32)
+
+
+def fista_momenta(iters):
+    """The FISTA momenta (t_k - 1) / t_{k+1}, k < ``iters``, of
+    :func:`fista_plain` (t_0 = 1, t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2),
+    in its f32 operations and order, each correctly rounded (as on a
+    card and in the JAX program; torch's CPU sqrt can differ in the last
+    bit): numpy f32 [iters].  They depend on nothing else, so K11 takes
+    them as an input."""
+    f = np.float32
+    t = f(1.0)
+    out = np.empty(iters, np.float32)
+    for k in range(iters):
+        tn = f(0.5) * (f(1.0) + np.sqrt(f(1.0) + f(4.0) * t * t))
+        out[k] = (t - f(1.0)) / tn
+        t = tn
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _momenta_on(iters, device):
+    return torch.from_numpy(fista_momenta(iters)).to(device)
+
+
+def fista_cuda(Kb, a0, u, s_target, al, be, iters=_FISTA_ITERS,
+               bisect=_BISECT_ITERS, route=None):
+    """Launch K11 (``csrc/svm_qp.cu``): :func:`spectral_shift` and
+    :func:`fista_plain` on a card, every iteration and bisection step in
+    one launch.  Kb [S, V, ceil(V / 32)] int32, K's bit rows
+    (:func:`adjacency_bits`); a0, u [S, V], s_target [S], the Lanczos
+    coefficients al, be [S, m], contiguous f32 on one CUDA device.  Each
+    graph's warp finds the extremal eigenvalues of its tridiagonal by
+    Sturm-count multisection (f64, to the f32 rounding) and takes
+    spectral_shift's scale, dadd and L from them; ``route`` ("warp", V
+    <= 64, / "block", default :func:`k11_route`) overrides the route for
+    measurements.  Returns (a [S, V], lam [S, 2]) f32: the alphas, and
+    lambda_min and lambda_max."""
+    from .. import _build
+    dev = Kb.device
+    S = Kb.shape[0] if Kb.dim() == 3 else -1
+    V = Kb.shape[1] if Kb.dim() == 3 else 0
+    m = al.shape[1] if al.dim() == 2 else 0
+    route = route or k11_route(V)
+    if not (dev.type == "cuda" and Kb.dtype == torch.int32
+            and Kb.is_contiguous() and Kb.dim() == 3
+            and Kb.shape[2] == (V + 31) // 32
+            and all(_f32(x, dev, (S, V)) for x in (a0, u))
+            and _f32(s_target, dev, (S,))
+            and all(_f32(x, dev, (S, m)) for x in (al, be))
+            and 8 <= V <= 8192 and V & (V - 1) == 0 and m > 0
+            and iters >= 0 and bisect >= 0
+            and route in ("warp", "block")
+            and (route == "block" or V <= K11_WARP_MAX_V)):
+        raise ValueError("fista_cuda: need contiguous int32 bit rows Kb [S, "
+                         "V, ceil(V / 32)], f32 a0 and u [S, V], s_target "
+                         "[S], al and be [S, m] on one CUDA device (V a "
+                         "power of two, 8 <= V <= 8192; route warp only up "
+                         "to V = %d)" % K11_WARP_MAX_V)
+    out = torch.empty((S, V), dtype=torch.float32, device=dev)
+    lam = torch.empty((S, 2), dtype=torch.float32, device=dev)
+    if S:
+        coef = _momenta_on(int(iters), dev)
+        _build.launch("grakel_svm_fista", dev, Kb.data_ptr(), a0.data_ptr(),
+                      u.data_ptr(), s_target.data_ptr(), al.data_ptr(),
+                      be.data_ptr(), coef.data_ptr(), out.data_ptr(),
+                      lam.data_ptr(), S, V, m, int(iters), int(bisect),
+                      int(route == "warp"))
+        fista_cuda.launches += 1
+        fista_cuda.route_launches[route] += 1
+    return out, lam
+
+
 fista_cuda.launches = 0
-fista_cuda.route_launches = {"shared": 0, "global": 0}
+fista_cuda.route_launches = {"warp": 0, "block": 0}
 
 
-def one_class_fista(K, a0, u, s_target, scale, dadd, L,
-                    iters=_FISTA_ITERS):
-    """:func:`fista_plain` for CPU tensors, K11 for CUDA ones."""
-    if K.device.type == "cpu":
-        return fista_plain(K, a0, u, s_target, scale, dadd, L, iters)
-    if K.device.type != "cuda":
-        raise ValueError("one_class_fista: unsupported device %s" % K.device)
+def one_class_fista(Kb, a0, u, s_target, al, be, iters=_FISTA_ITERS):
+    """The spectral shift and the FISTA solve of a bucket: K11 for CUDA
+    tensors; for CPU ones its plain version, :func:`spectral_shift` and
+    :func:`fista_plain` on the dense K of the bit rows ``Kb``, a slab of
+    graphs at a time (the solve is per graph; a slab bounds the dense
+    K's memory)."""
+    if Kb.device.type == "cpu":
+        S, V, _ = Kb.shape
+        cap = _slab_cap(V)
+        out = []
+        for s0 in range(0, S, cap):
+            sl = slice(s0, s0 + cap)
+            out.append(fista_plain(dense_from_bits(Kb[sl], V), a0[sl],
+                                   u[sl], s_target[sl],
+                                   *spectral_shift(al[sl], be[sl]), iters))
+        return torch.cat(out) if out else a0.clone()
+    if Kb.device.type != "cuda":
+        raise ValueError("one_class_fista: unsupported device %s" % Kb.device)
     c = lambda t: t.contiguous()
-    return fista_cuda(c(K), c(a0), c(u), c(s_target), c(scale), c(dadd),
-                      c(L), iters)
+    return fista_cuda(c(Kb), c(a0), c(u), c(s_target), c(al), c(be),
+                      iters)[0]
 
 
 # --------------------------------------------------------------------- #
-def spectral_shift(al, be):
-    """Per-graph (scale, dadd, L) from the Lanczos coefficients: the
-    extremal eigenvalues of the [S, m, m] tridiagonal (one batched
-    ``eigvalsh``), K's shift to PSD when lambda_min < -1e-6 (reference
+def shift_from_extremes(lmin, lmax):
+    """Per-graph (scale, dadd, L) from K's extremal eigenvalue estimates
+    [S]: K's shift to PSD when lambda_min < -1e-6 (reference
     svm_theta.py:222-229) and the FISTA Lipschitz bound with 5 %
     headroom (Lanczos' lambda_max is a lower bound)."""
-    S, m = al.shape
-    T = torch.diag_embed(al) + torch.diag_embed(be[:, :m - 1], 1) \
-        + torch.diag_embed(be[:, :m - 1], -1)
-    ev = torch.linalg.eigvalsh(T)
-    lmin, lmax = ev[:, 0], ev[:, -1]
     cond = lmin < -_EIG_TOL
     one = torch.ones_like(lmin)
     scale = torch.where(cond, -1.0 / torch.where(cond, lmin, -one), one)
     dadd = torch.where(cond, one, torch.zeros_like(lmin))
     L = 1.05 * scale * torch.clamp(lmax, min=0.0) + dadd + 1e-3
     return scale, dadd, L
+
+
+def tridiagonal_extremes(al, be):
+    """The extremal eigenvalues (lambda_min, lambda_max) [S] of the [S,
+    m, m] Lanczos tridiagonals: one batched ``eigvalsh``."""
+    S, m = al.shape
+    T = torch.diag_embed(al) + torch.diag_embed(be[:, :m - 1], 1) \
+        + torch.diag_embed(be[:, :m - 1], -1)
+    ev = torch.linalg.eigvalsh(T)
+    return ev[:, 0], ev[:, -1]
+
+
+def spectral_shift(al, be):
+    """Per-graph (scale, dadd, L) from the Lanczos coefficients: the
+    tridiagonal's extremal eigenvalues (:func:`tridiagonal_extremes`)
+    through :func:`shift_from_extremes`; K11 computes the same inside."""
+    return shift_from_extremes(*tridiagonal_extremes(al, be))
+
+
+def _slab_cap(V):
+    """Graphs a slab at padded size V (the JAX package's cap)."""
+    return int(max(8, min(256, _SLAB_BYTES // (V * V * 4))))
 
 
 def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
@@ -259,6 +370,11 @@ def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
     Runs on ``device`` (default: the ambient device, else cuda).
     Returns a list of per-graph float64 alpha vectors in libsvm's
     scaling (0 <= a_i <= 1, sum = nu * n).
+
+    A size bucket: K10 a slab on its densified K (the slab position
+    seeds each graph's start vector, as in the JAX package), then the
+    shift and FISTA over the whole bucket (:func:`one_class_fista`: one
+    K11 launch on a card, on K's bit rows) and one fetch.
     """
     dev = resolve_device(device)
     out = [None] * len(adjm)
@@ -266,37 +382,43 @@ def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
     for gi, A in enumerate(adjm):
         buckets.setdefault(_pow2(A.shape[0]), []).append(gi)
     for V, idxs in sorted(buckets.items()):
-        s_cap = int(max(8, min(256, _SLAB_BYTES // (V * V * 4))))
-        for s0 in range(0, len(idxs), s_cap):
-            slab = idxs[s0:s0 + s_cap]
-            S = len(slab)
-            flats = []
-            u = np.zeros((S, V), np.float32)
-            s_target = np.zeros(S, np.float32)
-            for g, gi in enumerate(slab):
-                A = np.asarray(adjm[gi])
-                n = A.shape[0]
-                i, j = np.nonzero(A > _MIN_WEIGHT)
-                keep = i != j
-                flats.append(g * V * V + i[keep] * V + j[keep])
-                u[g, :n] = 1.0
-                s_target[g] = nu * n
-            # libsvm's one-class initial point (svm.cpp solve_one_class):
-            # the first floor(nu*n) alphas at the upper bound, the
-            # fractional remainder next, zero elsewhere
-            a0 = np.clip(s_target[:, None] - np.arange(V)[None, :],
-                         0.0, 1.0).astype(np.float32) * u
-            flat = torch.from_numpy(np.concatenate(flats).astype(np.int64))
+        B = len(idxs)
+        flats = []
+        u = np.zeros((B, V), np.float32)
+        s_target = np.zeros(B, np.float32)
+        for b, gi in enumerate(idxs):
+            A = np.asarray(adjm[gi])
+            n = A.shape[0]
+            i, j = np.nonzero(A > _MIN_WEIGHT)
+            keep = i != j
+            flats.append(b * V * V + i[keep] * V + j[keep])
+            u[b, :n] = 1.0
+            s_target[b] = nu * n
+        # libsvm's one-class initial point (svm.cpp solve_one_class): the
+        # first floor(nu*n) alphas at the upper bound, the fractional
+        # remainder next, zero elsewhere
+        a0 = np.clip(s_target[:, None] - np.arange(V)[None, :],
+                     0.0, 1.0).astype(np.float32) * u
+        flat = np.concatenate(flats).astype(np.int64)
+        tu, ta0, ts = (torch.from_numpy(x).to(dev)
+                       for x in (u, a0, s_target))
+        s_cap = _slab_cap(V)
+        coeffs = []
+        for s0 in range(0, B, s_cap):
+            S = min(s_cap, B - s0)
+            lo, hi = np.searchsorted(flat, [s0 * V * V, (s0 + S) * V * V])
+            part = torch.from_numpy(flat[lo:hi] - s0 * V * V).to(dev)
             K = torch.zeros(S * V * V, dtype=torch.float32, device=dev)
-            K.index_add_(0, flat.to(dev), torch.ones(
-                flat.numel(), dtype=torch.float32, device=dev))
-            K = K.view(S, V, V)
-            tu, ta0, ts = (torch.from_numpy(x).to(dev)
-                           for x in (u, a0, s_target))
-            al, be = lanczos(K, start_vector(tu))
-            scale, dadd, L = spectral_shift(al, be)
-            a = one_class_fista(K, ta0, tu, ts, scale, dadd, L, fista_iters)
-            a = a.cpu().numpy().astype(np.float64)
-            for g, gi in enumerate(slab):
-                out[gi] = a[g, :adjm[gi].shape[0]]
+            K.index_add_(0, part, torch.ones(part.numel(),
+                                             dtype=torch.float32,
+                                             device=dev))
+            coeffs.append(lanczos(K.view(S, V, V),
+                                  start_vector(tu[s0:s0 + S])))
+        al = torch.cat([c[0] for c in coeffs])
+        be = torch.cat([c[1] for c in coeffs])
+        a = one_class_fista(adjacency_bits(flat, B, V, dev), ta0, tu, ts,
+                            al, be, fista_iters)
+        a = a.cpu().numpy().astype(np.float64)
+        for b, gi in enumerate(idxs):
+            out[gi] = a[b, :adjm[gi].shape[0]]
     return out

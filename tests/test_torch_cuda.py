@@ -1743,21 +1743,51 @@ def test_svm_lanczos_kernel_matches_plain(cuda, S, V, p, route):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+def _bits(K, cuda):
+    """K11's bit rows of a dense 0/1 K [S, V, V]."""
+    from grakel_torch.ops import svm_qp
+    S, V, _ = K.shape
+    flat = torch.nonzero(K.flatten().cpu()).flatten().numpy()
+    return svm_qp.adjacency_bits(flat, S, V, cuda)
+
+
+# the old cases (a block a graph on both K placements) are the "block"
+# rows; "warp" is the route up to V = 64; S > 256: a bucket of several
+# slabs in one launch
 @pytest.mark.parametrize("S,V,p,route", [
     (37, 8, 0.5, None), (64, 32, 0.2, None), (20, 128, 0.1, None),
-    (5, 256, 0.05, None), (16, 32, 0.3, "global"), (9, 64, 0.6, "global")])
+    (5, 256, 0.05, None), (16, 32, 0.3, "block"), (9, 64, 0.6, "block"),
+    (50, 16, 0.3, None), (40, 64, 0.1, None), (300, 16, 0.25, None),
+    (600, 64, 0.06, None), (300, 32, 0.15, "block")])
 def test_svm_fista_kernel_matches_plain(cuda, S, V, p, route):
-    """K11 against the plain FISTA on the same slab: the constraints hold,
-    the objective and K a (unique at the optimum of a convex QP) agree to
-    1e-4, and the alphas to 1e-3 (the shifted K is singular, so the
-    minimizer may be a set, along which rounding drifts)."""
+    """K11, the spectral shift inside, against its plain version
+    (``spectral_shift`` + ``fista_plain``) on the same bucket: the
+    constraints hold, the objective and K a (unique at the optimum of a
+    convex QP) agree to 1e-4.  The tridiagonal's extremes are the f64
+    Sturm bisection's, rounded to f32: within 1e-6 of the largest
+    |eigenvalue| of f64 ``eigvalsh``'s and within 1e-4 of the plain
+    version's f32 ``eigvalsh`` (cuSOLVER's batched Jacobi, off by up to
+    ~2e-5 of it on the card).  The alphas agree to 1e-3 with
+    ``fista_plain`` on the kernel's own shift (the shifted K is singular,
+    so the minimizer may be a set, along which rounding drifts; a shift
+    differing in its last bits moves the drift)."""
     from grakel_torch.ops import svm_qp
     K, u, s, a0 = _svm_slab(S, V, p, 3 * S + V, cuda)
-    scale, dadd, L = svm_qp.spectral_shift(
-        *svm_qp.lanczos_plain(K, svm_qp.start_vector(u)))
-    before = svm_qp.fista_cuda.launches
-    a = svm_qp.fista_cuda(K, a0, u, s, scale, dadd, L, route=route)
-    assert svm_qp.fista_cuda.launches == before + 1
+    al, be = svm_qp.lanczos_plain(K, svm_qp.start_vector(u))
+    before = dict(svm_qp.fista_cuda.route_launches)
+    a, lam = svm_qp.fista_cuda(_bits(K, cuda), a0, u, s, al, be,
+                               route=route)
+    want = route or svm_qp.k11_route(V)
+    assert want == ("warp" if V <= 64 else "block") or route
+    assert svm_qp.fista_cuda.route_launches[want] == before[want] + 1
+    lmin, lmax = svm_qp.tridiagonal_extremes(al, be)
+    dmin, dmax = (x.to(cuda).float() for x in svm_qp.tridiagonal_extremes(
+        al.double().cpu(), be.double().cpu()))
+    big = float(torch.maximum(dmin.abs(), dmax.abs()).max().clamp_min(1))
+    for got, f64, f32 in ((lam[:, 0], dmin, lmin), (lam[:, 1], dmax, lmax)):
+        torch.testing.assert_close(got, f64, rtol=0, atol=1e-6 * big)
+        torch.testing.assert_close(got, f32, rtol=0, atol=1e-4 * big)
+    scale, dadd, L = svm_qp.spectral_shift(al, be)
     ref = svm_qp.fista_plain(K, a0, u, s, scale, dadd, L)
     assert (a >= -1e-6).all() and (a <= u + 1e-6).all()
     torch.testing.assert_close(a.sum(1), s, rtol=1e-5, atol=1e-4)
@@ -1768,23 +1798,99 @@ def test_svm_fista_kernel_matches_plain(cuda, S, V, p, route):
     torch.testing.assert_close(kx(a), kx(ref), rtol=1e-4, atol=1e-4)
     torch.testing.assert_close((a * kx(a)).sum(1), (ref * kx(ref)).sum(1),
                                rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(a, ref, rtol=1e-3, atol=1e-3)
+    same_shift = svm_qp.fista_plain(
+        K, a0, u, s, *svm_qp.shift_from_extremes(lam[:, 0], lam[:, 1]))
+    torch.testing.assert_close(a, same_shift, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("ulps", [-3, -1, 0, 1, 3])
+def test_svm_fista_shift_at_eig_tol_edge(cuda, ulps):
+    """lambda_min within a few ulps of -1e-6, where the shift's condition
+    flips: on diagonal tridiagonals (the eigenvalues are the f32 entries)
+    K11's extremes equal them exactly and its shift equals the plain
+    version's; the alphas solve the same QP as the plain FISTA (K a and
+    the objective to 1e-4)."""
+    from grakel_torch.ops import svm_qp
+    K, u, s, a0 = _svm_slab(6, 16, 0.3, 11, cuda)
+    edge = np.float32(-svm_qp._EIG_TOL)
+    x = edge
+    for _ in range(abs(ulps)):
+        x = np.nextafter(x, np.float32(np.sign(ulps)), dtype=np.float32)
+    al = np.zeros((6, 64), np.float32)
+    al[:, 0] = x
+    al[:, 1] = np.linspace(0.5, 3.0, 6)
+    al = torch.from_numpy(al).to(cuda)
+    be = torch.zeros_like(al)
+    a, lam = svm_qp.fista_cuda(_bits(K, cuda), a0, u, s, al, be)
+    assert (lam[:, 0] == float(x)).all() and (lam[:, 1] == al[:, 1]).all()
+    want = svm_qp.spectral_shift(al, be)
+    for got, ref in zip(svm_qp.shift_from_extremes(lam[:, 0], lam[:, 1]),
+                        want):
+        assert torch.equal(got, ref)
+    scale, dadd, L = want
+    ref = svm_qp.fista_plain(K, a0, u, s, scale, dadd, L)
+
+    def kx(x):
+        return scale[:, None] * torch.bmm(K, x[:, :, None])[:, :, 0] \
+            + dadd[:, None] * x
+    torch.testing.assert_close(kx(a), kx(ref), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close((a * kx(a)).sum(1), (ref * kx(ref)).sum(1),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_svm_wrappers_check_inputs(cuda):
     from grakel_torch.ops import svm_qp
     K, u, s, a0 = _svm_slab(4, 16, 0.3, 0, cuda)
+    Kb = _bits(K, cuda)
     with pytest.raises(ValueError):
         svm_qp.lanczos_cuda(K.cpu(), u.cpu())
     with pytest.raises(ValueError):
         svm_qp.lanczos_cuda(K.double(), u)
+    al, be = svm_qp.lanczos(K, svm_qp.start_vector(u))
     with pytest.raises(ValueError):
-        svm_qp.fista_cuda(K, a0, u, s[:3], s, s, s)
+        svm_qp.fista_cuda(Kb, a0, u, s[:3], al, be)
+    with pytest.raises(ValueError):                 # dense K, not bits
+        svm_qp.fista_cuda(K, a0, u, s, al, be)
+    with pytest.raises(ValueError):                 # al and be of other m
+        svm_qp.fista_cuda(Kb, a0, u, s, al, be[:, :32].contiguous())
+    with pytest.raises(ValueError):
+        svm_qp.fista_cuda(Kb, a0, u, s, al[:3], be[:3])
+    with pytest.raises(ValueError):
+        svm_qp.fista_cuda(Kb, a0, u, s, al, be, route="shared")
+    K2, u2, s2, a02 = _svm_slab(2, 128, 0.1, 0, cuda)
+    al2, be2 = svm_qp.lanczos_plain(K2, svm_qp.start_vector(u2))
+    with pytest.raises(ValueError):                 # warp only to V = 64
+        svm_qp.fista_cuda(_bits(K2, cuda), a02, u2, s2, al2, be2,
+                          route="warp")
     before = (svm_qp.lanczos_cuda.launches, svm_qp.fista_cuda.launches)
     al, be = svm_qp.lanczos(K, svm_qp.start_vector(u))
-    svm_qp.one_class_fista(K, a0, u, s, *svm_qp.spectral_shift(al, be))
+    svm_qp.one_class_fista(Kb, a0, u, s, al, be)
     assert (svm_qp.lanczos_cuda.launches,
             svm_qp.fista_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_one_class_alphas_one_k11_launch_a_bucket(cuda):
+    """A bucket of several slabs (600 graphs at V = 16: three slabs of
+    K10) takes one K11 launch; the card's alphas solve the CPU run's QPs
+    (K a and the objective to 1e-4)."""
+    from grakel_torch.ops import svm_qp
+    rng = np.random.RandomState(7)
+    adjm = []
+    for n in list(rng.randint(9, 17, 600)) + list(rng.randint(33, 65, 40)):
+        A = np.triu(rng.rand(n, n) < 0.2, 1).astype(float)
+        adjm.append(A + A.T)
+    before = (svm_qp.lanczos_cuda.launches, svm_qp.fista_cuda.launches)
+    got = svm_qp.one_class_alphas(adjm, device=cuda)
+    assert (svm_qp.lanczos_cuda.launches - before[0],
+            svm_qp.fista_cuda.launches - before[1]) == (3 + 1, 2)
+    ref = svm_qp.one_class_alphas(adjm, device="cpu")
+    for A, a, r in zip(adjm, got, ref):
+        K = (A > 1e-10).astype(float)
+        me = np.linalg.eigvalsh(K)[0]
+        if me < -1e-6:
+            K = K / (-me) + np.eye(len(K))
+        np.testing.assert_allclose(K @ a, K @ r, rtol=1e-4, atol=1e-4)
+        assert abs(a @ K @ a - r @ K @ r) < 1e-4
 
 
 def _dr_inputs(B, V, seed, cuda):
@@ -1848,6 +1954,25 @@ def test_lovasz_min_cone_kernel_matches_plain(cuda, S, d, m, route):
                                atol=1e-5)
 
 
+def _eigh_close(M, w, U, cuda):
+    """K14's (w, U) against torch.linalg.eigh on M: sorted eigenvalues and
+    PSD projections to 1e-4 of the largest |eigenvalue|, U orthogonal to
+    1e-4."""
+    B, V = M.shape[0], M.shape[-1]
+    lw, lU = torch.linalg.eigh(M)
+    scale = float(lw.abs().max())
+    torch.testing.assert_close(w.sort(-1).values, lw, rtol=0,
+                               atol=1e-4 * scale)
+
+    def psd(w, U):
+        return (U * w.clamp_min(0)[:, None, :]) @ U.transpose(-1, -2)
+    torch.testing.assert_close(psd(w, U), psd(lw, lU), rtol=0,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(U.transpose(-1, -2) @ U,
+                               torch.eye(V, device=cuda).expand(B, V, V),
+                               rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("B,V,kind", [
     (5, 2, "random"), (40, 4, "random"), (64, 16, "padded"),
     (100, 32, "random"), (30, 64, "psd_low_rank"), (12, 128, "padded"),
@@ -1878,21 +2003,113 @@ def test_lovasz_jacobi_eigh_kernel_matches_eigh(cuda, B, V, kind):
     before = lovasz_sdp.jacobi_eigh_cuda.launches
     w, U = lovasz_sdp.jacobi_eigh_cuda(upper_garbage)
     assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 1
-    lw, lU = torch.linalg.eigh(M)
-    scale = float(lw.abs().max())
-    torch.testing.assert_close(w.sort(-1).values, lw, rtol=0,
-                               atol=1e-4 * scale)
-
-    def psd(w, U):
-        return (U * w.clamp_min(0)[:, None, :]) @ U.transpose(-1, -2)
-    torch.testing.assert_close(psd(w, U), psd(lw, lU), rtol=0,
-                               atol=1e-4 * scale)
-    torch.testing.assert_close(U.transpose(-1, -2) @ U,
-                               torch.eye(V, device=cuda).expand(B, V, V),
-                               rtol=0, atol=1e-4)
+    _eigh_close(M, w, U, cuda)
     # sym_eigh routes CUDA tensors of up to 128 rows to K14
     lovasz_sdp.sym_eigh(M)
     assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("B,V", [(40, 4), (33, 8), (64, 16), (50, 32),
+                                 (30, 64), (12, 128)])
+def test_lovasz_jacobi_eigh_warm_random_basis(cuda, B, V):
+    """K14 started from a random orthogonal basis (its rows the U0 it
+    takes) on random symmetric matrices with half their rows zero padded:
+    still M's eigendecomposition (the sweeps run on U0^T M U0 and rotate
+    U0)."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(B * V)
+    M = rng.randn(B, V, V).astype(np.float32)
+    M = M + M.transpose(0, 2, 1)
+    M[:, V // 2:, :] = 0
+    M[:, :, V // 2:] = 0
+    Q = np.linalg.qr(rng.randn(B, V, V))[0].astype(np.float32)
+    M = torch.from_numpy(M).to(cuda)
+    U0 = torch.from_numpy(Q).to(cuda).transpose(-1, -2).contiguous() \
+        .transpose(-1, -2)          # column-major, as K14 returns U
+    sweeps = torch.zeros(B, dtype=torch.int32, device=cuda)
+    before = lovasz_sdp.jacobi_eigh_cuda.launches
+    w, U = lovasz_sdp.jacobi_eigh_cuda(M, U0, sweeps=sweeps)
+    assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 1
+    assert (sweeps >= 1).all() and (sweeps <= lovasz_sdp.JACOBI_SWEEPS).all()
+    _eigh_close(M, w, U, cuda)
+
+
+@pytest.mark.parametrize("V", [16, 32, 64])
+def test_lovasz_jacobi_eigh_warm_dr_state(cuda, V):
+    """K14 on a DR reflection at step 150 started from step 149's
+    eigenvectors, as the DR loop runs it on a card: eigh's
+    eigendecomposition to 1e-4, each matrix in no more sweeps than from
+    the identity; the padded rows stay exactly diagonal."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(V)
+    B = 40
+    ns = rng.randint(V // 2 + 1, V + 1, B)
+    E = np.zeros((B, V, V), np.float32)
+    for b in range(B):
+        A = np.triu(rng.rand(ns[b], ns[b]) < 0.3, 1)
+        E[b, :ns[b], :ns[b]] = A | A.T
+    E = torch.from_numpy(E).to(cuda)
+    n = torch.from_numpy(ns.astype(np.int32)).to(cuda)
+    J, dvalid, keep, nvalid = lovasz_sdp._masks(E, n)
+    Y = torch.zeros_like(E)
+    X = lovasz_sdp.proj_affine(Y + J, dvalid, keep, nvalid)
+    R, U = 2.0 * X - Y, None
+    for k in range(149):
+        w, U = lovasz_sdp.sym_eigh(
+            R, U if k % lovasz_sdp.JACOBI_RESTART else None)
+        Y, X, R = lovasz_sdp.dr_step(E, n, Y, X, w, U)
+    warm = torch.zeros(B, dtype=torch.int32, device=cuda)
+    cold = torch.zeros(B, dtype=torch.int32, device=cuda)
+    w, Uw = lovasz_sdp.jacobi_eigh_cuda(R, U, sweeps=warm)
+    _eigh_close(R, w, Uw, cuda)
+    lovasz_sdp.jacobi_eigh_cuda(R, sweeps=cold)
+    assert (warm <= cold).all(), (warm, cold)
+    # valid eigenvectors have exactly zero padded entries, and the others
+    # are the padded unit vectors with eigenvalue exactly 0
+    pad = torch.arange(V, device=cuda)[None, :] >= n[:, None]
+    Ut = Uw.transpose(-1, -2)           # eigenvector rows
+    for b in range(B):
+        p = pad[b]
+        valid_rows = (Ut[b][:, p] == 0).all(1)
+        assert int(valid_rows.sum()) == int((~p).sum())
+        assert (w[b][~valid_rows] == 0).all()
+        assert (Ut[b][~valid_rows][:, ~p] == 0).all()
+
+
+@pytest.mark.parametrize("V,p", [(64, 0.05), (64, 0.3), (128, 0.03),
+                                 (128, 0.3)])
+def test_lovasz_jacobi_eigh_warm_dr_loop_stays_orthogonal(cuda, V, p,
+                                                          monkeypatch):
+    """The whole DR solve as ``_theta`` runs it on a card: its 301 K14
+    calls start from the step before's eigenvectors but every
+    JACOBI_RESTART-th step and theta's, which start from the identity;
+    at the last DR step U is orthogonal to 1e-4 and still eigh's
+    eigendecomposition of that step's reflection to 1e-4, also at the
+    widest bucket K14 takes (sparse graphs drift the most)."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(V + int(100 * p))
+    B = 48
+    ns = rng.randint(V // 2 + 1, V + 1, B)
+    E = np.zeros((B, V, V), np.float32)
+    for b in range(B):
+        A = np.triu(rng.rand(ns[b], ns[b]) < p, 1)
+        E[b, :ns[b], :ns[b]] = A | A.T
+    calls, real = [], lovasz_sdp.sym_eigh
+
+    def spy(M, U0=None):
+        w, U = real(M, U0)
+        calls.append((M.clone(), U0 is None, w, U))
+        return w, U
+    monkeypatch.setattr(lovasz_sdp, "sym_eigh", spy)
+    before = lovasz_sdp.jacobi_eigh_cuda.launches
+    lovasz_sdp._theta(torch.from_numpy(E).to(cuda),
+                      torch.from_numpy(ns.astype(np.int32)).to(cuda), 300,
+                      1.0)
+    assert lovasz_sdp.jacobi_eigh_cuda.launches == before + 301
+    assert [k for k, c in enumerate(calls) if c[1]] == [
+        k for k in range(300) if k % lovasz_sdp.JACOBI_RESTART == 0] + [300]
+    M, _, w, U = calls[299]
+    _eigh_close(M, w, U, cuda)
 
 
 def test_lovasz_wrappers_check_inputs(cuda):
@@ -1910,6 +2127,17 @@ def test_lovasz_wrappers_check_inputs(cuda):
         lovasz_sdp.jacobi_eigh_cuda(torch.zeros(3, 5, 5, device=cuda))
     with pytest.raises(ValueError):
         lovasz_sdp.jacobi_eigh_cuda(torch.zeros(3, 256, 256, device=cuda))
+    M = torch.zeros(3, 8, 8, device=cuda)
+    w, U = lovasz_sdp.jacobi_eigh_cuda(M)
+    with pytest.raises(ValueError):                 # the rows, not U
+        lovasz_sdp.jacobi_eigh_cuda(M, U.contiguous() + 0.5)
+    with pytest.raises(ValueError):
+        lovasz_sdp.jacobi_eigh_cuda(M, U[:2])
+    with pytest.raises(ValueError):
+        lovasz_sdp.jacobi_eigh_cuda(M, U.double())
+    with pytest.raises(ValueError):
+        lovasz_sdp.jacobi_eigh_cuda(M, U, sweeps=torch.zeros(3, device=cuda))
+    lovasz_sdp.jacobi_eigh_cuda(M, U)               # the layout it returns
 
 
 def test_lovasz_theta_batch_on_card(cuda):
@@ -1978,7 +2206,11 @@ def test_theta_hopper_multiscale_on_card_match_cpu(cuda, name, params,
     got = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
     launched = [c.launches - b for c, b in zip(counters, before)]
     if name == "SvmTheta":
-        assert launched[0] == launched[1] > 0 and launched[2:] == [0, 0]
+        # K10 a slab, K11 a size bucket, in fit and in transform
+        nb = sum(len({svm_qp._pow2(g.get_adjacency_matrix().shape[0])
+                      for g in normalize_input(part)})
+                 for part in (train, test))
+        assert launched[0] >= launched[1] == nb and launched[2:] == [0, 0]
     elif name == "LovaszTheta":
         assert launched[:2] == [0, 0] and launched[2] % 300 == 0 \
             and launched[2] > 0 and launched[3] == 2

@@ -279,6 +279,159 @@ def test_one_class_alphas_against_libsvm():
                                    rtol=2e-3, atol=2e-3)
 
 
+def test_one_class_alphas_bucket_of_several_slabs_matches_jax():
+    """300 graphs of one size bucket (V = 16: two slabs of K10, each
+    graph's start vector seeded by its slab position, and one K11 call
+    for the bucket) against grakel_tpu's one_class_alphas: K a and the
+    objective, unique where the alphas need not be (the shifted K is
+    singular by construction), to the degenerate test's 1e-4 / 1e-5, and
+    the constraints."""
+    rng = np.random.RandomState(12)
+    adjm = [_sym(rng.randint(9, 17), rng.choice([0.15, 0.3, 0.5]), rng)
+            for _ in range(300)]
+    calls = []
+    real = svm_qp.one_class_fista
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    svm_qp.one_class_fista = spy
+    try:
+        got = svm_qp.one_class_alphas(adjm, device="cpu")
+    finally:
+        svm_qp.one_class_fista = real
+    assert calls == [(300, 16, 1)]
+    ref = jsvm.one_class_alphas(adjm)
+    for A, a, r in zip(adjm, got, ref):
+        K = _shifted(A)
+        np.testing.assert_allclose(K @ a, K @ r, rtol=1e-4, atol=1e-4)
+        assert abs(a @ K @ a - r @ K @ r) < 1e-5
+        assert abs(a.sum() - 0.5 * A.shape[0]) < 1e-5
+        assert a.min() >= -1e-6 and a.max() <= 1 + 1e-6
+
+
+def test_one_class_alphas_slab_seeding_matches_jax_lanczos():
+    """The slabs of a bucket past 256 graphs seed each graph's Lanczos
+    start vector by its position in its slab (the JAX program's g):
+    the port's per-slab K10 coefficients equal the JAX Lanczos loop's on
+    the same slabs: the start vectors equal the JAX program's formula
+    (:86-88) to 1e-6 and the shift from the coefficients equals the JAX
+    loop's to 1e-4."""
+    rng = np.random.RandomState(5)
+    adjm = [_sym(rng.randint(5, 9), 0.4, rng) for _ in range(260)]
+    seen = []
+    real = svm_qp.lanczos
+
+    def spy(K, v0, *a, **kw):
+        seen.append((K.clone(), v0.clone()))
+        return real(K, v0, *a, **kw)
+    svm_qp.lanczos = spy
+    try:
+        svm_qp.one_class_alphas(adjm, device="cpu")
+    finally:
+        svm_qp.lanczos = real
+    assert [K.shape[0] for K, _ in seen] == [256, 4]
+    for (K, v0), sl in zip(seen, (slice(0, 256), slice(256, 260))):
+        _, u, _, _ = _slab(adjm[sl], 8)
+        S, V = u.shape
+        jv0 = jnp.cos(1.372954 * jnp.arange(V, dtype=jnp.float32)[None, :]
+                      + 0.718281 * jnp.arange(S, dtype=jnp.float32)[:, None]
+                      ) * u
+        np.testing.assert_allclose(v0.numpy(), np.asarray(jv0), rtol=1e-6,
+                                   atol=1e-6)
+        al, be = svm_qp.lanczos_plain(K, v0)
+        jal, jbe = _jax_lanczos(K.numpy(), v0.numpy())
+        for got, ref in zip(svm_qp.spectral_shift(al, be),
+                            svm_qp.spectral_shift(torch.from_numpy(jal),
+                                                  torch.from_numpy(jbe))):
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _jax_shift(al, be):
+    """The spectral shift of grakel_tpu.ops.svm_qp._build_solver
+    (:109-123) on given Lanczos coefficients."""
+    al, be = jnp.asarray(al), jnp.asarray(be)
+    S, m = al.shape
+    r = jnp.arange(m)
+    T = jnp.zeros((S, m, m), jnp.float32)
+    T = T.at[:, r, r].set(al)
+    T = T.at[:, r[:-1], r[1:]].set(be[:, :m - 1])
+    T = T.at[:, r[1:], r[:-1]].set(be[:, :m - 1])
+    ev = jnp.linalg.eigvalsh(T)
+    lmin, lmax = ev[:, 0], ev[:, -1]
+    cond = lmin < -1e-6
+    scale = jnp.where(cond, -1.0 / jnp.where(cond, lmin, -1.0), 1.0)
+    dadd = jnp.where(cond, 1.0, 0.0)
+    L = 1.05 * scale * jnp.maximum(lmax, 0.0) + dadd + 1e-3
+    return [np.asarray(x) for x in (scale, dadd, L)]
+
+
+@pytest.mark.parametrize("ulps", [-4, -1, 0, 1, 4])
+def test_spectral_shift_at_eig_tol_edge_matches_jax(ulps):
+    """lambda_min within a few ulps of -1e-6, where the shift's condition
+    flips: the port's spectral_shift (its extremes and
+    shift_from_extremes) equals the JAX program's exactly on diagonal
+    tridiagonals (whose eigenvalues are their f32 entries), and on ones
+    with a coupling of 1e-7 to 1e-5."""
+    x = np.float32(-1e-6)
+    for _ in range(abs(ulps)):
+        x = np.nextafter(x, np.float32(np.sign(ulps)), dtype=np.float32)
+    rng = np.random.RandomState(abs(ulps))
+    al = np.zeros((4, 64), np.float32)
+    al[:, 0] = x
+    al[:, 1:] = rng.rand(4, 63).astype(np.float32) + 0.5
+    be = np.zeros((4, 64), np.float32)
+    be[2:, 5:20] = np.float32([[1e-7], [1e-5]])
+    got = svm_qp.spectral_shift(torch.from_numpy(al), torch.from_numpy(be))
+    ref = _jax_shift(al, be)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r)
+    lmin, _ = svm_qp.tridiagonal_extremes(torch.from_numpy(al[:2]),
+                                          torch.from_numpy(be[:2]))
+    assert (lmin.numpy() == x).all()
+    assert bool(got[1][0] == 1.0) == bool(x < np.float32(-1e-6))
+
+
+def test_fista_momenta_match_jax_program():
+    """K11's momenta, computed once on the host, equal the JAX FISTA
+    loop's (t - 1) / t' sequence (:142-147) bit for bit."""
+    def step(t, _):
+        tn = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * t * t))
+        return tn, (t - 1.0) / tn
+    _, ref = jax.lax.scan(step, jnp.float32(1.0), None, length=300)
+    got = svm_qp.fista_momenta(300)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("V", [8, 16, 32, 64, 128, 256])
+def test_adjacency_bits_round_trip(V):
+    """K11's bit rows of K (one index_add_ of each one's bit) give back
+    the dense 0/1 K, bit 31 of a word included."""
+    rng = np.random.RandomState(V)
+    K = (rng.rand(7, V, V) < 0.3).astype(np.float32)
+    K[:, :, -1] = 1
+    Kb = svm_qp.adjacency_bits(np.flatnonzero(K), 7, V, "cpu")
+    assert Kb.dtype == torch.int32 and Kb.shape == (7, V, (V + 31) // 32)
+    np.testing.assert_array_equal(svm_qp.dense_from_bits(Kb, V).numpy(), K)
+
+
+def test_one_class_fista_plain_route_by_slab():
+    """one_class_fista on the CPU: spectral_shift and fista_plain on the
+    dense K of the bit rows, a slab of 256 graphs at a time, equal to the
+    plain version over the whole bucket at once (the solve is per
+    graph)."""
+    rng = np.random.RandomState(2)
+    adjm = [_sym(rng.randint(5, 9), 0.4, rng) for _ in range(300)]
+    K, u, s, a0 = (torch.from_numpy(x) for x in _slab(adjm, 8))
+    al, be = svm_qp.lanczos_plain(K, svm_qp.start_vector(u))
+    Kb = svm_qp.adjacency_bits(np.flatnonzero(K.numpy()), 300, 8, "cpu")
+    a = svm_qp.one_class_fista(Kb, a0, u, s, al, be, 50)
+    ref = svm_qp.fista_plain(K, a0, u, s, *svm_qp.spectral_shift(al, be),
+                             50)
+    np.testing.assert_allclose(a.numpy(), ref.numpy(), rtol=1e-6, atol=1e-7)
+
+
 # ----------------------------------------------------------- K12 and K13
 def test_dr_step_plain_matches_jax_body():
     """K12's plain version against the DR body of _theta_impl (:58-66),
@@ -346,6 +499,85 @@ def test_lovasz_theta_batch_matches_jax_and_goldens():
         adjs[0, :n, :n] = A
         t, _ = lovasz_sdp.lovasz_theta_batch(adjs, [n], device="cpu")
         assert abs(t[0] - want) < 1e-4, (want, t[0])
+
+
+def test_theta_cpu_route_ignores_the_start_basis(monkeypatch):
+    """On the CPU the DR loop's eigendecomposition is torch.linalg.eigh
+    (the plain version), which takes no start basis: sym_eigh with and
+    without one, and _theta (which passes each step's basis on) and the
+    same loop on torch.linalg.eigh alone, give the same values bit for
+    bit."""
+    rng = np.random.RandomState(3)
+    M = rng.randn(5, 16, 16).astype(np.float32)
+    M = torch.from_numpy(M + M.transpose(0, 2, 1))
+    w, U = lovasz_sdp.sym_eigh(M)
+    w2, U2 = lovasz_sdp.sym_eigh(M, U)
+    assert torch.equal(w, w2) and torch.equal(U, U2)
+    ns = rng.randint(3, 17, 5)
+    adjs = np.zeros((5, 16, 16), np.float32)
+    for b in range(5):
+        adjs[b, :ns[b], :ns[b]] = _sym(ns[b], 0.4, rng)
+    E = torch.from_numpy(adjs)
+    n = torch.from_numpy(ns.astype(np.int32))
+    t, S = lovasz_sdp._theta(E, n, 40, 1.0)
+    monkeypatch.setattr(lovasz_sdp, "sym_eigh",
+                        lambda M, U0=None: torch.linalg.eigh(M))
+    t2, S2 = lovasz_sdp._theta(E, n, 40, 1.0)
+    assert torch.equal(t, t2) and torch.equal(S, S2)
+
+
+def _dr_reflections(adjs, ns, iters):
+    """The plain DR loop in numpy f64 (eigh each step): the reflections R
+    [iters, B, V, V] and each step's eigenvectors."""
+    B, V, _ = adjs.shape
+    valid = np.arange(V)[None, :] < ns[:, None]
+    J = (valid[:, :, None] & valid[:, None, :]).astype(np.float64)
+    dvalid = np.eye(V)[None] * valid[:, None, :]
+    keep = (adjs > 0) | (dvalid > 0)
+    nvalid = np.maximum(valid.sum(1), 1)[:, None, None]
+
+    def proj_affine(M):
+        X = np.where(keep, M, 0.0)
+        tr = np.trace(X, axis1=1, axis2=2)[:, None, None]
+        return X + (1.0 - tr) / nvalid * dvalid
+    Y = np.zeros((B, V, V))
+    Rs, Us = [], []
+    for _ in range(iters):
+        X = proj_affine(Y + J)
+        R = 2 * X - Y
+        w, U = np.linalg.eigh(R)
+        Rs.append(R)
+        Us.append(U)
+        Y = Y + (U * np.maximum(w, 0)[:, None, :]) @ U.transpose(0, 2, 1) \
+            - X
+    return Rs, Us
+
+
+def test_warm_start_model_leaves_small_off_diagonal_mass():
+    """A model of K14's warm start on the plain DR loop (numpy, test side
+    only): the reflection R_k rotated into step k-1's eigenvectors, B =
+    U^T R_k U, is nearly diagonal, its off-diagonal share of the mass
+    far below the identity start's (which is the whole R's), and falling
+    as the loop settles.  A Jacobi sweep squares that share, so a few
+    sweeps reach the f32 stop where a cold start needs many."""
+    rng = np.random.RandomState(0)
+    B, V = 12, 16
+    ns = rng.randint(8, V + 1, B)
+    adjs = np.zeros((B, V, V))
+    for b in range(B):
+        adjs[b, :ns[b], :ns[b]] = _sym(ns[b], 0.3, rng)
+    Rs, Us = _dr_reflections(adjs, ns, 300)
+
+    def off_share(M):
+        off = M - np.diagonal(M, axis1=1, axis2=2)[:, :, None] * np.eye(V)
+        return np.sqrt((off ** 2).sum((1, 2)) / (M ** 2).sum((1, 2)))
+    warm = {k: off_share(Us[k - 1].transpose(0, 2, 1) @ Rs[k] @ Us[k - 1])
+            for k in (2, 10, 50, 150, 299)}
+    cold = {k: off_share(Rs[k]) for k in warm}
+    for k in warm:
+        assert (warm[k] < 0.5 * cold[k]).all(), (k, warm[k], cold[k])
+    assert warm[150].max() < 1e-2 and warm[299].max() < 1e-3
+    assert warm[299].max() < warm[10].max()
 
 
 @pytest.mark.parametrize("d,m,ties", [(3, 8, True), (9, 8, True),
