@@ -292,13 +292,20 @@ time of a call:
   f32 ``eigvalsh`` (timed beside K11 as ``shift_library_ms``: it is the
   shift's part alone, so K11 has no library time).  Bounds: K10's dense
   GEMVs and vector work of every step over 67 TFLOP/s, K11's with K y
-  as K's nnz adds (K is 0/1; beside it PR 14's dense count); K12 (``ops.lovasz_sdp.dr_step_cuda``) on
-  each size bucket's DR state at its 150th step of the
-  ``lovasz_nci1scale`` fit parse, both routes, Y, X and R to 1e-4
-  (bound: 2 V^3 + 12 V^2 flops a graph), with the eigendecomposition's
-  time beside it; K13 (``min_cone_cuda``) on the
-  fit parse's subsets to 1e-5 on both routes (bound: 3 d m + 3 d flops a
-  step); K14 (``jacobi_eigh_cuda``) on the same DR reflections, from
+  as K's nnz adds (K is 0/1; beside it the dense product's count); K12
+  (``ops.lovasz_sdp.dr_step_cuda``, on the edges' bit rows) on each size
+  bucket's DR state at its 150th step of the ``lovasz_nci1scale`` fit
+  parse, route "tile" there and route "global" on the widest bucket, Y,
+  X and R to 1e-4 (bound: 6 V^2 + V^2 / 8 floats a graph moved against
+  2 V^3 + 12 V^2 flops; the count with the edges as floats, 7 V^2, beside
+  it), a bucket at a time, with the eigendecomposition's time beside it
+  and each fit bucket's 300-step DR solve timed; K13 (``min_cone_cuda``)
+  on the fit parse's subsets to 1e-5 on its route "register" and on the
+  first 20,000 of them on every route (bound: 3 d m + 3 d flops a step),
+  and its quotient (the f32 reciprocal of k + 2 and two fused
+  corrections) against ``__fdiv_rn`` bit for bit on every f32 in [-2, 2]
+  and every divisor 2 .. 401 (``ops.lovasz_sdp.min_cone_quotient_check``);
+  K14 (``jacobi_eigh_cuda``) on the same DR reflections, from
   step 149's eigenvectors as the path runs it and from the identity, and
   on random matrices with half their rows padded, from the identity and
   from a random orthogonal basis, against ``torch.linalg.eigh`` (its
@@ -309,8 +316,8 @@ time of a call:
   run again with K14's sweeps logged step by step, and the DR solve of
   a V = 128 bucket (64 REDDIT-B stand-in graphs of 65-128 vertices),
   which the NCI1-scale buckets never reach, with U's orthogonality and
-  K14's accuracy at its step 300.  Their 13 kernels
-  must build without spills.
+  K14's accuracy at its step 300.  Their 28 kernels (K10 2, K11 5, K12
+  7, K13 12, K14 2) must build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -396,16 +403,19 @@ def heavy_tailed_graphs(n_graphs, median, mean, vmax, edge_ratio, seed):
 
 def ptxas_info(text):
     """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
-    ``nvcc -Xptxas -v`` output; a K3 or K1 kernel is named by its function
-    and template arguments (``fw_tile<4>``, ``min_gram_kernel<64,8,4>``),
-    another by its mangled name."""
+    ``nvcc -Xptxas -v`` output; a K3, K1 or K12-K14 kernel is named by
+    its function and template arguments (``fw_tile<4>``,
+    ``min_gram_kernel<64,8,4>``, ``lovasz_min_cone<56,1>``), another by
+    its mangled name."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(fw_[a-z]+|min_gram_kernel)(I(?:Li\d+E)+E)?",
-                          m.group(1))
-            args = re.findall(r"Li(\d+)E", (k.group(2) or "") if k else "")
+            k = re.search(r"(fw_[a-z]+|min_gram_kernel|"
+                          r"(?<=\d)lovasz_(?!cu_)[a-z_]+)"
+                          r"(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E",
+                              (k.group(2) or "") if k else "")
             cur = m.group(1) if k is None else k.group(1) + (
                 "<%s>" % ",".join(args) if args else "")
             out[cur] = {}
@@ -1499,6 +1509,8 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     _, r12 = spied(lovasz_sdp, "dr_step", keep12)
     k13_seen, r13 = spied(lt_mod, "min_cone", lambda a, kw: a[0])
     fit_c, tr_c = train[:64], held[:8]
+    routes_before = (dict(lovasz_sdp.dr_step_cuda.route_launches),
+                     dict(lovasz_sdp.min_cone_cuda.route_launches))
     try:
         class_path("lovasz_nci1scale", lambda: LovaszTheta(random_state=42),
                    train, held, 0, 0, rtol=2e-2, compare_on=(fit_c, tr_c),
@@ -1520,6 +1532,15 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
           % (lp["lovasz_dr_step"], lp["lovasz_jacobi_eigh"],
              lp["lovasz_min_cone"]))
     k13_fit = k13_seen[0]
+    by_route = [{r: c.route_launches[r] - before[r] for r in before}
+                for c, before in zip((lovasz_sdp.dr_step_cuda,
+                                      lovasz_sdp.min_cone_cuda),
+                                     routes_before)]
+    check(by_route[0]["global"] == 0 and by_route[0]["tile"] > 0
+          and by_route[1] == {"register": by_route[1]["register"],
+                              "shared": 0, "global": 0},
+          "lovasz_nci1scale's K12 launches took route tile and its K13 "
+          "launches route register: %s" % by_route)
     paths["lovasz_nci1scale"].update(
         subsets_fit=int(k13_fit.shape[0]), d=int(k13_fit.shape[1]),
         dr_buckets=sorted(k12_state))
@@ -1728,28 +1749,37 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
 
     # ---------------- K12 ----------------------------------------------- #
     def k12_case(state, what, U0, route=None, reps=20):
-        """K12 on a DR state against its plain version; beside it the
+        """K12 on a DR state (its edges packed as bit rows, as the DR loop
+        packs them once a solve) against its plain version; beside it the
         step's eigendecomposition as the path runs it (K14 from the step
-        before's eigenvectors ``U0``)."""
+        before's eigenvectors ``U0``).  Bound: Y, X and Ut read, Y', X'
+        and R' written, w, n and the bit rows read; beside it the count
+        with the edges as floats."""
         E, nn, Y, X, w, U = state
         B, V = int(E.shape[0]), int(E.shape[-1])
+        Eb = lovasz_sdp.edge_bits(E)
         Yk, Xk = Y.clone(), X.clone()
-        R = lovasz_sdp.dr_step_cuda(E, nn, Yk, Xk, w, U, route=route)
+        R = lovasz_sdp.dr_step_cuda(Eb, nn, Yk, Xk, w, U, route=route)
         pY, pX, pR = lovasz_sdp.dr_step_plain(E, nn, Y, X, w, U)
         err = max(float((a - b).abs().max())
                   for a, b in ((Yk, pY), (Xk, pX), (R, pR)))
         Yk, Xk = Y.clone(), X.clone()
-        run = lambda: lovasz_sdp.dr_step_cuda(E, nn, Yk, Xk, w, U,
+        run = lambda: lovasz_sdp.dr_step_cuda(Eb, nn, Yk, Xk, w, U,
                                               route=route)
         Rin = (2 * X - Y).contiguous()
+        ops = B * (2 * V ** 3 + 12 * V * V)
+        W = (V + 31) // 32
         return dict(what=what, B=B, V=V,
                     route=route or lovasz_sdp.k12_route(V), max_abs_err=err,
                     ms=cuda_ms(run, reps),
                     plain_ms=cuda_ms(lambda: lovasz_sdp.dr_step_plain(
                         E, nn, Y, X, w, U), 3),
                     eigh_ms=cuda_ms(lambda: lovasz_sdp.sym_eigh(Rin, U0), 3),
-                    **bound(4 * B * (7 * V * V + V) + 4 * B,
-                            B * (2 * V ** 3 + 12 * V * V), FP32_OPS_PER_S))
+                    bound_ms_float_edges=bound(
+                        4 * B * (7 * V * V + V) + 4 * B, ops,
+                        FP32_OPS_PER_S)["bound_ms"],
+                    **bound(4 * B * (6 * V * V + V + V * W) + 4 * B, ops,
+                            FP32_OPS_PER_S))
 
     def k14_case(M, what, U0=None, reps=3):
         """K14 on M [B, V, V] (from the identity, or from the basis U0)
@@ -1786,29 +1816,44 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
 
     k12 = [k12_case(k12_state[V], "lovasz_nci1scale fit, bucket V = %d, "
                     "DR step 150" % V, k14_prev[V]) for V in sorted(k12_state)]
-    k12 += [k12_case(k12_state[V], "the same state, route %s" % (
-        "global" if lovasz_sdp.k12_route(V) == "shared" else "shared"),
-        k14_prev[V],
-        route="global" if lovasz_sdp.k12_route(V) == "shared" else "shared")
-        for V in sorted(k12_state)[-1:]]
+    k12 += [k12_case(k12_state[V], "the same state, route global",
+                     k14_prev[V], route="global")
+            for V in sorted(k12_state)[-1:]]
     check(all(c["max_abs_err"] <= 1e-4 for c in k12)
-          and {c["route"] for c in k12} == {"shared", "global"},
+          and {c["route"] for c in k12} == {"tile", "global"},
           "K12 == plain DR step (Y, X, R) to 1e-4 on both routes "
           "(largest %.3g)" % max(c["max_abs_err"] for c in k12))
     main12 = [c for c in k12[:len(k12_state)]]
     E0 = k12_state[sorted(k12_state)[-1]]
+    Eb0 = lovasz_sdp.edge_bits(E0[0])
+    # each fit bucket's DR solve as the path runs it (300 x (K14 + K12)
+    # and theta's K14), on its own
+    dr_solve = {}
+    for V in sorted(k12_state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lovasz_sdp._theta(*k12_state[V][:2], 300, 1.0)
+        torch.cuda.synchronize()
+        dr_solve[V] = time.perf_counter() - t
     k12_row = {
         "name": "lovasz_dr_step", "route": "cuda",
         "source": "grakel_torch/csrc/lovasz.cu",
         "replaces": "grakel_tpu/ops/lovasz_sdp.py:58",
         "max_abs_err": max(c["max_abs_err"] for c in k12),
-        **{k: sum(c[k] for c in main12) for k in ("ms", "plain_ms",
-                                                  "bound_ms", "eigh_ms")},
+        **{k: sum(c[k] for c in main12) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_ms_float_edges",
+            "eigh_ms")},
         "bound_by": max(main12, key=lambda c: c["bound_ms"])["bound_by"],
+        "bucket_ms": {c["V"]: c["ms"] for c in main12},
+        "bucket_bound_ms": {c["V"]: c["bound_ms"] for c in main12},
+        "dr_solve_s": sum(dr_solve.values()),
+        "dr_solve_s_by_bucket": dr_solve,
+        "path_kernels": ["lovasz_dr_step_tile<%d,%d>" % (
+            c["V"], lovasz_sdp.k12_tile(c["V"])[0]) for c in main12],
         "library_ms": None,
         "library": "none: no single PyTorch call takes the step",
         "device_ms_widest": device_ms(lambda: lovasz_sdp.dr_step_cuda(
-            *(x.clone() if i in (2, 3) else x for i, x in enumerate(E0))),
+            Eb0, E0[1], E0[2].clone(), E0[3].clone(), *E0[4:]),
             5, "lovasz_dr_step"),
         "eigh_share": None,
         "summed_over": "one DR iteration of each size bucket of the "
@@ -1974,27 +2019,44 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         "shapes": k14 + k14_cold}
 
     # ---------------- K13 ----------------------------------------------- #
-    def k13_case(A, what, route=None, reps=3):
+    def k13_case(A, want, what, route=None, reps=3):
+        """K13 on the subsets A against the plain loop's ``want``."""
         S, d, m = (int(x) for x in A.shape)
         run = lambda: lovasz_sdp.min_cone_cuda(A, route=route)
         got = run()
-        want = lovasz_sdp.min_cone_plain(A)
+        route, group, reg_d, smem = lovasz_sdp.k13_plan(d, m, route)
         # a step: d m subtract-multiply-adds, the argmax, d updates
         ops = S * 400 * (3 * d * m + 3 * d) + S * 3 * d * m
-        return dict(what=what, S=S, d=d, m=m,
-                    route=route or lovasz_sdp.k13_route(d, m),
+        return dict(what=what, S=S, d=d, m=m, route=route, group=group,
+                    subsets_a_warp=32 // group, reg_d=reg_d, smem=smem,
+                    kernel="lovasz_min_cone<%d,%d>" % (
+                        reg_d, route != "global"),
                     max_abs_err=float((got - want).abs().max()),
                     differing=int((got != want).sum()),
                     ms=cuda_ms(run, reps),
-                    plain_ms=cuda_ms(lambda: lovasz_sdp.min_cone_plain(A), 1,
-                                     0),
                     **bound(4 * S * d * m + 4 * S, ops, FP32_OPS_PER_S))
 
-    k13 = [k13_case(k13_fit, "lovasz_nci1scale fit parse, every subset"),
-           k13_case(k13_fit[:20000], "the first 20000 of them, route "
-                    "global", route="global")]
-    check(all(c["max_abs_err"] <= 1e-5 for c in k13),
-          "K13 == plain cone loop on both routes to 1e-5 (the same far "
+    t0 = time.perf_counter()
+    q_bad, q_seen, q_first = lovasz_sdp.min_cone_quotient_check("cuda")
+    q_s = time.perf_counter() - t0
+    check(q_bad == 0 and q_seen == 2 * (2 ** 30 + 1) * lovasz_sdp.MEC_ITERS,
+          "K13's quotient (reciprocal and two fused corrections) == "
+          "__fdiv_rn bit for bit on every f32 in [-2, 2] and every divisor "
+          "2 .. %d: %d of %d pairs differ (first %s; %.2f s)"
+          % (lovasz_sdp.MEC_ITERS + 1, q_bad, q_seen, q_first, q_s))
+    want13 = []
+    plain13 = cuda_ms(lambda: want13.append(
+        lovasz_sdp.min_cone_plain(k13_fit)), 1, 0)
+    want13 = want13[0]
+    k13 = [k13_case(k13_fit, want13, "lovasz_nci1scale fit parse, every "
+                    "subset")]
+    k13[0]["plain_ms"] = plain13
+    k13 += [k13_case(k13_fit[:20000], want13[:20000], "the first 20000 of "
+                     "them, route %s" % r, route=r)
+            for r in ("register", "shared", "global")]
+    check(all(c["max_abs_err"] <= 1e-5 for c in k13)
+          and {c["route"] for c in k13} == {"register", "shared", "global"},
+          "K13 == plain cone loop on every route to 1e-5 (the same far "
           "columns; largest %.3g)" % max(c["max_abs_err"] for c in k13))
     k13_row = {
         "name": "lovasz_min_cone", "route": "cuda",
@@ -2005,6 +2067,9 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                                   "bound_by")},
         "device_ms": device_ms(lambda: lovasz_sdp.min_cone_cuda(k13_fit), 2,
                                "lovasz_min_cone"),
+        "route_ms_20000": {c["route"]: c["ms"] for c in k13[1:]},
+        "quotient_check": {"pairs": q_seen, "differing": q_bad, "s": q_s},
+        "path_kernels": [k13[0]["kernel"]],
         "library_ms": None,
         "library": "none: no single PyTorch call runs the iteration",
         "summed_over": "the one K13 launch of the lovasz_nci1scale fit "
@@ -2018,6 +2083,17 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     print("lovasz_dr_step: eigh %.4f ms beside the kernel's %.4f ms an "
           "iteration over the fit buckets (eigh share %.3f)"
           % (k12_row["eigh_ms"], k12_row["ms"], k12_row["eigh_share"]),
+          flush=True)
+    print("lovasz_dr_step: by bucket %s ms (bounds %s); bound %.4f ms, "
+          "%.4f ms with the edges as floats; the fit parse's DR solve %.3f "
+          "s (%s)"
+          % (k12_row["bucket_ms"], k12_row["bucket_bound_ms"],
+             k12_row["bound_ms"], k12_row["bound_ms_float_edges"],
+             k12_row["dr_solve_s"], dr_solve), flush=True)
+    print("lovasz_min_cone: %.4f ms over the fit parse (%d subsets, d = %d, "
+          "m = %d, %d a warp); the first 20000 by route %s ms"
+          % (k13_row["ms"], k13[0]["S"], k13[0]["d"], k13[0]["m"],
+             k13[0]["subsets_a_warp"], k13_row["route_ms_20000"]),
           flush=True)
     print("lovasz_jacobi_eigh: %.4f ms from step 149's eigenvectors, %.4f "
           "ms from the identity, over the fit buckets at DR step 150; "
@@ -2147,18 +2223,20 @@ def main():
         for v in k6_ptxas.values()),
         "K6's 14 kernels (10 round route, 4 graph route) built without "
         "spills: %s" % k6_ptxas)
+    from grakel_torch.ops import lovasz_sdp as lovasz_ops
     k1013_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                    if "svm_" in k or "lovasz_" in k}
-    check(len(k1013_ptxas) == 13 and all(
+    check(len(k1013_ptxas) == 28 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k1013_ptxas.values()),
-        "K10's, K12's and K13's 6 kernels (each on its shared and global "
-        "route), K11's 5 (warp route at V = 8, 16, 32, 64; block route) "
-        "and K14's 2 (a warp, a block a matrix) built without spills: %s"
-        % k1013_ptxas)
+        "K10's 2 kernels (shared and global route), K11's 5 (warp route at "
+        "V = 8, 16, 32, 64; block route), K12's 7 (route tile at V = 4, 8, "
+        "16, 32, 64, 128; route global), K13's 12 (route register at d "
+        "<= %s; routes shared and global) and K14's 2 (a warp, a block a "
+        "matrix) built without spills: %s"
+        % ("/".join(map(str, lovasz_ops.K13_REG_D)), k1013_ptxas))
 
     from grakel_torch.ops import canonical as can_ops
-    from grakel_torch.ops import lovasz_sdp as lovasz_ops
     from grakel_torch.ops import random_walk as rw_ops
     from grakel_torch.ops import svm_qp as svm_ops
     counters = {"min_gram": intersect.min_gram_cuda,
@@ -3940,6 +4018,11 @@ def main():
                                 "lovasz_min_cone", "lovasz_jacobi_eigh")):
         row["launches"] = launches[key]
         row["ptxas"] = {k: v for k, v in k1013_ptxas.items() if key in k}
+        if "path_kernels" in row:
+            row["ptxas_path"] = {k: row["ptxas"].get(k)
+                                 for k in row["path_kernels"]}
+            print("%s: the path's kernels %s" % (key, row["ptxas_path"]),
+                  flush=True)
     kernels += k1013
     check(all(r["launches"] > 0 for r in kernels),
           "every kernel of the line launched on the paths: %s"

@@ -91,8 +91,9 @@ _SIGNATURES = {
     "grakel_svm_fista": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _P],
     "grakel_lovasz_dr_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
-                              _P],
-    "grakel_lovasz_min_cone": [_P, _P, _I, _I, _I, _I, _I, _P],
+                              _I, _P],
+    "grakel_lovasz_min_cone": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "grakel_lovasz_cone_quotient_check": [_P, _I, _P, _P],
     "grakel_lovasz_jacobi_eigh": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

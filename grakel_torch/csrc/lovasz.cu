@@ -1,48 +1,71 @@
 // K12, K13 and K14: LovaszTheta's Douglas-Rachford step, its minimum
 // enclosing cones and the DR loop's eigendecomposition.
 //
-// * K12 (lovasz_dr_step) replaces the DR body of the XLA program
+// * K12 (lovasz_dr_step_*) replaces the DR body of the XLA program
 //   grakel_tpu/ops/lovasz_sdp.py _theta_impl (:50; proj_affine :58-62
 //   and the body :64-66 around _proj_psd :43), apart from the eigh:
 //   given (w, U) = eigh(R) of the reflection R = 2X - Y, it rebuilds
 //   Z = U diag(max(w, 0)) U^T, steps Y <- Y + Z - X, projects X <- the
 //   support of Y + step J (edges and the valid diagonal) with its
 //   diagonal shifted by (1 - trace) / n, and writes the next R = 2X - Y.
-//   Y and X are updated in place.  One block a graph, one launch an
-//   iteration (300 a solve, each after one batched torch.linalg.eigh).
-//   The eigenvectors come as rows, Ut = U^T (the layout torch.linalg.eigh
-//   leaves them in on a card: its column-major U is a contiguous U^T).
-//   A thread owns a strided set of the V^2 entries: pass 1 forms each
-//   entry Z[i, j] = sum_k Ut[k, i] max(w_k, 0) Ut[k, j] (a warp's
-//   threads read one Ut[k, i] and 32 consecutive Ut[k, j]: a broadcast
-//   and one conflict-free row, from shared memory on route "shared",
-//   V <= 128, staged once, or where they lie on route "global"), steps Y
-//   and sums the new diagonal; the block's trace follows; pass 2 writes X
-//   and R.
-//   Bound on an H100: operations at V = 64-128 (2 V^3 flops a graph
-//   against 7 V^2 floats moved), bytes below.  This simple design reads
-//   U from shared memory twice a multiply-add and reaches neither.
+//   Y and X are updated in place; the edges come as bit rows (bit j % 32
+//   of word j / 32 of row i, packed once a solve), V^2 / 8 bytes a graph
+//   where a float a pair took 4 V^2.  One launch an iteration (300 a
+//   solve, each after one K14).  The eigenvectors come as rows, Ut = U^T
+//   (the layout K14 writes).  Each entry is summed as a thread an entry
+//   summed it: Z[i, j] = fmaf(Ut[k, i] max(w_k, 0), Ut[k, j], z) in k
+//   order from 0, so Z keeps its bits.
+//   Bound on an H100: bytes, 6 V^2 + V^2 / 8 floats a graph (7 V^2 with
+//   the edges as floats), against 2 V^3 flops.
+//   Route "tile" (V a power of two, 4 <= V <= 128): each thread owns an
+//   R x R tile of Z, Y and X (rows and columns tR .. tR + R - 1), a graph
+//   takes (V / R)^2 threads and a block G graphs (128 threads up to V =
+//   32: 32, 8, 8 and 2 graphs at V = 4, 8, 16, 32; a graph of 256 at 64
+//   and 128).  The graph's Ut is staged in shared memory by cp.async
+//   while its Y, X and edge tiles load into registers (at R = 8, V = 128,
+//   they load after the product: 64 + 64 more registers would spill);
+//   then a step of k reads R + R floats (two vector loads, broadcasts or
+//   consecutive) and the clipped eigenvalue for R^2 fused multiply-adds.
+//   Y' stays in registers across the graph's trace reduction (shuffles
+//   within a warp, shared memory across warps), and Y', X' and R' are
+//   written once, as vectors.  Route "global" (any V up to 4096, the only
+//   one past 128): a block of 256 threads a graph walks 4 x 4 tiles of
+//   the output, reading Ut where it lies, writes Y', and after the trace
+//   writes X' and R' from Y' read back.
 // * K13 (lovasz_min_cone) replaces the XLA program _min_cone_jit of
 //   grakel_tpu/kernels/lovasz_theta.py (:48-81), which the JAX package
 //   pins to XLA-CPU: for each subset A [d, m] (the labelling columns of
 //   one sampled vertex subset, padded by repeating its first column),
 //   `iters` (400) Badoiu-Clarkson steps c <- c + (far - c) / (k + 2)
 //   from the first column, far the first column farthest from c, then
-//   the smallest cosine of a column with c / |c|.  A warp a subset, four
-//   a block, every step in one launch.  Lane j (< m) sums column j's
-//   squared distance over i in order with a fused multiply-add a term
-//   (the order of the plain version, ops/lovasz_sdp.py _sq_dist: the
-//   iteration meets exact ties, so the far column is decided by the last
-//   bit of the distances); a butterfly of shuffles takes the argmax,
-//   larger value first and the smaller index on a tie (JAX's argmax);
-//   the lanes then step the centre, a stride of rows each.  The subset's
-//   columns and the centre are in the warp's slice of shared memory on
-//   route "shared" (four warps' d (m + 1) floats within the budget); on
-//   route "global" the columns are read where they lie.
-//   Bound on an H100: operations, 3 d m flops a step; the distance loop
-//   keeps m of the warp's 32 lanes busy and is a chain of d dependent
-//   fused multiply-adds a step, so latency, not the FMA rate, sets its
-//   time.
+//   the smallest cosine of a column with c / |c|.  Every step in one
+//   launch.  A subset takes a group of g lanes, g the next power of two
+//   at or above m (32 / g subsets a warp: 4 at the path's m = 8), four
+//   warps a block.  Lane j (< m) sums column j's squared distance over i
+//   in order with one fused multiply-add a term (the order of the plain
+//   version, ops/lovasz_sdp.py _sq_dist: the iteration meets exact ties,
+//   so the far column is decided by the last bit of the distances); a
+//   butterfly of shuffles within the group (xor offsets below g) takes
+//   the argmax, larger value first and the smaller index on a tie (JAX's
+//   argmax), lanes m .. g - 1 carrying -inf; then the group's lanes step
+//   the centre, a stride of g rows each, by the IEEE quotient (`c + (far
+//   - c) / (k + 2)`, as XLA-CPU divides; cone_quotient takes it without
+//   the division's slow-path call, from the f32 reciprocal of k + 2 and
+//   two fused corrections, and cone_quotient_check holds it equal to
+//   __fdiv_rn on every f32 in [-2, 2]).  The centre lies in
+//   the group's slot of shared memory, padded with zero rows to a
+//   multiple of four floats and read four at a time.  Routes: "register"
+//   (d <= 128): each lane holds its column in registers, padded with
+//   zero rows to kD (8, 16, ..., 64, 96, 128; fmaf(0, 0, acc) leaves the
+//   sum as it is), and the group's columns are staged in its slot, where
+//   the centre update reads the far column; "shared": the columns are
+//   read from the slot; "global": where they lie in device memory (g
+//   grows till the centres fit a block).
+//   Bound on an H100: operations, 3 d m + 3 d flops a step a subset; the
+//   distance loop is a chain of d dependent fused multiply-adds, and the
+//   kernel is held by its instruction rate and shared-memory reads (four
+//   subsets a warp share each instruction of the distance loop, which a
+//   warp a subset ran for one, 24 of 32 lanes idle).
 // * K14 (lovasz_jacobi_eigh) is the DR loop's eigendecomposition on a
 //   card, where torch.linalg.eigh has no batched route past 32 rows (it
 //   runs cuSOLVER's syevj a matrix at a time: 1.43 s a call for 1818
@@ -99,92 +122,378 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// One block an SM as the floor: with the default bound ptxas packed the
-// global route into 32 registers and spilled one.
-template <bool kShared>
-__global__ void __launch_bounds__(256, 1)
-lovasz_dr_step(const float* __restrict__ E, const int* __restrict__ nsz,
-               float* __restrict__ Y, float* __restrict__ X,
-               const float* __restrict__ w, const float* __restrict__ Ut,
-               float* __restrict__ R, int V, float step) {
-  extern __shared__ float sm[];
-  const int g = blockIdx.x, T = blockDim.x;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+}
+
+// R consecutive floats (R = 2, 4, 8; aligned to R floats, at most 16
+// bytes) as vector accesses
+template <int R>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[R]) {
+  if constexpr (R == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] = make_float4(
+          v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+}
+
+// X' = proj_affine(Y' + step J) at entry (i, j) of a graph of n vertices:
+// an edge or the valid diagonal keeps y (plus step inside the n x n
+// block), the diagonal also takes the trace's shift; zero elsewhere.
+__device__ __forceinline__ float dr_project(float y, bool edge, int i, int j,
+                                           int n, float step, float shift) {
+  const bool inside = i < n && j < n;
+  const bool diag = inside && i == j;
+  const float x = (edge || diag) ? y + (inside ? step : 0.f) : 0.f;
+  return diag ? x + shift : x;
+}
+
+// K12, route "tile": a graph of V (a power of two, 4..128) rows takes (V
+// / R)^2 threads, each an R x R tile (rows i0 .. i0 + R - 1, columns j0
+// .. j0 + R - 1); a block holds blockDim.x / (V / R)^2 graphs, each with
+// V^2 + V floats of shared memory (its Ut and max(w, 0)), then a float a
+// warp for the trace.
+template <int V, int R>
+__global__ void __launch_bounds__(256)
+lovasz_dr_step_tile(const unsigned* __restrict__ Eb,
+                    const int* __restrict__ nsz, float* __restrict__ Y,
+                    float* __restrict__ X, const float* __restrict__ w,
+                    const float* __restrict__ Ut, float* __restrict__ Rn,
+                    int B, float step) {
+  constexpr int S = V / R, T = S * S, W = (V + 31) / 32, ld = V * V + V;
+  // Y and X tiles in registers from the start, beside the product's R^2
+  // sums, up to R = 4
+  constexpr bool kPre = R <= 4;
+  extern __shared__ float4 sm4[];
+  float* const sm = reinterpret_cast<float*>(sm4);
+  const int G = blockDim.x / T;
+  const int lg = threadIdx.x / T, tid = threadIdx.x - lg * T;
+  const int g = blockIdx.x * G + lg;
+  const bool live = g < B;
+  float* const us = sm + lg * ld;
+  float* const wp = us + V * V;
+  float* const red = sm + G * ld;
+  const size_t base = (size_t)g * V * V;
+  const int ti = tid / S, tj = tid - ti * S, i0 = ti * R, j0 = tj * R;
+
+  if (live)
+    for (int e = 4 * tid; e < V * V; e += 4 * T)
+      cp_async16(us + e, Ut + base + e);
+  int n = 0;
+  unsigned eb[R];
+  float yv[kPre ? R : 1][R], xv[kPre ? R : 1][R];
+  if (live) {
+    n = nsz[g];
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+      eb[a] = Eb[((size_t)g * V + i0 + a) * W + (j0 >> 5)] >> (j0 & 31);
+    if constexpr (kPre) {
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+        load_row<R>(Y + base + (size_t)(i0 + a) * V + j0, yv[a]);
+        load_row<R>(X + base + (size_t)(i0 + a) * V + j0, xv[a]);
+      }
+    }
+    for (int k = tid; k < V; k += T)
+      wp[k] = fmaxf(w[(size_t)g * V + k], 0.f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Z's tile in k order: fmaf(Ut[k, i] w+_k, Ut[k, j], z)
+  float acc[R][R];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < V; ++k) {
+    float x[R], y[R];
+    load_row<R>(us + k * V + i0, x);
+    load_row<R>(us + k * V + j0, y);
+    const float wk = wp[k];
+#pragma unroll
+    for (int a = 0; a < R; ++a) x[a] *= wk;
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+
+  // Y' = Y + Z - X into acc, and the trace of Y' + step J
+  float trp = 0.f;
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    float yr[R], xr[R];
+    if constexpr (kPre) {
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        yr[b] = yv[a][b];
+        xr[b] = xv[a][b];
+      }
+    } else if (live) {
+      load_row<R>(Y + base + (size_t)(i0 + a) * V + j0, yr);
+      load_row<R>(X + base + (size_t)(i0 + a) * V + j0, xr);
+    } else {
+#pragma unroll
+      for (int b = 0; b < R; ++b) yr[b] = xr[b] = 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < R; ++b) acc[a][b] = (yr[b] + acc[a][b]) - xr[b];
+    if (ti == tj && i0 + a < n) trp += acc[a][a] + step;
+  }
+  constexpr int L = T < 32 ? T : 32;
+#pragma unroll
+  for (int o = L / 2; o; o >>= 1)
+    trp += __shfl_xor_sync(0xffffffffu, trp, o);
+  if constexpr (T > 32) {
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = trp;
+    __syncthreads();
+    trp = 0.f;
+#pragma unroll
+    for (int q = 0; q < T / 32; ++q) trp += red[lg * (T / 32) + q];
+  }
+  if (!live) return;
+  const float shift = (1.f - trp) / fmaxf((float)n, 1.f);
+
+  // X' = proj_affine(Y' + step J), R' = 2 X' - Y', each written once
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int i = i0 + a;
+    float xo[R], ro[R];
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      xo[b] = dr_project(acc[a][b], (eb[a] >> b) & 1u, i, j0 + b, n, step,
+                         shift);
+      ro[b] = 2.f * xo[b] - acc[a][b];
+    }
+    const size_t off = base + (size_t)i * V + j0;
+    store_row<R>(Y + off, acc[a]);
+    store_row<R>(X + off, xo);
+    store_row<R>(Rn + off, ro);
+  }
+}
+
+// K12, route "global": a block of 256 threads a graph of any V; 4 x 4
+// tiles of the output a thread in turn, Ut read where it lies; Y' is
+// written in the first pass and read back after the trace.  Shared
+// memory: max(w, 0) (V floats) and a float a warp.
+__global__ void __launch_bounds__(256)
+lovasz_dr_step_global(const unsigned* __restrict__ Eb,
+                      const int* __restrict__ nsz, float* __restrict__ Y,
+                      float* __restrict__ X, const float* __restrict__ w,
+                      const float* __restrict__ Ut, float* __restrict__ Rn,
+                      int V, float step) {
+  constexpr int R = 4;
+  extern __shared__ float4 sm4[];
+  float* const wp = reinterpret_cast<float*>(sm4);
+  float* const red = wp + V;
+  const int g = blockIdx.x, T = blockDim.x, W = (V + 31) >> 5;
   const int n = nsz[g];
   const size_t base = (size_t)g * V * V;
-  float* wp = sm;            // max(w, 0)
-  float* red = sm + V;
-  const float* Ub = Ut + base;
-  if (kShared) {
-    float* us = sm + V + kRed;
-    for (int e = threadIdx.x; e < V * V; e += T) us[e] = Ub[e];
-    Ub = us;
-  }
+  const float* const Ub = Ut + base;
   for (int k = threadIdx.x; k < V; k += T)
     wp[k] = fmaxf(w[(size_t)g * V + k], 0.f);
   __syncthreads();
 
-  // pass 1: Z, Y' = Y + Z - X, and the diagonal of Y' + step J
+  const int S = (V + R - 1) / R;
   float trp = 0.f;
-  for (int e = threadIdx.x; e < V * V; e += T) {
-    const int i = e / V, j = e % V;
-    const float* ui = Ub + i;
-    const float* uj = Ub + j;
-    float z = 0.f;
-    for (int k = 0; k < V; ++k, ui += V, uj += V)
-      z = fmaf(*ui * wp[k], *uj, z);
-    const float y = Y[base + e] + z - X[base + e];
-    Y[base + e] = y;
-    if (i == j && i < n) trp += y + step;
+  for (int t = threadIdx.x; t < S * S; t += T) {
+    const int ti = t / S, tj = t - ti * S, i0 = ti * R, j0 = tj * R;
+    float acc[R][R];
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
+    for (int k = 0; k < V; ++k) {
+      const float* row = Ub + (size_t)k * V;
+      const float wk = wp[k];
+      float x[R], y[R];
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+        x[a] = i0 + a < V ? __ldg(row + i0 + a) * wk : 0.f;
+#pragma unroll
+      for (int b = 0; b < R; ++b) y[b] = j0 + b < V ? __ldg(row + j0 + b) : 0.f;
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int b = 0; b < R; ++b) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < V && j < V) {
+          const size_t e = base + (size_t)i * V + j;
+          const float y = (Y[e] + acc[a][b]) - X[e];
+          Y[e] = y;
+          if (i == j && i < n) trp += y + step;
+        }
+      }
   }
   const float shift = (1.f - block_sum(trp, red)) / fmaxf((float)n, 1.f);
+  __syncthreads();      // every Y' written before any is read back
 
-  // pass 2: X' = proj_affine(Y' + step J), R' = 2 X' - Y'
   for (int e = threadIdx.x; e < V * V; e += T) {
-    const int i = e / V, j = e % V;
-    const bool inside = i < n && j < n;
-    const bool diag = inside && i == j;
+    const int i = e / V, j = e - i * V;
     const float y = Y[base + e];
-    float x = (E[base + e] > 0.f || diag) ? y + (inside ? step : 0.f) : 0.f;
-    if (diag) x += shift;
+    const float x = dr_project(
+        y, (Eb[((size_t)g * V + i) * W + (j >> 5)] >> (j & 31)) & 1u, i, j,
+        n, step, shift);
     X[base + e] = x;
-    R[base + e] = 2.f * x - y;
+    Rn[base + e] = 2.f * x - y;
   }
 }
 
-template <bool kShared>
+// x / den correctly rounded (as __fdiv_rn divides) for an integer den (2
+// <= den <= 2^24) given r = 1 / den rounded to f32, with no call to the
+// division's slow-path subroutine (around which K13's register columns
+// would spill).  |x| >= 2^-100: the product by r and two fused
+// corrections (Markstein's); the quotient is normal there, and no normal
+// quotient by an integer lies on a rounding tie unless den is a power of
+// two, where every step is exact.  0 < |x| < 2^-100: in f64 (r refined by
+// two Newton steps), where the f64 error is far below the quotient's
+// distance to the nearest f32 rounding tie, except at an exact tie of two
+// subnormals, which the exact residual finds and rounds to even.
+__device__ __forceinline__ float cone_quotient(float x, float den, float r) {
+  if (fabsf(x) >= 0x1p-100f) {
+    float q = __fmul_rn(x, r);
+    q = __fmaf_rn(__fmaf_rn(-den, q, x), r, q);
+    return __fmaf_rn(__fmaf_rn(-den, q, x), r, q);
+  }
+  if (x == 0.f) return __fmul_rn(x, r);       // +-0, as x / den
+  const double xd = x, dd = den;
+  double rd = r;
+  rd = fma(rd, fma(-dd, rd, 1.0), rd);
+  rd = fma(rd, fma(-dd, rd, 1.0), rd);
+  double q = xd * rd;
+  q = fma(fma(-dd, q, xd), rd, q);
+  float qf = __double2float_rn(q);
+  if (fabsf(qf) <= 0x1p-126f) {
+    const double e = fma(-(double)qf, dd, xd);    // exact
+    if (2.0 * fabs(e) == dd * 0x1p-149) {       // a tie: the even one
+      const unsigned mq = __float_as_uint(qf) & 0x7fffffffu;
+      const bool up = (e > 0.0) == (x > 0.f);   // |x / den| > |qf|
+      if (mq & 1u) qf = copysignf(__uint_as_float(up ? mq + 1 : mq - 1), x);
+    }
+  }
+  return qf;
+}
+
+// K13's slot of a subset in shared memory, in floats: its centre (cp
+// floats, a multiple of four) and, when staged, its columns [m, d]
+// column-major; padded so consecutive slots start g floats apart modulo
+// the 32 banks (four at g < 4), so the group's lanes, reading
+// consecutive rows of their slots, fall in distinct banks.
+__host__ __device__ __forceinline__ size_t cone_slot(int d, int m, int g,
+                                                     int cp, bool shared) {
+  size_t s = cp + (shared ? (((size_t)d * m + 3) & ~(size_t)3) : 0);
+  if (g < 32) {
+    const size_t off = g < 4 ? 4 : g;
+    s += (off + 32 - s % 32) % 32;
+  }
+  return s;
+}
+
+// K13.  kD > 0 (route "register"): each lane's column in registers,
+// padded with zero rows to kD (d <= kD), the subset's columns staged in
+// its slot (kShared); kD = 0: the columns read from the slot (kShared,
+// route "shared") or from device memory (route "global").  A subset
+// takes 2^lg lanes; its slot (cone_slot) holds the centre (cp floats,
+// zero past d) and, with kShared, the columns.  rcp[k] = 1 / (k + 2)
+// rounded to f32.
+template <int kD, bool kShared>
 __global__ void __launch_bounds__(32 * kConeWarps)
-lovasz_min_cone(const float* __restrict__ A, float* __restrict__ out, int S,
-                int d, int m, int iters) {
-  extern __shared__ float sm[];
-  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
-  const int s = blockIdx.x * kConeWarps + wib;
-  if (s >= S) return;
+lovasz_min_cone(const float* __restrict__ A, const float* __restrict__ rcp,
+                float* __restrict__ out, int S, int d, int m, int lg, int cp,
+                int iters) {
+  static_assert(kD % 4 == 0 && (kD == 0 || kShared), "K13 instantiation");
+  extern __shared__ float4 sm4[];
+  const int gw = 1 << lg, lane = threadIdx.x & 31, j = lane & (gw - 1);
+  const int local = threadIdx.x >> lg;        // the block's subset slot
+  const int s = blockIdx.x * (kConeWarps * 32 >> lg) + local;
+  const bool live = s < S;
   const size_t per = (size_t)d * m;
-  const float* As = A + (size_t)s * per;
-  float* c = sm + (size_t)wib * (kShared ? per + d : d);
+  float* const c = reinterpret_cast<float*>(sm4)
+                   + local * cone_slot(d, m, gw, cp, kShared);
+  // column jj's row i at col[jj * cs + i * rs]: column-major in the slot,
+  // row-major where the subset lies in device memory
+  const float* col = A + (size_t)s * per;
+  const size_t cs = kShared ? d : 1, rs = kShared ? 1 : m;
   if (kShared) {
-    float* a = c + d;
-    for (size_t e = lane; e < per; e += 32) a[e] = As[e];
-    As = a;
+    float* const a = c + cp;
+    if (live)
+      for (size_t e = j; e < per; e += gw) a[(e % m) * d + e / m] = col[e];
+    col = a;
     __syncwarp();
   }
-  for (int i = lane; i < d; i += 32) c[i] = As[(size_t)i * m];
+  for (int i = j; i < cp; i += gw) c[i] = live && i < d ? col[i * rs] : 0.f;
+  float reg[kD > 0 ? kD : 1];
+  if constexpr (kD > 0) {
+#pragma unroll
+    for (int i = 0; i < kD; ++i)
+      reg[i] = live && j < m && i < d ? col[j * cs + i] : 0.f;
+  }
   __syncwarp();
 
   for (int k = 0; k < iters; ++k) {
     float d2 = -INFINITY;
-    if (lane < m) {
+    if constexpr (kD > 0) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kD; i += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(c + i);
+        float df = reg[i] - cv.x;
+        acc = __fmaf_rn(df, df, acc);
+        df = reg[i + 1] - cv.y;
+        acc = __fmaf_rn(df, df, acc);
+        df = reg[i + 2] - cv.z;
+        acc = __fmaf_rn(df, df, acc);
+        df = reg[i + 3] - cv.w;
+        acc = __fmaf_rn(df, df, acc);
+      }
+      if (j < m) d2 = acc;
+    } else if (live && j < m) {
       d2 = 0.f;
+      const float* cj = col + j * cs;
       for (int i = 0; i < d; ++i) {
-        const float df = As[(size_t)i * m + lane] - c[i];
+        const float df = cj[i * rs] - c[i];
         d2 = __fmaf_rn(df, df, d2);
       }
     }
     __syncwarp();   // every lane has read c before any lane steps it
     float best = d2;
-    int arg = lane;
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
+    int arg = j;
+    for (int o = gw >> 1; o; o >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best, o);
       const int oi = __shfl_xor_sync(0xffffffffu, arg, o);
       if (ov > best || (ov == best && oi < arg)) {
@@ -192,29 +501,45 @@ lovasz_min_cone(const float* __restrict__ A, float* __restrict__ out, int S,
         arg = oi;
       }
     }
-    const float den = (float)(k + 2);
-    for (int i = lane; i < d; i += 32)
-      c[i] = c[i] + (As[(size_t)i * m + arg] - c[i]) / den;
+    const float den = (float)(k + 2), r = __ldg(rcp + k);
+    if (live) {
+      const float* far = col + arg * cs;
+      for (int i = j; i < d; i += gw) {
+        const float ci = c[i];
+        c[i] = ci + cone_quotient(far[i * rs] - ci, den, r);
+      }
+    }
     __syncwarp();
   }
 
   float q = 0.f;
-  for (int i = lane; i < d; i += 32) q += c[i] * c[i];
-#pragma unroll
-  for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+  for (int i = j; i < d; i += gw) q += c[i] * c[i];
+  for (int o = gw >> 1; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
   const float nc = sqrtf(q);
-  for (int i = lane; i < d; i += 32)
-    c[i] = nc > 0.f ? c[i] / fmaxf(nc, 1e-30f) : 0.f;
+  if (live)
+    for (int i = j; i < d; i += gw)
+      c[i] = nc > 0.f ? c[i] / fmaxf(nc, 1e-30f) : 0.f;
   __syncwarp();
   float dot = INFINITY;
-  if (lane < m) {
-    dot = 0.f;
-    for (int i = 0; i < d; ++i) dot = fmaf(As[(size_t)i * m + lane], c[i], dot);
-  }
+  if constexpr (kD > 0) {
+    float t = 0.f;
 #pragma unroll
-  for (int o = 16; o; o >>= 1)
+    for (int i = 0; i < kD; i += 4) {
+      const float4 cv = *reinterpret_cast<const float4*>(c + i);
+      t = fmaf(reg[i], cv.x, t);
+      t = fmaf(reg[i + 1], cv.y, t);
+      t = fmaf(reg[i + 2], cv.z, t);
+      t = fmaf(reg[i + 3], cv.w, t);
+    }
+    if (j < m) dot = t;
+  } else if (live && j < m) {
+    dot = 0.f;
+    const float* cj = col + j * cs;
+    for (int i = 0; i < d; ++i) dot = fmaf(cj[i * rs], c[i], dot);
+  }
+  for (int o = gw >> 1; o; o >>= 1)
     dot = fminf(dot, __shfl_xor_sync(0xffffffffu, dot, o));
-  if (lane == 0) out[s] = dot;
+  if (live && j == 0) out[s] = dot;
 }
 
 // Pair i of round r of the circle method over V (even) rows: row 0 is
@@ -476,58 +801,136 @@ cudaError_t prepare(Kern kern, size_t smem) {
 
 }  // namespace
 
-// K12: one DR step of B graphs padded to V (E, Y, X, R [B, V, V], the
-// eigenvectors as rows Ut [B, V, V], w [B, V] f32, sizes n [B] int32); Y
-// and X in place, R written; `shared` picks the route.  Launches B blocks on `stream`; returns
-// cudaGetLastError().
-extern "C" int grakel_lovasz_dr_step(const float* E, const int* n, float* Y,
+// K12: one DR step of B graphs padded to V (Y, X, R [B, V, V] f32, the
+// eigenvectors as rows Ut [B, V, V] f32, w [B, V] f32, sizes n [B]
+// int32, the edges as bit rows Eb [B, V, ceil(V / 32)] int32); Y and X in
+// place, R written.  tile_r > 0: route "tile" with R = tile_r (V, R one
+// of (4, 2), (8, 2), (16, 4), (32, 4), (64, 4), (128, 8); Y, X, R and Ut
+// 16-byte aligned), `graphs` graphs a block (a whole number of warps,
+// at most 1024 threads); tile_r = 0: route "global" (1 <= V <= 4096), a
+// block a graph.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int grakel_lovasz_dr_step(const int* Eb, const int* n, float* Y,
                                      float* X, const float* w,
                                      const float* Ut, float* R, int B, int V,
-                                     float step, int shared, void* stream) {
+                                     float step, int tile_r, int graphs,
+                                     void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (V < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((shared ? (size_t)V * V : 0) + V + kRed)
-                      * sizeof(float);
-  const int threads = V * V >= 256 ? 256 : ((V * V + 31) / 32) * 32;
+  const unsigned* E = reinterpret_cast<const unsigned*>(Eb);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
-  if (shared) {
-    if ((e = prepare(lovasz_dr_step<true>, smem)) != cudaSuccess) return (int)e;
-    lovasz_dr_step<true><<<B, threads, smem, st>>>(E, n, Y, X, w, Ut, R, V,
-                                                   step);
-  } else {
-    if ((e = prepare(lovasz_dr_step<false>, smem)) != cudaSuccess)
+  if (tile_r == 0) {
+    if (V < 1 || V > 4096) return (int)cudaErrorInvalidValue;
+    const size_t smem = ((size_t)V + kRed) * sizeof(float);
+    if ((e = prepare(lovasz_dr_step_global, smem)) != cudaSuccess)
       return (int)e;
-    lovasz_dr_step<false><<<B, threads, smem, st>>>(E, n, Y, X, w, Ut, R, V,
-                                                    step);
+    lovasz_dr_step_global<<<B, 256, smem, st>>>(E, n, Y, X, w, Ut, R, V,
+                                                step);
+    return (int)cudaGetLastError();
   }
+  void (*kern)(const unsigned*, const int*, float*, float*, const float*,
+               const float*, float*, int, float) = nullptr;
+  if (V == 4 && tile_r == 2) kern = lovasz_dr_step_tile<4, 2>;
+  if (V == 8 && tile_r == 2) kern = lovasz_dr_step_tile<8, 2>;
+  if (V == 16 && tile_r == 4) kern = lovasz_dr_step_tile<16, 4>;
+  if (V == 32 && tile_r == 4) kern = lovasz_dr_step_tile<32, 4>;
+  if (V == 64 && tile_r == 4) kern = lovasz_dr_step_tile<64, 4>;
+  if (V == 128 && tile_r == 8) kern = lovasz_dr_step_tile<128, 8>;
+  if (!kern || graphs < 1) return (int)cudaErrorInvalidValue;
+  const long threads = (long)(V / tile_r) * (V / tile_r) * graphs;
+  if (threads % 32 || threads > 256) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)graphs * (V * V + V) + threads / 32)
+                      * sizeof(float);
+  if ((e = prepare(kern, smem)) != cudaSuccess) return (int)e;
+  kern<<<(B + graphs - 1) / graphs, (int)threads, smem, st>>>(
+      E, n, Y, X, w, Ut, R, B, step);
   return (int)cudaGetLastError();
 }
 
-// K13: t [S] of the subsets A [S, d, m] f32 (1 <= m <= 32) after `iters`
-// Badoiu-Clarkson steps; `shared` picks the route.  Launches ceil(S / 4)
-// blocks of four warps on `stream`; returns cudaGetLastError().
-extern "C" int grakel_lovasz_min_cone(const float* A, float* out, int S,
-                                      int d, int m, int iters, int shared,
-                                      void* stream) {
+// K13: t [S] of the subsets A [S, d, m] f32 after `iters` Badoiu-Clarkson
+// steps, rcp [iters] the f32 reciprocals 1 / (k + 2).  `group` (a power of
+// two, m <= group <= 32) lanes a subset; reg_d > 0: route "register"
+// (reg_d one of 8, 16, ..., 64, 96, 128 and d <= reg_d; `shared` must be
+// 1); reg_d = 0: `shared` picks route "shared" or "global".  Launches
+// ceil(S / (128 / group)) blocks of four warps on `stream`; returns
+// cudaGetLastError().
+extern "C" int grakel_lovasz_min_cone(const float* A, const float* rcp,
+                                      float* out, int S, int d, int m,
+                                      int iters, int group, int reg_d,
+                                      int shared, void* stream) {
   if (S <= 0) return (int)cudaGetLastError();
-  if (d < 1 || m < 1 || m > 32 || iters < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = kConeWarps * ((shared ? (size_t)d * m : 0) + d)
+  if (d < 1 || m < 1 || iters < 0 || iters > (1 << 24) - 2 || group < m
+      || group > 32 || (group & (group - 1))
+      || (reg_d > 0 && (d > reg_d || !shared)))
+    return (int)cudaErrorInvalidValue;
+  const int lg = __builtin_ctz((unsigned)group);
+  const int cp = reg_d > 0 ? reg_d : (d + 3) & ~3;
+  const size_t slots = (size_t)kConeWarps * 32 / group;
+  const size_t smem = slots * cone_slot(d, m, group, cp, shared != 0)
                       * sizeof(float);
-  const int blocks = (S + kConeWarps - 1) / kConeWarps;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (shared) {
-    if ((e = prepare(lovasz_min_cone<true>, smem)) != cudaSuccess)
-      return (int)e;
-    lovasz_min_cone<true><<<blocks, 32 * kConeWarps, smem, st>>>(A, out, S, d,
-                                                                 m, iters);
-  } else {
-    if ((e = prepare(lovasz_min_cone<false>, smem)) != cudaSuccess)
-      return (int)e;
-    lovasz_min_cone<false><<<blocks, 32 * kConeWarps, smem, st>>>(A, out, S,
-                                                                  d, m, iters);
+  void (*kern)(const float*, const float*, float*, int, int, int, int, int,
+               int) = nullptr;
+  switch (reg_d) {
+    case 0: kern = shared ? lovasz_min_cone<0, true>
+                          : lovasz_min_cone<0, false>; break;
+    case 8: kern = lovasz_min_cone<8, true>; break;
+    case 16: kern = lovasz_min_cone<16, true>; break;
+    case 24: kern = lovasz_min_cone<24, true>; break;
+    case 32: kern = lovasz_min_cone<32, true>; break;
+    case 40: kern = lovasz_min_cone<40, true>; break;
+    case 48: kern = lovasz_min_cone<48, true>; break;
+    case 56: kern = lovasz_min_cone<56, true>; break;
+    case 64: kern = lovasz_min_cone<64, true>; break;
+    case 96: kern = lovasz_min_cone<96, true>; break;
+    case 128: kern = lovasz_min_cone<128, true>; break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = prepare(kern, smem)) != cudaSuccess) return (int)e;
+  const size_t blocks = (S + slots - 1) / slots;
+  kern<<<(unsigned)blocks, 32 * kConeWarps, smem, (cudaStream_t)stream>>>(
+      A, rcp, out, S, d, m, lg, cp, iters);
+  return (int)cudaGetLastError();
+}
+
+// K13's quotient (cone_quotient) against __fdiv_rn, bit for bit, for every
+// f32 x in [-2, 2] (the differences of unit vectors' entries) and every
+// divisor k + 2 of iters steps, with rcp [iters] the f32 reciprocals
+// 1 / (k + 2) the kernel takes.  out [3] u64, zeroed by the caller: the
+// pairs that differ, the pairs checked, and the first difference found as
+// x's bits << 32 | the divisor.
+__global__ void cone_quotient_check(const float* __restrict__ rcp, int iters,
+                                    unsigned long long* __restrict__ out) {
+  const unsigned long long n = 2ull * 0x40000001ull;   // +-[0, 2]
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  unsigned long long bad = 0, seen = 0;
+  for (unsigned long long t = blockIdx.x * (unsigned long long)blockDim.x
+                              + threadIdx.x; t < n; t += stride) {
+    const unsigned bits = (unsigned)(t >> 1) | ((unsigned)(t & 1) << 31);
+    const float x = __uint_as_float(bits);
+    for (int k = 0; k < iters; ++k) {
+      const float den = (float)(k + 2);
+      const float got = cone_quotient(x, den, rcp[k]);
+      const float want = __fdiv_rn(x, den);
+      if (__float_as_uint(got) != __float_as_uint(want)) {
+        ++bad;
+        atomicCAS(out + 2, 0ull, ((unsigned long long)bits << 32)
+                                     | (unsigned)(k + 2));
+      }
+    }
+    seen += iters;
+  }
+  atomicAdd(out, bad);
+  atomicAdd(out + 1, seen);
+}
+
+extern "C" int grakel_lovasz_cone_quotient_check(const float* rcp,
+                                                 int iters,
+                                                 unsigned long long* out,
+                                                 void* stream) {
+  if (iters < 1 || iters > (1 << 24) - 2) return (int)cudaErrorInvalidValue;
+  cone_quotient_check<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(
+      rcp, iters, out);
   return (int)cudaGetLastError();
 }
 

@@ -1893,12 +1893,12 @@ def test_one_class_alphas_one_k11_launch_a_bucket(cuda):
         assert abs(a @ K @ a - r @ K @ r) < 1e-4
 
 
-def _dr_inputs(B, V, seed, cuda):
-    """A DR state: edges E and sizes n as ``lovasz_theta_batch`` pads
-    them, random symmetric Y, X and the eigh of 2X - Y."""
-    from grakel_torch.ops import lovasz_sdp
+def _dr_inputs(B, V, seed, cuda, n_max=None):
+    """A DR state: edges E and sizes n (1 .. ``n_max``, default V) as
+    ``lovasz_theta_batch`` pads them, random symmetric Y, X and the eigh
+    of 2X - Y."""
     rng = np.random.RandomState(seed)
-    n = rng.randint(1, V + 1, B)
+    n = rng.randint(1, (n_max or V) + 1, B)
     E = np.zeros((B, V, V), np.float32)
     for b in range(B):
         A = np.triu(rng.rand(n[b], n[b]) < 0.4, 1)
@@ -1914,26 +1914,53 @@ def _dr_inputs(B, V, seed, cuda):
 
 @pytest.mark.parametrize("B,V,route", [
     (3, 4, None), (50, 16, None), (17, 64, None), (6, 128, None),
-    (2, 256, None), (11, 16, "global"), (5, 128, "global")])
+    (2, 256, None), (11, 16, "global"), (5, 128, "global"),
+    (33, 4, None), (9, 8, None), (41, 32, None), (3, 4, "global"),
+    (7, 32, "global"), (13, 64, "global"), (3, 100, None)])
 def test_lovasz_dr_step_kernel_matches_plain(cuda, B, V, route):
     """K12 (in place) against the plain DR step on the same eigh: Y, X and
-    R to 1e-4 (f32 length-V dot products in another order)."""
+    R to 1e-4 (f32 length-V dot products in another order), on every
+    tile size of route "tile" (blocks of several graphs, B not a
+    multiple of them) and on route "global" (V = 100 and 256 take it)."""
     from grakel_torch.ops import lovasz_sdp
     E, n, Y, X, w, U = _dr_inputs(B, V, B + V, cuda)
     pY, pX, pR = lovasz_sdp.dr_step_plain(E, n, Y, X, w, U)
     Yk, Xk = Y.clone(), X.clone()
     before = dict(lovasz_sdp.dr_step_cuda.route_launches)
-    R = lovasz_sdp.dr_step_cuda(E, n, Yk, Xk, w, U, route=route)
+    R = lovasz_sdp.dr_step_cuda(lovasz_sdp.edge_bits(E), n, Yk, Xk, w, U,
+                                route=route)
     want = route or lovasz_sdp.k12_route(V)
     assert lovasz_sdp.dr_step_cuda.route_launches[want] == before[want] + 1
     for got, ref in ((Yk, pY), (Xk, pX), (R, pR)):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("V", [4, 16, 32, 64, 128])
+@pytest.mark.parametrize("route", ["tile", "global"])
+def test_lovasz_dr_step_kernel_padded_bucket(cuda, V, route):
+    """K12 on a bucket whose graphs fill at most a quarter of its rows (a
+    bucket past the sizes it was cut for): the padded rows and columns
+    of X' are zero and R' = -Y' there, and Y', X', R' equal the plain
+    step to 1e-4."""
+    from grakel_torch.ops import lovasz_sdp
+    E, n, Y, X, w, U = _dr_inputs(37, V, V + 7, cuda, n_max=max(1, V // 4))
+    pY, pX, pR = lovasz_sdp.dr_step_plain(E, n, Y, X, w, U)
+    Yk, Xk = Y.clone(), X.clone()
+    R = lovasz_sdp.dr_step_cuda(lovasz_sdp.edge_bits(E), n, Yk, Xk, w, U,
+                                route=route)
+    for got, ref in ((Yk, pY), (Xk, pX), (R, pR)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    pad = torch.arange(V, device=cuda)[None, :] >= n[:, None]
+    outside = pad[:, :, None] | pad[:, None, :]
+    assert (Xk[outside] == 0).all()
+    assert torch.equal(R[outside], -Yk[outside])
+
+
 @pytest.mark.parametrize("S,d,m,route", [
     (1, 3, 2, None), (1000, 15, 8, None), (333, 113, 8, None),
     (70, 40, 5, None), (9, 1000, 8, None), (100, 33, 8, "global"),
-    (5, 20, 32, None)])
+    (5, 20, 32, None), (101, 51, 8, "shared"), (77, 51, 8, None),
+    (66, 129, 8, None), (10, 500, 1, None)])
 def test_lovasz_min_cone_kernel_matches_plain(cuda, S, d, m, route):
     """K13 against the plain cone loop on subsets shaped as LovaszTheta
     builds them (unit columns, the first repeated as padding): the far
@@ -1952,6 +1979,51 @@ def test_lovasz_min_cone_kernel_matches_plain(cuda, S, d, m, route):
     assert lovasz_sdp.min_cone_cuda.route_launches[want] == before[want] + 1
     torch.testing.assert_close(t, lovasz_sdp.min_cone_plain(A), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("d,route", [(51, None), (128, None), (129, None),
+                                     (20, "shared"), (20, "global"),
+                                     (300, "global")])
+def test_lovasz_min_cone_kernel_group_widths(cuda, m, d, route):
+    """K13 on every group width (a subset on the next power of two at or
+    above m lanes, 32 / that many a warp), 37 subsets (no multiple of a
+    block's), d on both sides of the register route's limit (128) and
+    every route: t against the plain cone loop to 1e-5, on subsets with
+    exact ties (two distinct unit columns, the first repeated, as a
+    2-subset of LovaszTheta; and a column and its mirror image about
+    the first) and on subsets in general position, so the far columns
+    are the same choices, each decided by the last bit of an in-order
+    sum.  The plain loop runs on the CPU, in the same IEEE operations."""
+    from grakel_torch.ops import lovasz_sdp
+    rng = np.random.RandomState(m * 1000 + d)
+    S = 37
+    A = rng.randn(S, d, m).astype(np.float32)
+    A /= np.linalg.norm(A, axis=1, keepdims=True)
+    A[: S // 3, :, 2:] = A[: S // 3, :, :1]
+    if m >= 3:
+        A[S // 3: 2 * S // 3, :, 2] = -A[S // 3: 2 * S // 3, :, 1]
+    plan = lovasz_sdp.k13_plan(d, m, route)
+    assert plan[1] >= m and plan[1] & (plan[1] - 1) == 0
+    before = dict(lovasz_sdp.min_cone_cuda.route_launches)
+    t = lovasz_sdp.min_cone_cuda(torch.from_numpy(A).to(cuda), route=route)
+    assert lovasz_sdp.min_cone_cuda.route_launches[plan[0]] \
+        == before[plan[0]] + 1
+    torch.testing.assert_close(
+        t.cpu(), lovasz_sdp.min_cone_plain(torch.from_numpy(A)), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_lovasz_min_cone_quotient_is_ieee_division(cuda):
+    """K13 divides the centre's step by k + 2 as the product with the f32
+    reciprocal of k + 2 and two fused corrections (subnormal quotients in
+    f64, ties to even): bit for bit __fdiv_rn's quotient for every f32 x
+    in [-2, 2] (the entries' differences of unit vectors) and every
+    divisor 2 .. MEC_ITERS + 1."""
+    from grakel_torch.ops import lovasz_sdp
+    bad, seen, first = lovasz_sdp.min_cone_quotient_check(cuda)
+    assert seen == 2 * (2 ** 30 + 1) * lovasz_sdp.MEC_ITERS
+    assert bad == 0, first
 
 
 def _eigh_close(M, w, U, cuda):
@@ -2115,10 +2187,27 @@ def test_lovasz_jacobi_eigh_warm_dr_loop_stays_orthogonal(cuda, V, p,
 def test_lovasz_wrappers_check_inputs(cuda):
     from grakel_torch.ops import lovasz_sdp
     E, n, Y, X, w, U = _dr_inputs(2, 8, 0, cuda)
+    Eb = lovasz_sdp.edge_bits(E)
     with pytest.raises(ValueError):
-        lovasz_sdp.dr_step_cuda(E, n.long(), Y, X, w, U)
+        lovasz_sdp.dr_step_cuda(Eb, n.long(), Y, X, w, U)
     with pytest.raises(ValueError):
-        lovasz_sdp.dr_step_cuda(E.cpu(), n, Y, X, w, U)
+        lovasz_sdp.dr_step_cuda(Eb.cpu(), n, Y, X, w, U)
+    with pytest.raises(ValueError):                 # float edges, not bits
+        lovasz_sdp.dr_step_cuda(E, n, Y, X, w, U)
+    with pytest.raises(ValueError):
+        lovasz_sdp.dr_step_cuda(Eb, n, Y, X, w, U, route="shared")
+    Ym = torch.empty(2 * 64 + 1, device=cuda)[1:].view(2, 8, 8)
+    Ym.copy_(Y)                                     # 4 bytes off 16
+    with pytest.raises(ValueError):
+        lovasz_sdp.dr_step_cuda(Eb, n, Ym, X, w, U)
+    lovasz_sdp.dr_step_cuda(Eb, n, Ym, X.clone(), w, U, route="global")
+    E3, n3, Y3, X3, w3, U3 = _dr_inputs(2, 12, 0, cuda)
+    with pytest.raises(ValueError):                 # no tile at V = 12
+        lovasz_sdp.dr_step_cuda(lovasz_sdp.edge_bits(E3), n3, Y3, X3, w3,
+                                U3, route="tile")
+    with pytest.raises(ValueError):
+        lovasz_sdp.min_cone_cuda(torch.zeros(3, 129, 2, device=cuda),
+                                 route="register")
     with pytest.raises(ValueError):
         lovasz_sdp.min_cone_cuda(torch.zeros(3, 4, 33, device=cuda))
     with pytest.raises(ValueError):
