@@ -83,8 +83,8 @@ main paths through the public entry points, at full data size:
   RandomWalkLabeled's f32 CG to rtol 1e-4;
 * SvmTheta, LovaszTheta, GraphHopper and MultiscaleLaplacian, the slice
   of K10-K14 (``slice_theta_phase``): ``SvmTheta(random_state=42)``
-  (``svmtheta_nci1scale``; K10 once a slab, K11 once a size bucket a
-  parse, ``torch.linalg.eigvalsh`` never on the card) and
+  (``svmtheta_nci1scale``; K10 and K11 in one launch a size bucket a
+  parse, no dense K and no ``torch.linalg.eigvalsh`` on the card) and
   ``LovaszTheta(random_state=42)`` (``lovasz_nci1scale``; 300 K12 and
   301 K14 launches a size bucket a parse, K14 from the step before's
   eigenvectors at steps 2-300, K13 once a parse) on the 4110 NCI1-scale
@@ -277,22 +277,28 @@ time of a call:
   kernel's built inner loop (``cuobjdump -sass``) times the launched
   terms over the FP64 issue rate.  No single PyTorch call computes K7,
   K8 or K9: no library time;
-* K10 (``ops.svm_qp.lanczos_cuda``) on every slab of the
-  ``svmtheta_nci1scale`` fit parse, on route "global" on its widest slab
-  and on a V = 256 slab of the REDDIT-B stand-in (its own route
-  "global"): its shift and step from its Ritz extremes to 1e-4 of the
-  plain version's; K11 (``fista_cuda``) on each fit bucket's one launch
-  (route "warp"), on route "block" on the widest bucket and on the V =
-  256 stand-in slab (its own route "block"), against ``spectral_shift``
-  + ``fista_plain``: K a and the objective a^T K a (unique at the
+* K10 and K11 (``ops.svm_qp.solve_cuda``: one launch a size bucket on
+  K's bit rows) on each bucket of the ``svmtheta_nci1scale`` fit parse
+  as the path launched it, on route "block" on its widest bucket and on
+  a V = 256 bucket of the REDDIT-B stand-in (its own route "block"), each
+  kernel timed alone (``lanczos_cuda``: Lanczos on, iters = 0;
+  ``fista_cuda``: Lanczos off) and the launch whole (``fused_ms``), which
+  must equal K10 alone and then K11 alone bit for bit.  K10 against
+  ``lanczos_bits_plain`` (``lanczos_plain`` a slab at a time on the
+  dense K): the first three alphas and the shift from its coefficients
+  to 1e-4; K11 on K10's coefficients against ``spectral_shift`` +
+  ``fista_plain``: K a and the objective a^T K a (unique at the
   optimum; the alphas may differ along a minimizer set) to 1e-4, the
   alphas feasible to 1e-4 and to 1e-3 of ``fista_plain``'s on the
   kernel's own shift, the tridiagonal's extremes to 1e-6 of the largest
   |eigenvalue| of f64 ``eigvalsh``'s and to 1e-4 of the plain version's
   f32 ``eigvalsh`` (timed beside K11 as ``shift_library_ms``: it is the
-  shift's part alone, so K11 has no library time).  Bounds: K10's dense
-  GEMVs and vector work of every step over 67 TFLOP/s, K11's with K y
-  as K's nnz adds (K is 0/1; beside it the dense product's count); K12
+  shift's part alone, so K11 has no library time).  Bounds: K10's and
+  K11's with K x as K's nnz adds, the bit rows read once (K is 0/1;
+  beside each the dense count, ``bound_ms_dense``); K10's row also
+  gives the step's chain in the built kernels (``step_chain``: the
+  shuffles and MUFU operations of the Lanczos loop of
+  ``svm_solve_warp<V>``, ``cuobjdump -sass``); K12
   (``ops.lovasz_sdp.dr_step_cuda``, on the edges' bit rows) on each size
   bucket's DR state at its 150th step of the ``lovasz_nci1scale`` fit
   parse, route "tile" there and route "global" on the widest bucket, Y,
@@ -316,8 +322,8 @@ time of a call:
   run again with K14's sweeps logged step by step, and the DR solve of
   a V = 128 bucket (64 REDDIT-B stand-in graphs of 65-128 vertices),
   which the NCI1-scale buckets never reach, with U's orthogonality and
-  K14's accuracy at its step 300.  Their 28 kernels (K10 2, K11 5, K12
-  7, K13 12, K14 2) must build without spills.
+  K14's accuracy at its step 300.  Their 26 kernels (K10 and K11 5,
+  each running both; K12 7, K13 12, K14 2) must build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -403,7 +409,7 @@ def heavy_tailed_graphs(n_graphs, median, mean, vmax, edge_ratio, seed):
 
 def ptxas_info(text):
     """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
-    ``nvcc -Xptxas -v`` output; a K3, K1 or K12-K14 kernel is named by
+    ``nvcc -Xptxas -v`` output; a K3, K1 or K10-K14 kernel is named by
     its function and template arguments (``fw_tile<4>``,
     ``min_gram_kernel<64,8,4>``, ``lovasz_min_cone<56,1>``), another by
     its mangled name."""
@@ -412,6 +418,7 @@ def ptxas_info(text):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"(fw_[a-z]+|min_gram_kernel|"
+                          r"(?<=\d)svm_solve_[a-z]+|"
                           r"(?<=\d)lovasz_(?!cu_)[a-z_]+)"
                           r"(I(?:L[ib]\d+E)+E)?", m.group(1))
             args = re.findall(r"L[ib](\d+)E",
@@ -723,6 +730,32 @@ def sass_of_library():
     except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
         return None, None, str(e)
     return sass, mhz, None
+
+
+def k10_step_chain(sass):
+    """K10's Lanczos step in the built route-"warp" kernels
+    (``svm_solve_warp<V>``): for each V the smallest loop holding the
+    step's square root (MUFU.RSQ), with its instructions, its shuffles
+    (SHFL.BFLY: the step's two butterflies, each a chain of dependent
+    shuffles) and its other MUFU operations (the reciprocal)."""
+    out = {}
+    for V in (8, 16, 32, 64):
+        ins = sass_instructions(sass, "svm_solve_warpILi%dE" % V)
+        best = None
+        for addr, op, _, target in ins or ():
+            if not (op.startswith("BRA") and target is not None
+                    and target < addr):
+                continue
+            loop = [o for a, o, _, _ in ins if target <= a <= addr]
+            if any(o.startswith("MUFU.RSQ") for o in loop) and (
+                    best is None or len(loop) < best["instructions"]):
+                best = {"loop": [target, addr], "instructions": len(loop),
+                        "shfl_bfly": sum(o.startswith("SHFL.BFLY")
+                                         for o in loop),
+                        "mufu": dict(Counter(o for o in loop
+                                             if o.startswith("MUFU")))}
+        out[V] = best
+    return out
 
 
 def k9_sass_floor(terms):
@@ -1435,7 +1468,7 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     ``MultiscaleLaplacian(random_state=42)`` (``ml_cuneiform``) on
     Cuneiform, fit 200, transform 67, each against its
     ``use_device("cpu")`` run; then K10 and K11 held against their plain
-    versions on the svmtheta path's slabs, K12 on the lovasz path's DR
+    versions on the svmtheta path's buckets, K12 on the lovasz path's DR
     steps and K13 on its subsets, each on both of its routes.  Returns
     the four kernels' rows of the ``kernels`` line."""
     import torch
@@ -1446,12 +1479,30 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     n, nh = len(train), len(held)
 
     # ---------------- the four paths --------------------------------- #
-    # K10 takes each slab's K, K11 each bucket's bit rows and the rest of
-    # its inputs; torch.linalg.eigvalsh must not run on the card
-    k10_seen, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
-    k11_seen, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:6])
-    eigvalsh_seen, r_ev = spied(torch.linalg, "eigvalsh",
-                                lambda a, kw: a[0].device.type)
+    # one_class_solve takes each size bucket's bit rows, start vectors and
+    # the rest of its inputs, one launch of K10 and K11 on the card; no
+    # dense K is built on the card (no f32 torch.zeros in ops.svm_qp, no
+    # dense_from_bits or plain Lanczos on a CUDA tensor) and
+    # torch.linalg.eigvalsh does not run there
+    solve_seen, r_solve = spied(svm_qp, "one_class_solve",
+                                lambda a, kw: a[:5])
+    on_card = lambda a, kw: a[0].device.type
+    eigvalsh_seen, r_ev = spied(torch.linalg, "eigvalsh", on_card)
+    dense_seen, r_dense = spied(svm_qp, "dense_from_bits", on_card)
+    plain10_seen, r_p10 = spied(svm_qp, "lanczos_plain", on_card)
+    zeros_seen, svm_torch = [], svm_qp.torch
+
+    class ZerosSpy:
+        """ops.svm_qp's torch, recording what each torch.zeros makes."""
+
+        def __getattr__(self, name):
+            return getattr(svm_torch, name)
+
+        def zeros(self, *a, **kw):
+            t = svm_torch.zeros(*a, **kw)
+            zeros_seen.append((t.dtype, t.device.type))
+            return t
+    svm_qp.torch = ZerosSpy()
     try:
         class_path("svmtheta_nci1scale", lambda: SvmTheta(random_state=42),
                    train, held, 0, 1, rtol=2e-2,
@@ -1460,36 +1511,45 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                         "the CPU on the first 512 and 16 (cut: the CPU's "
                         "f32 solve takes ~15 s at full size)" % (n, nh))
     finally:
-        r10()
-        r11()
-        r_ev()
+        for restore in (r_solve, r_ev, r_dense, r_p10):
+            restore()
+        svm_qp.torch = svm_torch
     lp = paths["svmtheta_nci1scale"]["launches"]
-    k10_calls = k10_seen[:lp["svm_lanczos"]]
-    k11_calls = k11_seen[:lp["svm_fista"]]
-    sizes = np.cumsum([int(K.shape[0]) for K, _ in k10_calls])
-    slabs = int(np.searchsorted(sizes, n)) + 1   # the fit parse's calls
-    # K11 once a size bucket a parse: the fit parse's calls cover its n
-    # graphs in increasing V, the transform's its nh
-    k11_sizes = np.cumsum([int(a[0].shape[0]) for a in k11_calls])
-    fit11 = int(np.searchsorted(k11_sizes, n)) + 1
-    k11_v = [int(a[0].shape[1]) for a in k11_calls]
-    check(lp["svm_lanczos"] > 0 and 0 < lp["svm_fista"] < lp["svm_lanczos"]
+    calls = solve_seen[:lp["svm_solve"]]
+    # the fit parse's calls cover its n graphs in increasing V, the
+    # transform's its nh
+    sizes = np.cumsum([int(c[0].shape[0]) for c in calls])
+    fit_b = int(np.searchsorted(sizes, n)) + 1
+    vs = [int(c[0].shape[1]) for c in calls]
+    check(lp["svm_solve"] > 0 and len(calls) == lp["svm_solve"]
+          and lp["svm_lanczos"] == lp["svm_fista"] == lp["svm_solve"]
+          and all(c[0].device.type == "cuda" for c in calls)
           and lp["lovasz_dr_step"] == lp["lovasz_min_cone"] == 0
-          and len(k11_calls) == lp["svm_fista"]
-          and k11_sizes[fit11 - 1] == n and k11_sizes[-1] == n + nh
-          and all(k11_v[i] < k11_v[i + 1] for i in range(fit11 - 1))
-          and all(k11_v[i] < k11_v[i + 1]
-                  for i in range(fit11, len(k11_v) - 1)),
-          "svmtheta_nci1scale launched K10 once a slab (%d) and K11 once a "
-          "size bucket a parse (%d: buckets %s in fit, %s in transform)"
-          % (lp["svm_lanczos"], lp["svm_fista"], k11_v[:fit11],
-             k11_v[fit11:]))
+          and sizes[fit_b - 1] == n and sizes[-1] == n + nh
+          and all(vs[i] < vs[i + 1] for i in range(fit_b - 1))
+          and all(vs[i] < vs[i + 1] for i in range(fit_b, len(vs) - 1)),
+          "svmtheta_nci1scale launched K10 and K11 together once a size "
+          "bucket a parse (%d launches: buckets %s in fit, %s in "
+          "transform; K10 %d launches, K11 %d, none apart)"
+          % (lp["svm_solve"], vs[:fit_b], vs[fit_b:], lp["svm_lanczos"],
+             lp["svm_fista"]))
+    from grakel_torch import _build
+    dense_f32 = sum(z == (torch.float32, "cuda") for z in zeros_seen)
+    check(not hasattr(_build.load_library(), "grakel_svm_lanczos")
+          and dense_f32 == 0 and "cuda" not in dense_seen
+          and "cuda" not in plain10_seen,
+          "svmtheta_nci1scale built no dense K on the card (f32 torch.zeros "
+          "of ops.svm_qp on the card: %d of %d; dense_from_bits on the card "
+          "%d, lanczos_plain %d; the library has no dense K10 entry)"
+          % (dense_f32, len(zeros_seen), dense_seen.count("cuda"),
+             plain10_seen.count("cuda")))
     check("cuda" not in eigvalsh_seen,
           "svmtheta_nci1scale called torch.linalg.eigvalsh on no CUDA "
           "tensor (%d calls, all on the CPU run)" % len(eigvalsh_seen))
     paths["svmtheta_nci1scale"].update(
-        k11_buckets_fit=k11_v[:fit11], k11_buckets_transform=k11_v[fit11:],
-        eigvalsh_calls_on_card=eigvalsh_seen.count("cuda"))
+        buckets_fit=vs[:fit_b], buckets_transform=vs[fit_b:],
+        eigvalsh_calls_on_card=eigvalsh_seen.count("cuda"),
+        f32_zeros_on_card=dense_f32)
 
     # K12: each bucket's DR state at its 150th step of the fit parse;
     # K13: the fit parse's subsets
@@ -1569,28 +1629,48 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         return max(float((x - y).abs().max()) for x, y in
                    zip(svm_qp.spectral_shift(*a), svm_qp.spectral_shift(*b)))
 
-    def k10_case(K, v0, what, route=None, reps=3):
-        S, V = int(K.shape[0]), int(K.shape[1])
-        run = lambda: svm_qp.lanczos_cuda(K, v0, route=route)
+    def k10_case(Kb, v0, what, route=None, reps=3):
+        """K10 alone (the launch with Lanczos on and iters = 0) on one
+        bucket's bit rows and start vectors against its plain version,
+        ``lanczos_bits_plain``.  Returns the case and the kernel's
+        coefficients."""
+        S, V = int(Kb.shape[0]), int(Kb.shape[1])
+        run = lambda: svm_qp.lanczos_cuda(Kb, v0, route=route)
         got = run()
-        want = svm_qp.lanczos_plain(K, v0)
+        plain = lambda: svm_qp.lanczos_bits_plain(Kb, v0)
+        want = plain()
         m = int(got[0].shape[1])
-        # a step: the dense GEMV (2 V^2) and 10 V of vector work
-        ops = S * m * (2 * V * V + 10 * V)
+        nnz = int(np.unpackbits(Kb.cpu().numpy().view(np.uint8)).sum())
+        # a step: K v as K's nnz adds (K is 0/1: the kernel adds the set
+        # entries of its bit rows) and 10 V of vector work, the bit rows
+        # read once; beside it the earlier count, the dense GEMV's 2 V^2
+        # a step on a dense f32 K
+        ops = m * (nnz + 10 * V * S)
+        ops_dense = S * m * (2 * V * V + 10 * V)
+        ms = cuda_ms(run, reps)
         return dict(what=what, S=S, V=V,
-                    route=route or svm_qp.svm_route(V),
+                    route=route or svm_qp.solve_route(V),
                     max_abs_err=err_shift(got, want),
                     max_abs_err_is="largest difference of (scale, dadd, L), "
                                    "the Ritz extremes' use",
-                    ms=cuda_ms(run, reps),
-                    plain_ms=cuda_ms(lambda: svm_qp.lanczos_plain(K, v0), 1,
-                                     0),
-                    **bound(4 * (S * V * V + S * V + 2 * S * m), ops,
-                            FP32_OPS_PER_S))
+                    alpha3_close=bool(torch.allclose(
+                        got[0][:, :3], want[0][:, :3], rtol=1e-4,
+                        atol=1e-4)),
+                    alpha3_max_abs_diff=float(
+                        (got[0][:, :3] - want[0][:, :3]).abs().max()),
+                    ms=ms, step_us=ms * 1e3 / m,
+                    plain_ms=cuda_ms(plain, 1, 0),
+                    bound_ms_dense=bound(
+                        4 * (S * V * V + S * V + 2 * S * m), ops_dense,
+                        FP32_OPS_PER_S)["bound_ms"],
+                    nnz=nnz, **bound(4 * (Kb.numel() + S * V + 2 * S * m),
+                                     ops, FP32_OPS_PER_S)), got
 
     def k11_case(args, what, route=None, reps=3):
-        """K11 on one bucket's inputs (Kb, a0, u, s, al, be) against its
-        plain version, spectral_shift + fista_plain on the dense K."""
+        """K11 alone (the launch with Lanczos off) on one bucket's inputs
+        (Kb, a0, u, s, al, be) against its plain version, spectral_shift +
+        fista_plain on the dense K.  Returns the case and the kernel's
+        (a, lam)."""
         Kb, _, u, s_t, al, be = args
         S, V, m = int(Kb.shape[0]), int(Kb.shape[1]), int(al.shape[1])
         run = lambda: svm_qp.fista_cuda(*args, route=route)
@@ -1629,7 +1709,7 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
         ops = 300 * (nnz + 133 * S * V)
         nbytes = 4 * (Kb.numel() + 3 * S * V + S + 2 * S * m + 2 * S)
         return dict(what=what, S=S, V=V,
-                    route=route or svm_qp.k11_route(V),
+                    route=route or svm_qp.solve_route(V),
                     max_abs_err=unique,
                     max_abs_err_is="largest difference of K a and of the "
                                    "objective a^T K a (unique at the "
@@ -1658,94 +1738,121 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                         lambda: torch.linalg.eigvalsh(T), 1),
                     bound_ms_dense=bound(nbytes, ops_dense,
                                          FP32_OPS_PER_S)["bound_ms"],
-                    nnz=nnz, **bound(nbytes, ops, FP32_OPS_PER_S))
+                    nnz=nnz, **bound(nbytes, ops, FP32_OPS_PER_S)), (got, lam)
 
-    k10 = [k10_case(K, v0, "svmtheta_nci1scale fit slab %d" % i)
-           for i, (K, v0) in enumerate(k10_calls[:slabs])]
-    # K11: one launch a fit bucket, all its slabs
-    k11 = [k11_case(k11_calls[i], "svmtheta_nci1scale fit bucket V = %d "
-                    "(its one launch, %d graphs)"
-                    % (k11_v[i], k11_calls[i][0].shape[0]))
-           for i in range(fit11)]
-    # the other route on the path's widest slab and bucket, and a V = 256
-    # slab of the REDDIT-B stand-in (129-256 vertices: K10's route
-    # "global", K11's "block" on their own)
-    wide = max(range(slabs), key=lambda i: k10_calls[i][0].shape[1])
-    k10.append(k10_case(*k10_calls[wide], "the widest fit slab, route "
-                        "global", route="global"))
-    k11.append(k11_case(k11_calls[fit11 - 1], "the widest fit bucket, route "
-                        "block", route="block"))
+    def fused_case(inp, coeffs, k11_out, what, route=None, reps=3):
+        """The path's launch, K10 and K11 together on one bucket (Kb, v0,
+        a0, u, s): equal bit for bit to K10 alone and then K11 alone on
+        its coefficients (both the same code, a flag apart)."""
+        Kb, v0, a0, u, s_t = inp
+        run = lambda: svm_qp.solve_cuda(Kb, v0, a0, u, s_t, route=route)
+        a, lam, al, be = run()
+        same = all(torch.equal(x, y) for x, y in zip(
+            (al, be, a, lam), (*coeffs, *k11_out)))
+        return dict(what=what, S=int(Kb.shape[0]), V=int(Kb.shape[1]),
+                    route=route or svm_qp.solve_route(int(Kb.shape[1])),
+                    equal_to_apart=same, ms=cuda_ms(run, reps))
+
+    k10, k11, fused = [], [], []
+
+    def bucket_cases(inp, what, route=None):
+        Kb, v0, a0, u, s_t = inp
+        c10, coeffs = k10_case(Kb, v0, what, route)
+        c11, out11 = k11_case((Kb, a0, u, s_t, *coeffs), what, route)
+        k10.append(c10)
+        k11.append(c11)
+        fused.append(fused_case(inp, coeffs, out11, what, route))
+
+    # each fit bucket as the path launched it (all its slabs' graphs)
+    for i in range(fit_b):
+        bucket_cases(calls[i], "svmtheta_nci1scale fit bucket V = %d (its "
+                     "one launch, %d graphs)" % (vs[i], calls[i][0].shape[0]))
+    # route "block" on the path's widest bucket, and a V = 256 bucket of
+    # the REDDIT-B stand-in (129-256 vertices: route "block" on its own)
+    bucket_cases(calls[fit_b - 1], "the widest fit bucket, route block",
+                 "block")
     big = []
     for nv, s_, d_ in heavy_tailed_graphs(**REDDIT_B, seed=0):
         if 129 <= nv <= 256 and len(big) < 32:
             A = np.zeros((nv, nv))
             A[s_, d_] = 1
             big.append(A)
-    seen10, r10 = spied(svm_qp, "lanczos", lambda a, kw: a[:2])
-    seen11, r11 = spied(svm_qp, "one_class_fista", lambda a, kw: a[:6])
+    seen, restore = spied(svm_qp, "one_class_solve", lambda a, kw: a[:5])
     try:
         svm_qp.one_class_alphas(big, device="cuda")
     finally:
-        r10()
-        r11()
-    k10.append(k10_case(*seen10[0], "REDDIT-B stand-in, 32 graphs of "
-                        "129-256 vertices"))
-    k11.append(k11_case(seen11[0], "REDDIT-B stand-in, 32 graphs of "
-                        "129-256 vertices"))
-    check({c["route"] for c in k10} == {"shared", "global"}
-          and all(c["max_abs_err"] <= 1e-4 for c in k10),
-          "K10 == plain Lanczos on both routes: the shift and step from "
-          "its Ritz extremes to 1e-4 (largest %.3g)"
-          % max(c["max_abs_err"] for c in k10))
+        restore()
+    bucket_cases(seen[0], "REDDIT-B stand-in, 32 graphs of 129-256 "
+                 "vertices")
+    check({c["route"] for c in k10} == {"warp", "block"}
+          and all(c["max_abs_err"] <= 1e-4 and c["alpha3_close"]
+                  for c in k10),
+          "K10 alone == plain Lanczos (lanczos_bits_plain) on both routes: "
+          "the shift from its coefficients to 1e-4 (largest %.3g), the "
+          "first three alphas to 1e-4 (largest %.3g)"
+          % (max(c["max_abs_err"] for c in k10),
+             max(c["alpha3_max_abs_diff"] for c in k10)))
     check({c["route"] for c in k11} == {"warp", "block"}
           and all(c["max_abs_err"] <= 1e-4 and c["infeasibility"] <= 1e-4
                   and c["extremes_err"] <= 1e-6
                   and c["extremes_err_plain"] <= 1e-4
                   and c["alpha_diff_same_shift"] <= 1e-3 for c in k11),
-          "K11 == plain shift + FISTA on both routes: K a and the objective "
-          "to 1e-4 (largest %.3g), feasible to 1e-4, the tridiagonal's "
-          "extremes to 1e-6 of the largest |eigenvalue| of f64 eigvalsh's "
-          "(largest %.3g) and to 1e-4 of the plain f32 eigvalsh's (%.3g; "
-          "shifts differing in %d values), the alphas to 1e-3 of "
-          "fista_plain's on the kernel's shift (%.3g; on the plain shift, "
-          "along a minimizer set, up to %.3g)"
+          "K11 alone == plain shift + FISTA on both routes: K a and the "
+          "objective to 1e-4 (largest %.3g), feasible to 1e-4, the "
+          "tridiagonal's extremes to 1e-6 of the largest |eigenvalue| of "
+          "f64 eigvalsh's (largest %.3g) and to 1e-4 of the plain f32 "
+          "eigvalsh's (%.3g; shifts differing in %d values), the alphas to "
+          "1e-3 of fista_plain's on the kernel's shift (%.3g; on the plain "
+          "shift, along a minimizer set, up to %.3g)"
           % (max(c["max_abs_err"] for c in k11),
              max(c["extremes_err"] for c in k11),
              max(c["extremes_err_plain"] for c in k11),
              sum(c["shift_differs"] for c in k11),
              max(c["alpha_diff_same_shift"] for c in k11),
              max(c["alpha_max_abs_diff"] for c in k11)))
-    K0, v00 = k10_calls[0]
-    a0 = k11_calls[0]
-    dev10 = device_ms(lambda: svm_qp.lanczos_cuda(K0, v00), 3, "svm_lanczos")
-    dev11 = device_ms(lambda: svm_qp.fista_cuda(*a0), 3, "svm_fista")
+    check(all(c["equal_to_apart"] for c in fused),
+          "K10 and K11 in one launch == K10 alone, then K11 alone on its "
+          "coefficients, bit for bit, on every case (%d)" % len(fused))
+    Kb0, v00, a00, u0, s0 = calls[0]
+    al0, be0 = svm_qp.lanczos_cuda(Kb0, v00)
+    dev10 = device_ms(lambda: svm_qp.lanczos_cuda(Kb0, v00), 3, "svm_solve")
+    dev11 = device_ms(lambda: svm_qp.fista_cuda(Kb0, a00, u0, s0, al0, be0),
+                      3, "svm_solve")
+    sass, _, sass_err = sass_of_library()
+    chain = sass_err or k10_step_chain(sass)
     rows = []
-    for name, cases, main_n, replaces, dev, call, lib, summed in (
-            ("svm_lanczos", k10, slabs, "grakel_tpu/ops/svm_qp.py:93", dev10,
-             lambda: svm_qp.lanczos_cuda(K0, v00),
+    for name, cases, replaces, dev, call, lib, summed in (
+            ("svm_lanczos", k10, "grakel_tpu/ops/svm_qp.py:93", dev10,
+             lambda: svm_qp.lanczos_cuda(Kb0, v00),
              "none: no single PyTorch call runs the loop",
-             "%d calls of the svmtheta_nci1scale fit parse (one a slab; "
-             "every slab)" % slabs),
-            ("svm_fista", k11, fit11, "grakel_tpu/ops/svm_qp.py:114", dev11,
-             lambda: svm_qp.fista_cuda(*a0),
-             "none: no single PyTorch call runs the FISTA loop (the "
-             "shift's part alone, torch.linalg.eigvalsh on the buckets' "
-             "[S, 64, 64] tridiagonals, is shift_library_ms)",
-             "the %d launches of the svmtheta_nci1scale fit parse (one a "
-             "size bucket, its %d slabs' graphs)" % (fit11, slabs))):
-        main = cases[:main_n]
+             "K10 alone (the launch with Lanczos on and iters = 0) on the "
+             "%d fit buckets of svmtheta_nci1scale, every graph of each; "
+             "the path runs it inside its one launch a bucket" % fit_b),
+            ("svm_fista", k11, "grakel_tpu/ops/svm_qp.py:114", dev11,
+             lambda: svm_qp.fista_cuda(Kb0, a00, u0, s0, al0, be0),
+             "none: no PyTorch call runs the FISTA loop (the shift's part "
+             "alone, torch.linalg.eigvalsh on the buckets' [S, 64, 64] "
+             "tridiagonals, is shift_library_ms)",
+             "K11 alone (the launch with Lanczos off) on the %d fit buckets "
+             "of svmtheta_nci1scale, every graph of each; the path runs it "
+             "inside its one launch a bucket (fused_ms)" % fit_b)):
+        main = cases[:fit_b]
         rows.append({
             "name": name, "route": "cuda",
             "source": "grakel_torch/csrc/svm_qp.cu", "replaces": replaces,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: sum(c[k] for c in main) for k in ("ms", "plain_ms",
-                                                    "bound_ms")},
+                                                    "bound_ms",
+                                                    "bound_ms_dense")},
             "bound_by": max(main, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None, "library": lib,
             "device_ms_call0": dev, "wrapper_ms_call0": host_ms(call, 20),
-            "summed_over": summed, "shapes": cases})
-    for k in ("bound_ms_dense", "shift_library_ms"):
-        rows[1][k] = sum(c[k] for c in k11[:fit11])
+            "summed_over": summed, "shapes": cases,
+            "fused_ms": sum(c["ms"] for c in fused[:fit_b]),
+            "fused": fused})
+    rows[0]["step_chain"] = chain
+    rows[1]["shift_library_ms"] = sum(c["shift_library_ms"]
+                                      for c in k11[:fit_b])
 
     # ---------------- K12 ----------------------------------------------- #
     def k12_case(state, what, U0, route=None, reps=20):
@@ -2100,10 +2207,22 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
           "sweeps (mean, max) %s and %s; the fit parse's DR solve %.3f s"
           % (k14_row["ms"], k14_row["cold_ms"], k14_row["sweeps_warm"],
              k14_row["sweeps_cold"], k14_row["dr_solve_s"]), flush=True)
-    print("svm_fista: %.4f ms over %d launches (the shift's eigvalsh alone "
-          "%.4f ms), bound %.4f ms (K's nnz), %.4f ms (the dense product's "
-          "count)" % (rows[1]["ms"], fit11, rows[1]["shift_library_ms"],
-                      rows[1]["bound_ms"], rows[1]["bound_ms_dense"]),
+    print("svm_lanczos: %.4f ms over the %d fit buckets (K10 alone; by "
+          "bucket %s ms, a step %s us), bound %.4f ms (K's nnz), %.4f ms "
+          "(the dense count); route block on the widest %.4f, V = 256 "
+          "%.4f; the step in the built kernel %s"
+          % (rows[0]["ms"], fit_b, [c["ms"] for c in k10[:fit_b]],
+             [round(c["step_us"], 3) for c in k10[:fit_b]],
+             rows[0]["bound_ms"], rows[0]["bound_ms_dense"],
+             k10[fit_b]["ms"], k10[-1]["ms"], chain),
+          flush=True)
+    print("svm_fista: %.4f ms over the %d fit buckets (K11 alone; the "
+          "shift's eigvalsh alone %.4f ms), bound %.4f ms (K's nnz), %.4f "
+          "ms (the dense product's count); the path's fused launch %.4f ms "
+          "over them (by bucket %s)"
+          % (rows[1]["ms"], fit_b, rows[1]["shift_library_ms"],
+             rows[1]["bound_ms"], rows[1]["bound_ms_dense"],
+             rows[1]["fused_ms"], [c["ms"] for c in fused[:fit_b]]),
           flush=True)
     return rows
 
@@ -2226,11 +2345,11 @@ def main():
     from grakel_torch.ops import lovasz_sdp as lovasz_ops
     k1013_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                    if "svm_" in k or "lovasz_" in k}
-    check(len(k1013_ptxas) == 28 and all(
+    check(len(k1013_ptxas) == 26 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k1013_ptxas.values()),
-        "K10's 2 kernels (shared and global route), K11's 5 (warp route at "
-        "V = 8, 16, 32, 64; block route), K12's 7 (route tile at V = 4, 8, "
+        "K10 and K11's 5 kernels, each running both (route warp at V = 8, "
+        "16, 32, 64; route block), K12's 7 (route tile at V = 4, 8, "
         "16, 32, 64, 128; route global), K13's 12 (route register at d "
         "<= %s; routes shared and global) and K14's 2 (a warp, a block a "
         "matrix) built without spills: %s"
@@ -2254,6 +2373,7 @@ def main():
                 "rw_spectral": rw_ops.spectral_gram_cuda,
                 "svm_lanczos": svm_ops.lanczos_cuda,
                 "svm_fista": svm_ops.fista_cuda,
+                "svm_solve": svm_ops.solve_cuda,
                 "lovasz_dr_step": lovasz_ops.dr_step_cuda,
                 "lovasz_min_cone": lovasz_ops.min_cone_cuda,
                 "lovasz_jacobi_eigh": lovasz_ops.jacobi_eigh_cuda}
@@ -4017,7 +4137,8 @@ def main():
     for row, key in zip(k1013, ("svm_lanczos", "svm_fista", "lovasz_dr_step",
                                 "lovasz_min_cone", "lovasz_jacobi_eigh")):
         row["launches"] = launches[key]
-        row["ptxas"] = {k: v for k, v in k1013_ptxas.items() if key in k}
+        row["ptxas"] = {k: v for k, v in k1013_ptxas.items()
+                        if (key if "lovasz" in key else "svm_solve") in k}
         if "path_kernels" in row:
             row["ptxas_path"] = {k: row["ptxas"].get(k)
                                  for k in row["path_kernels"]}

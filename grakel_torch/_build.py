@@ -87,9 +87,8 @@ _SIGNATURES = {
                           _I, _F, _P, _P],
     "grakel_rw_spectral_gram": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _P, _L, _D, _P],
-    "grakel_svm_lanczos": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "grakel_svm_fista": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _P],
+    "grakel_svm_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
     "grakel_lovasz_dr_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                               _I, _P],
     "grakel_lovasz_min_cone": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -19,8 +19,9 @@ Reference semantics (grakel/kernels/svm_theta.py):
   (:23-24) — reproduced here as a rank-1 feature GEMM on the device.
 
 The per-graph spectral shift and one-class dual solve run batched on
-the kernel's device (``ops/svm_qp.py``: the Lanczos kernel K10 and the
-FISTA kernel K11 on a card).  The JAX package's libsvm oracle
+the kernel's device (``ops/svm_qp.py``: on a card one launch a size
+bucket runs the Lanczos kernel K10 and then the shift and FISTA kernel
+K11, on the bucket's bit rows).  The JAX package's libsvm oracle
 (``_svm_alphas``) is not carried: the port does not depend on
 scikit-learn, and its tests take the oracle from the JAX package.
 """

@@ -9,30 +9,31 @@ the binarized adjacency: the solution of
 where K = (A > 1e-10) with zero diagonal, spectrally shifted to be PSD
 (K <- K/(-lambda_min) + I when lambda_min < -1e-6).
 
-Graphs bucket by padded size V (a power of two >= 8) and slabs of at
-most ``s_cap`` graphs, as in the JAX package (a graph's slab position
-seeds its Lanczos start vector, so the slabs are the same).  A bucket
-runs:
+Graphs bucket by padded size V (a power of two >= 8), as in the JAX
+package, whose slabs of at most ``s_cap`` graphs a bucket seed each
+graph's Lanczos start vector by its position in its slab
+(:func:`bucket_start_vector`).  A bucket runs:
 
-* per slab, the densify (one ``index_add_`` of the slab's edges into a
-  zeroed [S, V, V] f32 tensor on the device; only K10 reads K dense)
-  and K10
-  (``csrc/svm_qp.cu``, plain version :func:`lanczos_plain`): m = 64
-  Lanczos steps without reorthogonalization, alpha and beta [S, m];
-* once over the bucket, K's rows as bit masks (:func:`adjacency_bits`,
-  one ``index_add_``) and K11 (``csrc/svm_qp.cu``): each graph's warp
-  finds the extremal eigenvalues of its [m, m] tridiagonal by Sturm
-  counts and takes the spectral shift (scale, dadd, the FISTA step 1/L)
-  from them, then runs 300 FISTA iterations on the dual, each projected
-  onto {0 <= a <= u, sum a = s} by 30 bisection steps on the simplex
-  shift, warm-started at libsvm's own initial point a_i = clip(nu*n -
-  i, 0, 1).  Its plain version is :func:`spectral_shift` (one batched
-  ``torch.linalg.eigvalsh``) and :func:`fista_plain` on the dense K;
+* K's rows as bit masks (:func:`adjacency_bits`, one ``index_add_``);
+* on a card ONE launch of ``csrc/svm_qp.cu`` (:func:`solve_cuda`) for
+  the whole bucket: K10, m = 64 Lanczos steps without
+  reorthogonalization (alpha and beta [S, m]), then K11, each graph's
+  extremal eigenvalues of its [m, m] tridiagonal by Sturm counts, the
+  spectral shift (scale, dadd, the FISTA step 1/L) from them, and 300
+  FISTA iterations on the dual, each projected onto {0 <= a <= u, sum a
+  = s} by 30 bisection steps on the simplex shift, warm-started at
+  libsvm's own initial point a_i = clip(nu*n - i, 0, 1); a warp a graph
+  up to V = 64, a block a graph past it, on the bit rows (no dense K on
+  the card);
 * one fetch of the bucket's alphas.
 
-On a CUDA tensor :func:`lanczos` and :func:`one_class_fista` launch
-their kernels or raise; the plain versions serve CPU tensors.  All f32,
-as the JAX program (the eigenvalue search in f64, to the f32 rounding).
+The plain version (:func:`one_class_solve_plain`; the CPU route) is
+:func:`lanczos_plain` a slab at a time on the dense K of the bit rows
+(:func:`dense_from_bits`), then :func:`spectral_shift` (one batched
+``torch.linalg.eigvalsh``) and :func:`fista_plain`, a slab at a time
+(:func:`one_class_fista_plain`).  On a CUDA tensor the wrappers launch the
+kernel or raise.  All f32, as the JAX program (the eigenvalue search in
+f64, to the f32 rounding).
 """
 
 from __future__ import annotations
@@ -44,12 +45,12 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["one_class_alphas", "lanczos", "lanczos_plain", "lanczos_cuda",
-           "one_class_fista", "fista_plain", "fista_cuda", "start_vector",
-           "spectral_shift", "shift_from_extremes", "tridiagonal_extremes",
-           "adjacency_bits", "dense_from_bits", "fista_momenta", "svm_route",
-           "k11_route",
-           "SVM_SMEM_BUDGET", "K11_WARP_MAX_V"]
+__all__ = ["one_class_alphas", "one_class_solve", "one_class_solve_plain",
+           "solve_cuda", "lanczos_plain", "lanczos_bits_plain",
+           "lanczos_cuda", "one_class_fista_plain", "fista_plain", "fista_cuda",
+           "start_vector", "bucket_start_vector", "spectral_shift",
+           "shift_from_extremes", "tridiagonal_extremes", "adjacency_bits",
+           "dense_from_bits", "fista_momenta", "solve_route", "WARP_MAX_V"]
 
 _LANCZOS_M = 64
 _FISTA_ITERS = 300
@@ -58,22 +59,25 @@ _MIN_WEIGHT = 1e-10
 _EIG_TOL = 1e-6
 _SLAB_BYTES = 1 << 30
 
-# K10 holds a graph's K in shared memory while K and the kernel's
-# vectors fit this budget (V <= 128); larger V reads K from device memory
-SVM_SMEM_BUDGET = 200 * 1024
-# K11 runs a warp a graph up to this padded size, a block a graph past it
-K11_WARP_MAX_V = 64
+# the kernels run a warp a graph up to this padded size, a block a graph
+# past it
+WARP_MAX_V = 64
 
 
 def _pow2(x):
     return max(8, 1 << (max(int(x) - 1, 1)).bit_length())
 
 
-def svm_route(V):
-    """K10's route for padded size ``V``: "shared" while the graph's K
-    [V, V] f32 and six f32 vectors of V fit :data:`SVM_SMEM_BUDGET`, else
-    "global"."""
-    return "shared" if (V * V + 6 * V) * 4 <= SVM_SMEM_BUDGET else "global"
+def _slab_cap(V):
+    """Graphs a slab at padded size V (the JAX package's cap)."""
+    return int(max(8, min(256, _SLAB_BYTES // (V * V * 4))))
+
+
+def _slabs(B, V):
+    """The slices of a bucket of B graphs at padded size V into slabs of
+    at most :func:`_slab_cap` graphs."""
+    cap = _slab_cap(V)
+    return [slice(s0, min(s0 + cap, B)) for s0 in range(0, B, cap)]
 
 
 def start_vector(u):
@@ -86,8 +90,23 @@ def start_vector(u):
     return torch.cos(1.372954 * i_v + 0.718281 * g_v) * u
 
 
+def bucket_start_vector(u):
+    """The start vectors of a whole bucket, u [B, V]: :func:`start_vector`
+    a slab at a time, concatenated, so each graph's is seeded by its
+    position within its slab (g = b mod s_cap)."""
+    B, V = u.shape
+    return torch.cat([start_vector(u[sl]) for sl in _slabs(B, V)])
+
+
+def solve_route(V):
+    """The kernels' route for padded size ``V``: "warp" (a warp a graph,
+    K's rows as bit masks in registers) up to :data:`WARP_MAX_V`, "block"
+    (a block a graph) past it."""
+    return "warp" if V <= WARP_MAX_V else "block"
+
+
 # --------------------------------------------------------------------- #
-# K10: Lanczos
+# the plain versions
 # --------------------------------------------------------------------- #
 
 def lanczos_plain(K, v0, m=_LANCZOS_M):
@@ -95,7 +114,7 @@ def lanczos_plain(K, v0, m=_LANCZOS_M):
     [S, V] (normalized here; a zero row stays zero), no
     reorthogonalization: returns alpha, beta [S, m] f32 (beta_j = 0 where
     the step's residual norm is at most 1e-6, and the next vector is
-    then zero)."""
+    then zero).  K10's plain version."""
     S, V = v0.shape
     nrm = torch.sqrt((v0 * v0).sum(1, keepdim=True))
     v = v0 * torch.where(nrm > 0, 1.0 / nrm.clamp_min(1e-30),
@@ -118,54 +137,6 @@ def lanczos_plain(K, v0, m=_LANCZOS_M):
         be[:, j] = b_prev
     return al, be
 
-
-def _f32(t, dev, shape):
-    return (t.device == dev and t.dtype == torch.float32
-            and tuple(t.shape) == shape and t.is_contiguous())
-
-
-def lanczos_cuda(K, v0, m=_LANCZOS_M, route=None):
-    """Launch K10 (``csrc/svm_qp.cu``): :func:`lanczos_plain` on a card,
-    a block a graph, all ``m`` steps in one launch.  K [S, V, V] and v0
-    [S, V] contiguous f32 on one CUDA device; ``route`` ("shared" /
-    "global", default :func:`svm_route`) overrides the placement of K
-    for measurements.  Returns alpha, beta [S, m] f32."""
-    from .. import _build
-    dev = K.device
-    S = K.shape[0] if K.dim() == 3 else -1
-    V = K.shape[1] if K.dim() == 3 else 0
-    if not (dev.type == "cuda" and _f32(K, dev, (S, V, V))
-            and _f32(v0, dev, (S, V)) and 0 < V <= 8192 and m > 0):
-        raise ValueError("lanczos_cuda: need contiguous f32 K [S, V, V] "
-                         "and v0 [S, V] on one CUDA device (V <= 8192)")
-    route = route or svm_route(V)
-    al = torch.empty((S, m), dtype=torch.float32, device=dev)
-    be = torch.empty((S, m), dtype=torch.float32, device=dev)
-    if S:
-        _build.launch("grakel_svm_lanczos", dev, K.data_ptr(),
-                      v0.data_ptr(), al.data_ptr(), be.data_ptr(), S, V, m,
-                      int(route == "shared"))
-        lanczos_cuda.launches += 1
-        lanczos_cuda.route_launches[route] += 1
-    return al, be
-
-
-lanczos_cuda.launches = 0
-lanczos_cuda.route_launches = {"shared": 0, "global": 0}
-
-
-def lanczos(K, v0, m=_LANCZOS_M):
-    """:func:`lanczos_plain` for CPU tensors, K10 for CUDA ones."""
-    if K.device.type == "cpu":
-        return lanczos_plain(K, v0, m)
-    if K.device.type != "cuda":
-        raise ValueError("lanczos: unsupported device %s" % K.device)
-    return lanczos_cuda(K.contiguous(), v0.contiguous(), m)
-
-
-# --------------------------------------------------------------------- #
-# K11: FISTA with the box-simplex projection
-# --------------------------------------------------------------------- #
 
 def fista_plain(K, a0, u, s_target, scale, dadd, L, iters=_FISTA_ITERS,
                 bisect=_BISECT_ITERS):
@@ -197,11 +168,34 @@ def fista_plain(K, a0, u, s_target, scale, dadd, L, iters=_FISTA_ITERS,
     return a
 
 
-def k11_route(V):
-    """K11's route for padded size ``V``: "warp" (a warp a graph, K's rows
-    as bit masks in registers) up to V = 64, "block" (a block a graph)
-    past it."""
-    return "warp" if V <= K11_WARP_MAX_V else "block"
+def shift_from_extremes(lmin, lmax):
+    """Per-graph (scale, dadd, L) from K's extremal eigenvalue estimates
+    [S]: K's shift to PSD when lambda_min < -1e-6 (reference
+    svm_theta.py:222-229) and the FISTA Lipschitz bound with 5 %
+    headroom (Lanczos' lambda_max is a lower bound)."""
+    cond = lmin < -_EIG_TOL
+    one = torch.ones_like(lmin)
+    scale = torch.where(cond, -1.0 / torch.where(cond, lmin, -one), one)
+    dadd = torch.where(cond, one, torch.zeros_like(lmin))
+    L = 1.05 * scale * torch.clamp(lmax, min=0.0) + dadd + 1e-3
+    return scale, dadd, L
+
+
+def tridiagonal_extremes(al, be):
+    """The extremal eigenvalues (lambda_min, lambda_max) [S] of the [S,
+    m, m] Lanczos tridiagonals: one batched ``eigvalsh``."""
+    S, m = al.shape
+    T = torch.diag_embed(al) + torch.diag_embed(be[:, :m - 1], 1) \
+        + torch.diag_embed(be[:, :m - 1], -1)
+    ev = torch.linalg.eigvalsh(T)
+    return ev[:, 0], ev[:, -1]
+
+
+def spectral_shift(al, be):
+    """Per-graph (scale, dadd, L) from the Lanczos coefficients: the
+    tridiagonal's extremal eigenvalues (:func:`tridiagonal_extremes`)
+    through :func:`shift_from_extremes`; K11 computes the same inside."""
+    return shift_from_extremes(*tridiagonal_extremes(al, be))
 
 
 def adjacency_bits(flat, S, V, device):
@@ -246,120 +240,175 @@ def fista_momenta(iters):
     return out
 
 
+def one_class_fista_plain(Kb, a0, u, s_target, al, be,
+                          iters=_FISTA_ITERS):
+    """K11's plain version over a bucket: :func:`spectral_shift` and
+    :func:`fista_plain` on the dense K of the bit rows ``Kb``, a slab of
+    graphs at a time (the solve is per graph; a slab bounds the dense
+    K's memory).  Returns a [S, V]."""
+    S, V, _ = Kb.shape
+    out = [fista_plain(dense_from_bits(Kb[sl], V), a0[sl], u[sl],
+                       s_target[sl], *spectral_shift(al[sl], be[sl]), iters)
+           for sl in _slabs(S, V)]
+    return torch.cat(out) if out else a0.clone()
+
+
+def lanczos_bits_plain(Kb, v0, m=_LANCZOS_M):
+    """K10's plain version over a bucket: :func:`lanczos_plain` a slab at
+    a time on the dense K of the bit rows ``Kb`` [S, V, ceil(V / 32)],
+    from the start vectors v0 [S, V] (:func:`bucket_start_vector`).
+    Returns alpha, beta [S, m]."""
+    S, V, _ = Kb.shape
+    al, be = zip(*(lanczos_plain(dense_from_bits(Kb[sl], V), v0[sl], m)
+                   for sl in _slabs(S, V)))
+    return torch.cat(al), torch.cat(be)
+
+
+def one_class_solve_plain(Kb, v0, a0, u, s_target, iters=_FISTA_ITERS,
+                          m=_LANCZOS_M):
+    """The plain version of a bucket's solve (:func:`solve_cuda`), on any
+    device: :func:`lanczos_bits_plain`, then
+    :func:`one_class_fista_plain`.  Returns (a [S, V], al, be [S, m])."""
+    al, be = lanczos_bits_plain(Kb, v0, m)
+    return one_class_fista_plain(Kb, a0, u, s_target, al, be, iters), al, be
+
+
+# --------------------------------------------------------------------- #
+# K10 and K11: one launch a size bucket
+# --------------------------------------------------------------------- #
+
 @functools.lru_cache(maxsize=None)
 def _momenta_on(iters, device):
     return torch.from_numpy(fista_momenta(iters)).to(device)
 
 
-def fista_cuda(Kb, a0, u, s_target, al, be, iters=_FISTA_ITERS,
-               bisect=_BISECT_ITERS, route=None):
-    """Launch K11 (``csrc/svm_qp.cu``): :func:`spectral_shift` and
-    :func:`fista_plain` on a card, every iteration and bisection step in
-    one launch.  Kb [S, V, ceil(V / 32)] int32, K's bit rows
-    (:func:`adjacency_bits`); a0, u [S, V], s_target [S], the Lanczos
-    coefficients al, be [S, m], contiguous f32 on one CUDA device.  Each
-    graph's warp finds the extremal eigenvalues of its tridiagonal by
-    Sturm-count multisection (f64, to the f32 rounding) and takes
-    spectral_shift's scale, dadd and L from them; ``route`` ("warp", V
-    <= 64, / "block", default :func:`k11_route`) overrides the route for
-    measurements.  Returns (a [S, V], lam [S, 2]) f32: the alphas, and
-    lambda_min and lambda_max."""
+def _f32(t, dev, shape):
+    return (t is not None and t.device == dev and t.dtype == torch.float32
+            and tuple(t.shape) == shape and t.is_contiguous())
+
+
+def _launch(Kb, v0, a0, u, s_target, al, be, m, iters, bisect, route,
+            lanczos, name):
+    """Check the inputs of ``grakel_svm_solve`` and launch it once.
+    ``lanczos``: K10 runs from v0 and writes al, be (else it reads them);
+    K11 runs unless ``lanczos`` and iters = 0.  Returns (a, lam) from
+    K11, or (None, None) when it did not run."""
     from .. import _build
     dev = Kb.device
     S = Kb.shape[0] if Kb.dim() == 3 else -1
     V = Kb.shape[1] if Kb.dim() == 3 else 0
-    m = al.shape[1] if al.dim() == 2 else 0
-    route = route or k11_route(V)
+    fista = not lanczos or iters > 0
+    route = route or solve_route(V)
     if not (dev.type == "cuda" and Kb.dtype == torch.int32
             and Kb.is_contiguous() and Kb.dim() == 3
             and Kb.shape[2] == (V + 31) // 32
-            and all(_f32(x, dev, (S, V)) for x in (a0, u))
-            and _f32(s_target, dev, (S,))
-            and all(_f32(x, dev, (S, m)) for x in (al, be))
             and 8 <= V <= 8192 and V & (V - 1) == 0 and m > 0
+            and (not lanczos or _f32(v0, dev, (S, V)))
+            and all(_f32(x, dev, (S, m)) for x in (al, be))
+            and (not fista or (all(_f32(x, dev, (S, V)) for x in (a0, u))
+                               and _f32(s_target, dev, (S,))))
             and iters >= 0 and bisect >= 0
             and route in ("warp", "block")
-            and (route == "block" or V <= K11_WARP_MAX_V)):
-        raise ValueError("fista_cuda: need contiguous int32 bit rows Kb [S, "
-                         "V, ceil(V / 32)], f32 a0 and u [S, V], s_target "
-                         "[S], al and be [S, m] on one CUDA device (V a "
-                         "power of two, 8 <= V <= 8192; route warp only up "
-                         "to V = %d)" % K11_WARP_MAX_V)
-    out = torch.empty((S, V), dtype=torch.float32, device=dev)
-    lam = torch.empty((S, 2), dtype=torch.float32, device=dev)
+            and (route == "block" or V <= WARP_MAX_V)):
+        raise ValueError(
+            "%s: need contiguous int32 bit rows Kb [S, V, ceil(V / 32)] and "
+            "f32 %s on one CUDA device (V a power of two, 8 <= V <= 8192; "
+            "route warp only up to V = %d)"
+            % (name, ", ".join(
+                (["v0 [S, V]"] if lanczos else ["al and be [S, m]"])
+                + (["a0 and u [S, V], s_target [S]"] if fista else [])),
+               WARP_MAX_V))
+    out = lam = None
+    if fista:
+        out = torch.empty((S, V), dtype=torch.float32, device=dev)
+        lam = torch.empty((S, 2), dtype=torch.float32, device=dev)
     if S:
-        coef = _momenta_on(int(iters), dev)
-        _build.launch("grakel_svm_fista", dev, Kb.data_ptr(), a0.data_ptr(),
-                      u.data_ptr(), s_target.data_ptr(), al.data_ptr(),
-                      be.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                      lam.data_ptr(), S, V, m, int(iters), int(bisect),
-                      int(route == "warp"))
-        fista_cuda.launches += 1
-        fista_cuda.route_launches[route] += 1
+        p = lambda t: None if t is None else t.data_ptr()
+        coef = _momenta_on(int(iters), dev) if fista else None
+        _build.launch("grakel_svm_solve", dev, Kb.data_ptr(), p(v0), p(a0),
+                      p(u), p(s_target), al.data_ptr(), be.data_ptr(),
+                      p(coef), p(out), p(lam), S, V, m, int(iters),
+                      int(bisect), int(route == "warp"), int(lanczos))
+        for kernel, ran in ((lanczos_cuda, lanczos), (fista_cuda, fista),
+                            (solve_cuda, lanczos and fista)):
+            if ran:
+                kernel.launches += 1
+                kernel.route_launches[route] += 1
     return out, lam
 
 
-fista_cuda.launches = 0
-fista_cuda.route_launches = {"warp": 0, "block": 0}
+def solve_cuda(Kb, v0, a0, u, s_target, m=_LANCZOS_M, iters=_FISTA_ITERS,
+               bisect=_BISECT_ITERS, route=None):
+    """K10 and K11 (``csrc/svm_qp.cu``) of a size bucket in one launch:
+    :func:`one_class_solve_plain` on a card.  Kb [S, V, ceil(V / 32)]
+    int32, K's bit rows (:func:`adjacency_bits`); v0 [S, V]
+    (:func:`bucket_start_vector`), a0, u [S, V] and s_target [S],
+    contiguous f32 on one CUDA device.  Each graph's warp (a block past V
+    = 64) runs ``m`` Lanczos steps on the bit rows, finds its
+    tridiagonal's extremal eigenvalues by Sturm-count multisection (f64,
+    to the f32 rounding), takes :func:`spectral_shift`'s scale, dadd and
+    L from them, and runs ``iters`` FISTA steps of ``bisect`` bisection
+    steps each; ``route`` ("warp" / "block", default :func:`solve_route`)
+    overrides the route for measurements.  Returns (a [S, V], lam [S, 2],
+    al [S, m], be [S, m]) f32: the alphas, lambda_min and lambda_max, and
+    the Lanczos coefficients.  Counts on ``solve_cuda.launches`` and, as
+    the launch runs both kernels, on :func:`lanczos_cuda`'s and
+    :func:`fista_cuda`'s."""
+    dev = Kb.device
+    S = Kb.shape[0] if Kb.dim() == 3 else 0
+    al = torch.empty((S, m), dtype=torch.float32, device=dev)
+    be = torch.empty((S, m), dtype=torch.float32, device=dev)
+    a, lam = _launch(Kb, v0, a0, u, s_target, al, be, m, iters, bisect,
+                     route, True, "solve_cuda")
+    return a, lam, al, be
 
 
-def one_class_fista(Kb, a0, u, s_target, al, be, iters=_FISTA_ITERS):
-    """The spectral shift and the FISTA solve of a bucket: K11 for CUDA
-    tensors; for CPU ones its plain version, :func:`spectral_shift` and
-    :func:`fista_plain` on the dense K of the bit rows ``Kb``, a slab of
-    graphs at a time (the solve is per graph; a slab bounds the dense
-    K's memory)."""
+def lanczos_cuda(Kb, v0, m=_LANCZOS_M, route=None):
+    """K10 alone: the launch of :func:`solve_cuda` with iters = 0, which
+    stops after the Lanczos loop; :func:`lanczos_plain` on the dense K of
+    the bit rows ``Kb`` on a card.  Kb [S, V, ceil(V / 32)] int32, v0 [S,
+    V] contiguous f32 on one CUDA device.  Returns alpha, beta [S, m] f32.
+    ``lanczos_cuda.launches`` counts every launch that ran K10, fused or
+    alone."""
+    dev = Kb.device
+    S = Kb.shape[0] if Kb.dim() == 3 else 0
+    al = torch.empty((S, m), dtype=torch.float32, device=dev)
+    be = torch.empty((S, m), dtype=torch.float32, device=dev)
+    _launch(Kb, v0, None, None, None, al, be, m, 0, _BISECT_ITERS, route,
+            True, "lanczos_cuda")
+    return al, be
+
+
+def fista_cuda(Kb, a0, u, s_target, al, be, iters=_FISTA_ITERS,
+               bisect=_BISECT_ITERS, route=None):
+    """K11 alone: the launch of :func:`solve_cuda` with K10 off, reading
+    the Lanczos coefficients al, be [S, m] (contiguous f32, with a0, u
+    [S, V] and s_target [S]); :func:`spectral_shift` and
+    :func:`fista_plain` on a card.  Returns (a [S, V], lam [S, 2]) f32:
+    the alphas, and lambda_min and lambda_max.  ``fista_cuda.launches``
+    counts every launch that ran K11, fused or alone."""
+    m = al.shape[1] if al.dim() == 2 else 0
+    return _launch(Kb, None, a0, u, s_target, al, be, m, iters, bisect,
+                   route, False, "fista_cuda")
+
+
+for _k in (solve_cuda, lanczos_cuda, fista_cuda):
+    _k.launches = 0
+    _k.route_launches = {"warp": 0, "block": 0}
+
+
+def one_class_solve(Kb, v0, a0, u, s_target, iters=_FISTA_ITERS):
+    """A size bucket's one-class solve, the alphas [S, V]: one
+    :func:`solve_cuda` launch for CUDA tensors, :func:`one_class_solve_plain`
+    for CPU ones."""
     if Kb.device.type == "cpu":
-        S, V, _ = Kb.shape
-        cap = _slab_cap(V)
-        out = []
-        for s0 in range(0, S, cap):
-            sl = slice(s0, s0 + cap)
-            out.append(fista_plain(dense_from_bits(Kb[sl], V), a0[sl],
-                                   u[sl], s_target[sl],
-                                   *spectral_shift(al[sl], be[sl]), iters))
-        return torch.cat(out) if out else a0.clone()
+        return one_class_solve_plain(Kb, v0, a0, u, s_target, iters)[0]
     if Kb.device.type != "cuda":
-        raise ValueError("one_class_fista: unsupported device %s" % Kb.device)
+        raise ValueError("one_class_solve: unsupported device %s"
+                         % Kb.device)
     c = lambda t: t.contiguous()
-    return fista_cuda(c(Kb), c(a0), c(u), c(s_target), c(al), c(be),
-                      iters)[0]
-
-
-# --------------------------------------------------------------------- #
-def shift_from_extremes(lmin, lmax):
-    """Per-graph (scale, dadd, L) from K's extremal eigenvalue estimates
-    [S]: K's shift to PSD when lambda_min < -1e-6 (reference
-    svm_theta.py:222-229) and the FISTA Lipschitz bound with 5 %
-    headroom (Lanczos' lambda_max is a lower bound)."""
-    cond = lmin < -_EIG_TOL
-    one = torch.ones_like(lmin)
-    scale = torch.where(cond, -1.0 / torch.where(cond, lmin, -one), one)
-    dadd = torch.where(cond, one, torch.zeros_like(lmin))
-    L = 1.05 * scale * torch.clamp(lmax, min=0.0) + dadd + 1e-3
-    return scale, dadd, L
-
-
-def tridiagonal_extremes(al, be):
-    """The extremal eigenvalues (lambda_min, lambda_max) [S] of the [S,
-    m, m] Lanczos tridiagonals: one batched ``eigvalsh``."""
-    S, m = al.shape
-    T = torch.diag_embed(al) + torch.diag_embed(be[:, :m - 1], 1) \
-        + torch.diag_embed(be[:, :m - 1], -1)
-    ev = torch.linalg.eigvalsh(T)
-    return ev[:, 0], ev[:, -1]
-
-
-def spectral_shift(al, be):
-    """Per-graph (scale, dadd, L) from the Lanczos coefficients: the
-    tridiagonal's extremal eigenvalues (:func:`tridiagonal_extremes`)
-    through :func:`shift_from_extremes`; K11 computes the same inside."""
-    return shift_from_extremes(*tridiagonal_extremes(al, be))
-
-
-def _slab_cap(V):
-    """Graphs a slab at padded size V (the JAX package's cap)."""
-    return int(max(8, min(256, _SLAB_BYTES // (V * V * 4))))
+    return solve_cuda(c(Kb), c(v0), c(a0), c(u), c(s_target),
+                      iters=iters)[0]
 
 
 def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
@@ -371,10 +420,9 @@ def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
     Returns a list of per-graph float64 alpha vectors in libsvm's
     scaling (0 <= a_i <= 1, sum = nu * n).
 
-    A size bucket: K10 a slab on its densified K (the slab position
-    seeds each graph's start vector, as in the JAX package), then the
-    shift and FISTA over the whole bucket (:func:`one_class_fista`: one
-    K11 launch on a card, on K's bit rows) and one fetch.
+    A size bucket: K's bit rows, the start vectors seeded by each graph's
+    slab position (as in the JAX package), :func:`one_class_solve` (one
+    launch of K10 and K11 on a card) and one fetch.
     """
     dev = resolve_device(device)
     out = [None] * len(adjm)
@@ -402,22 +450,8 @@ def one_class_alphas(adjm, nu=0.5, fista_iters=_FISTA_ITERS, device=None):
         flat = np.concatenate(flats).astype(np.int64)
         tu, ta0, ts = (torch.from_numpy(x).to(dev)
                        for x in (u, a0, s_target))
-        s_cap = _slab_cap(V)
-        coeffs = []
-        for s0 in range(0, B, s_cap):
-            S = min(s_cap, B - s0)
-            lo, hi = np.searchsorted(flat, [s0 * V * V, (s0 + S) * V * V])
-            part = torch.from_numpy(flat[lo:hi] - s0 * V * V).to(dev)
-            K = torch.zeros(S * V * V, dtype=torch.float32, device=dev)
-            K.index_add_(0, part, torch.ones(part.numel(),
-                                             dtype=torch.float32,
-                                             device=dev))
-            coeffs.append(lanczos(K.view(S, V, V),
-                                  start_vector(tu[s0:s0 + S])))
-        al = torch.cat([c[0] for c in coeffs])
-        be = torch.cat([c[1] for c in coeffs])
-        a = one_class_fista(adjacency_bits(flat, B, V, dev), ta0, tu, ts,
-                            al, be, fista_iters)
+        a = one_class_solve(adjacency_bits(flat, B, V, dev),
+                            bucket_start_vector(tu), ta0, tu, ts, fista_iters)
         a = a.cpu().numpy().astype(np.float64)
         for b, gi in enumerate(idxs):
             out[gi] = a[b, :adjm[gi].shape[0]]

@@ -1720,47 +1720,119 @@ def _svm_slab(S, V, p, seed, cuda):
     return [torch.from_numpy(x).to(cuda) for x in (K, u, s, a0)]
 
 
-@pytest.mark.parametrize("S,V,p,route", [
+def _svm_bucket(S, V, p, seed, cuda):
+    """A bucket of S graphs at padded size V as ``one_class_alphas`` builds
+    it (:func:`_svm_slab`), graph 0 of one vertex and graph 1 with no
+    edge, with its bit rows and start vectors: (Kb, K, u, s, a0, v0)."""
+    from grakel_torch.ops import svm_qp
+    K, u, s, a0 = _svm_slab(S, V, p, seed, cuda)
+    K[:2] = 0
+    u[0, 1:] = 0
+    s[0] = 0.5
+    a0[0] = 0
+    a0[0, 0] = 0.5
+    return (_bits(K, cuda), K, u, s, a0, svm_qp.bucket_start_vector(u))
+
+
+# buckets past 256 graphs span slabs (each start vector seeded by its slab
+# position); "block" past V = 64, and forced at V = 32 and 64
+_SOLVE_GRID = [
     (37, 8, 0.5, None), (64, 32, 0.2, None), (20, 128, 0.1, None),
-    (5, 256, 0.05, None), (16, 32, 0.3, "global"), (9, 64, 0.6, "global")])
+    (5, 256, 0.05, None), (16, 32, 0.3, "block"), (9, 64, 0.6, "block"),
+    (50, 16, 0.3, None), (40, 64, 0.1, None), (300, 16, 0.25, None),
+    (600, 64, 0.06, None), (300, 32, 0.15, "block")]
+
+
+@pytest.mark.parametrize("S,V,p,route", _SOLVE_GRID)
 def test_svm_lanczos_kernel_matches_plain(cuda, S, V, p, route):
-    """K10's extremal Ritz values (what the solve reads) equal the plain
-    version's to 1e-4: without reorthogonalization the later Lanczos
+    """K10 alone (the fused launch with Lanczos on and iters = 0) on the
+    bit rows against ``lanczos_bits_plain`` (``lanczos_plain`` on the
+    dense K, a slab at a time):
+    the first three alphas and the shift from the coefficients (what the
+    solve reads) to 1e-4; without reorthogonalization the later
     coefficients of two summation orders drift apart, the spectrum's ends
     do not."""
     from grakel_torch.ops import svm_qp
-    K, u, s, a0 = _svm_slab(S, V, p, S + V, cuda)
-    v0 = svm_qp.start_vector(u)
-    before = dict(svm_qp.lanczos_cuda.route_launches)
-    al, be = svm_qp.lanczos_cuda(K, v0, route=route)
-    want = route or svm_qp.svm_route(V)
-    assert svm_qp.lanczos_cuda.route_launches[want] == before[want] + 1
-    pal, pbe = svm_qp.lanczos_plain(K, v0)
+    Kb, K, u, s, a0, v0 = _svm_bucket(S, V, p, S + V, cuda)
+    want = route or svm_qp.solve_route(V)
+    before = (dict(svm_qp.lanczos_cuda.route_launches),
+              svm_qp.fista_cuda.launches, svm_qp.solve_cuda.launches)
+    al, be = svm_qp.lanczos_cuda(Kb, v0, route=route)
+    assert svm_qp.lanczos_cuda.route_launches[want] == before[0][want] + 1
+    assert (svm_qp.fista_cuda.launches, svm_qp.solve_cuda.launches) \
+        == before[1:]
+    pal, pbe = svm_qp.lanczos_bits_plain(Kb, v0)
     assert torch.isfinite(al).all() and torch.isfinite(be).all()
     torch.testing.assert_close(al[:, :3], pal[:, :3], rtol=1e-4, atol=1e-4)
     for got, ref in zip(svm_qp.spectral_shift(al, be),
                         svm_qp.spectral_shift(pal, pbe)):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert (al[:2] == 0).all() and (be[:2] == 0).all()   # K = 0
+
+
+@pytest.mark.parametrize("S,V,p,route", _SOLVE_GRID)
+def test_svm_solve_kernel_matches_plain(cuda, S, V, p, route):
+    """K10 and K11 in one launch against the plain composition
+    (``one_class_solve_plain``: ``lanczos_plain`` a slab at a time, then
+    ``spectral_shift`` + ``fista_plain``), K11's checks at their
+    thresholds: the first three alphas and the shift to 1e-4, the
+    tridiagonal's extremes within 1e-6 of the largest |eigenvalue| of f64
+    ``eigvalsh``'s on the kernel's own coefficients, feasibility, K a and
+    the objective (unique at the optimum of a convex QP) to 1e-4, and the
+    alphas to 1e-3 of ``fista_plain`` on the kernel's own shift.  The one
+    launch equals K10 alone and then K11 alone bit for bit."""
+    from grakel_torch.ops import svm_qp
+    Kb, K, u, s, a0, v0 = _svm_bucket(S, V, p, 3 * S + V, cuda)
+    want = route or svm_qp.solve_route(V)
+    before = {k: dict(c.route_launches) for k, c in (
+        ("solve", svm_qp.solve_cuda), ("lanczos", svm_qp.lanczos_cuda),
+        ("fista", svm_qp.fista_cuda))}
+    a, lam, al, be = svm_qp.solve_cuda(Kb, v0, a0, u, s, route=route)
+    for k, c in (("solve", svm_qp.solve_cuda),
+                 ("lanczos", svm_qp.lanczos_cuda),
+                 ("fista", svm_qp.fista_cuda)):
+        assert c.route_launches[want] == before[k][want] + 1, k
+    # the one launch is K10 alone, then K11 alone on its coefficients
+    al1, be1 = svm_qp.lanczos_cuda(Kb, v0, route=route)
+    a1, lam1 = svm_qp.fista_cuda(Kb, a0, u, s, al1, be1, route=route)
+    for x, y in ((al, al1), (be, be1), (a, a1), (lam, lam1)):
+        assert torch.equal(x, y)
+    ref, pal, pbe = svm_qp.one_class_solve_plain(Kb, v0, a0, u, s)
+    torch.testing.assert_close(al[:, :3], pal[:, :3], rtol=1e-4, atol=1e-4)
+    scale, dadd, L = svm_qp.spectral_shift(pal, pbe)
+    for got, f in zip(svm_qp.spectral_shift(al, be), (scale, dadd, L)):
+        torch.testing.assert_close(got, f, rtol=1e-4, atol=1e-4)
+    dmin, dmax = (x.to(cuda).float() for x in svm_qp.tridiagonal_extremes(
+        al.double().cpu(), be.double().cpu()))
+    big = float(torch.maximum(dmin.abs(), dmax.abs()).max().clamp_min(1))
+    torch.testing.assert_close(lam[:, 0], dmin, rtol=0, atol=1e-6 * big)
+    torch.testing.assert_close(lam[:, 1], dmax, rtol=0, atol=1e-6 * big)
+    assert (a >= -1e-6).all() and (a <= u + 1e-6).all()
+    torch.testing.assert_close(a.sum(1), s, rtol=1e-5, atol=1e-4)
+
+    def kx(x):
+        return scale[:, None] * torch.bmm(K, x[:, :, None])[:, :, 0] \
+            + dadd[:, None] * x
+    torch.testing.assert_close(kx(a), kx(ref), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close((a * kx(a)).sum(1), (ref * kx(ref)).sum(1),
+                               rtol=1e-4, atol=1e-4)
+    same_shift = svm_qp.fista_plain(
+        K, a0, u, s, *svm_qp.shift_from_extremes(lam[:, 0], lam[:, 1]))
+    torch.testing.assert_close(a, same_shift, rtol=1e-3, atol=1e-3)
 
 
 def _bits(K, cuda):
-    """K11's bit rows of a dense 0/1 K [S, V, V]."""
+    """The bit rows of a dense 0/1 K [S, V, V]."""
     from grakel_torch.ops import svm_qp
     S, V, _ = K.shape
     flat = torch.nonzero(K.flatten().cpu()).flatten().numpy()
     return svm_qp.adjacency_bits(flat, S, V, cuda)
 
 
-# the old cases (a block a graph on both K placements) are the "block"
-# rows; "warp" is the route up to V = 64; S > 256: a bucket of several
-# slabs in one launch
-@pytest.mark.parametrize("S,V,p,route", [
-    (37, 8, 0.5, None), (64, 32, 0.2, None), (20, 128, 0.1, None),
-    (5, 256, 0.05, None), (16, 32, 0.3, "block"), (9, 64, 0.6, "block"),
-    (50, 16, 0.3, None), (40, 64, 0.1, None), (300, 16, 0.25, None),
-    (600, 64, 0.06, None), (300, 32, 0.15, "block")])
+@pytest.mark.parametrize("S,V,p,route", _SOLVE_GRID)
 def test_svm_fista_kernel_matches_plain(cuda, S, V, p, route):
-    """K11, the spectral shift inside, against its plain version
+    """K11 alone (the launch with Lanczos off, reading the coefficients),
+    the spectral shift inside, against its plain version
     (``spectral_shift`` + ``fista_plain``) on the same bucket: the
     constraints hold, the objective and K a (unique at the optimum of a
     convex QP) agree to 1e-4.  The tridiagonal's extremes are the f64
@@ -1777,7 +1849,7 @@ def test_svm_fista_kernel_matches_plain(cuda, S, V, p, route):
     before = dict(svm_qp.fista_cuda.route_launches)
     a, lam = svm_qp.fista_cuda(_bits(K, cuda), a0, u, s, al, be,
                                route=route)
-    want = route or svm_qp.k11_route(V)
+    want = route or svm_qp.solve_route(V)
     assert want == ("warp" if V <= 64 else "block") or route
     assert svm_qp.fista_cuda.route_launches[want] == before[want] + 1
     lmin, lmax = svm_qp.tridiagonal_extremes(al, be)
@@ -1839,39 +1911,58 @@ def test_svm_fista_shift_at_eig_tol_edge(cuda, ulps):
 
 
 def test_svm_wrappers_check_inputs(cuda):
+    """The three wrappers of the one launch refuse what it cannot take (a
+    CPU tensor, a dense K, wrong dtypes, shapes or m, route "warp" past V
+    = 64, an unknown route) before launching; a CUDA tensor never takes
+    the plain version; ``one_class_solve`` on CUDA tensors is the one
+    launch."""
     from grakel_torch.ops import svm_qp
-    K, u, s, a0 = _svm_slab(4, 16, 0.3, 0, cuda)
-    Kb = _bits(K, cuda)
-    with pytest.raises(ValueError):
-        svm_qp.lanczos_cuda(K.cpu(), u.cpu())
-    with pytest.raises(ValueError):
-        svm_qp.lanczos_cuda(K.double(), u)
-    al, be = svm_qp.lanczos(K, svm_qp.start_vector(u))
-    with pytest.raises(ValueError):
-        svm_qp.fista_cuda(Kb, a0, u, s[:3], al, be)
-    with pytest.raises(ValueError):                 # dense K, not bits
-        svm_qp.fista_cuda(K, a0, u, s, al, be)
-    with pytest.raises(ValueError):                 # al and be of other m
-        svm_qp.fista_cuda(Kb, a0, u, s, al, be[:, :32].contiguous())
-    with pytest.raises(ValueError):
-        svm_qp.fista_cuda(Kb, a0, u, s, al[:3], be[:3])
-    with pytest.raises(ValueError):
-        svm_qp.fista_cuda(Kb, a0, u, s, al, be, route="shared")
-    K2, u2, s2, a02 = _svm_slab(2, 128, 0.1, 0, cuda)
-    al2, be2 = svm_qp.lanczos_plain(K2, svm_qp.start_vector(u2))
-    with pytest.raises(ValueError):                 # warp only to V = 64
-        svm_qp.fista_cuda(_bits(K2, cuda), a02, u2, s2, al2, be2,
-                          route="warp")
-    before = (svm_qp.lanczos_cuda.launches, svm_qp.fista_cuda.launches)
-    al, be = svm_qp.lanczos(K, svm_qp.start_vector(u))
-    svm_qp.one_class_fista(Kb, a0, u, s, al, be)
-    assert (svm_qp.lanczos_cuda.launches,
-            svm_qp.fista_cuda.launches) == (before[0] + 1, before[1] + 1)
+    Kb, K, u, s, a0, v0 = _svm_bucket(4, 16, 0.3, 0, cuda)
+    counters = (svm_qp.solve_cuda, svm_qp.lanczos_cuda, svm_qp.fista_cuda)
+    before = [c.launches for c in counters]
+    al, be = svm_qp.lanczos_plain(K, v0)
+    bad = [
+        lambda: svm_qp.lanczos_cuda(Kb.cpu(), v0.cpu()),
+        lambda: svm_qp.lanczos_cuda(K, v0),                 # dense K
+        lambda: svm_qp.lanczos_cuda(Kb, v0.double()),
+        lambda: svm_qp.lanczos_cuda(Kb, v0[:3]),
+        lambda: svm_qp.lanczos_cuda(Kb, v0, route="shared"),
+        lambda: svm_qp.solve_cuda(Kb, v0, a0, u, s[:3]),
+        lambda: svm_qp.solve_cuda(Kb, v0, a0.cpu(), u, s),
+        lambda: svm_qp.solve_cuda(Kb.long(), v0, a0, u, s),
+        lambda: svm_qp.solve_cuda(Kb[:, :8], v0, a0, u, s),  # V not 16
+        lambda: svm_qp.solve_cuda(Kb, v0, a0, u, s, m=0),
+        lambda: svm_qp.solve_cuda(Kb, v0, a0, u, s, route="global"),
+        lambda: svm_qp.fista_cuda(Kb, a0, u, s[:3], al, be),
+        lambda: svm_qp.fista_cuda(K, a0, u, s, al, be),     # dense K
+        lambda: svm_qp.fista_cuda(Kb, a0, u, s, al,
+                                  be[:, :32].contiguous()),  # other m
+        lambda: svm_qp.fista_cuda(Kb, a0, u, s, al[:3], be[:3]),
+        lambda: svm_qp.fista_cuda(Kb, a0, u, s, al, be, route="shared"),
+    ]
+    Kb2, K2, u2, s2, a02, v02 = _svm_bucket(2, 128, 0.1, 0, cuda)
+    al2, be2 = svm_qp.lanczos_plain(K2, v02)
+    bad += [                                            # warp only to 64
+        lambda: svm_qp.lanczos_cuda(Kb2, v02, route="warp"),
+        lambda: svm_qp.solve_cuda(Kb2, v02, a02, u2, s2, route="warp"),
+        lambda: svm_qp.fista_cuda(Kb2, a02, u2, s2, al2, be2, route="warp"),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert [c.launches for c in counters] == before
+    svm_qp.one_class_solve(Kb, v0, a0, u, s)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
 
 
-def test_one_class_alphas_one_k11_launch_a_bucket(cuda):
-    """A bucket of several slabs (600 graphs at V = 16: three slabs of
-    K10) takes one K11 launch; the card's alphas solve the CPU run's QPs
+def test_one_class_alphas_one_k11_launch_a_bucket(cuda, monkeypatch):
+    """A bucket of several slabs (600 graphs at V = 16: three slabs, each
+    start vector seeded by its slab position) takes one launch of K10
+    and K11 together, as does the V = 64 bucket: two launches, each
+    counted once on the fused wrapper, on K10 and on K11.  No dense K is
+    built on the card (no f32 ``torch.zeros`` in ``ops.svm_qp``, no
+    ``dense_from_bits``, no plain Lanczos; the int32 ``index_add_`` of
+    the bit rows stays), and the card's alphas solve the CPU run's QPs
     (K a and the objective to 1e-4)."""
     from grakel_torch.ops import svm_qp
     rng = np.random.RandomState(7)
@@ -1879,10 +1970,27 @@ def test_one_class_alphas_one_k11_launch_a_bucket(cuda):
     for n in list(rng.randint(9, 17, 600)) + list(rng.randint(33, 65, 40)):
         A = np.triu(rng.rand(n, n) < 0.2, 1).astype(float)
         adjm.append(A + A.T)
-    before = (svm_qp.lanczos_cuda.launches, svm_qp.fista_cuda.launches)
+    zeros, plain = [], []
+
+    class _Torch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def zeros(self, *a, **kw):
+            zeros.append((kw.get("dtype"), str(kw.get("device"))))
+            return torch.zeros(*a, **kw)
+    monkeypatch.setattr(svm_qp, "torch", _Torch())
+    for name in ("dense_from_bits", "lanczos_plain", "fista_plain"):
+        real = getattr(svm_qp, name)
+        monkeypatch.setattr(svm_qp, name, lambda *a, _n=name, _r=real, **k:
+                            plain.append(_n) or _r(*a, **k))
+    counters = (svm_qp.solve_cuda, svm_qp.lanczos_cuda, svm_qp.fista_cuda)
+    before = [c.launches for c in counters]
     got = svm_qp.one_class_alphas(adjm, device=cuda)
-    assert (svm_qp.lanczos_cuda.launches - before[0],
-            svm_qp.fista_cuda.launches - before[1]) == (3 + 1, 2)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    assert plain == [] and zeros and all(
+        d == torch.int32 for d, _ in zeros), (plain, zeros)
+    monkeypatch.undo()
     ref = svm_qp.one_class_alphas(adjm, device="cpu")
     for A, a, r in zip(adjm, got, ref):
         K = (A > 1e-10).astype(float)
@@ -2290,21 +2398,22 @@ def test_theta_hopper_multiscale_on_card_match_cpu(cuda, name, params,
             r_connectivity=(0.07, 0.15), random_state=1234,
             features=("nl", 37))
     counters = (svm_qp.lanczos_cuda, svm_qp.fista_cuda,
-                lovasz_sdp.dr_step_cuda, lovasz_sdp.min_cone_cuda)
+                lovasz_sdp.dr_step_cuda, lovasz_sdp.min_cone_cuda,
+                svm_qp.solve_cuda)
     before = [c.launches for c in counters]
     got = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
     launched = [c.launches - b for c, b in zip(counters, before)]
     if name == "SvmTheta":
-        # K10 a slab, K11 a size bucket, in fit and in transform
+        # K10 and K11 in one launch a size bucket, in fit and in transform
         nb = sum(len({svm_qp._pow2(g.get_adjacency_matrix().shape[0])
                       for g in normalize_input(part)})
                  for part in (train, test))
-        assert launched[0] >= launched[1] == nb and launched[2:] == [0, 0]
+        assert launched == [nb, nb, 0, 0, nb]
     elif name == "LovaszTheta":
         assert launched[:2] == [0, 0] and launched[2] % 300 == 0 \
-            and launched[2] > 0 and launched[3] == 2
+            and launched[2] > 0 and launched[3] == 2 and launched[4] == 0
     else:
-        assert launched == [0, 0, 0, 0]
+        assert launched == [0, 0, 0, 0, 0]
     with use_device("cpu"):
         ref = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
     for a, b in zip(got, ref):

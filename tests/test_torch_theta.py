@@ -280,26 +280,26 @@ def test_one_class_alphas_against_libsvm():
 
 
 def test_one_class_alphas_bucket_of_several_slabs_matches_jax():
-    """300 graphs of one size bucket (V = 16: two slabs of K10, each
-    graph's start vector seeded by its slab position, and one K11 call
-    for the bucket) against grakel_tpu's one_class_alphas: K a and the
-    objective, unique where the alphas need not be (the shifted K is
-    singular by construction), to the degenerate test's 1e-4 / 1e-5, and
-    the constraints."""
+    """300 graphs of one size bucket (V = 16: two slabs of K10's plain
+    version, each graph's start vector seeded by its slab position, and
+    one call of K11's for the bucket) against grakel_tpu's
+    one_class_alphas: K a and the objective, unique where the alphas need
+    not be (the shifted K is singular by construction), to the degenerate
+    test's 1e-4 / 1e-5, and the constraints."""
     rng = np.random.RandomState(12)
     adjm = [_sym(rng.randint(9, 17), rng.choice([0.15, 0.3, 0.5]), rng)
             for _ in range(300)]
     calls = []
-    real = svm_qp.one_class_fista
+    real = svm_qp.one_class_fista_plain
 
     def spy(*a, **kw):
         calls.append(a[0].shape)
         return real(*a, **kw)
-    svm_qp.one_class_fista = spy
+    svm_qp.one_class_fista_plain = spy
     try:
         got = svm_qp.one_class_alphas(adjm, device="cpu")
     finally:
-        svm_qp.one_class_fista = real
+        svm_qp.one_class_fista_plain = real
     assert calls == [(300, 16, 1)]
     ref = jsvm.one_class_alphas(adjm)
     for A, a, r in zip(adjm, got, ref):
@@ -320,16 +320,16 @@ def test_one_class_alphas_slab_seeding_matches_jax_lanczos():
     rng = np.random.RandomState(5)
     adjm = [_sym(rng.randint(5, 9), 0.4, rng) for _ in range(260)]
     seen = []
-    real = svm_qp.lanczos
+    real = svm_qp.lanczos_plain
 
     def spy(K, v0, *a, **kw):
         seen.append((K.clone(), v0.clone()))
         return real(K, v0, *a, **kw)
-    svm_qp.lanczos = spy
+    svm_qp.lanczos_plain = spy
     try:
         svm_qp.one_class_alphas(adjm, device="cpu")
     finally:
-        svm_qp.lanczos = real
+        svm_qp.lanczos_plain = real
     assert [K.shape[0] for K, _ in seen] == [256, 4]
     for (K, v0), sl in zip(seen, (slice(0, 256), slice(256, 260))):
         _, u, _, _ = _slab(adjm[sl], 8)
@@ -345,6 +345,64 @@ def test_one_class_alphas_slab_seeding_matches_jax_lanczos():
                             svm_qp.spectral_shift(torch.from_numpy(jal),
                                                   torch.from_numpy(jbe))):
             np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _bucket(adjm, V):
+    """Kb (bit rows), u, s, a0 of one size bucket, as one_class_alphas
+    builds them."""
+    K, u, s, a0 = _slab(adjm, V)
+    Kb = svm_qp.adjacency_bits(np.flatnonzero(K), len(adjm), V, "cpu")
+    return Kb, *(torch.from_numpy(x) for x in (u, s, a0))
+
+
+def test_bucket_start_vector_matches_jax_slab_positions():
+    """The start vectors of a 600-graph V = 16 bucket (three slabs of
+    256, 256 and 88), built a slab at a time and concatenated as the
+    card's one launch a bucket takes them, equal the JAX program's
+    formula (:86-88) at each graph's position within its slab, g = b mod
+    256, to 1e-6."""
+    rng = np.random.RandomState(21)
+    adjm = [_sym(rng.randint(9, 17), 0.3, rng) for _ in range(600)]
+    _, u, _, _ = _bucket(adjm, 16)
+    v0 = svm_qp.bucket_start_vector(u)
+    assert svm_qp._slab_cap(16) == 256 and v0.shape == (600, 16)
+    g = (np.arange(600) % 256).astype(np.float32)
+    jv0 = jnp.cos(1.372954 * jnp.arange(16, dtype=jnp.float32)[None, :]
+                  + 0.718281 * jnp.asarray(g)[:, None]) * u.numpy()
+    np.testing.assert_allclose(v0.numpy(), np.asarray(jv0), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_one_class_solve_plain_on_bits_matches_alphas_and_jax():
+    """The plain composition on a bucket's bit rows (K10's plain version
+    a slab at a time on their dense K, then the shift and FISTA), what
+    the card's one launch a bucket is held to, equals the CPU route of
+    one_class_alphas exactly on a 600-graph V = 16 bucket of three slabs
+    and an 8-vertex bucket with a zero-edge and a 1-vertex graph, and
+    against grakel_tpu's one_class_alphas K a and the objective agree to
+    the several-slab test's 1e-4 / 1e-5, with the constraints."""
+    rng = np.random.RandomState(22)
+    big = [_sym(rng.randint(9, 17), rng.choice([0.15, 0.3, 0.5]), rng)
+           for _ in range(600)]
+    small = [np.zeros((5, 5)), np.zeros((1, 1))] + [
+        _sym(rng.randint(2, 9), 0.4, rng) for _ in range(20)]
+    adjm = small + big
+    got = svm_qp.one_class_alphas(adjm, device="cpu")
+    for part, V, at in ((small, 8, 0), (big, 16, len(small))):
+        Kb, u, s, a0 = _bucket(part, V)
+        v0 = svm_qp.bucket_start_vector(u)
+        a, al, be = svm_qp.one_class_solve_plain(Kb, v0, a0, u, s)
+        assert al.shape == be.shape == (len(part), 64)
+        for k, A in enumerate(part):
+            np.testing.assert_array_equal(
+                a[k, :A.shape[0]].numpy().astype(np.float64), got[at + k])
+    ref = jsvm.one_class_alphas(adjm)
+    for A, a, r in zip(adjm, got, ref):
+        K = _shifted(A)
+        np.testing.assert_allclose(K @ a, K @ r, rtol=1e-4, atol=1e-4)
+        assert abs(a @ K @ a - r @ K @ r) < 1e-5
+        assert abs(a.sum() - 0.5 * A.shape[0]) < 1e-5
+        assert a.min() >= -1e-6 and a.max() <= 1 + 1e-6
 
 
 def _jax_shift(al, be):
@@ -417,8 +475,9 @@ def test_adjacency_bits_round_trip(V):
 
 
 def test_one_class_fista_plain_route_by_slab():
-    """one_class_fista on the CPU: spectral_shift and fista_plain on the
-    dense K of the bit rows, a slab of 256 graphs at a time, equal to the
+    """one_class_fista_plain (the CPU route's K11 part): spectral_shift
+    and fista_plain on the dense K of the bit rows, a slab of 256 graphs
+    at a time, equal to the
     plain version over the whole bucket at once (the solve is per
     graph)."""
     rng = np.random.RandomState(2)
@@ -426,7 +485,7 @@ def test_one_class_fista_plain_route_by_slab():
     K, u, s, a0 = (torch.from_numpy(x) for x in _slab(adjm, 8))
     al, be = svm_qp.lanczos_plain(K, svm_qp.start_vector(u))
     Kb = svm_qp.adjacency_bits(np.flatnonzero(K.numpy()), 300, 8, "cpu")
-    a = svm_qp.one_class_fista(Kb, a0, u, s, al, be, 50)
+    a = svm_qp.one_class_fista_plain(Kb, a0, u, s, al, be, 50)
     ref = svm_qp.fista_plain(K, a0, u, s, *svm_qp.spectral_shift(al, be),
                              50)
     np.testing.assert_allclose(a.numpy(), ref.numpy(), rtol=1e-6, atol=1e-7)
