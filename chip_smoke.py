@@ -27,6 +27,23 @@ main paths through the public entry points, at full data size:
   transform 16: unit weights past V = 128, K3's blocked route, on every
   call).  Every Gram must equal the same calls under
   ``use_device("cpu")``;
+* ShortestPath's stream mode (``sp_stream_phase``): unlabeled
+  ``GraphKernel(kernel={"name": "shortest_path", "with_labels":
+  False})`` on the REDDIT-M-12K stand-in (the generator below with
+  ``tools/full_bench.py:80-82``'s parameters, seed 1234: all 11,929
+  graphs fit, 64 more drawn with seed 1235 transformed; not cut;
+  ``sp_stream_redditm12k``): the fit parse must take stream mode (no
+  dense bucket built) and the BFS route, and its Grams and Y's diagonal
+  must equal, bit for bit, the f64 product of a count matrix the smoke
+  builds itself from the native engine's stream, and the CPU's on the
+  first 1000 graphs; the slab route (``_STREAM_BFS = False``) on the
+  stand-in's graphs of at most 512 vertices among its first 2000
+  (``sp_stream_slab``): K3 once a slab, the Grams equal to the BFS
+  route's and dense mode's; and labeled SP on the DD stand-in
+  (``tools/full_bench.py:65-67``, 82 labels, an unseen one planted in
+  the transform set; ``sp_stream_dd``): stream mode, the BFS route
+  over compacted keys, equal to dense mode on the card.  Each path's
+  stages, BFS seconds and peak device memory are printed;
 * NeighborhoodHash, the slice of K4 and K5: ``GraphKernel(kernel="NH",
   random_state=0)`` (R = 3, bits = 8), ``simple`` (``nh_nci1scale``) and
   ``count_sensitive`` (``nh_cs_nci1scale``), ``fit_transform`` on the
@@ -125,10 +142,10 @@ expansion launch a side.  The unlabeled PM Gram
 stage (K1 and the torch ops up to the f64 result) is then timed and
 profiled as it runs, one fused K1 call, beside the same stage with one
 K1 call and a torch fold per level.  WL-VH, the PM paths and SP on the NCI1-scale set
-and on the REDDIT-B-scale graphs then run again, warm (WL-VH 5 times,
-each PM path twice, each SP path 3 times; median reported), and once
-more under ``torch.profiler`` for their device busy time, idle share and
-longest device activities.
+and on the REDDIT-B-scale graphs then run again, warm (WL-VH twice,
+each SP path 3 times; median reported; the PM paths not), and once
+more under ``torch.profiler`` for their device busy time, idle share
+and longest device activities.
 
 Then each kernel is held against its plain PyTorch version on the card
 at the shapes the paths gave it, and timed beside its bound, its plain
@@ -186,9 +203,12 @@ time of a call:
   that fits the bucket is timed beside), at the weighted fit's buckets
   and a weighted V = 96 batch (route tile), on large float-weighted
   graphs (route per_k, one launch per k: 4 at V = 512, 1 at V = 1000),
-  on large integer-weighted graphs (route blocked, the same shapes) and
-  at the REDDIT-B-scale path's buckets (route blocked), each
-  bit-identical to ``floyd_warshall_plain``.  K3's kernels must build
+  on large integer-weighted graphs (route blocked, the same shapes), at
+  the REDDIT-B-scale path's buckets (route blocked) and on each slab of
+  ``sp_stream_slab``'s fit parse, each bit-identical to
+  ``floyd_warshall_plain``, and on one slab of the REDDIT-M-12K
+  stand-in's top bucket (V = 3784; its counts held against the BFS
+  engine's, the whole slab step timed beside).  K3's kernels must build
   without spills (``-Xptxas -v``).  Bound: the larger of 2 n V^3
   operations over 67 TFLOP/s fp32 and adj, mask and S moved once over
   3.35 TB/s.  No single PyTorch call computes APSP: no library time;
@@ -357,6 +377,12 @@ FP64_OPS_PER_S = 67e12         # H100 SXM fp64 tensor cores (DGEMM)
 FP64_VECTOR_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores
 REDDIT_B = dict(n_graphs=2000, median=304, mean=429.63, vmax=3782,
                 edge_ratio=1.1585)
+# tools/full_bench.py:80-82 and 65-67 (DD: 82 node labels)
+REDDIT_M12K = dict(n_graphs=11929, median=280, mean=391.41, vmax=3782,
+                   edge_ratio=1.1673)
+DD = dict(n_graphs=1178, median=241, mean=284.32, vmax=5748,
+          edge_ratio=2.517)
+DD_LABELS = 82
 
 
 def heavy_tailed_graphs(n_graphs, median, mean, vmax, edge_ratio, seed):
@@ -564,9 +590,10 @@ def device_ms(fn, reps, kernel, per_call=1):
 
 def warm_runs(fn, reps):
     """Wall seconds of ``reps`` more runs of ``fn()`` (warm: kernels
-    built, allocator and cuBLAS set up), their median, and one more run
-    under torch.profiler: its wall, device busy time, idle share and
-    the device activities that took longest."""
+    built, allocator and cuBLAS set up), their median (None when
+    ``reps`` is 0), and one more run under torch.profiler: its wall,
+    device busy time, idle share and the device activities that took
+    longest."""
     import torch
     walls = []
     for _ in range(reps):
@@ -577,7 +604,8 @@ def warm_runs(fn, reps):
         walls.append(time.perf_counter() - t)
     wall, busy, by_name, _ = profiled(fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"warm_s": walls, "warm_median_s": float(np.median(walls)),
+    return {"warm_s": walls,
+            "warm_median_s": float(np.median(walls)) if walls else None,
             "profiled": {"wall_s": wall, "device_busy_ms": busy,
                          "device_idle_share": None if busy is None
                          else 1.0 - busy / (1e3 * wall),
@@ -833,7 +861,7 @@ def native_phase(class_path, check, paths, train, held, mutag):
     def summary(key):
         p = paths[key]
         print("%s: first %.3f s (fit_transform %.3f, transform %.3f), warm "
-              "median %.3f s, device busy %s ms, idle share %s"
+              "median %s s, device busy %s ms, idle share %s"
               % (key, p["wall_s"], p["fit_transform_s_first"],
                  p["transform_s"], p["warm_median_s"],
                  p["profiled"]["device_busy_ms"],
@@ -845,7 +873,7 @@ def native_phase(class_path, check, paths, train, held, mutag):
         return 2 * int((np.bincount(cols).astype(np.int64) ** 2).sum())
 
     # ---------------- OddSth ----------------------------------------- #
-    ko = class_path("oddsth_nci1scale", OddSth, train, held, 0, 1,
+    ko = class_path("oddsth_nci1scale", OddSth, train, held, 0, 0,
                     h=None, data="NCI1-scale, fit %d, transform %d"
                     % (n, nh))
     summary("oddsth_nci1scale")
@@ -895,7 +923,7 @@ def native_phase(class_path, check, paths, train, held, mutag):
 
     # ---------------- NSPD ------------------------------------------- #
     gk = class_path("nspd_nci1scale", lambda: GraphKernel(
-        kernel={"name": "NSPD", "r": 3, "d": 4}), train, held, 0, 1,
+        kernel={"name": "NSPD", "r": 3, "d": 4}), train, held, 0, 0,
         rtol=1e-12, r=3, d=4, data="NCI1-scale, fit %d, transform %d"
         % (n, nh))
     summary("nspd_nci1scale")
@@ -1004,7 +1032,7 @@ def native_phase(class_path, check, paths, train, held, mutag):
 
     # ---------------- SubgraphMatching ------------------------------- #
     ksm = class_path("sm_mutag", lambda: SubgraphMatching(k=5), mutag[:40],
-                     mutag[40:50], 0, 1, k=5,
+                     mutag[40:50], 0, 0, k=5,
                      data="MUTAG via read_data, fit 40, transform 10 (cut: "
                           "a host pair loop, ~2 ms a pair)")
     summary("sm_mutag")
@@ -1085,7 +1113,7 @@ def slice_gs_rw_phase(class_path, check, paths, train, held, mutag):
     try:
         gk = class_path("gs_nci1scale", lambda: GraphletSampling(
             k=5, sampling={"n_samples": 150}, random_state=42), train,
-            held, 0, 0, k=5, n_samples=150, random_state=42,
+            held, 0, None, k=5, n_samples=150, random_state=42,
             data="NCI1-scale, fit %d, transform %d" % (n, nh))
     finally:
         restore()
@@ -1505,7 +1533,7 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     svm_qp.torch = ZerosSpy()
     try:
         class_path("svmtheta_nci1scale", lambda: SvmTheta(random_state=42),
-                   train, held, 0, 1, rtol=2e-2,
+                   train, held, 0, 0, rtol=2e-2,
                    compare_on=(train[:512], held[:16]), random_state=42,
                    data="NCI1-scale, fit %d, transform %d; held against "
                         "the CPU on the first 512 and 16 (cut: the CPU's "
@@ -1573,7 +1601,8 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                      dict(lovasz_sdp.min_cone_cuda.route_launches))
     try:
         class_path("lovasz_nci1scale", lambda: LovaszTheta(random_state=42),
-                   train, held, 0, 0, rtol=2e-2, compare_on=(fit_c, tr_c),
+                   train, held, 0, None, rtol=2e-2,
+                   compare_on=(fit_c, tr_c),
                    random_state=42,
                    data="NCI1-scale, fit %d, transform %d; held against "
                         "the CPU on the first %d and %d (cut: the CPU's "
@@ -1611,7 +1640,7 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
                     "transform %d; the Gram one f64 GEMM on the card"
                     % (len(cun) - 200))
     class_path("ml_cuneiform", lambda: MultiscaleLaplacian(random_state=42),
-               cun[:200], cun[200:], 0, 0, random_state=42,
+               cun[:200], cun[200:], 0, None, random_state=42,
                compare_on=(cun[:30], cun[200:210]),
                data="Cuneiform via read_data, fit 200, transform %d (host "
                     "numpy: no device program); held against the CPU on "
@@ -2227,6 +2256,274 @@ def slice_theta_phase(class_path, check, paths, train, held, cun):
     return rows
 
 
+def csr_of(coo):
+    """(node_off, adj_off, adj) of (n, src, dst) COO graphs, each
+    vertex's neighbours in edge order: the native BFS engine's input."""
+    node_off = np.zeros(len(coo) + 1, np.int64)
+    node_off[1:] = np.cumsum([n for n, _, _ in coo])
+    deg, adj = np.zeros(int(node_off[-1]) + 1, np.int64), []
+    for (n, s, r), lo in zip(coo, node_off):
+        deg[lo + 1:lo + n + 1] = np.bincount(s, minlength=n)
+        adj.append(np.asarray(r, np.int32)[np.argsort(s, kind="stable")])
+    return node_off, np.cumsum(deg), np.concatenate(adj)
+
+
+def sp_stream_phase(run_path, check, paths):
+    """ShortestPath's stream mode (its parse keeps COO edges once the
+    dense buckets would pass ``_STREAM_BYTES``), the paths
+    ``sp_stream_redditm12k`` (the BFS route at full REDDIT-M-12K scale),
+    ``sp_stream_slab`` (the slab route: K3 a slab at a time on the card)
+    and ``sp_stream_dd`` (labeled, on the DD stand-in).  Returns the
+    slab path's kernel (its fit parse's slabs are K3's inputs on the
+    route) and the REDDIT-M-12K stand-in's graphs of the top bucket."""
+    import scipy.sparse as sps
+    import torch
+    from grakel_torch import Graph, GraphKernel, ShortestPath, native
+    from grakel_torch import use_device
+
+    def graphs_of(coo, labels=None):
+        return [Graph.from_arrays(n, s, r, node_labels=None if labels is None
+                                  else dict(enumerate(labels[i].tolist())))
+                for i, (n, s, r) in enumerate(coo)]
+
+    def dense_bytes(coo):
+        return sum(4 * max(8, -(-n // 8) * 8) ** 2 for n, _, _ in coo)
+
+    def run(make, fit, tr, dev=None):
+        """fit_transform of ``fit``, diagonal(), transform of ``tr``, both
+        diagonals, on ``dev`` (None: the card)."""
+        k = make()
+        with use_device(dev):
+            t = time.perf_counter()
+            K = k.fit_transform(fit)
+            t_fit = time.perf_counter() - t
+            d = k.diagonal()
+            t = time.perf_counter()
+            Kt = k.transform(tr)
+            t_tr = time.perf_counter() - t
+            xd, yd = k.diagonal()
+        return {"out": (K, d, Kt, xd, yd), "fit_transform_s": t_fit,
+                "transform_s": t_tr, "k": k}
+
+    def path(key, make, fit, tr, warm, **info):
+        """Drive ``make()``'s kernel on the card as a path (counts read
+        around it, the peak of device memory beside), check its outputs'
+        shapes and diagonals, then ``warm`` warm runs and a profiled
+        one (none when ``warm`` is None)."""
+        torch.cuda.reset_peak_memory_stats()
+        r, secs, launches = run_path(key, lambda: run(make, fit, tr))
+        K, d, Kt, xd, yd = r["out"]
+        k = getattr(r["k"], "kernel_", r["k"])   # GraphKernel's kernel
+        check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
+              and Kt.shape == (len(tr), len(fit)) and np.isfinite(Kt).all()
+              and np.array_equal(np.diagonal(K), d)
+              and np.array_equal(xd, d),
+              "%s Grams finite, shapes %s %s, diag(K) == diagonal()"
+              % (key, K.shape, Kt.shape))
+        paths[key] = dict(
+            info, graphs=len(fit), held_out=len(tr), wall_s=secs,
+            fit_transform_s_first=r["fit_transform_s"],
+            transform_s=r["transform_s"], launches=launches,
+            stream=(k.X["stream"], k._Y["stream"]),
+            route=k._stream_plan(k.X)[0] if k.X["stream"] else "dense",
+            bfs_s=(k.X.get("bfs_s"), k._Y.get("bfs_s")),
+            stages_s=dict(k.timer_.times), gram_dtype=str(K.dtype),
+            peak_device_bytes=torch.cuda.max_memory_allocated(),
+            max_vertices=int(k.X["max_V"]),
+            dense_bucket_bytes=sum(
+                4 * len(b[0]) * b[3].shape[1] ** 2 for b in k.X["buckets"]))
+        if warm is not None:
+            paths[key].update(warm_runs(lambda: run(make, fit, tr), warm))
+        print("%s: %s" % (key, {q: paths[key][q] for q in (
+            "wall_s", "route", "bfs_s", "stages_s", "peak_device_bytes",
+            "dense_bucket_bytes")}), flush=True)
+        return r
+
+    # ------------- REDDIT-M-12K scale, the BFS route, not cut ---------- #
+    t = time.perf_counter()
+    coo = heavy_tailed_graphs(seed=SEED, **REDDIT_M12K)
+    coo_held = heavy_tailed_graphs(seed=SEED + 1,
+                                   **dict(REDDIT_M12K, n_graphs=N_HELD))
+    gen_s = time.perf_counter() - t
+    fit, held = graphs_of(coo), graphs_of(coo_held)
+
+    def unlabeled():
+        return GraphKernel(kernel={"name": "shortest_path",
+                                   "with_labels": False})
+
+    key = "sp_stream_redditm12k"
+    r = path(key, unlabeled, fit, held, 0, generate_s=gen_s,
+             data="REDDIT-M-12K stand-in (tools/full_bench.py:80-82's "
+                  "parameters, seed %d), fit all %d graphs, transform %d "
+                  "drawn with seed %d; not cut"
+                  % (SEED, len(coo), N_HELD, SEED + 1))
+    k = r["k"].kernel_
+    p = paths[key]
+    check(k.X["stream"] and p["route"] == "bfs"
+          and all(isinstance(b[1], list) for b in k.X["buckets"])
+          and p["launches"]["floyd_warshall"] == 0,
+          "%s: the fit parse in stream mode (no dense bucket built; %.2f "
+          "GB of them dense), the BFS route, no K3 launch; the transform "
+          "parse %s" % (key, p["dense_bucket_bytes"] / 1e9,
+                        "in stream mode" if k._Y["stream"] else "dense"))
+    # the same Grams from the engine's count stream, assembled here: the
+    # smoke's own CSR, one scipy.sparse count matrix over the keys of
+    # both sides, multiplied in f64 on the host
+    t = time.perf_counter()
+    D = max(n for n, _, _ in coo + coo_held) + 1
+    streams = [native.sp_bfs_counts_native(*csr_of(c), np.zeros(
+        sum(n for n, _, _ in c), np.int32), 1, D) for c in (coo, coo_held)]
+    keys = np.unique(np.concatenate([s[1] for s in streams]))
+    Cx, Cy = (sps.csr_matrix((c.astype(np.float64),
+                              (g, np.searchsorted(keys, ids))),
+                             shape=(len(cc), len(keys))).toarray()
+              for (g, ids, c), cc in zip(streams, (coo, coo_held)))
+    K, d, Kt, xd, yd = r["out"]
+    same = (np.array_equal(K, Cx @ Cx.T) and np.array_equal(Kt, Cy @ Cx.T)
+            and np.array_equal(yd, (Cy * Cy).sum(1)))
+    p["reference_s"] = time.perf_counter() - t
+    p["keys"] = len(keys)
+    check(same and K.dtype == np.float64,
+          "%s: Grams and Y's diagonal == the f64 product of the count "
+          "stream the smoke built itself (%d keys), bit for bit"
+          % (key, len(keys)))
+    del Cx, Cy, K, Kt, r
+    cut = 1000
+    card = run(unlabeled, fit[:cut], held)["out"]
+    cpu = run(unlabeled, fit[:cut], held, "cpu")["out"]
+    p["cpu_cut"] = ("the CPU run on the first %d fit graphs and the %d "
+                    "held out" % (cut, N_HELD))
+    check(all(np.array_equal(a, b) for a, b in zip(card, cpu)),
+          "%s Grams and diagonals == use_device('cpu') ones on the first "
+          "%d graphs, bit for bit" % (key, cut))
+
+    coo_m12k = coo
+    # ------------- the slab route: K3 a slab at a time ----------------- #
+    sub = [g for g in coo[:2000] if g[0] <= 512]
+    sub_held = [g for g in coo_held if g[0] <= 512]
+    fit_s, held_s = graphs_of(sub), graphs_of(sub_held)
+
+    def slab_kernel():
+        k = ShortestPath(with_labels=False)
+        k._STREAM_BFS = False
+        return k
+
+    key = "sp_stream_slab"
+    r = path(key, slab_kernel, fit_s, held_s, 1,
+             data="the REDDIT-M-12K stand-in's graphs of at most 512 "
+                  "vertices among its first 2000 (fit) and among the %d "
+                  "held out" % N_HELD,
+             cut="graphs past 512 vertices and past the first 2000 left "
+                 "out: the slab route runs K3 on every padded slab")
+    k = slab_k = r["k"]
+    p = paths[key]
+    slabs = [sum(-(-len(b[0]) // k._slab_cap(b[3].shape[1]))
+                 for b in q["buckets"]) for q in (k.X, k._Y)]
+    p["slabs"] = slabs
+    check(k.X["stream"] and p["route"] == "slab"
+          and p["launches"]["floyd_warshall"] == sum(slabs),
+          "%s launched K3 once a slab: %d launches, %s slabs (fit, "
+          "transform), by route %s" % (
+              key, p["launches"]["floyd_warshall"], slabs,
+              p["launches"]["floyd_warshall_by_route"]))
+    out_bfs = run(lambda: ShortestPath(with_labels=False), fit_s, held_s)
+
+    def dense(with_labels):
+        """ShortestPath held in dense mode whatever its input's size."""
+        k = ShortestPath(with_labels=with_labels)
+        k._STREAM_BYTES = 1 << 62
+        return k
+
+    out_dense = run(lambda: dense(False), fit_s, held_s)
+    check(not out_dense["k"].X["stream"] and all(
+        np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in zip(
+            r["out"], out_bfs["out"], out_dense["out"])),
+        "%s Grams and diagonals == the BFS route's and dense mode's, bit "
+        "for bit" % key)
+    # ------------- DD stand-in, labeled ------------------------------- #
+    coo = heavy_tailed_graphs(seed=SEED, **DD)
+    coo_held = heavy_tailed_graphs(seed=SEED + 1,
+                                   **dict(DD, n_graphs=N_HELD))
+    rng = np.random.RandomState(4321)
+    labels = [rng.randint(0, DD_LABELS, n) for n, _, _ in coo + coo_held]
+    for lab in labels[len(coo)::4]:
+        lab[0] = DD_LABELS          # unseen at fit
+    fit, held = graphs_of(coo, labels), graphs_of(coo_held,
+                                                  labels[len(coo):])
+    key = "sp_stream_dd"
+    r = path(key, ShortestPath, fit, held, None,
+             data="DD stand-in (tools/full_bench.py:65-67's parameters, "
+                  "seed %d; %d node labels from RandomState(4321), label "
+                  "%d planted in every fourth held-out graph), fit %d, "
+                  "transform %d drawn with seed %d; not cut"
+                  % (SEED, DD_LABELS, DD_LABELS, len(coo), N_HELD,
+                     SEED + 1))
+    k = r["k"]
+    p = paths[key]
+    L, D = len(k._enum), k.X["max_V"]
+    # the fit's stream (the count of keys is the same in every encoding)
+    p["keys"] = len(np.unique(next(iter(k.X["bfs_coo"].values()))[1]))
+    check(k.X["stream"] and p["route"] == "bfs"
+          and p["dense_bucket_bytes"] > k._STREAM_BYTES
+          and L * L * D > k._DIRECT_MAX_WIDTH and L == DD_LABELS + 1,
+          "%s: stream mode (%.2f GB dense), the BFS route, L^2 D = %d "
+          "past the direct width (%d fit keys compacted)"
+          % (key, p["dense_bucket_bytes"] / 1e9, L * L * D, p["keys"]))
+    out_dense = run(lambda: dense(True), fit, held)
+    check(not out_dense["k"].X["stream"] and all(
+        np.array_equal(a, b) for a, b in zip(r["out"], out_dense["out"])),
+        "%s Grams and diagonals == dense mode's on the card, bit for bit"
+        % key)
+    p["dense_route"] = out_dense["k"]._plan(out_dense["k"].X)[0]
+    top = max(-(-n // 8) * 8 for n, _, _ in coo_m12k)
+    return slab_k, [g for g in coo_m12k if -(-g[0] // 8) * 8 == top]
+
+
+def stream_top_slab(k, top, check):
+    """The slab route at the top bucket: one slab of the graphs ``top``
+    (the stand-in's largest, (n, src, dst)) through ``k``'s slab loop.
+    K3's time on it (CUDA events) and the whole slab step's (the upload,
+    the scatter, K3, the ids and the ``index_add_``; host clock to a
+    sync), each a graph; the slab's counts held against the BFS
+    engine's."""
+    import torch
+    from grakel_torch import Graph, native, use_device
+    from grakel_torch.ops import floyd_warshall as fw_ops
+    with use_device(None):
+        k._method_calling = 1
+        p = k.parse_input([Graph.from_arrays(n, s, r) for n, s, r in top],
+                          stream=True)
+        A, M, _, _ = next(k._slabs(p))
+        n, V = A.shape[:2]
+
+        def step():
+            p["counts"] = {}
+            return k._slab_counts(p, 1, V)
+
+        ms = cuda_ms(lambda: fw_ops.floyd_warshall_cuda(A, M, True), 2)
+        step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        C = step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        C = C[:len(top)].double().cpu().numpy()
+    g, ids, c = native.sp_bfs_counts_native(*csr_of(top), np.zeros(
+        sum(q for q, _, _ in top), np.int32), 1, V)
+    Cb = np.zeros_like(C)
+    np.add.at(Cb, (g, ids), c)
+    check(np.array_equal(C, Cb), "the slab route's counts at the top bucket "
+          "(%d graphs of %d-%d vertices, V = %d, %d in its first slab) == "
+          "the BFS engine's" % (len(top), min(q for q, _, _ in top),
+                                max(q for q, _, _ in top), V, n))
+    # 2 V^3 min-plus operations a graph; adj and mask read, S written once
+    ops, nbytes = 2.0 * n * V ** 3, 8.0 * n * V * V + n * V
+    return {"graphs": n, "V": V, "route": fw_ops.fw_route(V, True),
+            "ms": ms, "ms_per_graph": ms / n,
+            **bound(nbytes, ops, FP32_OPS_PER_S),
+            "slab_step_ms": step_ms, "slab_step_ms_per_graph": step_ms / n}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2436,7 +2733,7 @@ def main():
         return WeisfeilerLehman(n_iter=5, normalize=False).fit_transform(
             train)
 
-    paths["wl_vh_h5_nci1scale"].update(warm_runs(wl_fit, 5))
+    paths["wl_vh_h5_nci1scale"].update(warm_runs(wl_fit, 2))
     check(np.array_equal(K, wl_fit()), "WL-VH repeat run identical")
     with use_device("cpu"):
         wl_c = WeisfeilerLehman(n_iter=5, normalize=False)
@@ -2497,7 +2794,7 @@ def main():
               and np.array_equal(Kp, Kref),
               "%s Gram == plain level Grams combined" % name)
         paths[key].update(warm_runs(lambda g=graphs, k=kw: pm_run(g, **k),
-                                    2))
+                                    0))
         pm_mats[name] = mats
         pm_fit[name] = (pm, Kp)
     paths["pm_unlabeled_redditb"]["max_vertices"] = int(max(
@@ -2676,6 +2973,12 @@ def main():
           % by_route)
     sp_mod.sparse_counts_gram = plain_sparse
 
+    # ---------------- ShortestPath's stream mode ------------------------ #
+    t = time.perf_counter()
+    slab_k, top_graphs = sp_stream_phase(run_path, check, paths)
+    print("chip_smoke: the stream phase took %.1f s"
+          % (time.perf_counter() - t), flush=True)
+
     # ---------------- NeighborhoodHash and WL-OA: K4 and K5 ------------- #
     def w_ratio(ma, mb):
         return float(np.minimum(ma, mb).sum()) / ma.size
@@ -2799,7 +3102,7 @@ def main():
         expanded_columns=int(wx["width"]),
         repeated_columns=int((np.bincount(wx["eids"]) > 1).sum()),
         gram_dtype=str(K.dtype))
-    paths["wloa_nci1scale"].update(warm_runs(wloa_run, 1))
+    paths["wloa_nci1scale"].update(warm_runs(wloa_run, 0))
 
     # ---------------- HadamardCode and Propagation: K6 ------------------ #
     k6_count = hc_ops.hadamard_step_cuda
@@ -2840,7 +3143,8 @@ def main():
         when given: f64 products summed in another order, or f32
         solvers); ``compare_on`` = (fit', tr') holds a card run on those
         against the CPU instead (a cut where the CPU run is slow); then
-        ``warm`` warm runs."""
+        ``warm`` warm runs and a profiled one (none when ``warm`` is
+        None)."""
         r, secs, launches = run_path(key, lambda: class_run(make, fit, tr))
         K, d, Kt = r["out"][:3]
         check(K.shape == (len(fit), len(fit)) and np.isfinite(K).all()
@@ -2884,13 +3188,13 @@ def main():
             k6_launches_per_call=r["k6"], gram_dtype=str(K.dtype),
             stages_s=None if timer is None else dict(timer.times),
             cpu_s=cpu_s)
-        if warm:
+        if warm is not None:
             paths[key].update(warm_runs(lambda: class_run(make, fit, tr),
                                         warm))
         return r["k"]
 
     hck = class_path("hc_nci1scale", lambda: HadamardCode(n_iter=5), train,
-                     held, 1, 3, n_iter=5, base="VertexHistogram (fast "
+                     held, 1, 1, n_iter=5, base="VertexHistogram (fast "
                      "path)", dimension=HadamardCode._hdim(N_LABELS))
     class_path("hc_sp_mutag", lambda: HadamardCode(
         n_iter=5, base_graph_kernel=(ShortestPath, {})), mutag[:150],
@@ -2900,7 +3204,7 @@ def main():
           "hc_sp_mutag launched K3 (%d)"
           % paths["hc_sp_mutag"]["launches"]["floyd_warshall"])
     pk = class_path("prop_nci1scale", lambda: Propagation(random_state=0),
-                    train, held, 0, 3, M="TV", t_max=5, w=0.01)
+                    train, held, 0, 1, M="TV", t_max=5, w=0.01)
     unseen = sum(isinstance(b, Counter) for phi in pk._Y for b in
                  phi.values())
     check(unseen > 0, "prop_nci1scale's transform ran the unseen-label "
@@ -3291,7 +3595,7 @@ def main():
                     seen += counts[k]
         return (ms if seen else None), seen
 
-    def k3_case(A, M, what, integral=False, reps=50):
+    def k3_case(A, M, what, integral=False, reps=50, profile=True):
         n, V = A.shape[:2]
         route = fw_ops.fw_route(V, integral)
         smem = 0   # dynamic shared memory a block (ptxas shows static)
@@ -3322,7 +3626,8 @@ def main():
         ops = 2.0 * n * V ** 3
         nbytes = 8.0 * n * V * V + n * V
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        dev_ms, records = k3_device_ms(call, 3 if big else 20, V, route)
+        dev_ms, records = (k3_device_ms(call, 3 if big else 20, V, route)
+                           if profile else (None, 0))
         return {"what": what, "n": n, "V": V, "route": route,
                 "instantiation": inst, "dynamic_smem_bytes": smem,
                 "integral": integral,
@@ -3393,6 +3698,13 @@ def main():
              k3_case(*fw_batch(1, 1000, 0.004, False, True),
                      "integer weights 1-4, route blocked", True)]
     k3_rb = bucket_cases(rbk, "REDDIT-B-scale 129-512 fit bucket", reps=5)
+    # the stream slab route: K3 on each slab of sp_stream_slab's fit parse,
+    # as the route launches it, and on one slab of the top bucket
+    k3_stream = [k3_case(A, M.contiguous(), "stream slab", True, reps=5,
+                         profile=False)
+                 for A, M, _, _ in slab_k._slabs(slab_k.X)]
+    k3_top = stream_top_slab(slab_k, top_graphs, check)
+    del slab_k, top_graphs
 
     # ---------------- K4 against its plain version ---------------------- #
     def degree_inputs(graphs, bits, seed):
@@ -4042,7 +4354,8 @@ def main():
          "replaces": "grakel_tpu/ops/floyd_warshall.py:30",
          "launches": launches["floyd_warshall"],
          "max_abs_err": max(c["max_abs_err"] for c in
-                            k3 + k3_other + k3_b + k3_bi + k3_rb),
+                            k3 + k3_other + k3_b + k3_bi + k3_rb
+                            + k3_stream),
          "ms": total(k3, "ms"), "device_ms": total(k3, "device_ms"),
          "wrapper_ms": total(k3, "wrapper_ms"),
          "plain_ms": total(k3, "plain_ms"),
@@ -4055,6 +4368,25 @@ def main():
          "ptxas": k3_ptxas,
          "shapes": k3, "other_route_tile": k3_other, "route_per_k": k3_b,
          "route_blocked": k3_bi,
+         "stream_slab_route": {
+             "path": "sp_stream_slab",
+             "launches": paths["sp_stream_slab"]["launches"][
+                 "floyd_warshall"],
+             "by_route": paths["sp_stream_slab"]["launches"][
+                 "floyd_warshall_by_route"],
+             "slabs": paths["sp_stream_slab"]["slabs"],
+             "summed_over": "one K3 call a slab of the path's fit parse "
+                            "(%d slabs)" % len(k3_stream),
+             "ms": total(k3_stream, "ms"),
+             "device_ms": total(k3_stream, "device_ms"),
+             "plain_ms": total(k3_stream, "plain_ms"),
+             "bound_ms": total(k3_stream, "bound_ms"),
+             "bound_by": row_bound_by(k3_stream, FP32_OPS_PER_S, "bytes"),
+             "shapes": [{k: c[k] for k in ("n", "V", "route", "ms",
+                                           "device_ms", "plain_ms",
+                                           "bound_ms", "differing")}
+                        for c in k3_stream],
+             "top_bucket": k3_top},
          "redditb_fit_buckets": {
              "ms": total(k3_rb, "ms"), "device_ms": total(k3_rb, "device_ms"),
              "plain_ms": total(k3_rb, "plain_ms"),

@@ -23,9 +23,11 @@ State layout, by kernel name:
   (which makes the histograms identical even where two eigensolvers
   would differ in the last float bits);
 * ``"ShortestPath"``: ``{"enum": {label: id}, "graphs": [(n, senders,
-  receivers, weights, node_labels), ...]}`` — the label enumeration and
-  the fit graphs (the fitted state is their dense buckets, parsed again
-  against the enumeration);
+  receivers, weights, node_labels), ...]}`` and optionally ``"stream":
+  bool`` — the label enumeration and the fit graphs (the fitted state is
+  their buckets, parsed again against the enumeration: dense, or their
+  COO edges in stream mode; without ``"stream"`` the parse chooses by
+  ``_STREAM_BYTES`` as a fit does);
 * ``"NeighborhoodHash"``: ``{"labels_hash": {label: int}, "graphs": [(n,
   senders, receivers, weights, node_labels), ...]}`` — the random label
   hash drawn at fit and the fit graphs (their round histograms are
@@ -230,7 +232,8 @@ def kernel_from_state(name, params, state):
         # parse in transform mode: the carried enumeration is kept and,
         # every label being in it, not extended
         k._method_calling = 3
-        k.X = k.parse_input(_graphs(state["graphs"]))
+        k.X = k.parse_input(_graphs(state["graphs"]),
+                            stream=state.get("stream"))
     else:
         graphs = _graphs(state["graphs"])
         ck = "pm_embed_%d" % k.d

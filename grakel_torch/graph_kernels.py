@@ -61,10 +61,12 @@ def _registry():
 class GraphKernel(BaseEstimator):
     """Generic wrapper dispatching a kernel spec to a kernel instance.
 
-    The JAX package's ``mesh`` argument (multi-device Gram assembly)
-    waits for the port's multi-GPU layer and is not accepted.  Like
-    every kernel, the wrapper has a ``device`` attribute (None: the
-    ambient device, else cuda), forwarded to the kernel it builds.
+    Every kernel name and argument of the JAX package's wrapper is
+    ported (ShortestPath with its stream mode), but for ``mesh``
+    (multi-device Gram assembly), which waits for the port's multi-GPU
+    layer (``parallel/``) and is not accepted.  Like every kernel, the
+    wrapper has a ``device`` attribute (None: the ambient device, else
+    cuda), forwarded to the kernel it builds.
     """
 
     device = None

@@ -591,6 +591,126 @@ def test_shortest_path_large_graphs_on_card_match_cpu(cuda, with_labels):
     assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
 
 
+
+@pytest.mark.parametrize("route", ["bfs", "host", "slab"])
+@pytest.mark.parametrize("with_labels", [False, True])
+def test_sp_stream_on_card_matches_cpu(cuda, route, with_labels):
+    """ShortestPath in stream mode (``_STREAM_BYTES = 0``) on the card
+    equals the same calls on the CPU bit for bit on every stream route,
+    graphs past V = 64 included (f64 counts-Grams, unlabeled entries past
+    2^24); only the slab route
+    launches K3, once a slab an encoding of the counts."""
+    train, test = generate_dataset(
+        n_graphs=90, n_graphs_test=10, r_vertices=(5, 140),
+        r_connectivity=(0.02, 0.1), random_state=12, features=("nl", 5))
+    attrs = {"bfs": {}, "host": {"_BFS_DEVICE_MAX_W": 0},
+             "slab": {"_STREAM_BFS": False}}[route]
+    out = []
+    for dev in ("cuda", "cpu"):
+        k = grakel_torch.ShortestPath(with_labels=with_labels)
+        k._STREAM_BYTES = 0
+        for a, v in attrs.items():
+            setattr(k, a, v)
+        before = fw.floyd_warshall_cuda.launches
+        with use_device(dev):
+            out.append((k.fit_transform(train), k.transform(test),
+                        k.diagonal()))
+            assert k.X["stream"] and k._stream_plan(k.X)[0] == (
+                "slab" if route == "slab" else "bfs")
+        # each parse is counted once an (L, D) encoding: the fit graphs
+        # again when the transform's labels extended L
+        slabs = sum(len(p["counts"]) * -(-len(idxs) // k._slab_cap(
+            M.shape[1])) for p in (k.X, k._Y)
+            for idxs, _, _, M in p["buckets"])
+        launched = fw.floyd_warshall_cuda.launches - before
+        assert launched == (slabs if route == "slab" and dev == "cuda"
+                            else 0)
+    (K, T, d), (Kc, Tc, dc) = out
+    assert K.dtype == np.float64 and (with_labels or K.max() > 2 ** 24)
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+    assert np.array_equal(d[0], dc[0]) and np.array_equal(d[1], dc[1])
+    assert np.array_equal(np.diagonal(K), d[0])
+
+
+def test_sp_stream_slabs_within_budget(cuda, monkeypatch):
+    """The slab route cuts each bucket into slabs of at most
+    ``_slab_cap(V)`` graphs, none past ``_STREAM_SLAB_BYTES`` where the
+    floor of 8 graphs does not bind, and launches K3 once a slab."""
+    from grakel_torch.kernels import shortest_path as sp_mod
+    train, _ = generate_dataset(
+        n_graphs=201, n_graphs_test=1, r_vertices=(5, 60),
+        r_connectivity=(0.05, 0.2), random_state=3, features=("nl", 4))
+    seen = []
+    real = sp_mod.batched_floyd_warshall
+
+    def spy(A, M, integral=False):
+        seen.append((A.shape[0], A.shape[1], A.nbytes, A.device.type))
+        return real(A, M, integral)
+
+    monkeypatch.setattr(sp_mod, "batched_floyd_warshall", spy)
+    k = grakel_torch.ShortestPath()
+    k._STREAM_BYTES = 0
+    k._STREAM_BFS = False
+    k._STREAM_SLAB_BYTES = 1 << 17     # 8 graphs at V = 64, 32 at 32
+    before = fw.floyd_warshall_cuda.launches
+    with use_device("cuda"):
+        K = k.fit_transform(train)
+    assert fw.floyd_warshall_cuda.launches - before == len(seen)
+    caps = {M.shape[1]: k._slab_cap(M.shape[1])
+            for _, _, _, M in k.X["buckets"]}
+    assert len(seen) == sum(-(-len(idxs) // caps[M.shape[1]])
+                            for idxs, _, _, M in k.X["buckets"])
+    assert len(seen) > len(caps)
+    for n, V, nbytes, dev in seen:
+        assert dev == "cuda" and n <= caps[V]
+        assert nbytes <= k._STREAM_SLAB_BYTES or n <= 8
+    k2 = grakel_torch.ShortestPath()
+    with use_device("cuda"):
+        assert np.array_equal(K, k2.fit_transform(train))
+    assert not k2.X["stream"]
+
+
+def test_converters_feed_card_gram(cuda, tmp_path):
+    """graph_from_csv's graphs, and graph_from_torch_geometric's from a
+    data object whose tensors lie on the card, give a Gram on the card
+    equal to the CPU's."""
+    rng = np.random.RandomState(5)
+    efiles, src, dst, member, off = [], [], [], [], 0
+    for i in range(12):
+        n = rng.randint(4, 12)
+        lines = []
+        for u in range(n):
+            for v in range(u + 1, n):
+                if rng.rand() < 0.35:
+                    lines.append("%d,%d" % (u, v))
+                    src += [off + u, off + v]
+                    dst += [off + v, off + u]
+        member += [i] * n
+        off += n
+        e = tmp_path / ("e%d.csv" % i)
+        e.write_text("\n".join(lines) + "\n")
+        efiles.append(str(e))
+    csv_graphs = list(grakel_torch.graph_from_csv((efiles, False, None),
+                                                  index_type=int))
+    x = torch.tensor(np.eye(3)[rng.randint(0, 3, off)], device="cuda")
+    data = type("Data", (), dict(
+        edge_index=torch.tensor([src, dst], device="cuda"), x=x,
+        edge_attr=None, y=torch.arange(12, device="cuda"),
+        batch=torch.tensor(member, device="cuda")))()
+    tg = grakel_torch.graph_from_torch_geometric(data, node_one_hot=True)
+    assert tg["y"] == list(range(12))
+    for graphs, make in (
+            (csv_graphs, lambda: grakel_torch.ShortestPath(
+                with_labels=False)),
+            (tg["graph"], lambda: grakel_torch.ShortestPath()),
+            (tg["graph"], lambda: grakel_torch.WeisfeilerLehman(n_iter=3))):
+        Ks = []
+        for dev in ("cuda", "cpu"):
+            with use_device(dev):
+                Ks.append(make().fit_transform(graphs))
+        assert Ks[0].shape == (12, 12)
+        assert np.array_equal(Ks[0], Ks[1])
+
 def _nh_batch(seed, hub, device, pa=0):
     """A GraphBatch of random graphs with an edgeless graph (degree-0
     nodes), a hub of out-degree ``hub`` and ``pa`` preferential-attachment
