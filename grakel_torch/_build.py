@@ -70,6 +70,7 @@ _SIGNATURES = {
     "grakel_threshold_expand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P],
     "grakel_wl_hash_refine": [_P, _P, _P, _P, _I, _P],
+    "grakel_wl_hash_refine_rows": [_P, _P, _P, _P, _I, _I, _P],
     "grakel_floyd_warshall": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grakel_nh_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _P],

@@ -25,6 +25,17 @@
 // hashes are those of the edge-order sum.  Degrees on the WL main path
 // are 2-5; a node of very high degree serialises its warp (a warp per
 // such node is later work).
+//
+// Reach 2 (grakel_wl_hash_refine_rows) replaces the hash of XLA
+// _refine_step, grakel_tpu/parallel/large_graph.py:47, one graph's
+// edge-partitioned refinement: a rank owns the rows [row0, row0 +
+// n_rows) of the gathered global label vector, its CSR holds its rows'
+// out-edges with global target indices, and a node's own label is
+// labels[row0 + v].  The same kernel with row0 = 0 and n_rows = N is
+// reach 1, so both reaches do the same arithmetic bit for bit, which is
+// what lets one big graph's ids and the small graphs' ids be compacted
+// jointly.  Bound: the CSR, the gathered labels (read once) and the keys
+// of the rank's rows, so bytes again.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,7 +55,7 @@ __global__ void __launch_bounds__(256)
 wl_hash_csr(const int32_t* __restrict__ labels,
             const int32_t* __restrict__ offsets,
             const int32_t* __restrict__ targets, long long* __restrict__ key,
-            int n_nodes) {
+            int n_nodes, int row0) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_nodes) return;
   uint32_t s1 = 0u, s2 = 0u;
@@ -54,7 +65,7 @@ wl_hash_csr(const int32_t* __restrict__ labels,
     s1 += fmix32(nl, 0x9E3779B9u);
     s2 += fmix32(nl, 0x7F4A7C15u);
   }
-  const uint32_t l = (uint32_t)labels[v];
+  const uint32_t l = (uint32_t)labels[row0 + v];
   const uint32_t u1 = fmix32(l * 0x9E3779B9u + s1, 0x165667B1u);
   const uint32_t u2 = fmix32(l * 0x85EBCA6Bu + s2, 0x27D4EB2Fu);
   key[v] = (long long)(((uint64_t)(u1 ^ 0x80000000u) << 32) | u2);
@@ -74,7 +85,26 @@ extern "C" int grakel_wl_hash_refine(const int32_t* labels,
   if (n_nodes > 0) {
     wl_hash_csr<<<(n_nodes + tpb - 1) / tpb, tpb, 0,
                   (cudaStream_t)stream>>>(labels, offsets, targets, key,
-                                          n_nodes);
+                                          n_nodes, 0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Reach 2: labels [>= row0 + n_rows] i32 (the gathered global vector);
+// offsets [n_rows + 1] i32, non-decreasing, from 0; targets
+// [offsets[n_rows]] i32, global indices into labels; key [n_rows] i64,
+// node v's key at key[v].  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int grakel_wl_hash_refine_rows(const int32_t* labels,
+                                          const int32_t* offsets,
+                                          const int32_t* targets,
+                                          long long* key, int n_rows,
+                                          int row0, void* stream) {
+  const int tpb = 256;
+  if (n_rows > 0) {
+    wl_hash_csr<<<(n_rows + tpb - 1) / tpb, tpb, 0,
+                  (cudaStream_t)stream>>>(labels, offsets, targets, key,
+                                          n_rows, row0);
   }
   return (int)cudaGetLastError();
 }

@@ -62,23 +62,26 @@ class GraphKernel(BaseEstimator):
     """Generic wrapper dispatching a kernel spec to a kernel instance.
 
     Every kernel name and argument of the JAX package's wrapper is
-    ported (ShortestPath with its stream mode), but for ``mesh``
-    (multi-device Gram assembly), which waits for the port's multi-GPU
-    layer (``parallel/``) and is not accepted.  Like every kernel, the
-    wrapper has a ``device`` attribute (None: the ambient device, else
-    cuda), forwarded to the kernel it builds.
+    ported.  ``mesh`` (a :class:`grakel_torch.parallel.Mesh`, or
+    ``"auto"`` for every rank of the world) assembles the kernel's Grams
+    over several GPUs, one process a rank (see
+    :mod:`grakel_torch.parallel`); it is set on the kernel the wrapper
+    builds, whose framework base kernels inherit it.  Like every kernel,
+    the wrapper has a ``device`` attribute (None: the ambient device,
+    else cuda), forwarded to the kernel it builds.
     """
 
     device = None
 
     def __init__(self, kernel="shortest_path", normalize=False, verbose=False,
-                 n_jobs=None, random_state=None, Nystroem=False):
+                 n_jobs=None, random_state=None, Nystroem=False, mesh=None):
         self.kernel = kernel
         self.normalize = normalize
         self.verbose = verbose
         self.n_jobs = n_jobs
         self.random_state = random_state
         self.Nystroem = Nystroem
+        self.mesh = mesh
         self._initialized = False
 
     # ------------------------------------------------------------------ #
@@ -95,6 +98,9 @@ class GraphKernel(BaseEstimator):
             # kernels; framework base kernels inherit it as the ambient
             # device of the call
             self.kernel_.device = self.device
+        if self.mesh is not None:
+            # the same for the mesh (kernels.base.Kernel.mesh)
+            self.kernel_.mesh = self.mesh
         if self.Nystroem:
             ncomp = 100 if self.Nystroem is True else int(self.Nystroem)
             if ncomp <= 0:

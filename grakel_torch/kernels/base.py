@@ -14,7 +14,9 @@ of, in preference order:
 
 Device: every public entry point resolves ``self.device`` (see
 :mod:`grakel_torch.device`) and installs it as the ambient device for
-the call, so framework base kernels created inside inherit it.
+the call, so framework base kernels created inside inherit it.  Mesh:
+the entry points of a kernel whose ``mesh`` is set install it as the
+ambient Gram mesh (``ops.gram.use_mesh``) the same way.
 Entry points return numpy arrays, as the JAX package's do.
 """
 
@@ -29,7 +31,7 @@ import torch
 from ..device import resolve_device, use_device
 from ..estimator import BaseEstimator, NotFittedError, check_random_state
 from ..graph import Graph
-from ..ops.gram import gram_gemm, gram_rect
+from ..ops.gram import active_mesh, gram_gemm, gram_rect, use_mesh
 
 __all__ = ["Kernel", "normalize_input", "parallel_sum"]
 
@@ -47,7 +49,10 @@ def parallel_sum(thunks, n_jobs):
     thunks = list(thunks)
     if not thunks:
         return None
-    if n_jobs in (None, 0, 1) or len(thunks) == 1:
+    # under a mesh the thunks' collectives must be issued in the same
+    # order on every rank: sequentially
+    if n_jobs in (None, 0, 1) or len(thunks) == 1 \
+            or active_mesh() is not None:
         outs = [t() for t in thunks]
     else:
         from concurrent.futures import ThreadPoolExecutor
@@ -123,6 +128,27 @@ def _device_entry(fn):
     return wrapped
 
 
+def _mesh_entry(fn):
+    """Entry-point wrapper installing ``self.mesh`` (resolved) as the
+    ambient Gram mesh for the call; kernels with ``mesh`` None run
+    unwrapped and inherit any ambient mesh."""
+    @functools.wraps(fn)
+    def wrapped(self, *a, **k):
+        if self.mesh is None:
+            return fn(self, *a, **k)
+        with use_mesh(self._resolved_mesh()):
+            return fn(self, *a, **k)
+    return wrapped
+
+
+def _entry(fn):
+    """The device wrapper around the mesh wrapper: ``"auto"`` resolves
+    its mesh on the call's device."""
+    if getattr(fn, "_device_wrapped", False):
+        return fn
+    return _device_entry(_mesh_entry(fn))
+
+
 class Kernel(BaseEstimator):
     """Base graph kernel (see module docstring)."""
 
@@ -132,8 +158,16 @@ class Kernel(BaseEstimator):
     # The device the kernel runs on: a torch.device or string, or None
     # for the ambient use_device device, else cuda.  An attribute, not a
     # constructor argument, so the kernel signatures stay at reference
-    # parity (as ``mesh`` does in the JAX package).
+    # parity; so is ``mesh``.
     device = None
+
+    # Multi-GPU Gram assembly: a grakel_torch.parallel.Mesh, or "auto"
+    # (every rank of the world; None at world size 1).  Every Gram this
+    # kernel funnels through ops.gram then assembles ring-tiled over the
+    # mesh's ranks, each rank called with the same input and returning
+    # the full Gram.  GraphKernel(mesh=...) sets it on the kernel it
+    # builds; framework base kernels inherit the ambient mesh.
+    mesh = None
 
     def __init__(self, n_jobs=None, normalize=False, verbose=False):
         self.n_jobs = n_jobs
@@ -144,16 +178,31 @@ class Kernel(BaseEstimator):
 
     def __init_subclass__(cls, **kw):
         """Wrap every public entry point (including subclass overrides)
-        so the resolved device is ambient for the call's duration."""
+        so the resolved device, and the kernel's mesh when it has one,
+        are ambient for the call's duration."""
         super().__init_subclass__(**kw)
         for name in ("fit", "fit_transform", "transform", "diagonal"):
             fn = cls.__dict__.get(name)
-            if fn is not None and not getattr(fn, "_device_wrapped", False):
-                setattr(cls, name, _device_entry(fn))
+            if fn is not None:
+                setattr(cls, name, _entry(fn))
 
     def _device(self):
         """The device of the running entry point."""
         return resolve_device(self.device)
+
+    def _resolved_mesh(self):
+        """``self.mesh`` with ``"auto"`` resolved to every rank of the
+        world, on the call's device (None at world size 1)."""
+        m = self.mesh
+        if isinstance(m, str):
+            if m != "auto":
+                raise ValueError("mesh must be a Mesh, 'auto', or None")
+            import torch.distributed as dist
+            if not dist.is_initialized() or dist.get_world_size() <= 1:
+                return None
+            from ..parallel import make_mesh
+            return make_mesh(device=self._device())
+        return m
 
     # -------------------------------------------------------------- hooks
     def initialize(self):
@@ -315,7 +364,7 @@ class Kernel(BaseEstimator):
         return check_random_state(getattr(self, seed_attr, None))
 
 
-# the base entry points get the same device wrapping subclass overrides do
+# the base entry points get the same wrapping subclass overrides do
 for _name in ("fit", "fit_transform", "transform", "diagonal"):
-    setattr(Kernel, _name, _device_entry(Kernel.__dict__[_name]))
+    setattr(Kernel, _name, _entry(Kernel.__dict__[_name]))
 del _name

@@ -22,7 +22,10 @@ Two execution paths:
   only, with singletons folded into the diagonal.
   Transform recomputes WL on the disjoint union of fit and transform
   graphs (refinement is per-graph independent, so fit ids keep their
-  meaning) and evaluates only the rectangular block.
+  meaning) and evaluates only the rectangular block.  Under a mesh
+  (``Kernel.mesh``, ``ops.gram.use_mesh``) ``fit_transform`` takes
+  ``parallel.distributed_wl_gram`` and ``transform``'s rectangular
+  Grams the ring-tiled ``coo_counts_gram_rect``.
 * **general path** (any other base kernel): host-side credential
   refinement with per-generation base-kernel instances, mirroring the
   reference's structure for full API parity.
@@ -39,7 +42,7 @@ from ..batch import GraphBatch, bucket_size
 from ..estimator import NotFittedError
 from ..graph import Graph
 from ..ops import wl as wl_ops
-from ..ops.gram import (chunk_plan, chunked_counts_gram_raw,
+from ..ops.gram import (active_mesh, chunk_plan, chunked_counts_gram_raw,
                         coo_counts_gram_rect, count_dtype, counts_diag,
                         normalize_gram)
 
@@ -94,7 +97,16 @@ class WeisfeilerLehman(Kernel):
         self.initialize()
         self.X = self.parse_input(X)
         self._X_diag = None
-        if self._fast:
+        mesh = active_mesh()
+        if self._fast and mesh is not None:
+            # the mesh route: graph-sharded refinement and ring-tiled
+            # Grams (parallel.wl) on the mesh's device, which must be the
+            # kernel's
+            from ..parallel import distributed_wl_gram
+            from ..parallel.mesh import check_tensor
+            check_tensor(mesh, torch.empty(0, device=self._device()))
+            K = distributed_wl_gram(self.X, self.n_iter, mesh)
+        elif self._fast:
             K = self._device_sym(self.X).cpu().numpy()
         else:
             K = np.asarray(self._host_fit(self.X, with_gram=True))

@@ -15,6 +15,12 @@ a weighted count matrix's singleton columns into the diagonal, and
 :func:`shared_cols_gram_rect` restricts a rectangular Gram to the
 columns both sides hold.
 
+While a mesh is installed (:func:`use_mesh`), :func:`gram_gemm`,
+:func:`gram_rect`, :func:`coo_counts_gram` and
+:func:`coo_counts_gram_rect` reroute to the ring-sharded programs of
+:mod:`grakel_torch.parallel` (every rank of the mesh calls them with
+the same full input and gets the full Gram).
+
 Every GEMM here runs in full fp32 (TF32 off, set and restored around
 each product): count Grams hold exact integers below 2^24 only in full
 fp32, and TF32 keeps ~10 mantissa bits.  The counts-Gram functions take
@@ -35,7 +41,54 @@ __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
            "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
            "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
            "sparse_counts_gram", "count_dtype", "split_weighted_singletons",
-           "shared_cols_gram_rect"]
+           "shared_cols_gram_rect", "use_mesh", "active_mesh"]
+
+
+# --------------------------------------------------------------------- #
+# active mesh: the counts- and feature-GEMMs below reroute through the
+# ring-sharded programs in grakel_torch.parallel while one is installed.
+# The base Kernel installs ``self.mesh`` around its entry points, so
+# every kernel that funnels its Gram through these functions runs over
+# the mesh without kernel-specific wiring.
+# --------------------------------------------------------------------- #
+
+_MESH = None
+
+
+class _MeshCtx:
+    def __init__(self, mesh, prev):
+        self.mesh = mesh
+        self.prev = prev
+
+    def __enter__(self):
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _MESH
+        _MESH = self.prev
+        return False
+
+
+def use_mesh(mesh):
+    """Context manager: route eligible Gram assembly over ``mesh`` (a
+    :class:`grakel_torch.parallel.Mesh`; None and meshes of one rank are
+    no-ops).  Plain module state, deliberately not thread-local (as
+    :func:`grakel_torch.device.use_device`): framework base kernels
+    dispatched on worker threads inherit the outer kernel's mesh."""
+    global _MESH
+    ctx = _MeshCtx(mesh, _MESH)
+    _MESH = mesh if (mesh is not None and mesh.size > 1) else None
+    return ctx
+
+
+def active_mesh():
+    """The mesh installed by :func:`use_mesh`, or None."""
+    return _MESH
+
+
+def _pad_rows(a, rows):
+    """``a`` [n, L] padded with zero rows to ``rows``."""
+    return torch.nn.functional.pad(a, (0, 0, 0, rows - a.shape[0]))
 
 
 def count_dtype(bound):
@@ -89,6 +142,12 @@ def gram_gemm(phi, device=None, dtype=torch.float32):
     if _needs_f64(phi):
         return torch.from_numpy(phi @ phi.T)
     a = _as_features(phi, resolve_device(device), dtype)
+    mesh = active_mesh()
+    if mesh is not None:
+        from ..parallel.gram import ring_gram
+        n, P = a.shape[0], mesh.size
+        K = ring_gram(mesh, _pad_rows(a, P * -(-n // P)), dtype=dtype)
+        return K[:n, :n]
     return _mm_t(a, a)
 
 
@@ -118,6 +177,13 @@ def gram_rect(phi_rows, phi_cols, device=None, dtype=torch.float32):
         a = a[:, :d]
     elif a.shape[1] < d:
         a = torch.nn.functional.pad(a, (0, d - a.shape[1]))
+    mesh = active_mesh()
+    if mesh is not None:
+        from ..parallel.gram import ring_rect_gram
+        ny, nx, P = a.shape[0], b.shape[0], mesh.size
+        K = ring_rect_gram(mesh, _pad_rows(a, P * -(-ny // P)),
+                           _pad_rows(b, P * -(-nx // P)), dtype=dtype)
+        return K[:ny, :nx]
     return _mm_t(a, b)
 
 
@@ -200,13 +266,41 @@ def chunk_plan(n_labels, chunk=4096):
     return _chunks_for(n_labels, chunk), chunk
 
 
+def _mesh_counts_gram(mesh, gids, labels, weights, valid, n_graphs,
+                      n_labels, chunk, dtype):
+    """:func:`coo_counts_gram` over ``mesh``: each rank takes its graphs'
+    items from the full stream on the device, densifies them and
+    ring-multiplies them (``parallel.gram.counts_gram``)."""
+    from ..parallel.gram import counts_gram, rank_items
+    n = int(n_graphs)
+    items, rows = rank_items(mesh, gids, labels, weights, valid, n)
+    return counts_gram(mesh, items, rows, int(n_labels), chunk, dtype)[:n, :n]
+
+
+def _mesh_counts_gram_rect(mesh, ga, la, wa, va, gb, lb, wb, vb, n_a, n_b,
+                           n_labels, chunk, dtype):
+    from ..parallel.gram import counts_gram_rect, rank_items
+    n_a, n_b = int(n_a), int(n_b)
+    ya, rows_a = rank_items(mesh, ga, la, wa, va, n_a)
+    xb, rows_b = rank_items(mesh, gb, lb, wb, vb, n_b)
+    K = counts_gram_rect(mesh, ya, xb, rows_a, rows_b, int(n_labels), chunk,
+                         dtype)
+    return K[:n_a, :n_b]
+
+
 def coo_counts_gram(gids, labels, weights, valid, n_graphs, n_labels,
                     chunk=4096, dtype=torch.float32):
     """K[g,g'] = sum_l (sum_{i: gid=g, lab=l} w_i) * (same for g').
 
     Item arrays are tensors on one device (``labels``, ``weights`` and
     ``valid`` may also be numpy; they follow ``gids``' device).  Returns
-    a ``dtype`` [n_graphs, n_graphs] tensor there."""
+    a ``dtype`` [n_graphs, n_graphs] tensor there.  Under an active
+    :func:`use_mesh` mesh the Gram assembles as ring-tiled row blocks
+    across its ranks, on the mesh's device."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return _mesh_counts_gram(mesh, gids, labels, weights, valid,
+                                 n_graphs, n_labels, chunk, dtype)
     nc, ch = chunk_plan(n_labels, chunk)
     return chunked_counts_gram_raw(gids, labels, weights, valid,
                                    n_graphs, nc, ch, dtype=dtype)
@@ -216,7 +310,12 @@ def coo_counts_gram_rect(ga, la, wa, va, gb, lb, wb, vb,
                          n_a, n_b, n_labels, chunk=4096,
                          dtype=torch.float32):
     """K[i, j] = <counts_a[i], counts_b[j]> over a label universe of
-    ``n_labels``; ``dtype`` [n_a, n_b] on ``ga``'s device."""
+    ``n_labels``; ``dtype`` [n_a, n_b] on ``ga``'s device (on the
+    mesh's, ring-tiled, under an active :func:`use_mesh` mesh)."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return _mesh_counts_gram_rect(mesh, ga, la, wa, va, gb, lb, wb, vb,
+                                      n_a, n_b, n_labels, chunk, dtype)
     n_a, n_b = int(n_a), int(n_b)
     nc, ch = chunk_plan(n_labels, chunk)
     a = _items(ga, la, wa, va, n_a)

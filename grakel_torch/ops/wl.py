@@ -9,7 +9,10 @@ The counterpart of ``grakel_tpu/ops/wl.py``.  One refinement step:
    compaction key per node: :func:`_wl_hash_refine_csr` over the valid
    edges grouped by sender (the CSR a ``GraphBatch`` builds and checks
    once), the hand-written CUDA kernel K2 for CUDA tensors and a plain
-   int64 version for CPU tensors.  :func:`key_hashes` unpacks the pair.
+   int64 version for CPU tensors.  :func:`wl_hash_refine_rows` is K2's
+   second reach: a block of rows of one edge-partitioned graph against
+   its gathered global labels (``parallel.large_graph``).
+   :func:`key_hashes` unpacks the pair.
    :func:`wl_hash_refine` is the same step on COO edges with a validity
    mask, the signature of the JAX function, returning the pair;
 2. compact keys to dense ids ranked by (h1, h2) as unsigned values, with
@@ -25,8 +28,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["wl_hash_refine", "key_hashes", "compact_key_ids",
-           "compact_pairs", "split_singletons"]
+__all__ = ["wl_hash_refine", "wl_hash_refine_rows", "key_hashes",
+           "compact_key_ids", "compact_pairs", "split_singletons"]
 
 _M32 = 0xFFFFFFFF
 _SEED_E1, _SEED_E2 = 0x9E3779B9, 0x7F4A7C15
@@ -84,13 +87,17 @@ def wl_hash_refine_plain(labels, senders, receivers, edge_valid):
     return _as_i32(h1), _as_i32(h2)
 
 
-def wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets):
-    """Plain PyTorch WL hash step over a CSR (node v's out-neighbours are
-    ``csr_targets[csr_offsets[v]:csr_offsets[v + 1]]``), in int64 as
-    :func:`wl_hash_refine_plain`.  Returns the int64 compaction key
+def wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets, row0=0):
+    """Plain PyTorch WL hash step over a CSR of ``n = len(csr_offsets) -
+    1`` rows (row v's out-neighbours are ``csr_targets[csr_offsets[v]:
+    csr_offsets[v + 1]]``, indices into ``labels``, and its own label is
+    ``labels[row0 + v]``), in int64 as :func:`wl_hash_refine_plain`.
+    ``row0 = 0`` with a row a label is one batch's step; ``row0 > 0`` is a
+    rank's block of rows of one edge-partitioned graph against the
+    gathered global labels.  Returns the int64 compaction key of each row
     (:func:`key_hashes` unpacks it)."""
     l = labels.to(torch.int64) & _M32
-    n = l.shape[0]
+    n = csr_offsets.shape[0] - 1
     off = csr_offsets.to(torch.int64)
     s = torch.repeat_interleave(torch.arange(n, device=l.device),
                                 off[1:n + 1] - off[:n])
@@ -99,7 +106,7 @@ def wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets):
     sum2 = torch.zeros(n, dtype=torch.int64, device=l.device)
     sum1.index_add_(0, s, _fmix32(nl, _SEED_E1))
     sum2.index_add_(0, s, _fmix32(nl, _SEED_E2))
-    h1, h2 = _finalize(l, sum1, sum2)
+    h1, h2 = _finalize(l[row0:row0 + n], sum1, sum2)
     return _u_key(h1, h2)
 
 
@@ -127,6 +134,16 @@ def key_hashes(key):
 # K2 wrapper
 # --------------------------------------------------------------------- #
 
+def _k2_inputs_ok(labels, csr_offsets, csr_targets):
+    """K2's arguments are contiguous 1-D int32 CUDA tensors on one
+    device, fewer than 2^30 labels."""
+    dev = labels.device
+    ts = (labels, csr_offsets, csr_targets)
+    return (dev.type == "cuda" and labels.shape[0] < 1 << 30
+            and all(t.device == dev and t.dtype == torch.int32
+                    and t.dim() == 1 and t.is_contiguous() for t in ts))
+
+
 def wl_hash_refine_cuda(labels, csr_offsets, csr_targets):
     """Launch K2 (``csrc/wl_hash.cu``): one pass over a CSR.  Every
     argument must be a contiguous int32 CUDA tensor on one device: labels
@@ -138,14 +155,8 @@ def wl_hash_refine_cuda(labels, csr_offsets, csr_targets):
     from .. import _build
     dev = labels.device
     n = labels.shape[0]
-    if not (dev.type == "cuda" and csr_offsets.device == dev
-            and csr_targets.device == dev
-            and labels.dtype == csr_offsets.dtype == csr_targets.dtype
-            == torch.int32
-            and labels.dim() == csr_offsets.dim() == csr_targets.dim() == 1
-            and labels.is_contiguous() and csr_offsets.is_contiguous()
-            and csr_targets.is_contiguous()
-            and csr_offsets.shape[0] == n + 1 and n < 1 << 30):
+    if not (_k2_inputs_ok(labels, csr_offsets, csr_targets)
+            and csr_offsets.shape[0] == n + 1):
         raise ValueError("wl_hash_refine_cuda: need contiguous int32 CUDA "
                          "tensors on one device: labels [N], csr_offsets "
                          "[N + 1], csr_targets [E], N < 2^30")
@@ -158,6 +169,51 @@ def wl_hash_refine_cuda(labels, csr_offsets, csr_targets):
 
 
 wl_hash_refine_cuda.launches = 0
+
+
+def wl_hash_refine_rows_cuda(labels, csr_offsets, csr_targets, row0):
+    """Launch K2's second reach (``grakel_wl_hash_refine_rows``): the
+    rows ``[row0, row0 + n_rows)`` of ``labels`` (the gathered global
+    label vector of one edge-partitioned graph), ``n_rows =
+    len(csr_offsets) - 1``, whose out-edges ``csr_targets`` are global
+    indices into ``labels``.  Contiguous int32 CUDA tensors on one
+    device; the CSR is trusted as in :func:`wl_hash_refine_cuda`
+    (``parallel.large_graph``'s partition checks the edges once).
+    Returns the int64 compaction key [n_rows]."""
+    from .. import _build
+    dev = labels.device
+    n = csr_offsets.shape[0] - 1
+    if not (_k2_inputs_ok(labels, csr_offsets, csr_targets)
+            and n >= 0 and 0 <= row0 and row0 + n <= labels.shape[0]):
+        raise ValueError("wl_hash_refine_rows_cuda: need contiguous int32 "
+                         "CUDA tensors on one device: labels [N], "
+                         "csr_offsets [n_rows + 1], csr_targets [E], "
+                         "0 <= row0, row0 + n_rows <= N < 2^30")
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.launch("grakel_wl_hash_refine_rows", dev, labels.data_ptr(),
+                  csr_offsets.data_ptr(), csr_targets.data_ptr(),
+                  key.data_ptr(), n, int(row0))
+    wl_hash_refine_rows_cuda.launches += 1
+    return key
+
+
+wl_hash_refine_rows_cuda.launches = 0
+
+
+def wl_hash_refine_rows(labels, csr_offsets, csr_targets, row0):
+    """K2's second reach: one WL refinement of the rows ``[row0, row0 +
+    n_rows)`` of the global label vector ``labels``, their out-edges a
+    CSR of global indices.  CUDA tensors launch the kernel
+    (:func:`wl_hash_refine_rows_cuda`); CPU tensors take the plain
+    version.  Returns the int64 compaction keys [n_rows]."""
+    dev = labels.device
+    if dev.type == "cuda":
+        return wl_hash_refine_rows_cuda(labels, csr_offsets, csr_targets,
+                                        row0)
+    if dev.type == "cpu":
+        return wl_hash_refine_csr_plain(labels, csr_offsets, csr_targets,
+                                        row0)
+    raise ValueError("wl_hash_refine_rows: unsupported device %s" % dev)
 
 
 def _wl_hash_refine_csr(labels, csr_offsets, csr_targets):

@@ -2538,3 +2538,155 @@ def test_theta_hopper_multiscale_on_card_match_cpu(cuda, name, params,
         ref = _run_kernel(getattr(grakel_torch, name)(**params), train, test)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol)
+
+
+# --------------------------------------------------------------------- #
+# K2's second reach and the multi-GPU layer on one card (a world of one)
+# --------------------------------------------------------------------- #
+
+def _random_csr(rng, n_labels_len, n_rows, max_deg):
+    deg = rng.randint(0, max_deg + 1, n_rows)
+    off = np.zeros(n_rows + 1, np.int32)
+    np.cumsum(deg, out=off[1:])
+    tgt = rng.randint(0, n_labels_len, int(off[-1])).astype(np.int32)
+    return torch.from_numpy(off), torch.from_numpy(tgt)
+
+
+@pytest.mark.parametrize("row0,n_rows", [(0, 6000), (1, 1499), (1500, 1500),
+                                         (4500, 1500), (5999, 1), (17, 0)])
+def test_wl_hash_rows_kernel_bit_identical(cuda, row0, n_rows):
+    """K2 reach 2 against its plain version bit for bit, for row bases
+    past 0, one launch a call; with row0 = 0 over every row it is reach
+    1 (one launch of reach 1's own entry, the same keys)."""
+    rng = np.random.RandomState(row0 + n_rows)
+    N = 6000
+    labels = torch.from_numpy(
+        rng.randint(-2 ** 31, 2 ** 31 - 1, N).astype(np.int32))
+    off, tgt = _random_csr(rng, N, n_rows, 40)
+    want = wl.wl_hash_refine_csr_plain(labels, off, tgt, row0)
+    before = wl.wl_hash_refine_rows_cuda.launches
+    got = wl.wl_hash_refine_rows(labels.to(cuda), off.to(cuda),
+                                 tgt.to(cuda), row0)
+    torch.cuda.synchronize()
+    assert wl.wl_hash_refine_rows_cuda.launches == before + 1
+    assert got.shape == (n_rows,) and torch.equal(got.cpu(), want)
+    if n_rows == N:
+        r1 = wl.wl_hash_refine_cuda(labels.to(cuda), off.to(cuda),
+                                    tgt.to(cuda))
+        assert torch.equal(r1.cpu(), want)
+
+
+def test_wl_hash_rows_wrapper_checks_inputs(cuda):
+    labels = torch.zeros(10, dtype=torch.int32, device=cuda)
+    off = torch.zeros(5, dtype=torch.int32, device=cuda)
+    tgt = torch.zeros(0, dtype=torch.int32, device=cuda)
+    for bad in ((labels, off, tgt, 7),             # rows past the labels
+                (labels, off, tgt, -1),
+                (labels.long(), off, tgt, 0),        # dtype
+                (labels.cpu(), off, tgt, 0)):        # device
+        with pytest.raises(ValueError):
+            wl.wl_hash_refine_rows_cuda(*bad)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one on NCCL (``make_mesh()`` with no group: a
+    HashStore, no launcher), torn down after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from grakel_torch.parallel import make_mesh, mesh as mesh_mod
+    mesh = make_mesh()
+    assert (mesh.size, mesh.backend, mesh.device.type) == (1, "nccl", "cuda")
+    yield mesh
+    mesh_mod.shutdown()
+
+
+def test_nccl_world_of_one_wl_paths_equal_wl(nccl_mesh):
+    """distributed_wl_gram and LargeGraphWL (a 5000-vertex graph over a
+    lowered threshold, on K2 reach 2) on a one-rank NCCL mesh equal
+    WeisfeilerLehman on the card bit for bit."""
+    from grakel_torch import WeisfeilerLehman
+    from grakel_torch.parallel import LargeGraphWL, distributed_wl_gram
+    from torch_parallel_cases import big_graph_arrays
+    train, held = generate_dataset(n_graphs=330, n_graphs_test=30,
+                                   r_vertices=(3, 30), random_state=3,
+                                   features=("nl", 9))
+    K0 = WeisfeilerLehman(n_iter=4).fit_transform(train)
+    assert np.array_equal(distributed_wl_gram(train, 4, nccl_mesh), K0)
+    s, r, lab = big_graph_arrays(5000, 4, 1, 9)
+    graphs = [Graph.from_arrays(5000, s, r, node_labels=lab)] \
+        + normalize_input(train)
+    before = wl.wl_hash_refine_rows_cuda.launches
+    fe = LargeGraphWL(n_iter=4, mesh=nccl_mesh, big_threshold=1000)
+    K = fe.fit_transform(graphs)
+    Kt = fe.transform(held)
+    assert wl.wl_hash_refine_rows_cuda.launches - before == 8
+    w = WeisfeilerLehman(n_iter=4)
+    assert np.array_equal(K, w.fit_transform(graphs))
+    assert np.array_equal(Kt, w.transform(held))
+
+
+@pytest.mark.parametrize("name", ["vertex_histogram", "weisfeiler_lehman",
+                                  "shortest_path"])
+def test_graph_kernel_mesh_of_one_is_a_no_op(nccl_mesh, name):
+    from grakel_torch import GraphKernel
+    from grakel_torch.parallel import gram as pgram, mesh as pmesh
+    train, held = generate_dataset(n_graphs=80, n_graphs_test=10,
+                                   r_vertices=(3, 20), random_state=4,
+                                   features=("nl", 5))
+    k0, k1 = GraphKernel(kernel=name), GraphKernel(kernel=name,
+                                                   mesh=nccl_mesh)
+    calls = (pgram._ring.hops, pmesh.gather_blocks.calls)
+    assert np.array_equal(k1.fit_transform(train), k0.fit_transform(train))
+    assert np.array_equal(k1.transform(held), k0.transform(held))
+    assert (pgram._ring.hops, pmesh.gather_blocks.calls) == calls
+
+
+def test_launcher_ranks_across_cards(tmp_path):
+    """The multi-GPU layer across cards: every case of the launcher in
+    one rank a card (NCCL; ring hops over the cards' links), each result
+    equal to the port's single-device result on the card (integer
+    Grams exactly, float ones to rtol = atol = 1e-5) and each mesh case
+    through the ring or the all-gathers.  Needs two or more cards."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import torch_parallel_cases as cases
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    tests = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(tests)
+    out = str(tmp_path / "ranks.pkl")
+    r = subprocess.run(
+        [sys.executable, "-m", "grakel_torch.parallel.launch", "--ranks",
+         str(n), "--device", "cuda", "--target",
+         "torch_parallel_cases:run_case", "--cases",
+         ",".join(cases.CASES + ("ring_inputs",)), "--out", out,
+         "--timeout", "500"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join((root, tests))))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-4000:])
+    with open(out, "rb") as f:
+        run = pickle.load(f)
+    assert run["ranks"] == n and run["backend"] == "nccl"
+    assert all(np.array_equal(a, cases.case_inputs("ring_inputs")[k])
+               for k, a in run["results"]["ring_inputs"].items())
+    for case in cases.CASES:
+        coll = run["collectives"][case]
+        assert coll["ring_hops"] + coll["all_gathers"] > 0, case
+        got, pad = cases.strip_padding(case, run["results"][case])
+        assert all(np.all(x == 0) for x in pad), case
+        with use_device("cuda"):
+            want = cases.run_case_single(case)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            if isinstance(a, list):          # histograms a generation
+                assert a == b, case
+            elif case in cases.EXACT_CASES:
+                np.testing.assert_array_equal(a, b, err_msg=case)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                           err_msg=case)

@@ -21,7 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "grakel_tpu", "sklearn")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    # the launcher's ranks import the parallel tests' cases module
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tests", "torch_parallel_cases.py")]
     for d, _, fs in os.walk(os.path.join(ROOT, "grakel_torch")):
         out += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     return sorted(out)
