@@ -133,7 +133,25 @@ main paths through the public entry points, at full data size:
   ``WeisfeilerLehman(n_iter=5)``'s on the card bit for bit, and
   ``LargeGraphWL`` under ``use_device("cpu")`` (a gloo world of one)
   the card's on a cut: a 50,000-vertex graph among the first 100
-  graphs (a CPU run of the full set is not needed to hold the route).
+  graphs (a CPU run of the full set is not needed to hold the route);
+* ``cross_validate_Kfold_SVM`` (``cv_phase``), the slice of K15 and K16
+  (``csrc/csvc.cu``: libsvm's SMO a block a binary problem, every fit
+  of a stage in one launch; the one-vs-one vote): ``cv_nci1scale``
+  (WL-VH h=5, normalized, on the 4110 NCI1-scale graphs, two classes
+  from their label shares with 20 % flipped, the default protocol: 700
+  inner fits of 3329 rows, 100 refits of 3699), ``cv_mutag`` (WL h=5 on
+  MUTAG, ``docs/accuracy.md``'s protocol; its scores must equal the JAX
+  package's, embedded as ``CV_MUTAG_JAX``, and the CPU route's) and
+  ``cv_cuneiform`` (GraphHopper on Cuneiform, 30 classes, the same
+  protocol; equal to the CPU route on a cut: one iteration, C up to
+  10).  Each launches K15 and K16 exactly twice (the inner fits, the
+  refits); K15 and K16 must equal ``smo_plain`` and ``vote_plain`` bit
+  for bit on ``cv_nci1scale``'s first outer fold (7 inner fits, its
+  refit) and on the ``cv_cuneiform`` inner fit that holds the stage's
+  longest problem (K16 on all its pairs, K15 on its four pairs of the
+  most iterations, the plain version in a worker process while the
+  other paths run), and
+  K15 at 128-1024 threads a block its own launch.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -364,7 +382,20 @@ time of a call:
   a V = 128 bucket (64 REDDIT-B stand-in graphs of 65-128 vertices),
   which the NCI1-scale buckets never reach, with U's orthogonality and
   K14's accuracy at its step 300.  Their 26 kernels (K10 and K11 5,
-  each running both; K12 7, K13 12, K14 2) must build without spills.
+  each running both; K12 7, K13 12, K14 2) must build without spills;
+* K15 and K16 (``ops.csvc.smo_cuda``, ``vote_cuda``) on
+  ``cv_nci1scale``'s inner fits as the path launched them (700
+  problems, 370 eval points each; each stage of each ``cv_*`` path is
+  run again under torch.profiler, and its kernel records give the
+  device ms, without the wrappers' host work), against their plain
+  versions on the first outer fold (above).  K15's bound: its inputs read and outputs
+  written once against 4 f64 operations (the G update's two products
+  and two sums) an active row an iteration, at 34 TFLOP/s, with the
+  count of two Q rows of l f32 entries read an iteration beside it
+  (``bound_ms_q_rows``); K16's: each needed Gram entry once against a
+  product and a sum a nonzero coefficient an eval point.  No single
+  PyTorch call solves an SVM: no library time.  Their two kernels must
+  build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
 build, a ``{"paths": ...}`` JSON line, a ``{"kernels": [...]}`` JSON
@@ -2808,6 +2839,415 @@ def parallel_phase(run_path, check, paths, train, held):
     return k2r
 
 
+# The JAX package's per-iteration scores for cv_mutag (WL h=5, normalized,
+# on MUTAG; docs/accuracy.md's protocol), made on the CPU with
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; \
+#   from grakel_tpu import WeisfeilerLehman; \
+#   from grakel_tpu.datasets import read_data; \
+#   from grakel_tpu.utils import cross_validate_Kfold_SVM as cv; \
+#   b = read_data('MUTAG', path='tests/data'); \
+#   K = np.asarray(WeisfeilerLehman(n_iter=5, normalize=True) \
+#   .fit_transform(b.data), np.float64); \
+#   print([float(s) for s in cv([K], np.asarray(b.target), n_iter=3, \
+#   n_splits=10, random_state=0, C_grid=10.0 ** np.arange(-2, 5))[0]])"
+CV_MUTAG_JAX = [0.7985380116959064, 0.7979532163742691, 0.8342105263157894]
+CV_PROTOCOL = dict(n_iter=3, n_splits=10, random_state=0,
+                   C_grid=10.0 ** np.arange(-2, 5))
+
+
+def nci1_stand_in_labels(graphs, seed=1234):
+    """Two balanced classes for the NCI1-scale set: class 1 when a
+    graph's share of vertices labeled below 18 exceeds the set's median
+    share, then flipped where ``RandomState(seed).rand(n) < 0.2``."""
+    share = np.array([np.mean(np.fromiter(g[1].values(), np.int64) < 18)
+                      for g in graphs])
+    y = (share > np.median(share)).astype(np.int64)
+    flip = np.random.RandomState(seed).rand(len(graphs)) < 0.2
+    y[flip] = 1 - y[flip]
+    return y
+
+
+def _sub_batch(rec, f0, f1):
+    """Fits ``f0 .. f1 - 1`` of a CV stage's record: K15's and K16's
+    inputs cut to their problems and eval points (offsets rebased), and
+    the card's outputs for them."""
+    plan = rec["plan"]
+    q0 = plan.fits[f0]["pair0"]
+    q1 = plan.fits[f1 - 1]["pair0"] + plan.fits[f1 - 1]["n_pairs"]
+    r0, r1 = int(plan.off[q0]), int(plan.off[q1])
+    e0, e1 = int(plan.eval_off[f0]), int(plan.eval_off[f1])
+    Kf, diag, ids, sign, off, C, gram = rec["smo_inputs"]
+    coef, rho, iters = rec["smo_out"]
+    K64, ev, _, _, _, _, models, mgram = rec["vote_inputs"]
+    dec, pred = rec["vote_out"]
+    m = models[f0:f1].clone()
+    d0 = int(m[0, 3])
+    m[:, 0] -= q0
+    m[:, 2] -= e0
+    m[:, 3] -= d0
+    mh = m.cpu()
+    npair = mh[:, 1] * (mh[:, 1] - 1) // 2
+    nd = int(mh[-1, 3] + (e1 - e0 - mh[-1, 2]) * npair[-1])
+    off = (off[q0:q1 + 1] - r0).contiguous()
+    return {"smo": (Kf, diag, ids[r0:r1], sign[r0:r1], off, C[q0:q1],
+                    gram[q0:q1]),
+            "smo_out": (coef[r0:r1], rho[q0:q1], iters[q0:q1]),
+            "vote": (K64, ev[e0:e1], ids[r0:r1], coef[r0:r1], off,
+                     rho[q0:q1], m, mgram[f0:f1]),
+            "vote_out": (dec[d0:d0 + nd], pred[e0:e1]), "problems": q1 - q0}
+
+
+def _pick_problems(sub, sel):
+    """K15's inputs and the card's outputs of a sub-batch cut to its
+    problems ``sel`` (ascending): each problem is solved on its own, so a
+    batch of some of them gives the same bits."""
+    import torch
+    Kf, diag, ids, sign, off, C, gram = sub["smo"]
+    coef, rho, iters = sub["smo_out"]
+    offh = off.cpu().numpy().astype(np.int64)
+    rows = np.concatenate([np.arange(offh[p], offh[p + 1]) for p in sel])
+    new_off = np.concatenate([[0], np.cumsum(np.diff(offh)[sel])])
+    dev = ids.device
+    r = torch.from_numpy(rows).to(dev)
+    q = torch.from_numpy(np.asarray(sel, np.int64)).to(dev)
+    return ((Kf, diag, ids[r], sign[r],
+             torch.from_numpy(new_off.astype(np.int32)).to(dev), C[q],
+             gram[q]), (coef[r], rho[q], iters[q]))
+
+
+def _smo_plain_job(args):
+    """``smo_plain`` in a worker process on numpy copies of its
+    arguments: (its outputs as numpy arrays, host ms).  One torch thread:
+    the problems are small, and the main process holds the other cores."""
+    import torch
+    from grakel_torch.ops import csvc
+    torch.set_num_threads(1)
+    args = [torch.from_numpy(a) for a in args]
+    t = time.perf_counter()
+    out = csvc.smo_plain(*args)
+    return [o.numpy() for o in out], (time.perf_counter() - t) * 1e3
+
+
+def _held(check, what, got, want):
+    """Check the card's outputs ``got`` against the plain version's
+    ``want`` bit for bit (on the host); returns the largest difference."""
+    got = tuple(t.cpu() for t in got)
+    check(all(torch_equal(g, w) for g, w in zip(got, want)), what)
+    return max(float((g.double() - w.double()).abs().max()) if g.numel()
+               else 0.0 for g, w in zip(got, want))
+
+
+def _held_to_plain(check, name, sub):
+    """K15 and K16 of the card's stage run against their plain versions
+    on the CPU, on the sub-batch ``sub``; returns the plain versions'
+    host ms and the largest differences."""
+    from grakel_torch.ops import csvc
+    cpu = lambda ts: tuple(t.cpu() for t in ts)
+    t = time.perf_counter()
+    want = csvc.smo_plain(*cpu(sub["smo"]))
+    smo_ms = (time.perf_counter() - t) * 1e3
+    err = _held(check, "%s: K15 == smo_plain bit for bit on the first "
+                "outer fold's %d problems (alpha y, rho, iterations; %s "
+                "iterations)" % (name, sub["problems"], want[2].tolist()),
+                sub["smo_out"], want)
+    t = time.perf_counter()
+    want = csvc.vote_plain(*cpu(sub["vote"]))
+    vote_ms = (time.perf_counter() - t) * 1e3
+    err_v = _held(check, "%s: K16 == vote_plain bit for bit on the same "
+                  "fits (decision values, predicted classes)" % name,
+                  sub["vote_out"], want)
+    return {"smo_plain_ms": smo_ms, "vote_plain_ms": vote_ms,
+            "k15_max_abs_err": err, "k16_max_abs_err": err_v}
+
+
+def _csvc_device_ms(smo_in, vote_in):
+    """K15's and K16's device ms a call on a stage's inputs, from
+    torch.profiler's kernel records (one call each, after one warm
+    call): the wrappers' host work (fetches, planning, uploads) is left
+    out.  A session that kept only one of the two records is run again,
+    at most twice; a kernel still without one gives None."""
+    from grakel_torch.ops import csvc
+
+    def mean(kernel):
+        hits = [k for k in by_name if kernel in k]
+        n = sum(counts[k] for k in hits)
+        return sum(by_name[k] for k in hits) / n if n else None
+    for _ in range(3):
+        by_name, counts = kernel_records(
+            lambda: (csvc.smo_cuda(*smo_in), csvc.vote_cuda(*vote_in)), 1,
+            ("csvc_smo", "csvc_vote"))
+        ms = mean("csvc_smo"), mean("csvc_vote")
+        if None not in ms:
+            break
+    return ms
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _k15_bounds(rec):
+    """K15's least time on a stage: the larger of its inputs read and its
+    outputs written once over 3.35 TB/s and 4 f64 operations (the G
+    update's two products and two sums) an active row an iteration over
+    the f64 rate; beside it the count of two Q rows of l f32 entries
+    read an iteration."""
+    plan = rec["plan"]
+    Kf = rec["smo_inputs"][0]
+    R, P = int(plan.off[-1]), plan.n_problems
+    nbytes = Kf.numel() * 4 + Kf.shape[0] * Kf.shape[1] * 8 \
+        + R * 5 + P * (4 + 8 + 4) + R * 8 + P * (8 + 4)
+    b = bound(nbytes, 4 * rec["active_rows"], FP64_VECTOR_OPS_PER_S)
+    iters = rec["smo_out"][2].cpu().numpy().astype(np.int64)
+    q_bytes = int((iters * 2 * np.diff(plan.off) * 4).sum())
+    b["bound_ms_q_rows"] = 1e3 * q_bytes / HBM_BYTES_PER_S
+    b["q_row_bytes"] = q_bytes
+    return b
+
+
+def _k16_bounds(rec):
+    """K16's least time on a stage: the Gram entries it needs (each eval
+    point's entries at its model's rows of nonzero coefficients, each
+    distinct entry once), the problems' rows and the outputs once over
+    3.35 TB/s, and a product and a sum an (eval point, nonzero row of its
+    pair) over the f64 rate."""
+    plan = rec["plan"]
+    K64 = rec["vote_inputs"][0]
+    coef = rec["smo_out"][0].cpu().numpy()
+    pts = np.diff(plan.eval_off)
+    need = np.zeros((K64.shape[0], K64.shape[1], K64.shape[2]), bool)
+    nbytes = int(plan.off[-1]) * (4 + 8) + plan.n_problems * 12
+    ops = 0
+    for f, m in enumerate(plan.fits):
+        lo = int(plan.off[m["pair0"]])
+        hi = int(plan.off[m["pair0"] + m["n_pairs"]])
+        nz = coef[lo:hi] != 0
+        ev = plan.eval_ids[plan.eval_off[f]:plan.eval_off[f + 1]]
+        need[m["gram"]][np.ix_(ev, np.unique(plan.ids[lo:hi][nz]))] = True
+        nbytes += int(pts[f]) * (4 + 8 * m["n_pairs"])
+        ops += 2 * int(pts[f]) * int(nz.sum())
+    return dict(bound(nbytes + 8 * int(need.sum()), ops,
+                      FP64_VECTOR_OPS_PER_S), gram_entries=int(need.sum()))
+
+
+def cv_phase(run_path, check, paths, train):
+    """``cross_validate_Kfold_SVM`` on the card (the slice of K15 and
+    K16): ``cv_nci1scale`` (WL-VH h=5, normalized, on the 4110
+    NCI1-scale graphs with :func:`nci1_stand_in_labels`, the default
+    protocol: 700 inner fits of 3329 rows and 100 refits of 3699), K15
+    and K16 held to their plain versions on the first outer fold's 7
+    inner fits and its refit; ``cv_mutag`` (WL h=5 on MUTAG,
+    docs/accuracy.md's protocol), its scores equal to the JAX package's
+    and to the CPU route; ``cv_cuneiform`` (GraphHopper on Cuneiform, 30
+    classes, the same protocol: up to 435 pairs a fit), equal to the CPU
+    route on a cut, and K15 and K16 held to their plain versions on the
+    inner fit that holds the stage's longest problem (K15 on its four
+    pairs of the most iterations, in a worker process while the other
+    paths run; K16 on all its pairs).  Each path launches K15 and K16 twice (the inner
+    fits, the refits).  Returns K15's and K16's rows for the kernels
+    line."""
+    import multiprocessing
+    import torch
+    from grakel_torch import (GraphHopper, WeisfeilerLehman,
+                              cross_validate_Kfold_SVM as cv, use_device)
+    from grakel_torch.datasets import read_data
+    from grakel_torch.ops import csvc
+
+    t0 = time.perf_counter()
+    cv.keep_last = True        # each stage's tensors, for the holds below
+
+    def card_path(name, K, y, **kw):
+        scores, secs, launches = run_path(name, lambda: cv([K], y, **kw))
+        stages = cv.last["stages"]
+        check(launches["csvc_smo"] == 2 and launches["csvc_vote"] == 2,
+              "%s launched K15 and K16 twice each, once a stage (%d, %d)"
+              % (name, launches["csvc_smo"], launches["csvc_vote"]))
+        check(len(scores) == 1 and len(scores[0]) == kw.get("n_iter", 10)
+              and all(np.isfinite(s) and 0 <= s <= 1 for s in scores[0]),
+              "%s: %d finite scores in [0, 1]" % (name, len(scores[0])))
+        info = {"wall_s": secs, "launches": launches, "scores": [
+            float(s) for s in scores[0]], "stages": []}
+        for st in stages:
+            row = {k: st[k] for k in ("problems", "max_rows", "iterations",
+                                      "active_rows", "route")}
+            row["k15_ms"], row["k16_ms"] = _csvc_device_ms(
+                st["smo_inputs"], st["vote_inputs"])
+            check(row["k15_ms"] is not None and row["k16_ms"] is not None,
+                  "%s: the profiler kept K15's and K16's kernel records "
+                  "(%s, %s ms)" % (name, row["k15_ms"], row["k16_ms"]))
+            info["stages"].append(row)
+        paths[name] = info
+        print("%s: %s" % (name, info), flush=True)
+        return scores, stages
+
+    data = os.path.join(HERE, "tests", "data")
+    # ---------------- cv_cuneiform: 30 classes ------------------------- #
+    cb = read_data("Cuneiform", path=data, prefer_attr_nodes=True)
+    Kc = GraphHopper(normalize=True).fit_transform(cb.data)
+    yc = np.asarray(cb.target)
+    _, stages = card_path("cv_cuneiform", Kc, yc, **CV_PROTOCOL)
+    # the inner fit that holds the stage's longest problem: K15's long
+    # tail (shrinking, the unshrink and the gradient's reconstruction on
+    # the multiclass path).  smo_plain runs a problem's iterations one
+    # by one (~1.5 ms each on the host), so the fit's four pairs of the
+    # most iterations are held, in a worker process while the other
+    # paths run
+    plan = stages[0]["plan"]
+    longest = int(stages[0]["smo_out"][2].argmax())
+    f_long = int(np.searchsorted([f["pair0"] for f in plan.fits], longest,
+                                 side="right")) - 1
+    n_C = len(CV_PROTOCOL["C_grid"])
+    it_fold, c_long = divmod(f_long, n_C)
+    tail_fit = "iteration %d, fold %d, C = %g" % (
+        *divmod(it_fold, CV_PROTOCOL["n_splits"]),
+        CV_PROTOCOL["C_grid"][c_long])
+    tail = _sub_batch(stages[0], f_long, f_long + 1)
+    it_tail = tail["smo_out"][2].cpu().numpy()
+    sel = np.sort(np.argsort(-it_tail, kind="stable")[:4])
+    tail_in, tail_out = _pick_problems(tail, sel)
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        job = pool.apply_async(_smo_plain_job,
+                               ([t_.cpu().numpy() for t_ in tail_in],))
+        pool.close()
+        t = time.perf_counter()
+        want = csvc.vote_plain(*(t_.cpu() for t_ in tail["vote"]))
+        tail_vote_ms = (time.perf_counter() - t) * 1e3
+        tail_k16_err = _held(
+            check, "cv_cuneiform: K16 == vote_plain bit for bit on the "
+            "fit of the inner stage's longest problem (%s, %d pairs)"
+            % (tail_fit, tail["problems"]),
+            tail["vote_out"], want)
+        del stages, plan, tail
+        cv.last = None
+
+        # -------------- cv_nci1scale: the default protocol, not cut ---- #
+        t = time.perf_counter()
+        Kn = WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(train)
+        gram_s = time.perf_counter() - t
+        y = nci1_stand_in_labels(train)
+        _, stages = card_path("cv_nci1scale", Kn, y, random_state=0)
+        st1, st2 = stages
+        print("cv_nci1scale: the first outer fold's inner iterations %s, "
+              "its refit's %s" % (st1["smo_out"][2][:7].tolist(),
+                                  st2["smo_out"][2][:1].tolist()),
+              flush=True)
+        check(st1["problems"] == 700 and st1["max_rows"] == 3329
+              and st2["problems"] == 100 and st2["max_rows"] == 3699,
+              "cv_nci1scale: 700 inner problems of at most 3329 rows and "
+              "100 refits of at most 3699 (%d / %d, %d / %d)"
+              % (st1["problems"], st1["max_rows"], st2["problems"],
+                 st2["max_rows"]))
+        sub1 = _sub_batch(st1, 0, 7)
+        sub2 = _sub_batch(st2, 0, 1)
+        held1 = _held_to_plain(check, "cv_nci1scale inner fits", sub1)
+        held2 = _held_to_plain(check, "cv_nci1scale refit", sub2)
+        # K15's block size on the first fold's problems: every size gives
+        # the same bits (the reductions keep libsvm's order of ties)
+        sweep, base = {}, sub1["smo_out"]
+        for T in (128, 256, 512, 1024):
+            out = csvc.smo_cuda(*sub1["smo"], threads=T)
+            check(all(torch_equal(g, w) for g, w in zip(out, base)),
+                  "cv_nci1scale: K15 at %d threads == the path's launch "
+                  "bit for bit" % T)
+            sweep[T] = device_ms(
+                lambda: csvc.smo_cuda(*sub1["smo"], threads=T), 1,
+                "csvc_smo")
+        print("cv_nci1scale: K15's device ms on the first fold's 7 "
+              "problems by threads a block %s" % sweep, flush=True)
+        first = _csvc_device_ms(sub1["smo"], sub1["vote"])
+        k15 = {"ms": paths["cv_nci1scale"]["stages"][0]["k15_ms"],
+               "threads_sweep_first_fold_ms": sweep,
+               "ms_first_fold": first[0],
+               "plain_ms": held1["smo_plain_ms"],
+               "max_abs_err": max(held1["k15_max_abs_err"],
+                                  held2["k15_max_abs_err"]),
+               **_k15_bounds(st1)}
+        k16 = {"ms": paths["cv_nci1scale"]["stages"][0]["k16_ms"],
+               "ms_first_fold": first[1],
+               "plain_ms": held1["vote_plain_ms"],
+               "max_abs_err": max(held1["k16_max_abs_err"],
+                                  held2["k16_max_abs_err"],
+                                  tail_k16_err),
+               **_k16_bounds(st1)}
+        paths["cv_nci1scale"].update(gram_s=gram_s,
+                                     held_to_plain=[held1, held2],
+                                     classes=np.bincount(y).tolist())
+        del stages, st1, st2, sub1, sub2
+        cv.last = None
+        torch.cuda.empty_cache()
+
+        # -------------- cv_mutag: the JAX package's scores ------------- #
+        mb = read_data("MUTAG", path=data)
+        Km = WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(
+            mb.data)
+        ym = np.asarray(mb.target)
+        scores, _ = card_path("cv_mutag", Km, ym, **CV_PROTOCOL)
+        check([float(s) for s in scores[0]] == CV_MUTAG_JAX,
+              "cv_mutag scores == the JAX package's %s bit for bit (%s)"
+              % (CV_MUTAG_JAX, [float(s) for s in scores[0]]))
+        t = time.perf_counter()
+        with use_device("cpu"):
+            cpu = cv([Km], ym, **CV_PROTOCOL)
+        paths["cv_mutag"]["cpu_route_s"] = time.perf_counter() - t
+        check(cpu == scores, "cv_mutag == the CPU route exactly")
+
+        # -------------- cv_cuneiform against the CPU route ------------- #
+        # the CPU route runs libsvm's steps in torch, the problems of a
+        # stage in lockstep: seconds on a cut of the protocol (one
+        # iteration, C up to 10), minutes on the whole (its C = 1e4 pairs
+        # take tens of thousands of iterations; the tail hold above
+        # covers them)
+        cut = dict(CV_PROTOCOL, n_iter=1, C_grid=10.0 ** np.arange(-2, 2))
+        card = cv([Kc], yc, **cut)
+        t = time.perf_counter()
+        with use_device("cpu"):
+            cpu = cv([Kc], yc, **cut)
+        paths["cv_cuneiform"]["cpu_route_s"] = time.perf_counter() - t
+        paths["cv_cuneiform"]["cpu_route_cut"] = "n_iter=1, C_grid=1e-2..1e1"
+        check(cpu == card, "cv_cuneiform == the CPU route exactly on a cut "
+              "(one iteration, C_grid 1e-2..1e1: %s)" % card)
+        t = time.perf_counter()
+        want, tail_smo_ms = job.get(timeout=900)
+        want = tuple(torch.from_numpy(w) for w in want)
+        wait_s = time.perf_counter() - t
+    finally:
+        pool.terminate()
+        pool.join()
+    tail_k15_err = _held(
+        check, "cv_cuneiform: K15 == smo_plain bit for bit on the 4 pairs "
+        "of the most iterations of the fit of the inner stage's longest "
+        "problem (%s; %s iterations)" % (tail_fit, want[2].tolist()),
+        tail_out, want)
+    k15["max_abs_err"] = max(k15["max_abs_err"], tail_k15_err)
+    paths["cv_cuneiform"]["tail_hold"] = {
+        "fit": tail_fit,
+        "k15_pairs_iterations": want[2].tolist(),
+        "fit_iterations_max": int(it_tail.max()),
+        "smo_plain_ms": tail_smo_ms, "vote_plain_ms": tail_vote_ms,
+        "waited_s": wait_s}
+    print("cv_cuneiform tail hold: %s" % paths["cv_cuneiform"]["tail_hold"],
+          flush=True)
+    paths["cv_cuneiform"]["classes"] = int(np.unique(yc).shape[0])
+    cv.keep_last, cv.last = False, None
+    paths["cv_cuneiform"]["phase_s"] = time.perf_counter() - t0
+    common = {"route": "cuda", "source": "grakel_torch/csrc/csvc.cu",
+              "library_ms": None,
+              "library": "none: no single PyTorch call solves an SVM or "
+                         "takes its one-vs-one vote",
+              "shapes": "cv_nci1scale stage 1: 700 binary problems of "
+                        "3329 rows, 370 eval points each (ms: the "
+                        "profiler's kernel record); ms_first_fold and "
+                        "plain_ms (the plain version on the CPU, host "
+                        "ms) on the first outer fold's 7 problems"}
+    return [
+        {"name": "csvc_smo", "replaces": "grakel_tpu/utils.py:134",
+         **common, **k15},
+        {"name": "csvc_vote", "replaces": "grakel_tpu/utils.py:135",
+         **common, **k16}]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2939,6 +3379,13 @@ def main():
     from grakel_torch.ops import canonical as can_ops
     from grakel_torch.ops import random_walk as rw_ops
     from grakel_torch.ops import svm_qp as svm_ops
+    from grakel_torch.ops import csvc as csvc_ops
+    k1516_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                   if "csvc" in k}
+    check(len(k1516_ptxas) == 2 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k1516_ptxas.values()),
+        "K15's and K16's kernels built without spills: %s" % k1516_ptxas)
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "threshold_expand": intersect.threshold_expand_cuda,
@@ -2958,7 +3405,9 @@ def main():
                 "svm_solve": svm_ops.solve_cuda,
                 "lovasz_dr_step": lovasz_ops.dr_step_cuda,
                 "lovasz_min_cone": lovasz_ops.min_cone_cuda,
-                "lovasz_jacobi_eigh": lovasz_ops.jacobi_eigh_cuda}
+                "lovasz_jacobi_eigh": lovasz_ops.jacobi_eigh_cuda,
+                "csvc_smo": csvc_ops.smo_cuda,
+                "csvc_vote": csvc_ops.vote_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
@@ -3510,6 +3959,9 @@ def main():
           flush=True)
     k2r = parallel_phase(run_path, check, paths, train, held)
     print("chip_smoke: %.1f s after the parallel phase"
+          % (time.perf_counter() - t_start), flush=True)
+    k1516 = cv_phase(run_path, check, paths, train)
+    print("chip_smoke: %.1f s after the cross-validation phase"
           % (time.perf_counter() - t_start), flush=True)
     print(json.dumps({"paths": paths}), flush=True)
 
@@ -4775,6 +5227,11 @@ def main():
             print("%s: the path's kernels %s" % (key, row["ptxas_path"]),
                   flush=True)
     kernels += k1013
+    for row in k1516:
+        row["launches"] = launches[row["name"]]
+        row["ptxas"] = {k: v for k, v in k1516_ptxas.items()
+                        if row["name"] in k}
+    kernels += k1516
     check(all(r["launches"] > 0 for r in kernels),
           "every kernel of the line launched on the paths: %s"
           % {r["name"]: r["launches"] for r in kernels})

@@ -14,13 +14,15 @@ from .kernels import *          # noqa: F401,F403
 from .kernels import __all__ as _kernels_all
 from .graph_kernels import GraphKernel
 from .isomorphism import canonical_labeling, canonical_form, is_isomorphic
-from .utils import (KMTransformer, graph_from_networkx, graph_from_pandas,
-                    graph_from_csv, graph_from_torch_geometric)
+from .utils import (KMTransformer, cross_validate_Kfold_SVM,
+                    graph_from_networkx, graph_from_pandas, graph_from_csv,
+                    graph_from_torch_geometric)
 
 __version__ = "0.1.0"
 
 __all__ = ["Graph", "GraphBatch", "GraphKernel", "use_device",
            "canonical_labeling", "canonical_form", "is_isomorphic",
-           "KMTransformer", "graph_from_networkx", "graph_from_pandas",
-           "graph_from_csv", "graph_from_torch_geometric"] \
+           "KMTransformer", "cross_validate_Kfold_SVM", "graph_from_networkx",
+           "graph_from_pandas", "graph_from_csv",
+           "graph_from_torch_geometric"] \
     + list(_kernels_all)

@@ -1,16 +1,16 @@
-"""Interop utilities: a precomputed-kernel pipeline transformer and
-converters from networkx / pandas / csv / torch-geometric into
-grakel_torch graph inputs.
+"""Interop utilities: a precomputed-kernel pipeline transformer, K-Fold
+SVM cross-validation, and converters from networkx / pandas / csv /
+torch-geometric into grakel_torch graph inputs.
 
 The counterpart of ``grakel_tpu/utils.py`` (API parity with the
 reference ``grakel.utils``, utils.py:26-801), without scikit-learn:
 :class:`KMTransformer` stands on :mod:`grakel_torch.estimator`, and a
 scikit-learn ``Bunch`` is read through its ``mat`` attribute by duck
-typing.  ``networkx`` and ``pandas`` are imported by the converters
-that read them, never at module import.
-
-Not ported: ``cross_validate_Kfold_SVM`` (it is built on scikit-learn's
-``SVC``, ``KFold`` and scorers).
+typing; :func:`cross_validate_Kfold_SVM` on the port's own splitters
+(:mod:`grakel_torch.model_selection`), scorers
+(:mod:`grakel_torch.metrics`) and C-SVC (:mod:`grakel_torch.svm`, K15
+and K16 on a card).  ``networkx`` and ``pandas`` are imported by the
+converters that read them, never at module import.
 """
 
 from __future__ import annotations
@@ -19,11 +19,13 @@ from collections import defaultdict
 
 import numpy as np
 
-from .estimator import BaseEstimator, NotFittedError
+from .device import resolve_device
+from .estimator import BaseEstimator, NotFittedError, check_random_state
 from .graph import Graph
 
-__all__ = ["KMTransformer", "graph_from_networkx", "graph_from_pandas",
-           "graph_from_csv", "graph_from_torch_geometric"]
+__all__ = ["KMTransformer", "cross_validate_Kfold_SVM",
+           "graph_from_networkx", "graph_from_pandas", "graph_from_csv",
+           "graph_from_torch_geometric"]
 
 
 def _valid_matrix(K, transform=False):
@@ -92,6 +94,194 @@ class KMTransformer(BaseEstimator):
         super().set_params(**params)
         self._initialized["K"] = False
         return self
+
+
+# --------------------------------------------------------------------- #
+def _solve_stage(fits, evals, grams, dev):
+    """Every fit of a stage (a list of (gram index, train ids, labels, C)
+    with its eval ids) in one K15 launch and one K16 launch on ``dev``.
+    Returns (plan, coef on ``dev``, and rho, iters and pred as host
+    arrays), plus the stage's record: its problems, iterations and
+    active rows summed over the problems, largest problem and, on a
+    card, K15's routes; with ``cross_validate_Kfold_SVM.keep_last`` set,
+    also its plan and the kernels' inputs and outputs on ``dev``."""
+    import torch
+    from .ops import csvc
+    Kf, diag, K64 = grams
+    plan = csvc.plan_fits(fits, evals)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    smo_in = (Kf, diag, t(plan.ids), t(plan.sign), t(plan.off), t(plan.C),
+              t(plan.gram))
+    work = torch.zeros(plan.n_problems, dtype=torch.int64, device=dev)
+    coef, rho, iters = csvc.smo(*smo_in, work=work)
+    models, mgram = plan.models()
+    vote_in = (K64, t(plan.eval_ids), smo_in[2], coef, smo_in[4], rho,
+               t(models), t(mgram))
+    dec, pred = csvc.vote(*vote_in)
+    iters_h = iters.cpu().numpy()
+    record = {"problems": plan.n_problems, "max_rows": plan.max_rows,
+              "iterations": int(iters_h.astype(np.int64).sum()),
+              "active_rows": int(work.sum()),
+              "route": (dict(csvc.smo_cuda.last_route)
+                        if dev.type == "cuda" and plan.n_problems else None)}
+    if cross_validate_Kfold_SVM.keep_last:
+        record.update(plan=plan, smo_inputs=smo_in,
+                      smo_out=(coef, rho, iters), vote_inputs=vote_in,
+                      vote_out=(dec, pred))
+    return (plan, coef, rho.cpu().numpy(), iters_h,
+            pred.cpu().numpy()), record
+
+
+def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
+                             random_state=None, scoring="accuracy",
+                             fold_reduce=None):
+    """Repeated K-Fold CV of precomputed-kernel SVMs with inner model
+    selection: ``grakel_tpu.utils.cross_validate_Kfold_SVM``, the same
+    signature, draws and scores (reference utils.py:144-230).
+
+    ``K`` is a list whose elements are kernel matrices or iterables of
+    kernel matrices (a per-element grid of variants).  Every outer fold
+    picks the first (variant, C) with the strictly highest score on a
+    single 90/10 split of its training block, refits that model on the
+    whole block and scores the held-out fold; each iteration's fold
+    scores are collapsed with ``fold_reduce`` (default ``np.mean``).
+    ``C_grid`` defaults to ``10 ** [-7, -5, ..., 5] / len(y)``;
+    ``scoring`` is a name :func:`grakel_torch.metrics.get_scorer` knows
+    or a callable ``scorer(estimator, X, y)``, which receives a fitted
+    :class:`grakel_torch.svm.SVC`.  Returns one list of ``n_iter``
+    reduced scores per element of ``K``.
+
+    Every draw comes from ``check_random_state(random_state)`` in the
+    JAX function's order (the ``n_iter`` KFold shuffles, then a
+    ShuffleSplit a (element, iteration, fold)), and, as scikit-learn's
+    ``SVC.fit`` draws a libsvm seed from numpy's global generator, one
+    ``randint`` a fit from it, so ``random_state=None`` gives the same
+    folds too.  No draw depends on a fit, so all are taken first; then
+    every inner fit runs in one K15 launch and its predictions in one
+    K16 launch, and every refit likewise (two launches each a call).
+    Runs on the ambient device (:func:`grakel_torch.use_device`), else
+    the card; each distinct Gram is uploaded once, f32 for libsvm's Q and
+    f64 for the diagonal and the predictions."""
+    import torch
+    from .metrics import _PredictScorer, get_scorer
+    from .model_selection import KFold, ShuffleSplit
+    from .svm import SVC
+
+    y = np.asarray(y)
+    if C_grid is None:
+        Cs = (10.0 ** np.arange(-7, 7, 2)) / y.shape[0]
+    else:
+        Cs = np.asarray(C_grid, dtype=float).reshape(-1)
+    if fold_reduce is None:
+        fold_reduce = np.mean
+    elif not callable(fold_reduce):
+        raise ValueError("fold_reduce should be a callable")
+    rng = check_random_state(random_state)
+    scorer = get_scorer(scoring)
+
+    def variants_of(ks):
+        ok, M = _valid_matrix(ks, transform=True)
+        if ok:
+            return [M]
+        if hasattr(ks, "__iter__"):
+            checked = [_valid_matrix(k, transform=True) for k in ks]
+            if checked and all(ok for ok, _ in checked):
+                return [M for _, M in checked]
+        raise ValueError("Not a valid object for kernel matrix/ces")
+
+    grids = [variants_of(ks) for ks in K]
+    folds = [list(KFold(n_splits=n_splits, shuffle=True,
+                        random_state=rng).split(y)) for _ in range(n_iter)]
+    n = y.shape[0]
+    global_rng = check_random_state(None)
+    seed_max = np.iinfo("i").max
+    inner = []                     # [element][iteration][fold]
+    for variants in grids:
+        per_iter = []
+        for splits in folds:
+            per_fold = []
+            for train, _ in splits:
+                pos_tr, pos_val = next(iter(ShuffleSplit(
+                    n_splits=1, test_size=0.1,
+                    random_state=rng).split(train)))
+                per_fold.append((train[pos_tr], train[pos_val]))
+                for _ in range(len(variants) * len(Cs) + 1):
+                    global_rng.randint(seed_max)
+            per_iter.append(per_fold)
+        inner.append(per_iter)
+
+    dev = resolve_device()
+    mats, index = [], {}
+    for variants in grids:
+        for M in variants:
+            if id(M) not in index:
+                if M.shape[0] < n or M.shape[1] < n:
+                    raise IndexError("a kernel matrix of shape %s for %d "
+                                     "labels" % (M.shape, n))
+                index[id(M)] = len(mats)
+                mats.append(np.ascontiguousarray(M[:n, :n]))
+    gid = [[index[id(M)] for M in variants] for variants in grids]
+    K64 = torch.from_numpy(np.stack(mats) if mats else
+                           np.zeros((0, n, n))).to(dev)
+    grams = (K64.float(), torch.diagonal(K64, dim1=1, dim2=2).contiguous(),
+             K64)
+    records = []
+
+    def scores_of(fits, evals):
+        (plan, coef, rho, iters, pred), rec = _solve_stage(
+            fits, evals, grams, dev)
+        records.append(rec)
+        by_name = isinstance(scorer, _PredictScorer)
+        coef_h = None if by_name else coef.cpu().numpy()
+        out = []
+        for f, ((g, tr, _, C), ev) in enumerate(zip(fits, evals)):
+            if by_name:
+                e0, e1 = plan.eval_off[f], plan.eval_off[f + 1]
+                out.append(scorer.score(
+                    y[ev], plan.fits[f]["classes"][pred[e0:e1]]))
+            else:
+                est = SVC(C=C)._set_solution(plan, f, coef_h, rho, iters,
+                                             dev, tr.shape[0])
+                out.append(scorer(est, mats[g][np.ix_(ev, tr)], y[ev]))
+        return out
+
+    fits1, evals1, keys = [], [], []
+    for e, variants in enumerate(grids):
+        for t, splits in enumerate(folds):
+            for f in range(len(splits)):
+                sub_tr, sub_val = inner[e][t][f]
+                for v in range(len(variants)):
+                    for C in Cs:
+                        fits1.append((gid[e][v], sub_tr, y[sub_tr], C))
+                        evals1.append(sub_val)
+                        keys.append((e, t, f, v, C))
+    best = {}
+    for key, s in zip(keys, scores_of(fits1, evals1)):
+        b = best.setdefault(key[:3], (-np.inf, None))
+        if s > b[0]:
+            best[key[:3]] = (s, key[3:])
+    fits2, evals2 = [], []
+    for e, variants in enumerate(grids):
+        for t, splits in enumerate(folds):
+            for f, (train, test) in enumerate(splits):
+                v, C = best[(e, t, f)][1]
+                fits2.append((gid[e][v], train, y[train], C))
+                evals2.append(test)
+    scores2 = iter(scores_of(fits2, evals2))
+    cross_validate_Kfold_SVM.last = {"stages": records, "device": dev}
+    results = []
+    for e in range(len(grids)):
+        per_iter = []
+        for splits in folds:
+            per_iter.append(fold_reduce([next(scores2) for _ in splits]))
+        results.append(per_iter)
+    return results
+
+
+# the last call's stages (see _solve_stage); keep_last keeps their
+# tensors too (the smoke reads them), else they go with the call
+cross_validate_Kfold_SVM.last = None
+cross_validate_Kfold_SVM.keep_last = False
 
 
 # --------------------------------------------------------------------- #

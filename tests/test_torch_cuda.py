@@ -2690,3 +2690,164 @@ def test_launcher_ranks_across_cards(tmp_path):
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
                                            err_msg=case)
+
+
+# ---------------- K15 / K16: the C-SVC of cross_validate_Kfold_SVM ------ #
+
+def _csvc_gram(n, seed, dup=0):
+    """A seeded RBF Gram (full rank, well conditioned) with ``dup``
+    duplicated rows, as f64 numpy."""
+    rng = np.random.RandomState(seed)
+    phi = rng.randn(n - dup, 4)
+    if dup:
+        phi = np.concatenate([phi, phi[rng.randint(0, n - dup, dup)]])
+    sq = (phi ** 2).sum(1)
+    return np.exp(-0.3 * (sq[:, None] + sq[None, :] - 2 * phi @ phi.T))
+
+
+def _csvc_batch(n=120, seed=0, dup=6):
+    """A plan mixing binary and multiclass fits of several sizes and Cs,
+    a class of one sample among them, on one Gram."""
+    from grakel_torch.ops import csvc
+    K = _csvc_gram(n, seed, dup)
+    rng = np.random.RandomState(seed + 1)
+    fits, evals = [], []
+    for size, k, C in ((40, 2, 1e-7), (60, 2, 1.0), (n - 10, 2, 1e3),
+                       (50, 3, 0.1), (70, 5, 10.0), (30, 4, 1e5)):
+        idx = rng.permutation(n)
+        train, ev = idx[:size], idx[size:size + 10]
+        y = rng.randint(0, k, size)
+        y[:k] = np.arange(k)
+        if k == 4:
+            y[k:] = rng.randint(0, k - 1, size - k)   # class 3: one sample
+        fits.append((0, train, y, C))
+        evals.append(ev)
+    return K, csvc.plan_fits(fits, evals)
+
+
+def _csvc_inputs(K, plan, dev):
+    import torch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    K64 = t(K)
+    return (K64.float(), torch.diagonal(K64).contiguous(), t(plan.ids),
+            t(plan.sign), t(plan.off), t(plan.C), t(plan.gram)), K64
+
+
+@pytest.mark.parametrize("smem_rows", [None, 0, 55])
+def test_csvc_smo_kernel_bit_identical(cuda, smem_rows):
+    from grakel_torch.ops import csvc
+    K, plan = _csvc_batch()
+    args, _ = _csvc_inputs(K, plan, cuda)
+    before = dict(csvc.smo_cuda.route_launches)
+    got = csvc.smo_cuda(*args, smem_rows=smem_rows)
+    torch.cuda.synchronize()
+    want = csvc.smo_plain(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    lens = np.diff(plan.off)
+    limit = csvc.k15_smem_rows() if smem_rows is None else smem_rows
+    for route, used in (("shared", (lens <= limit).any()),
+                        ("global", (lens > limit).any())):
+        assert csvc.smo_cuda.route_launches[route] == before[route] + used
+
+
+@pytest.mark.parametrize("threads", [32, 64, 1024])
+def test_csvc_smo_kernel_small_problems_and_block_sizes(cuda, threads):
+    """Problems of l = 1 and 2 (one sample of a class, two samples) and
+    of l = 3 / 7 / 33, at several block sizes."""
+    from grakel_torch.ops import csvc
+    K = _csvc_gram(40, 3)
+    rows = [np.array([5]), np.array([3, 9]), np.array([1, 2, 3]),
+            np.arange(10, 17), np.arange(0, 33)]
+    signs = [np.array([1]), np.array([1, -1]), np.array([1, 1, -1]),
+             np.array([1, -1, 1, -1, 1, 1, -1]),
+             np.where(np.arange(33) % 3 == 0, 1, -1)]
+    off = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    K64 = t(K)
+    args = (K64.float(), torch.diagonal(K64).contiguous(),
+            t(np.concatenate(rows).astype(np.int32)),
+            t(np.concatenate(signs).astype(np.int8)),
+            t(off.astype(np.int32)),
+            t(np.array([1.0, 0.5, 10.0, 1e-3, 100.0])),
+            t(np.zeros(5, np.int32)))
+    got = csvc.smo_cuda(*args, threads=threads)
+    torch.cuda.synchronize()
+    want = csvc.smo_plain(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_csvc_vote_kernel_bit_identical(cuda):
+    from grakel_torch.ops import csvc
+    K, plan = _csvc_batch(seed=4)
+    args, K64 = _csvc_inputs(K, plan, cuda)
+    coef, rho, _ = csvc.smo_cuda(*args)
+    models = torch.from_numpy(plan.models()[0]).to(cuda)
+    ev = torch.from_numpy(plan.eval_ids).to(cuda)
+    before = csvc.vote_cuda.launches
+    dec, pred = csvc.vote_cuda(K64, ev, args[2], coef, args[4], rho, models)
+    torch.cuda.synchronize()
+    assert csvc.vote_cuda.launches == before + 1
+    dec0, pred0 = csvc.vote_plain(K64.cpu(), ev.cpu(), args[2].cpu(),
+                                  coef.cpu(), args[4].cpu(), rho.cpu(),
+                                  models.cpu())
+    assert torch.equal(dec.cpu(), dec0) and torch.equal(pred.cpu(), pred0)
+
+
+def test_csvc_wrappers_refuse_cpu_and_bad_inputs(cuda):
+    from grakel_torch.ops import csvc
+    K, plan = _csvc_batch(seed=2)
+    args, K64 = _csvc_inputs(K, plan, cuda)
+    with pytest.raises(ValueError):
+        csvc.smo_cuda(*(a.cpu() for a in args))
+    with pytest.raises(ValueError):                       # f64 Gram
+        csvc.smo_cuda(K64, *args[1:])
+    with pytest.raises(ValueError):                       # int64 ids
+        csvc.smo_cuda(args[0], args[1], args[2].long(), *args[3:])
+    with pytest.raises(ValueError):                       # C <= 0
+        csvc.smo_cuda(*args[:5], torch.zeros_like(args[5]), args[6])
+    with pytest.raises(ValueError):
+        csvc.smo_cuda(*args, smem_rows=10 ** 6)
+    coef, rho, _ = csvc.smo_cuda(*args)
+    models = torch.from_numpy(plan.models()[0]).to(cuda)
+    ev = torch.from_numpy(plan.eval_ids).to(cuda)
+    with pytest.raises(ValueError):
+        csvc.vote_cuda(K64.cpu(), ev.cpu(), args[2].cpu(), coef.cpu(),
+                       args[4].cpu(), rho.cpu(), models.cpu())
+    with pytest.raises(ValueError):                       # f32 Gram
+        csvc.vote_cuda(K64.float(), ev, args[2], coef, args[4], rho, models)
+
+
+def test_svc_on_card_matches_cpu(cuda):
+    from grakel_torch.svm import SVC
+    K = _csvc_gram(80, 7, dup=4)
+    y = np.random.RandomState(7).randint(0, 3, 80)
+    for C in (1e-3, 1.0, 1e4):
+        with use_device("cpu"):
+            a = SVC(C=C).fit(K[:60, :60], y[:60])
+        with use_device("cuda"):
+            b = SVC(C=C).fit(K[:60, :60], y[:60])
+        for attr in ("support_", "n_support_", "n_iter_", "dual_coef_",
+                     "intercept_"):
+            assert np.array_equal(getattr(a, attr), getattr(b, attr)), attr
+        assert np.array_equal(a.decision_function(K[60:, :60]),
+                              b.decision_function(K[60:, :60]))
+        assert np.array_equal(a.predict(K[60:, :60]), b.predict(K[60:, :60]))
+
+
+@pytest.mark.parametrize("k,scoring", [(2, "accuracy"), (4, "f1_macro")])
+def test_cross_validate_on_card_matches_cpu(cuda, k, scoring):
+    from grakel_torch.ops import csvc
+    K1, K2 = _csvc_gram(70, 11, dup=3), _csvc_gram(70, 12)
+    y = np.random.RandomState(13).randint(0, k, 70)
+    kw = dict(n_iter=2, n_splits=4, random_state=5, scoring=scoring,
+              C_grid=10.0 ** np.arange(-2, 4))
+    with use_device("cpu"):
+        want = grakel_torch.cross_validate_Kfold_SVM([K1, [K1, K2]], y, **kw)
+    l0, v0 = csvc.smo_cuda.launches, csvc.vote_cuda.launches
+    with use_device("cuda"):
+        got = grakel_torch.cross_validate_Kfold_SVM([K1, [K1, K2]], y, **kw)
+    assert got == want
+    assert csvc.smo_cuda.launches == l0 + 2
+    assert csvc.vote_cuda.launches == v0 + 2

@@ -1,0 +1,186 @@
+"""grakel_torch.cross_validate_Kfold_SVM on the CPU route against
+grakel_tpu's (scikit-learn's SVC, KFold, ShuffleSplit and scorers): the
+same draws, fits and scores, so the same numbers exactly."""
+
+import os
+import warnings
+
+import numpy as np
+import pytest
+from sklearn import model_selection as sk_ms
+
+import grakel_torch
+from grakel_torch import model_selection, use_device
+from grakel_torch.metrics import get_scorer_names
+from grakel_tpu.utils import cross_validate_Kfold_SVM as cv_jax
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def _gram(n, seed, k):
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, k, n)
+    phi = rng.randn(n, 4) + 0.7 * y[:, None]
+    sq = (phi ** 2).sum(1)
+    return np.exp(-0.25 * (sq[:, None] + sq[None, :] - 2 * phi @ phi.T)), y
+
+
+def _cv_port(*args, **kw):
+    with use_device("cpu"):
+        return grakel_torch.cross_validate_Kfold_SVM(*args, **kw)
+
+
+def _same(a, b):
+    assert len(a) == len(b)
+    for x, z in zip(a, b):
+        assert [float(v) for v in x] == [float(v) for v in z]
+
+
+@pytest.mark.parametrize("n,n_splits,seed", [(10, 2, 0), (37, 5, 1),
+                                             (100, 10, 2), (41, 41, 3)])
+def test_kfold_and_shuffle_split_draws_equal_sklearns(n, n_splits, seed):
+    """A shared RandomState consumed in the CV function's order: KFold
+    shuffles, then ShuffleSplits on each fold's train set."""
+    rs_a, rs_b = np.random.RandomState(seed), np.random.RandomState(seed)
+    y = np.zeros(n)
+    for _ in range(2):
+        fa = list(model_selection.KFold(n_splits, shuffle=True,
+                                        random_state=rs_a).split(y))
+        fb = list(sk_ms.KFold(n_splits, shuffle=True,
+                              random_state=rs_b).split(y))
+        assert len(fa) == len(fb) == n_splits
+        for (tra, tea), (trb, teb) in zip(fa, fb):
+            np.testing.assert_array_equal(tra, trb)
+            np.testing.assert_array_equal(tea, teb)
+            sa = next(iter(model_selection.ShuffleSplit(
+                n_splits=1, test_size=0.1, random_state=rs_a).split(tra)))
+            sb = next(iter(sk_ms.ShuffleSplit(
+                n_splits=1, test_size=0.1, random_state=rs_b).split(trb)))
+            for a, b in zip(sa, sb):
+                np.testing.assert_array_equal(a, b)
+    assert rs_a.randint(1 << 30) == rs_b.randint(1 << 30)
+
+
+def test_splitters_check_their_arguments():
+    with pytest.raises(ValueError):
+        list(model_selection.KFold(5).split(np.zeros(3)))
+    with pytest.raises(ValueError):
+        model_selection.KFold(1)
+    with pytest.raises(ValueError):
+        model_selection.KFold(3, random_state=0)
+    with pytest.raises(ValueError):
+        list(model_selection.ShuffleSplit(test_size=0.99).split(
+            np.zeros(2)))
+    a = list(model_selection.ShuffleSplit(3, test_size=4,
+                                          random_state=7).split(range(12)))
+    b = list(sk_ms.ShuffleSplit(3, test_size=4, random_state=7).split(
+        np.zeros(12)))
+    for x, z in zip(a, b):
+        np.testing.assert_array_equal(x[0], z[0])
+        np.testing.assert_array_equal(x[1], z[1])
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_cv_equals_jax_binary_and_multiclass(k):
+    K, y = _gram(48, k, k)
+    kw = dict(n_iter=2, n_splits=4, random_state=0)
+    _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
+
+
+def test_cv_equals_jax_variants_and_two_elements():
+    K1, y = _gram(40, 5, 2)
+    K2, _ = _gram(40, 6, 2)
+    kw = dict(n_iter=2, n_splits=3, random_state=4,
+              C_grid=[[0.1, 1.0], [10.0, 100.0]])
+    _same(_cv_port([K1, [K2, K1, 0.5 * K1]], y, **kw),
+          cv_jax([K1, [K2, K1, 0.5 * K1]], y, **kw))
+
+
+@pytest.mark.parametrize("seed", ["int", "randomstate", "none"])
+def test_cv_equals_jax_random_state_inputs(seed):
+    """An int, a RandomState, and None: scikit-learn's SVC.fit draws a
+    seed from numpy's global generator, so None shares it with the
+    folds."""
+    K, y = _gram(36, 9, 2)
+    kw = dict(n_iter=2, n_splits=3, C_grid=10.0 ** np.arange(-1, 3))
+    runs = []
+    for cv in (_cv_port, cv_jax):
+        np.random.seed(11)
+        rs = {"int": 3, "randomstate": np.random.RandomState(3),
+              "none": None}[seed]
+        runs.append((cv([K], y, random_state=rs, **kw),
+                     np.random.randint(1 << 30)))
+    _same(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+
+
+@pytest.mark.parametrize("scoring", get_scorer_names())
+def test_cv_equals_jax_every_scorer(scoring):
+    k = 2 if scoring in ("precision", "recall", "f1") else 3
+    K, y = _gram(30, 21, k)
+    kw = dict(n_iter=1, n_splits=3, random_state=2, scoring=scoring,
+              C_grid=[1e-3, 1.0, 1e2])
+    with warnings.catch_warnings():       # zero divisions warn in both
+        warnings.simplefilter("ignore")
+        _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
+
+
+def test_cv_equals_jax_callable_scorer_and_fold_reduce():
+    K, y = _gram(36, 14, 3)
+
+    def scorer(est, X, y_true):
+        # the estimator is a fitted SVC: read its predictions and a
+        # fitted attribute, the same in both packages
+        return float(np.mean(est.predict(X) == y_true)) \
+            + 1e-3 * float(np.sum(est.n_support_))
+
+    kw = dict(n_iter=2, n_splits=3, random_state=8, scoring=scorer,
+              fold_reduce=lambda s: float(np.max(s) - np.min(s)),
+              C_grid=[0.01, 1.0, 100.0])
+    _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
+
+
+def test_cv_equals_jax_mutag_protocol():
+    """docs/accuracy.md's protocol on MUTAG (WL h=5, normalized)."""
+    from grakel_tpu import WeisfeilerLehman
+    from grakel_tpu.datasets import read_data
+    b = read_data("MUTAG", path=DATA)
+    K = np.asarray(WeisfeilerLehman(n_iter=5, normalize=True)
+                   .fit_transform(b.data), np.float64)
+    y = np.asarray(b.target)
+    kw = dict(n_iter=3, n_splits=10, random_state=0,
+              C_grid=10.0 ** np.arange(-2, 5))
+    _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
+
+
+def test_cv_errors_raise_value_error():
+    K, y = _gram(20, 1, 2)
+    for kw in (dict(fold_reduce=3), dict(scoring="roc_auc"),
+               dict(scoring="no_such_scorer")):
+        with pytest.raises(ValueError):
+            _cv_port([K], y, n_iter=1, n_splits=2, **kw)
+    with pytest.raises(ValueError, match="kernel matrix"):
+        _cv_port([[np.zeros(3), "x"]], y, n_iter=1, n_splits=2)
+    with pytest.raises(ValueError, match="kernel matrix"):
+        cv_jax([[np.zeros(3), "x"]], y, n_iter=1, n_splits=2)
+    y1 = np.zeros(20, int)
+    y1[0] = 1            # a training set of one class in some fold
+    with pytest.raises(ValueError, match="greater than one"):
+        _cv_port([K], y1, n_iter=1, n_splits=2, random_state=0)
+    with pytest.raises(ValueError, match="greater than one"):
+        cv_jax([K], y1, n_iter=1, n_splits=2, random_state=0)
+
+
+def test_cv_unsupported_scorer_names_the_supported_set():
+    K, y = _gram(20, 1, 2)
+    with pytest.raises(ValueError, match="balanced_accuracy"):
+        _cv_port([K], y, n_iter=1, n_splits=2, scoring="neg_log_loss")
+
+
+def test_cv_records_two_stages():
+    K, y = _gram(30, 2, 3)
+    _cv_port([K], y, n_iter=2, n_splits=3, random_state=1,
+             C_grid=[0.1, 10.0])
+    stages = grakel_torch.cross_validate_Kfold_SVM.last["stages"]
+    assert [s["problems"] for s in stages] == [2 * 3 * 2 * 3, 2 * 3 * 3]
+    assert all(s["iterations"] > 0 and s["route"] is None for s in stages)
