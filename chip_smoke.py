@@ -135,23 +135,32 @@ main paths through the public entry points, at full data size:
   the card's on a cut: a 50,000-vertex graph among the first 100
   graphs (a CPU run of the full set is not needed to hold the route);
 * ``cross_validate_Kfold_SVM`` (``cv_phase``), the slice of K15 and K16
-  (``csrc/csvc.cu``: libsvm's SMO a block a binary problem, every fit
-  of a stage in one launch; the one-vs-one vote): ``cv_nci1scale``
-  (WL-VH h=5, normalized, on the 4110 NCI1-scale graphs, two classes
-  from their label shares with 20 % flipped, the default protocol: 700
-  inner fits of 3329 rows, 100 refits of 3699), ``cv_mutag`` (WL h=5 on
-  MUTAG, ``docs/accuracy.md``'s protocol; its scores must equal the JAX
-  package's, embedded as ``CV_MUTAG_JAX``, and the CPU route's) and
+  (``csrc/csvc.cu``: libsvm's SMO, one launch a route a stage, a warp a
+  problem up to ``K15_WARP_ROWS`` rows, a block a problem past it; the
+  one-vs-one vote, a block a run of eval points of a vote group):
+  ``cv_nci1scale`` (WL-VH h=5, normalized, on the 4110 NCI1-scale
+  graphs, two classes from their label shares with 20 % flipped, the
+  default protocol: 700 inner fits of 3329 rows, 100 refits of 3699, the
+  block route), ``cv_mutag`` (WL h=5 on MUTAG, ``docs/accuracy.md``'s
+  protocol, the block route; its scores must equal the JAX package's,
+  embedded as ``CV_MUTAG_JAX``, and the CPU route's) and
   ``cv_cuneiform`` (GraphHopper on Cuneiform, 30 classes, the same
-  protocol; equal to the CPU route on a cut: one iteration, C up to
-  10).  Each launches K15 and K16 exactly twice (the inner fits, the
-  refits); K15 and K16 must equal ``smo_plain`` and ``vote_plain`` bit
-  for bit on ``cv_nci1scale``'s first outer fold (7 inner fits, its
-  refit) and on the ``cv_cuneiform`` inner fit that holds the stage's
-  longest problem (K16 on all its pairs, K15 on its four pairs of the
-  most iterations, the plain version in a worker process while the
-  other paths run), and
-  K15 at 128-1024 threads a block its own launch.
+  protocol, the warp route; equal to the CPU route on a cut: one
+  iteration, C up to 10).  Each launches K15 once a route a stage (one
+  route each) and K16 once a stage; K15 and K16 must equal
+  ``smo_plain`` and ``vote_plain`` bit for bit on ``cv_nci1scale``'s
+  first outer fold (7 inner fits, its refit) and on the ``cv_cuneiform``
+  inner fit that holds the stage's longest problem (K16 on all its
+  pairs, K15 on its four pairs of the most iterations, the plain version
+  in a worker process while the other paths run); each stage's longest
+  problem is timed alone (its critical path).  ``SVC.fit``,
+  ``SVC.predict`` and the CV must raise scikit-learn's error on a Gram
+  with a NaN or an infinity before any K15 or K16 launch.  K15's warp
+  route limit is swept on Cuneiform's and MUTAG's inner stages, its
+  block route at 448-512 threads on NCI1's first fold and inner stage,
+  and its global route run on that fold, each equal bit for bit to the
+  path's launch.  ``python3 chip_smoke.py --phase cv`` runs the build and
+  this phase alone.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -387,14 +396,15 @@ time of a call:
   ``cv_nci1scale``'s inner fits as the path launched them (700
   problems, 370 eval points each; each stage of each ``cv_*`` path is
   run again under torch.profiler, and its kernel records give the
-  device ms, without the wrappers' host work), against their plain
-  versions on the first outer fold (above).  K15's bound: its inputs read and outputs
-  written once against 4 f64 operations (the G update's two products
-  and two sums) an active row an iteration, at 34 TFLOP/s, with the
-  count of two Q rows of l f32 entries read an iteration beside it
-  (``bound_ms_q_rows``); K16's: each needed Gram entry once against a
+  device ms by route, without the wrappers' host work), against their
+  plain versions on the first outer fold (above).  K15's bound: its
+  inputs read and outputs written once against 4 f64 operations (the G
+  update's two products and two sums) an active row an iteration, at 34
+  TFLOP/s, with the count of two Q rows of l f32 entries read an
+  iteration beside it (``bound_ms_q_rows``), and its critical path (the
+  longest problem alone); K16's: each needed Gram entry once against a
   product and a sum a nonzero coefficient an eval point.  No single
-  PyTorch call solves an SVM: no library time.  Their two kernels must
+  PyTorch call solves an SVM: no library time.  Their nine kernels must
   build without spills.
 
 NVIDIA's H100 SXM figures.  Output, on separate lines: the card, the
@@ -489,15 +499,16 @@ def ptxas_info(text):
     """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
     ``nvcc -Xptxas -v`` output; a K3, K1 or K10-K14 kernel is named by
     its function and template arguments (``fw_tile<4>``,
-    ``min_gram_kernel<64,8,4>``, ``lovasz_min_cone<56,1>``), another by
-    its mangled name."""
+    ``min_gram_kernel<64,8,4>``, ``lovasz_min_cone<56,1>``,
+    ``csvc_smo_block<4,1024>``), another by its mangled name."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"(fw_[a-z]+|min_gram_kernel|"
                           r"(?<=\d)svm_solve_[a-z]+|"
-                          r"(?<=\d)lovasz_(?!cu_)[a-z_]+)"
+                          r"(?<=\d)lovasz_(?!cu_)[a-z_]+|"
+                          r"(?<=\d)csvc_[a-z_]+)"
                           r"(I(?:L[ib]\d+E)+E)?", m.group(1))
             args = re.findall(r"L[ib](\d+)E",
                               (k.group(2) or "") if k else "")
@@ -604,9 +615,9 @@ def kernel_records(fn, reps, want=()):
     a few dozen of a session's kernel records on an H100, all of them in
     short sessions; 64 short spin kernels before the calls and after
     them, each batch waited for, take that loss instead.  A session has
-    still kept no record of the kernel measured (a K5 call, once):
-    when no record's name holds one of ``want``, the session is run
-    again, at most twice."""
+    still kept no record of the kernel measured (a K5 call, now and
+    then): when no record's name holds one of ``want``, the session is
+    run again, at most four times."""
     import torch
 
     def pad():
@@ -622,7 +633,7 @@ def kernel_records(fn, reps, want=()):
         pad()
 
     fn()
-    for _ in range(3):
+    for _ in range(5):
         _, _, by_name, counts = profiled(run)
         if not want or any(w in k for k in by_name for w in want):
             break
@@ -2894,6 +2905,7 @@ def _sub_batch(rec, f0, f1):
             "smo_out": (coef[r0:r1], rho[q0:q1], iters[q0:q1]),
             "vote": (K64, ev[e0:e1], ids[r0:r1], coef[r0:r1], off,
                      rho[q0:q1], m, mgram[f0:f1]),
+            "groups": _sub_groups(plan, f0, f1, r0, r1),
             "vote_out": (dec[d0:d0 + nd], pred[e0:e1]), "problems": q1 - q0}
 
 
@@ -2960,26 +2972,106 @@ def _held_to_plain(check, name, sub):
             "k15_max_abs_err": err, "k16_max_abs_err": err_v}
 
 
-def _csvc_device_ms(smo_in, vote_in):
-    """K15's and K16's device ms a call on a stage's inputs, from
-    torch.profiler's kernel records (one call each, after one warm
-    call): the wrappers' host work (fetches, planning, uploads) is left
-    out.  A session that kept only one of the two records is run again,
-    at most twice; a kernel still without one gives None."""
+def _csvc_device_ms(smo_in, vote_in, groups=None, **kw):
+    """K15's device ms a call on a stage's inputs by route ({route: ms}),
+    their sum, and K16's, from torch.profiler's kernel records (one call
+    each, after one warm call): the wrappers' host work (fetches,
+    planning, uploads, K16's compaction) is left out.  ``kw`` goes to
+    ``smo_cuda``.  A session that kept no record of a route the call
+    launched, or of K16, is run again, at most twice; a kernel still
+    without one is left out (K16: None)."""
     from grakel_torch.ops import csvc
 
-    def mean(kernel):
-        hits = [k for k in by_name if kernel in k]
-        n = sum(counts[k] for k in hits)
-        return sum(by_name[k] for k in hits) / n if n else None
+    def call():
+        csvc.smo_cuda(*smo_in, **kw)
+        csvc.vote_cuda(*vote_in, groups=groups)
+
     for _ in range(3):
-        by_name, counts = kernel_records(
-            lambda: (csvc.smo_cuda(*smo_in), csvc.vote_cuda(*vote_in)), 1,
-            ("csvc_smo", "csvc_vote"))
-        ms = mean("csvc_smo"), mean("csvc_vote")
-        if None not in ms:
+        by_name, _ = kernel_records(call, 1, ("csvc_smo", "csvc_vote"))
+        want = set(csvc.smo_cuda.last_route)
+        routes = {r: sum(v for k, v in by_name.items()
+                         if "csvc_smo_" + r in k) for r in csvc.ROUTES
+                  if any("csvc_smo_" + r in k for k in by_name)}
+        vote = (sum(v for k, v in by_name.items() if "csvc_vote" in k)
+                if any("csvc_vote" in k for k in by_name) else None)
+        if set(routes) == want and vote is not None:
             break
-    return ms
+    return routes, (sum(routes.values()) if routes else None), vote
+
+
+def _smo_ms(smo_in, **kw):
+    """K15's device ms of one ``smo_cuda`` call (its launches summed),
+    from the profiler's kernel records; None without a record."""
+    from grakel_torch.ops import csvc
+    by_name, _ = kernel_records(lambda: csvc.smo_cuda(*smo_in, **kw), 1,
+                                ("csvc_smo",))
+    hits = [v for k, v in by_name.items() if "csvc_smo" in k]
+    return sum(hits) if hits else None
+
+
+def _sub_groups(plan, f0, f1, r0, r1):
+    """The vote groups of fits ``f0 .. f1 - 1`` of a plan (rows ``r0 ..
+    r1 - 1``), rebased: a group cut by the range keeps its fits inside."""
+    groups, uni, upos = plan.vote_groups()
+    first = np.maximum(groups[:, 0], f0)
+    last = np.minimum(groups[:, 0] + groups[:, 1], f1)
+    keep = last > first
+    sub = groups[keep].copy()
+    sub[:, 0] = first[keep] - f0
+    sub[:, 1] = last[keep] - first[keep]
+    return sub, uni, upos[r0:r1]
+
+
+def _critical_path(rec):
+    """A stage's serial chain: its longest problem (by iterations) run
+    alone, the device ms that takes and the time an iteration takes on
+    it, beside the stage's K15 ms (``share``: when it nears 1, the chain
+    and not the card's throughput sets the stage's time)."""
+    iters = rec["smo_out"][2].cpu().numpy()
+    p = int(iters.argmax())
+    inputs, outputs = _pick_problems(
+        {"smo": rec["smo_inputs"], "smo_out": rec["smo_out"]}, [p])
+    ms = _smo_ms(inputs)
+    off = rec["plan"].off
+    return {"problem": p, "iterations": int(iters[p]),
+            "rows": int(off[p + 1] - off[p]), "ms_alone": ms,
+            "us_per_iteration": None if ms is None
+            else 1e3 * ms / max(int(iters[p]), 1)}
+
+
+def _raise_before_launch(check, Km, ym):
+    """SVC.fit, SVC.predict and the CV on a Gram with a NaN or an
+    infinity raise scikit-learn's error before K15 or K16 launch."""
+    from grakel_torch import cross_validate_Kfold_SVM as cv
+    from grakel_torch.ops import csvc
+    from grakel_torch.svm import SVC
+    K = np.ascontiguousarray(Km[:40, :40])
+    clf = SVC().fit(K[:30, :30], ym[:30])
+    out = {}
+    for name, value in (("nan", np.nan), ("inf", np.inf)):
+        Kb = K.copy()
+        Kb[3, 3] = value
+        l0 = (csvc.smo_cuda.launches, csvc.vote_cuda.launches)
+        msgs = []
+        Pb = K[30:, :30].copy()
+        Pb[4, 2] = value
+        for call in (lambda: SVC().fit(Kb, ym[:40]),
+                     lambda: clf.predict(Pb),
+                     lambda: cv([Kb], ym[:40], n_iter=1, n_splits=3,
+                                C_grid=[1.0], random_state=0)):
+            try:
+                call()
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e).split("\n")[0])
+        l1 = (csvc.smo_cuda.launches, csvc.vote_cuda.launches)
+        check(all(m is not None and m.startswith("Input X contains")
+                  for m in msgs) and l1 == l0,
+              "SVC.fit, SVC.predict and cross_validate_Kfold_SVM on a Gram "
+              "with %s raise scikit-learn's error before any K15 or K16 "
+              "launch (%s; launches %s -> %s)" % (name, msgs, l0, l1))
+        out[name] = msgs
+    return out
 
 
 def torch_equal(a, b):
@@ -3035,18 +3127,23 @@ def cv_phase(run_path, check, paths, train):
     """``cross_validate_Kfold_SVM`` on the card (the slice of K15 and
     K16): ``cv_nci1scale`` (WL-VH h=5, normalized, on the 4110
     NCI1-scale graphs with :func:`nci1_stand_in_labels`, the default
-    protocol: 700 inner fits of 3329 rows and 100 refits of 3699), K15
-    and K16 held to their plain versions on the first outer fold's 7
-    inner fits and its refit; ``cv_mutag`` (WL h=5 on MUTAG,
-    docs/accuracy.md's protocol), its scores equal to the JAX package's
-    and to the CPU route; ``cv_cuneiform`` (GraphHopper on Cuneiform, 30
-    classes, the same protocol: up to 435 pairs a fit), equal to the CPU
-    route on a cut, and K15 and K16 held to their plain versions on the
-    inner fit that holds the stage's longest problem (K15 on its four
-    pairs of the most iterations, in a worker process while the other
-    paths run; K16 on all its pairs).  Each path launches K15 and K16 twice (the inner
-    fits, the refits).  Returns K15's and K16's rows for the kernels
-    line."""
+    protocol: 700 inner fits of 3329 rows and 100 refits of 3699, K15's
+    block route), K15 and K16 held to their plain versions on the first
+    outer fold's 7 inner fits and its refit; ``cv_mutag`` (WL h=5 on
+    MUTAG, docs/accuracy.md's protocol, the block route), its scores
+    equal to the JAX package's and to the CPU route; ``cv_cuneiform``
+    (GraphHopper on Cuneiform, 30 classes, the same protocol: up to 435
+    pairs a fit, the warp route), equal to the CPU route on a cut, and
+    K15 and K16 held to their plain versions on the inner fit that holds
+    the stage's longest problem (K15 on its four pairs of the most
+    iterations, in a worker process while the other paths run; K16 on
+    all its pairs).  Each path launches K15 once a route a stage and K16
+    once a stage; each stage's K15 ms by route, K16 ms and critical path
+    (its longest problem alone) are measured.  Also: SVC and the CV
+    raise on a NaN or an infinity before any launch; the warp route's
+    row limit swept on Cuneiform's and MUTAG's inner stages, the block
+    route's threads on NCI1's, the global route on its first fold.
+    Returns K15's and K16's rows for the kernels line."""
     import multiprocessing
     import torch
     from grakel_torch import (GraphHopper, WeisfeilerLehman,
@@ -3056,41 +3153,81 @@ def cv_phase(run_path, check, paths, train):
 
     t0 = time.perf_counter()
     cv.keep_last = True        # each stage's tensors, for the holds below
+    data = os.path.join(HERE, "tests", "data")
+    mb = read_data("MUTAG", path=data)
+    Km = WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(mb.data)
+    ym = np.asarray(mb.target)
+    raised = _raise_before_launch(check, Km, ym)
 
-    def card_path(name, K, y, **kw):
+    def card_path(name, K, y, route, **kw):
+        for r in csvc.smo_cuda.route_launches:
+            csvc.smo_cuda.route_launches[r] = 0
         scores, secs, launches = run_path(name, lambda: cv([K], y, **kw))
         stages = cv.last["stages"]
-        check(launches["csvc_smo"] == 2 and launches["csvc_vote"] == 2,
-              "%s launched K15 and K16 twice each, once a stage (%d, %d)"
-              % (name, launches["csvc_smo"], launches["csvc_vote"]))
+        by_route = dict(csvc.smo_cuda.route_launches)
+        taken = [sorted(st["route"]) for st in stages]
+        check(launches["csvc_smo"] == sum(len(r) for r in taken)
+              and launches["csvc_vote"] == 2
+              and all(by_route[r] == sum(r in t for t in taken)
+                      for r in csvc.ROUTES)
+              and taken == [[route], [route]],
+              "%s launched K15 once a route a stage, all on its %s route, "
+              "and K16 once a stage (K15 %d: %s, stages' routes %s; K16 %d)"
+              % (name, route, launches["csvc_smo"], by_route, taken,
+                 launches["csvc_vote"]))
         check(len(scores) == 1 and len(scores[0]) == kw.get("n_iter", 10)
               and all(np.isfinite(s) and 0 <= s <= 1 for s in scores[0]),
               "%s: %d finite scores in [0, 1]" % (name, len(scores[0])))
-        info = {"wall_s": secs, "launches": launches, "scores": [
-            float(s) for s in scores[0]], "stages": []}
+        info = {"wall_s": secs, "launches": launches,
+                "k15_route_launches": by_route, "scores": [
+                    float(s) for s in scores[0]], "stages": []}
         for st in stages:
             row = {k: st[k] for k in ("problems", "max_rows", "iterations",
                                       "active_rows", "route")}
-            row["k15_ms"], row["k16_ms"] = _csvc_device_ms(
-                st["smo_inputs"], st["vote_inputs"])
-            check(row["k15_ms"] is not None and row["k16_ms"] is not None,
-                  "%s: the profiler kept K15's and K16's kernel records "
-                  "(%s, %s ms)" % (name, row["k15_ms"], row["k16_ms"]))
+            routes, row["k15_ms"], row["k16_ms"] = _csvc_device_ms(
+                st["smo_inputs"], st["vote_inputs"],
+                st["plan"].vote_groups())
+            row["k15_ms_by_route"] = routes
+            check(row["k15_ms"] is not None and row["k16_ms"] is not None
+                  and set(routes) == set(st["route"]),
+                  "%s: the profiler kept K15's records of each route and "
+                  "K16's (%s, %s ms)" % (name, routes, row["k16_ms"]))
+            row["critical_path"] = _critical_path(st)
+            cp = row["critical_path"]["ms_alone"]
+            row["critical_path"]["share"] = (
+                None if cp is None or not row["k15_ms"]
+                else cp / row["k15_ms"])
             info["stages"].append(row)
         paths[name] = info
         print("%s: %s" % (name, info), flush=True)
         return scores, stages
 
-    data = os.path.join(HERE, "tests", "data")
+    def warp_sweep(name, st, limits):
+        """K15 on a stage's inputs at several warp route limits: the
+        same bits as the path's launch, the device ms of each."""
+        out = {}
+        for w in limits:
+            got = csvc.smo_cuda(*st["smo_inputs"], warp_rows=w)
+            check(all(torch_equal(g, x) for g, x in zip(got, st["smo_out"])),
+                  "%s: K15 with the warp route up to %d rows == the path's "
+                  "launch bit for bit" % (name, w))
+            out[w] = {"ms": _smo_ms(st["smo_inputs"], warp_rows=w),
+                      "routes": sorted(csvc.smo_cuda.last_route)}
+        print("%s: K15's device ms on the inner stage by the warp route's "
+              "row limit %s" % (name, out), flush=True)
+        return out
+
     # ---------------- cv_cuneiform: 30 classes ------------------------- #
     cb = read_data("Cuneiform", path=data, prefer_attr_nodes=True)
     Kc = GraphHopper(normalize=True).fit_transform(cb.data)
     yc = np.asarray(cb.target)
-    _, stages = card_path("cv_cuneiform", Kc, yc, **CV_PROTOCOL)
+    _, stages = card_path("cv_cuneiform", Kc, yc, "warp", **CV_PROTOCOL)
+    paths["cv_cuneiform"]["warp_rows_sweep"] = warp_sweep(
+        "cv_cuneiform", stages[0], (0, 32, 64, 128, 192))
     # the inner fit that holds the stage's longest problem: K15's long
     # tail (shrinking, the unshrink and the gradient's reconstruction on
     # the multiclass path).  smo_plain runs a problem's iterations one
-    # by one (~1.5 ms each on the host), so the fit's four pairs of the
+    # by one (~1 ms each on the host), so the fit's four pairs of the
     # most iterations are held, in a worker process while the other
     # paths run
     plan = stages[0]["plan"]
@@ -3106,6 +3243,9 @@ def cv_phase(run_path, check, paths, train):
     it_tail = tail["smo_out"][2].cpu().numpy()
     sel = np.sort(np.argsort(-it_tail, kind="stable")[:4])
     tail_in, tail_out = _pick_problems(tail, sel)
+    check(max(int(x) for x in np.diff(tail["smo"][4].cpu().numpy())[sel])
+          <= csvc.K15_WARP_ROWS,
+          "cv_cuneiform: the tail hold's pairs took the warp route")
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         job = pool.apply_async(_smo_plain_job,
@@ -3127,7 +3267,8 @@ def cv_phase(run_path, check, paths, train):
         Kn = WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(train)
         gram_s = time.perf_counter() - t
         y = nci1_stand_in_labels(train)
-        _, stages = card_path("cv_nci1scale", Kn, y, random_state=0)
+        _, stages = card_path("cv_nci1scale", Kn, y, "block",
+                              random_state=0)
         st1, st2 = stages
         print("cv_nci1scale: the first outer fold's inner iterations %s, "
               "its refit's %s" % (st1["smo_out"][2][:7].tolist(),
@@ -3143,29 +3284,64 @@ def cv_phase(run_path, check, paths, train):
         sub2 = _sub_batch(st2, 0, 1)
         held1 = _held_to_plain(check, "cv_nci1scale inner fits", sub1)
         held2 = _held_to_plain(check, "cv_nci1scale refit", sub2)
-        # K15's block size on the first fold's problems: every size gives
-        # the same bits (the reductions keep libsvm's order of ties)
-        sweep, base = {}, sub1["smo_out"]
-        for T in (128, 256, 512, 1024):
+        # K15's block size on the block route (8 rows a thread from 417
+        # to 512 threads at 3329 rows): every size gives the same bits
+        # (the reductions keep libsvm's order of ties); the first fold's
+        # 7 problems and the whole inner stage
+        sweep, sweep_stage = {}, {}
+        for T in (448, 480, 512):
             out = csvc.smo_cuda(*sub1["smo"], threads=T)
-            check(all(torch_equal(g, w) for g, w in zip(out, base)),
+            check(all(torch_equal(g, w) for g, w in zip(out,
+                                                        sub1["smo_out"])),
                   "cv_nci1scale: K15 at %d threads == the path's launch "
                   "bit for bit" % T)
-            sweep[T] = device_ms(
-                lambda: csvc.smo_cuda(*sub1["smo"], threads=T), 1,
-                "csvc_smo")
-        print("cv_nci1scale: K15's device ms on the first fold's 7 "
-              "problems by threads a block %s" % sweep, flush=True)
-        first = _csvc_device_ms(sub1["smo"], sub1["vote"])
+            sweep[T] = _smo_ms(sub1["smo"], threads=T)
+            out = csvc.smo_cuda(*st1["smo_inputs"], threads=T)
+            check(all(torch_equal(g, w) for g, w in zip(out,
+                                                        st1["smo_out"])),
+                  "cv_nci1scale: K15 on the inner stage at %d threads == "
+                  "the path's launch bit for bit" % T)
+            sweep_stage[T] = _smo_ms(st1["smo_inputs"], threads=T)
+        print("cv_nci1scale: K15's device ms by threads a block on the "
+              "first fold's 7 problems %s, on the inner stage %s"
+              % (sweep, sweep_stage), flush=True)
+        # the global route (the first design's kernel) on the same 7
+        # problems
+        out = csvc.smo_cuda(*sub1["smo"], block_rows=0)
+        check(all(torch_equal(g, w) for g, w in zip(out, sub1["smo_out"]))
+              and list(csvc.smo_cuda.last_route) == ["global"],
+              "cv_nci1scale: K15's global route on the first fold == the "
+              "path's launch bit for bit")
+        global_ms = _smo_ms(sub1["smo"], block_rows=0)
+        first = _csvc_device_ms(sub1["smo"], sub1["vote"], sub1["groups"])
+        stage_ms = {p: [(s["k15_ms"], s["k16_ms"]) for s in paths[p][
+            "stages"]] for p in ("cv_cuneiform", "cv_nci1scale")}
         k15 = {"ms": paths["cv_nci1scale"]["stages"][0]["k15_ms"],
+               "ms_by_route": {
+                   "block": paths["cv_nci1scale"]["stages"][0]["k15_ms"],
+                   "warp": paths["cv_cuneiform"]["stages"][0]["k15_ms"],
+                   "global": global_ms},
+               "ms_by_route_shapes": "block: cv_nci1scale's inner stage "
+                                     "(700 problems of 3329 rows); warp: "
+                                     "cv_cuneiform's (91,350 of ~18); "
+                                     "global: cv_nci1scale's first fold "
+                                     "(7 problems)",
+               "stage_ms": stage_ms,
+               "critical_path": {p: [s["critical_path"] for s in paths[p][
+                   "stages"]] for p in ("cv_cuneiform", "cv_nci1scale")},
                "threads_sweep_first_fold_ms": sweep,
-               "ms_first_fold": first[0],
+               "threads_sweep_stage_ms": sweep_stage,
+               "warp_rows_sweep_cuneiform": paths["cv_cuneiform"][
+                   "warp_rows_sweep"],
+               "ms_first_fold": first[1], "ms_global_first_fold": global_ms,
                "plain_ms": held1["smo_plain_ms"],
                "max_abs_err": max(held1["k15_max_abs_err"],
                                   held2["k15_max_abs_err"]),
                **_k15_bounds(st1)}
         k16 = {"ms": paths["cv_nci1scale"]["stages"][0]["k16_ms"],
-               "ms_first_fold": first[1],
+               "stage_ms": {p: [x[1] for x in v]
+                            for p, v in stage_ms.items()},
+               "ms_first_fold": first[2],
                "plain_ms": held1["vote_plain_ms"],
                "max_abs_err": max(held1["k16_max_abs_err"],
                                   held2["k16_max_abs_err"],
@@ -3179,14 +3355,18 @@ def cv_phase(run_path, check, paths, train):
         torch.cuda.empty_cache()
 
         # -------------- cv_mutag: the JAX package's scores ------------- #
-        mb = read_data("MUTAG", path=data)
-        Km = WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(
-            mb.data)
-        ym = np.asarray(mb.target)
-        scores, _ = card_path("cv_mutag", Km, ym, **CV_PROTOCOL)
+        scores, stages = card_path("cv_mutag", Km, ym, "block",
+                                   **CV_PROTOCOL)
         check([float(s) for s in scores[0]] == CV_MUTAG_JAX,
               "cv_mutag scores == the JAX package's %s bit for bit (%s)"
               % (CV_MUTAG_JAX, [float(s) for s in scores[0]]))
+        paths["cv_mutag"]["warp_rows_sweep"] = warp_sweep(
+            "cv_mutag", stages[0], (0, 64, 128, 192))
+        k15["warp_rows_sweep_mutag"] = paths["cv_mutag"]["warp_rows_sweep"]
+        k15["stage_ms"]["cv_mutag"] = [(s["k15_ms"], s["k16_ms"])
+                                       for s in paths["cv_mutag"]["stages"]]
+        del stages
+        cv.last = None
         t = time.perf_counter()
         with use_device("cpu"):
             cpu = cv([Km], ym, **CV_PROTOCOL)
@@ -3230,6 +3410,7 @@ def cv_phase(run_path, check, paths, train):
     print("cv_cuneiform tail hold: %s" % paths["cv_cuneiform"]["tail_hold"],
           flush=True)
     paths["cv_cuneiform"]["classes"] = int(np.unique(yc).shape[0])
+    paths["cv_mutag"]["raise_before_launch"] = raised
     cv.keep_last, cv.last = False, None
     paths["cv_cuneiform"]["phase_s"] = time.perf_counter() - t0
     common = {"route": "cuda", "source": "grakel_torch/csrc/csvc.cu",
@@ -3238,7 +3419,7 @@ def cv_phase(run_path, check, paths, train):
                          "takes its one-vs-one vote",
               "shapes": "cv_nci1scale stage 1: 700 binary problems of "
                         "3329 rows, 370 eval points each (ms: the "
-                        "profiler's kernel record); ms_first_fold and "
+                        "profiler's kernel records); ms_first_fold and "
                         "plain_ms (the plain version on the CPU, host "
                         "ms) on the first outer fold's 7 problems"}
     return [
@@ -3382,10 +3563,12 @@ def main():
     from grakel_torch.ops import csvc as csvc_ops
     k1516_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
                    if "csvc" in k}
-    check(len(k1516_ptxas) == 2 and all(
+    check(len(k1516_ptxas) == 9 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0
         for v in k1516_ptxas.values()),
-        "K15's and K16's kernels built without spills: %s" % k1516_ptxas)
+        "K15's 8 kernels (route warp; route block at 1, 2, 3, 4, 6 and 8 "
+        "rows a thread; route global) and K16's built without spills: %s"
+        % k1516_ptxas)
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "threshold_expand": intersect.threshold_expand_cuda,
@@ -3439,6 +3622,27 @@ def main():
         n_graphs=N_GRAPHS + N_HELD, n_graphs_test=N_HELD,
         r_vertices=(10, 50), r_connectivity=(0.07, 0.15),
         random_state=SEED, features=("nl", N_LABELS))
+    if sys.argv[1:] == ["--phase", "cv"]:
+        # the cross-validation phase alone (K15, K16): its paths, holds,
+        # sweeps and kernel rows
+        rows = cv_phase(run_path, check, paths, train)
+        for row in rows:
+            row["launches"] = sum(p["launches"][row["name"]]
+                                  for p in paths.values())
+            row["ptxas"] = {k: v for k, v in k1516_ptxas.items()
+                            if row["name"] in k}
+        print(json.dumps({"paths": paths}), flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print("chip_smoke: %.1f s in all, the build included"
+              % (time.perf_counter() - t_start), flush=True)
+        print("nvidia-smi: %s" % smi, flush=True)
+        if check.failed:
+            print("chip_smoke: %d check(s) failed: %s"
+                  % (len(check.failed), "; ".join(check.failed)),
+                  file=sys.stderr)
+            return 1
+        print(json.dumps({"ok": True, "phase": "cv"}))
+        return 0
 
     def wl_path():
         wl = WeisfeilerLehman(n_iter=5, normalize=False)

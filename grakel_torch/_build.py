@@ -95,10 +95,10 @@ _SIGNATURES = {
     "grakel_lovasz_min_cone": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grakel_lovasz_cone_quotient_check": [_P, _I, _P, _P],
     "grakel_lovasz_jacobi_eigh": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "grakel_csvc_smo": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                        _P, _P, _P, _P, _P],
-    "grakel_csvc_vote": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                         _P, _P, _P],
+    "grakel_csvc_smo": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P],
+    "grakel_csvc_vote": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

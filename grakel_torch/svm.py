@@ -8,8 +8,10 @@ card, its plain version on the CPU), the same fitted attributes (``classes_``,
 ``n_iter_``) and the same ``predict`` and ``decision_function`` (K16).
 It runs on the ambient device (:func:`grakel_torch.use_device`), else
 the card, never falling back to the CPU.  Any kernel other than ``"precomputed"``
-raises.  It is what :func:`grakel_torch.utils.cross_validate_Kfold_SVM`
-fits, and what a callable scorer there receives.
+raises, and so does a Gram that holds NaN or infinity (scikit-learn's
+messages, checked on the host before any upload).  It is what
+:func:`grakel_torch.utils.cross_validate_Kfold_SVM` fits, and what a
+callable scorer there receives.
 """
 
 from __future__ import annotations
@@ -21,7 +23,36 @@ from .device import resolve_device
 from .estimator import BaseEstimator, NotFittedError, check_random_state
 from .ops import csvc
 
-__all__ = ["SVC"]
+__all__ = ["SVC", "nonfinite_message", "NAN_MESSAGE", "INF_MESSAGE"]
+
+# scikit-learn 1.9's messages (sklearn.utils.validation._assert_all_finite)
+NAN_MESSAGE = (
+    "Input X contains NaN.\nSVC does not accept missing values encoded as "
+    "NaN natively. For supervised learning, you might want to consider "
+    "sklearn.ensemble.HistGradientBoostingClassifier and Regressor which "
+    "accept missing values encoded as NaNs natively. Alternatively, it is "
+    "possible to preprocess the data, for instance by using an imputer "
+    "transformer in a pipeline or drop samples with missing values. See "
+    "https://scikit-learn.org/stable/modules/impute.html You can find a "
+    "list of all estimators that handle NaN values at the following page: "
+    "https://scikit-learn.org/stable/modules/impute.html"
+    "#estimators-that-handle-nan-values")
+INF_MESSAGE = ("Input X contains infinity or a value too large for "
+               "dtype('float64').")
+
+
+def nonfinite_message(X):
+    """scikit-learn's ``ValueError`` message for a Gram ``X`` that holds
+    NaN (that message first) or infinity, else None."""
+    if np.isfinite(X).all():
+        return None
+    return NAN_MESSAGE if np.isnan(X).any() else INF_MESSAGE
+
+
+def _check_finite(X):
+    msg = nonfinite_message(X)
+    if msg is not None:
+        raise ValueError(msg)
 
 
 def _ovr_decision(predictions, confidences, n_classes):
@@ -65,6 +96,7 @@ class SVC(BaseEstimator):
                              "kernel='precomputed', got %r" % (self.kernel,))
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y).reshape(-1)
+        _check_finite(X)
         if X.ndim != 2 or X.shape[0] != X.shape[1]:
             raise ValueError("Precomputed matrix must be a square matrix. "
                              "Input is a %s matrix." % "x".join(
@@ -148,6 +180,7 @@ class SVC(BaseEstimator):
                                  "'fit' with appropriate arguments before "
                                  "using this estimator.")
         X = np.asarray(X, dtype=np.float64)
+        _check_finite(X)
         if X.ndim != 2 or X.shape[1] != self.shape_fit_[0]:
             raise ValueError("X.shape[1] = %d should be equal to %d, the "
                              "number of samples at training time"

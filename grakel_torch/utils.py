@@ -97,6 +97,34 @@ class KMTransformer(BaseEstimator):
 
 
 # --------------------------------------------------------------------- #
+class _NonFinite:
+    """The NaN and infinite entries of a Gram, to find the first block of
+    the reference's loop that holds one."""
+
+    def __init__(self, M):
+        r, c = np.nonzero(~np.isfinite(M))
+        self.r, self.c, self.n = r, c, M.shape[0]
+        self.nan = np.isnan(M[r, c])
+        self.any = bool(r.size)
+
+    def message(self, fit, ev):
+        """scikit-learn's message for the first of the fit block
+        ``M[fit, fit]`` and the eval block ``M[ev, fit]`` that holds NaN
+        or infinity (NaN first within a block), else None."""
+        if not self.any:
+            return None
+        from .svm import INF_MESSAGE, NAN_MESSAGE
+        cols = np.zeros(self.n, bool)
+        cols[fit] = True
+        for rows in (fit, ev):
+            m = np.zeros(self.n, bool)
+            m[rows] = True
+            hit = m[self.r] & cols[self.c]
+            if hit.any():
+                return NAN_MESSAGE if self.nan[hit].any() else INF_MESSAGE
+        return None
+
+
 def _solve_stage(fits, evals, grams, dev):
     """Every fit of a stage (a list of (gram index, train ids, labels, C)
     with its eval ids) in one K15 launch and one K16 launch on ``dev``.
@@ -117,7 +145,7 @@ def _solve_stage(fits, evals, grams, dev):
     models, mgram = plan.models()
     vote_in = (K64, t(plan.eval_ids), smo_in[2], coef, smo_in[4], rho,
                t(models), t(mgram))
-    dec, pred = csvc.vote(*vote_in)
+    dec, pred = csvc.vote(*vote_in, groups=plan.vote_groups())
     iters_h = iters.cpu().numpy()
     record = {"problems": plan.n_problems, "max_rows": plan.max_rows,
               "iterations": int(iters_h.astype(np.int64).sum()),
@@ -161,7 +189,13 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
     K16 launch, and every refit likewise (two launches each a call).
     Runs on the ambient device (:func:`grakel_torch.use_device`), else
     the card; each distinct Gram is uploaded once, f32 for libsvm's Q and
-    f64 for the diagonal and the predictions."""
+    f64 for the diagonal and the predictions.
+
+    Like scikit-learn's ``SVC``, a fit or an evaluation whose Gram block
+    holds NaN or infinity raises ``ValueError`` with scikit-learn's
+    message: the first such fit in the JAX function's loop order decides
+    it (its fit block, then its eval block; NaN before infinity), checked
+    on the host before any launch."""
     import torch
     from .metrics import _PredictScorer, get_scorer
     from .model_selection import KFold, ShuffleSplit
@@ -221,7 +255,13 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
                 index[id(M)] = len(mats)
                 mats.append(np.ascontiguousarray(M[:n, :n]))
     gid = [[index[id(M)] for M in variants] for variants in grids]
-    K64 = torch.from_numpy(np.stack(mats) if mats else
+    # a Gram's NaN and infinite entries: the fits and evaluations that read
+    # one raise scikit-learn's error below, before any launch; the others
+    # never read them, so the upload holds 0 in their place
+    bad = [_NonFinite(M) for M in mats]
+    up = [np.where(np.isfinite(M), M, 0.0) if b.any else M
+          for M, b in zip(mats, bad)]
+    K64 = torch.from_numpy(np.stack(up) if up else
                            np.zeros((0, n, n))).to(dev)
     grams = (K64.float(), torch.diagonal(K64, dim1=1, dim2=2).contiguous(),
              K64)
@@ -255,11 +295,49 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
                         fits1.append((gid[e][v], sub_tr, y[sub_tr], C))
                         evals1.append(sub_val)
                         keys.append((e, t, f, v, C))
-    best = {}
-    for key, s in zip(keys, scores_of(fits1, evals1)):
-        b = best.setdefault(key[:3], (-np.inf, None))
-        if s > b[0]:
-            best[key[:3]] = (s, key[3:])
+    def pick(keys, scores):
+        best = {}
+        for key, s in zip(keys, scores):
+            b = best.setdefault(key[:3], (-np.inf, None))
+            if s > b[0]:
+                best[key[:3]] = (s, key[3:])
+        return best
+
+    scores1 = None
+    if any(b.any for b in bad):
+        # the reference's order: a fold's inner fits (each its fit block,
+        # then its eval block), then its refit on the chosen variant
+        fail, n1 = None, len(fits1)
+        for x, (g, tr, _, _) in enumerate(fits1):
+            fail = bad[g].message(tr, evals1[x])
+            if fail is not None:
+                n1 = keys.index(keys[x][:3] + (0, Cs[0]))
+                break
+        refit = {}
+        for key in keys[:n1]:
+            e, t, f = key[:3]
+            if key[3:] == (0, Cs[0]):
+                train, test = folds[t][f]
+                refit[(e, t, f)] = [bad[g].message(train, test)
+                                    for g in gid[e]]
+        best = None
+        for fk, ms in refit.items():
+            if all(m is None for m in ms):
+                continue
+            if len(set(ms)) > 1 and best is None:
+                # which refit raises depends on the chosen variant: the
+                # inner fits before the failing fold, whose blocks are
+                # finite, decide it
+                scores1 = scores_of(fits1[:n1], evals1[:n1])
+                best = pick(keys[:n1], scores1)
+            m = ms[0] if len(set(ms)) == 1 else ms[best[fk][1][0]]
+            if m is not None:
+                raise ValueError(m)
+        if fail is not None:
+            raise ValueError(fail)
+    if scores1 is None:
+        scores1 = scores_of(fits1, evals1)
+    best = pick(keys, scores1)
     fits2, evals2 = [], []
     for e, variants in enumerate(grids):
         for t, splits in enumerate(folds):

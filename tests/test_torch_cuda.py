@@ -2733,35 +2733,55 @@ def _csvc_inputs(K, plan, dev):
             t(plan.sign), t(plan.off), t(plan.C), t(plan.gram)), K64
 
 
-@pytest.mark.parametrize("smem_rows", [None, 0, 55])
-def test_csvc_smo_kernel_bit_identical(cuda, smem_rows):
+def _csvc_route_launches(csvc, before, lens, warp_rows, block_rows):
+    routes = set(csvc.k15_routes(lens, warp_rows, block_rows).tolist())
+    for r, name in enumerate(csvc.ROUTES):
+        assert csvc.smo_cuda.route_launches[name] == before[name] + (
+            r in routes), name
+
+
+@pytest.mark.parametrize("warp_rows,block_rows", [
+    (None, None), (0, None), (0, 0), (192, None), (20, 55), (36, 36)])
+def test_csvc_smo_kernel_bit_identical(cuda, warp_rows, block_rows):
+    """Every route, alone and mixed, on binary and multiclass fits (a
+    class of one sample, a C = 1e3 pair of 5,000-odd iterations through
+    shrinking, the unshrink and the reconstruction), one launch a route,
+    bit for bit."""
     from grakel_torch.ops import csvc
     K, plan = _csvc_batch()
     args, _ = _csvc_inputs(K, plan, cuda)
     before = dict(csvc.smo_cuda.route_launches)
-    got = csvc.smo_cuda(*args, smem_rows=smem_rows)
+    l0 = csvc.smo_cuda.launches
+    got = csvc.smo_cuda(*args, warp_rows=warp_rows, block_rows=block_rows)
     torch.cuda.synchronize()
     want = csvc.smo_plain(*(a.cpu() for a in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     lens = np.diff(plan.off)
-    limit = csvc.k15_smem_rows() if smem_rows is None else smem_rows
-    for route, used in (("shared", (lens <= limit).any()),
-                        ("global", (lens > limit).any())):
-        assert csvc.smo_cuda.route_launches[route] == before[route] + used
+    _csvc_route_launches(csvc, before, lens, warp_rows, block_rows)
+    assert csvc.smo_cuda.launches == l0 + len(csvc.smo_cuda.last_route)
+    assert int(want[2].max()) > 1000
 
 
-@pytest.mark.parametrize("threads", [32, 64, 1024])
+@pytest.mark.parametrize("threads", [32, 64, 640])
 def test_csvc_smo_kernel_small_problems_and_block_sizes(cuda, threads):
     """Problems of l = 1 and 2 (one sample of a class, two samples) and
-    of l = 3 / 7 / 33, at several block sizes."""
+    of l = 3 / 7 / 33 / 64 / 65 (both sides of the warp route's default
+    limit), on the warp route and at several block sizes of the block and
+    global routes."""
     from grakel_torch.ops import csvc
-    K = _csvc_gram(40, 3)
+    K = _csvc_gram(80, 3)
     rows = [np.array([5]), np.array([3, 9]), np.array([1, 2, 3]),
-            np.arange(10, 17), np.arange(0, 33)]
+            np.arange(10, 17), np.arange(0, 33), np.arange(5, 69),
+            np.arange(15, 80)]
+    rng = np.random.RandomState(threads)
     signs = [np.array([1]), np.array([1, -1]), np.array([1, 1, -1]),
              np.array([1, -1, 1, -1, 1, 1, -1]),
-             np.where(np.arange(33) % 3 == 0, 1, -1)]
+             np.where(np.arange(33) % 3 == 0, 1, -1),
+             np.where(rng.rand(64) < 0.5, 1, -1),
+             np.where(rng.rand(65) < 0.4, 1, -1)]
+    for sg in signs[-2:]:
+        sg[:2] = (1, -1)
     off = np.concatenate([[0], np.cumsum([r.size for r in rows])])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     K64 = t(K)
@@ -2769,30 +2789,83 @@ def test_csvc_smo_kernel_small_problems_and_block_sizes(cuda, threads):
             t(np.concatenate(rows).astype(np.int32)),
             t(np.concatenate(signs).astype(np.int8)),
             t(off.astype(np.int32)),
-            t(np.array([1.0, 0.5, 10.0, 1e-3, 100.0])),
-            t(np.zeros(5, np.int32)))
+            t(np.array([1.0, 0.5, 10.0, 1e-3, 100.0, 3.0, 1e4])),
+            t(np.zeros(7, np.int32)))
+    want = csvc.smo_plain(*(a.cpu() for a in args))
+    for kw in (dict(threads=threads), dict(threads=threads, warp_rows=0),
+               dict(threads=threads, warp_rows=0, block_rows=0)):
+        got = csvc.smo_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), kw
+    assert set(csvc.k15_routes([64, 65]).tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("threads", [None, 256, 512])
+def test_csvc_smo_kernel_past_1000_rows(cuda, threads):
+    """A 1,500-row problem (shrinking every 1,000 iterations, the block
+    route at 4, 6 and 3 rows a thread) beside short ones."""
+    from grakel_torch.ops import csvc
+    K = _csvc_gram(1600, 21, dup=40)
+    rng = np.random.RandomState(22)
+    y = (K[:, :3].sum(1) + 0.3 * rng.randn(1600) > np.median(
+        K[:, :3].sum(1))).astype(int)
+    fits = [(0, np.arange(1500), y[:1500], 10.0),
+            (0, np.arange(100, 400), y[100:400], 1.0)]
+    plan = csvc.plan_fits(fits)
+    args, _ = _csvc_inputs(K, plan, cuda)
     got = csvc.smo_cuda(*args, threads=threads)
     torch.cuda.synchronize()
     want = csvc.smo_plain(*(a.cpu() for a in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    assert csvc.smo_cuda.last_route["block"]["max_rows"] == 1500
 
 
-def test_csvc_vote_kernel_bit_identical(cuda):
+def _vote_case(cuda, K, plan, groups):
     from grakel_torch.ops import csvc
-    K, plan = _csvc_batch(seed=4)
     args, K64 = _csvc_inputs(K, plan, cuda)
     coef, rho, _ = csvc.smo_cuda(*args)
-    models = torch.from_numpy(plan.models()[0]).to(cuda)
-    ev = torch.from_numpy(plan.eval_ids).to(cuda)
+    models, mg = plan.models()
+    vin = (K64, torch.from_numpy(plan.eval_ids).to(cuda), args[2], coef,
+           args[4], rho, torch.from_numpy(models).to(cuda),
+           torch.from_numpy(mg).to(cuda))
     before = csvc.vote_cuda.launches
-    dec, pred = csvc.vote_cuda(K64, ev, args[2], coef, args[4], rho, models)
+    dec, pred = csvc.vote_cuda(*vin, groups=plan.vote_groups() if groups
+                               else None)
     torch.cuda.synchronize()
     assert csvc.vote_cuda.launches == before + 1
-    dec0, pred0 = csvc.vote_plain(K64.cpu(), ev.cpu(), args[2].cpu(),
-                                  coef.cpu(), args[4].cpu(), rho.cpu(),
-                                  models.cpu())
+    dec0, pred0 = csvc.vote_plain(*(v.cpu() for v in vin))
     assert torch.equal(dec.cpu(), dec0) and torch.equal(pred.cpu(), pred0)
+    return coef
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_csvc_vote_kernel_bit_identical(cuda, chunk, monkeypatch):
+    """K16 on single models and on vote groups (the Cs of a split, up to
+    30 classes: 435 pairs), rows of zero coefficient skipped, the group
+    rows staged in one chunk or many."""
+    from grakel_torch.ops import csvc
+    if chunk:
+        monkeypatch.setattr(csvc, "K16_CHUNK", chunk)
+    K, plan = _csvc_batch(seed=4)
+    _vote_case(cuda, K, plan, False)
+    K = _csvc_gram(200, 9, dup=8)
+    rng = np.random.RandomState(10)
+    fits, evals = [], []
+    for k in (2, 5, 30):
+        idx = rng.permutation(200)
+        tr, ev = idx[:150], idx[150:190]
+        y = rng.randint(0, k, 150)
+        y[:k] = np.arange(k)
+        for C in (1e-3, 1.0, 100.0):
+            fits.append((0, tr, y, C))
+            evals.append(ev)
+    plan = csvc.plan_fits(fits, evals)
+    assert plan.groups[:, 1].tolist() == [3, 3, 3]
+    for groups in (True, False):
+        coef = _vote_case(cuda, K, plan, groups)
+    assert bool((coef == 0).any()) and bool((coef != 0).any())
 
 
 def test_csvc_wrappers_refuse_cpu_and_bad_inputs(cuda):
@@ -2808,7 +2881,9 @@ def test_csvc_wrappers_refuse_cpu_and_bad_inputs(cuda):
     with pytest.raises(ValueError):                       # C <= 0
         csvc.smo_cuda(*args[:5], torch.zeros_like(args[5]), args[6])
     with pytest.raises(ValueError):
-        csvc.smo_cuda(*args, smem_rows=10 ** 6)
+        csvc.smo_cuda(*args, block_rows=10 ** 6)
+    with pytest.raises(ValueError):
+        csvc.smo_cuda(*args, warp_rows=0, threads=48)
     coef, rho, _ = csvc.smo_cuda(*args)
     models = torch.from_numpy(plan.models()[0]).to(cuda)
     ev = torch.from_numpy(plan.eval_ids).to(cuda)
@@ -2817,6 +2892,32 @@ def test_csvc_wrappers_refuse_cpu_and_bad_inputs(cuda):
                        args[4].cpu(), rho.cpu(), models.cpu())
     with pytest.raises(ValueError):                       # f32 Gram
         csvc.vote_cuda(K64.float(), ev, args[2], coef, args[4], rho, models)
+
+
+@pytest.mark.parametrize("where", ["gram", "diag", "vote"])
+def test_csvc_wrappers_refuse_non_finite_grams(cuda, where):
+    """NaN or infinity in a Gram the batch reads: ValueError before any
+    launch (libsvm's loop would never end)."""
+    from grakel_torch.ops import csvc
+    K, plan = _csvc_batch(seed=3)
+    args, K64 = _csvc_inputs(K, plan, cuda)
+    coef, rho, _ = csvc.smo_cuda(*args)
+    models = torch.from_numpy(plan.models()[0]).to(cuda)
+    ev = torch.from_numpy(plan.eval_ids).to(cuda)
+    l0, v0 = csvc.smo_cuda.launches, csvc.vote_cuda.launches
+    Kf, diag = args[0].clone(), args[1].clone()
+    with pytest.raises(ValueError, match="NaN or infinity"):
+        if where == "gram":
+            Kf[7, 9] = float("inf")
+            csvc.smo_cuda(Kf, diag, *args[2:])
+        elif where == "diag":
+            diag[4] = float("nan")
+            csvc.smo_cuda(Kf, diag, *args[2:])
+        else:
+            K64 = K64.clone()
+            K64[int(plan.eval_ids[0]), 3] = float("nan")
+            csvc.vote_cuda(K64, ev, args[2], coef, args[4], rho, models)
+    assert (csvc.smo_cuda.launches, csvc.vote_cuda.launches) == (l0, v0)
 
 
 def test_svc_on_card_matches_cpu(cuda):
@@ -2849,5 +2950,35 @@ def test_cross_validate_on_card_matches_cpu(cuda, k, scoring):
     with use_device("cuda"):
         got = grakel_torch.cross_validate_Kfold_SVM([K1, [K1, K2]], y, **kw)
     assert got == want
-    assert csvc.smo_cuda.launches == l0 + 2
+    stages = grakel_torch.cross_validate_Kfold_SVM.last["stages"]
+    # one K15 launch a route a stage, one K16 launch a stage
+    assert csvc.smo_cuda.launches == l0 + sum(len(s["route"])
+                                              for s in stages)
     assert csvc.vote_cuda.launches == v0 + 2
+
+
+def test_svc_and_cross_validate_raise_before_any_launch(cuda):
+    """A NaN or an infinity: scikit-learn's error on the host, and no
+    K15 or K16 launch."""
+    from grakel_torch.ops import csvc
+    from grakel_torch.svm import SVC
+    K = _csvc_gram(40, 5)
+    y = np.arange(40) % 2
+    for value in (float("nan"), float("inf")):
+        Kb = K.copy()
+        Kb[3, 3] = value
+        l0, v0 = csvc.smo_cuda.launches, csvc.vote_cuda.launches
+        with use_device("cuda"):
+            with pytest.raises(ValueError, match="Input X contains"):
+                SVC().fit(Kb, y)
+            with pytest.raises(ValueError, match="Input X contains"):
+                grakel_torch.cross_validate_Kfold_SVM(
+                    [Kb], y, n_iter=1, n_splits=3, C_grid=[1.0],
+                    random_state=0)
+            clf = SVC().fit(K[:30, :30], y[:30])
+            l1, v1 = csvc.smo_cuda.launches, csvc.vote_cuda.launches
+            with pytest.raises(ValueError, match="Input X contains"):
+                clf.predict(Kb[30:, :30] * np.where(
+                    np.arange(30) == 2, value, 1.0))
+        assert csvc.vote_cuda.launches == v1 == v0
+        assert csvc.smo_cuda.launches == l1 == l0 + 1

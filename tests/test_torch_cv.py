@@ -184,3 +184,106 @@ def test_cv_records_two_stages():
     stages = grakel_torch.cross_validate_Kfold_SVM.last["stages"]
     assert [s["problems"] for s in stages] == [2 * 3 * 2 * 3, 2 * 3 * 3]
     assert all(s["iterations"] > 0 and s["route"] is None for s in stages)
+
+
+def _outcome(cv, *args, **kw):
+    """A call's scores, or the message of the ValueError it raised."""
+    try:
+        return "scores", cv(*args, **kw)
+    except ValueError as e:
+        return "error", str(e)
+
+
+def _same_outcome(a, b):
+    assert a[0] == b[0], (a, b)
+    if a[0] == "error":
+        assert a[1] == b[1]
+    else:
+        _same(a[1], b[1])
+
+
+def _probe():
+    """The inputs of the port's non-finite probe: a linear Gram of 40
+    points and the sign of their first feature."""
+    X = np.random.RandomState(0).randn(40, 5)
+    return X @ X.T, (X[:, 0] > 0).astype(int)
+
+
+PROBE = dict(n_iter=1, n_splits=3, C_grid=[1.0], random_state=0)
+
+
+@pytest.mark.parametrize("case", ["nan_row", "inf_diag", "neg_inf",
+                                  "past_n", "n_iter_0"])
+def test_cv_rejects_a_non_finite_gram_as_jax(case, monkeypatch):
+    """The probe's cases, message for message: a NaN row and column, an
+    infinity on the diagonal or off it; non-finite entries only past row
+    ``len(y)`` score as the finite Gram does; ``n_iter=0`` returns
+    ``[[]]``.  No solver starts when the call raises."""
+    K, y = _probe()
+    kw = dict(PROBE)
+    if case == "nan_row":
+        K[3, :] = np.nan
+        K[:, 3] = np.nan
+    elif case == "inf_diag":
+        K[3, 3] = np.inf
+    elif case == "neg_inf":
+        K[5, 11] = -np.inf
+    elif case == "past_n":
+        big = np.zeros((45, 45))
+        big[:40, :40] = K
+        big[42, 42], big[41, :], big[:, 43] = np.nan, np.inf, np.nan
+        K = big
+    else:
+        K[3, :] = np.nan
+        kw["n_iter"] = 0
+    want = _outcome(cv_jax, [K], y, **kw)
+    if want[0] == "error":
+        from grakel_torch.ops import csvc
+        monkeypatch.setattr(csvc, "smo", lambda *a, **k: 1 / 0)
+    got = _outcome(_cv_port, [K], y, **kw)
+    _same_outcome(got, want)
+    assert want[0] == ("scores" if case in ("past_n", "n_iter_0")
+                       else "error")
+    if case == "n_iter_0":
+        assert got[1] == [[]]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_cv_first_non_finite_fit_decides_the_message(seed):
+    """NaN and infinity in different fits: the first fit of the
+    reference's loop (its fit block, then its eval block) whose blocks
+    hold one decides the message."""
+    K, y = _probe()
+    rng = np.random.RandomState(seed)
+    a, b, c = rng.choice(40, 3, replace=False)
+    K[a, a] = np.inf
+    K[b, c] = np.nan
+    kw = dict(PROBE, random_state=seed, n_iter=2)
+    _same_outcome(_outcome(_cv_port, [K], y, **kw),
+                  _outcome(cv_jax, [K], y, **kw))
+
+
+def test_cv_non_finite_entries_of_variants_as_jax():
+    """A NaN or an infinity in one variant: where only the refit of the
+    fold whose inner split held it out reads it, the chosen variant
+    decides, so the call scores or raises as the reference does; where an
+    inner fit reads it, it raises the reference's message."""
+    K, y = _probe()
+    kw = dict(n_iter=1, n_splits=2, random_state=2, C_grid=[0.01, 1.0])
+    rs = np.random.RandomState(kw["random_state"])
+    (tr0, te0), _ = model_selection.KFold(2, shuffle=True,
+                                          random_state=rs).split(y)
+    sub_tr, sub_val = next(iter(model_selection.ShuffleSplit(
+        n_splits=1, test_size=0.1, random_state=rs).split(tr0)))
+    held, fitted = tr0[sub_val[0]], tr0[sub_tr[0]]
+    seen = set()
+    for a, b in ((te0[0], held), (fitted, held), (held, fitted),
+                 (fitted, fitted)):
+        for value in (np.nan, np.inf):
+            Kb = K.copy()
+            Kb[a, b] = value
+            for grid in ([[K, Kb]], [[Kb, K]]):
+                want = _outcome(cv_jax, grid, y, **kw)
+                _same_outcome(_outcome(_cv_port, grid, y, **kw), want)
+                seen.add(want[0] if want[0] == "scores" else want[1][:14])
+    assert seen == {"scores", "Input X contai"}
