@@ -159,8 +159,16 @@ main paths through the public entry points, at full data size:
   route limit is swept on Cuneiform's and MUTAG's inner stages, its
   block route at 448-512 threads on NCI1's first fold and inner stage,
   and its global route run on that fold, each equal bit for bit to the
-  path's launch.  ``python3 chip_smoke.py --phase cv`` runs the build and
-  this phase alone.
+  path's launch.  ``cv_nci1scale_auc`` is ``cv_nci1scale`` scored by
+  ``"roc_auc"``, read from K16's decision values: the same launches, 10
+  finite scores in [0, 1], and the first outer fold's refit score equal
+  to roc_auc of ``vote_plain``'s decision values on the CPU;
+  ``cv_mutag_scorers`` runs ``cv_mutag`` at one iteration once for each
+  of the other 30 scoring names, each name's scores (or its error) equal
+  to the JAX package's, embedded as ``CV_MUTAG_SCORERS_JAX`` (adjusted
+  mutual information to rtol 1e-12), with K15 and K16 once a stage.
+  ``python3 chip_smoke.py --phase cv`` runs the build and this phase
+  alone.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -423,6 +431,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -2864,6 +2873,56 @@ def parallel_phase(run_path, check, paths, train, held):
 CV_MUTAG_JAX = [0.7985380116959064, 0.7979532163742691, 0.8342105263157894]
 CV_PROTOCOL = dict(n_iter=3, n_splits=10, random_state=0,
                    C_grid=10.0 ** np.arange(-2, 5))
+# The JAX package's scores for cv_mutag_scorers: cv_mutag's Gram and
+# protocol at n_iter=1, one call a scoring name (every supported name but
+# accuracy, balanced_accuracy and the precision, recall and f1 forms),
+# made on the CPU as CV_MUTAG_JAX is, with
+#   cv([K], np.asarray(b.target), n_iter=1, n_splits=10, random_state=0,
+#      C_grid=10.0 ** np.arange(-2, 5), scoring=name)
+# (MUTAG's labels are -1 and 1, so the two log errors raise: their entry is
+# the exception's type and message).  tests/test_torch_cv.py holds this
+# dict to the JAX function.
+CV_MUTAG_SCORERS_JAX = {
+    "adjusted_mutual_info_score": [0.31037969885777034],
+    "adjusted_rand_score": [0.40593094129222357],
+    "average_precision": [0.9592407471176863],
+    "completeness_score": [1.0],
+    "d2_absolute_error_score": [0.4784126984126985],
+    "explained_variance": [0.2413339438339439],
+    "fowlkes_mallows_score": [0.7436113092275283],
+    "homogeneity_score": [0.34699712715834774],
+    "jaccard": [0.7755227860374918],
+    "jaccard_macro": [0.6778137018210548],
+    "jaccard_micro": [0.7129700734048561],
+    "jaccard_weighted": [0.7150445025677223],
+    "matthews_corrcoef": [0.6211696930688884],
+    "mutual_info_score": [0.2125645670155658],
+    "neg_max_error": [-2.0],
+    "neg_mean_absolute_error": [-0.33976608187134505],
+    "neg_mean_absolute_percentage_error": [-0.33976608187134505],
+    "neg_mean_squared_error": [-0.6795321637426901],
+    "neg_mean_squared_log_error": (
+        "ValueError",
+        "Mean Squared Logarithmic Error cannot be used when targets "
+        "contain values less than or equal to -1."),
+    "neg_median_absolute_error": [-0.2],
+    "neg_negative_likelihood_ratio": [-0.14856865356865356],
+    "neg_root_mean_squared_error": [-0.8119748221224803],
+    "neg_root_mean_squared_log_error": (
+        "ValueError",
+        "Root Mean Squared Logarithmic Error cannot be used when targets "
+        "contain values less than or equal to -1."),
+    "normalized_mutual_info_score": [0.3465989718224099],
+    "positive_likelihood_ratio": [2.265542883042883],
+    "r2": [0.2173421023421024],
+    "rand_score": [0.7075679394564844],
+    "roc_auc": [0.9068592518592519],
+    "top_k_accuracy": [1.0],
+    "v_measure_score": [0.3465989718224099],
+}
+# adjusted_mutual_info_score's expected mutual information: the port's
+# numpy exp and scipy gammaln against scikit-learn's libm exp and lgamma
+CV_MUTAG_SCORERS_RTOL = {"adjusted_mutual_info_score": 1e-12}
 
 
 def nci1_stand_in_labels(graphs, seed=1234):
@@ -3143,12 +3202,20 @@ def cv_phase(run_path, check, paths, train):
     raise on a NaN or an infinity before any launch; the warp route's
     row limit swept on Cuneiform's and MUTAG's inner stages, the block
     route's threads on NCI1's, the global route on its first fold.
+    ``cv_nci1scale_auc`` reruns ``cv_nci1scale`` with ``scoring="roc_auc"``
+    (its launches as ``cv_nci1scale``'s; the first outer fold's refit
+    score equal to roc_auc of ``vote_plain``'s decision values on the
+    CPU); ``cv_mutag_scorers`` runs ``cv_mutag``'s Gram and protocol at
+    one iteration with each of the 30 names of
+    ``CV_MUTAG_SCORERS_JAX``, each name's scores (or error) equal to the
+    JAX package's, K15 and K16 once a stage.
     Returns K15's and K16's rows for the kernels line."""
     import multiprocessing
     import torch
     from grakel_torch import (GraphHopper, WeisfeilerLehman,
                               cross_validate_Kfold_SVM as cv, use_device)
     from grakel_torch.datasets import read_data
+    from grakel_torch.metrics import roc_auc_score
     from grakel_torch.ops import csvc
 
     t0 = time.perf_counter()
@@ -3354,6 +3421,59 @@ def cv_phase(run_path, check, paths, train):
         cv.last = None
         torch.cuda.empty_cache()
 
+        # -------------- cv_nci1scale_auc: roc_auc from K16's values ----- #
+        # the same protocol and Gram; each fit's score reads its decision
+        # values from the stage's one K16 launch (no launch added)
+        folds = []
+
+        def keep_folds(fold_scores):
+            folds.append(list(fold_scores))
+            return np.mean(fold_scores)
+
+        auc, secs, launches = run_path(
+            "cv_nci1scale_auc", lambda: cv([Kn], y, random_state=0,
+                                           scoring="roc_auc",
+                                           fold_reduce=keep_folds))
+        stages = cv.last["stages"]
+        taken = [sorted(st["route"]) for st in stages]
+        ref = paths["cv_nci1scale"]["launches"]
+        check(launches["csvc_smo"] == ref["csvc_smo"]
+              == sum(len(r) for r in taken)
+              and launches["csvc_vote"] == ref["csvc_vote"] == 2
+              and taken == [["block"], ["block"]],
+              "cv_nci1scale_auc launched K15 and K16 as cv_nci1scale did "
+              "(K15 %d: routes %s; K16 %d; cv_nci1scale %d, %d)"
+              % (launches["csvc_smo"], taken, launches["csvc_vote"],
+                 ref["csvc_smo"], ref["csvc_vote"]))
+        check(len(auc[0]) == 10 and all(np.isfinite(s) and 0 <= s <= 1
+                                        for s in auc[0]),
+              "cv_nci1scale_auc: 10 finite scores in [0, 1] (%s)"
+              % [float(s) for s in auc[0]])
+        # the first outer fold's refit: roc_auc of vote_plain's decision
+        # values on the CPU, oriented as SVC.decision_function orients them
+        st2 = stages[1]
+        sub2 = _sub_batch(st2, 0, 1)
+        dec = csvc.vote_plain(*(t_.cpu() for t_ in sub2["vote"]))[0]
+        plan = st2["plan"]
+        ev = plan.eval_ids[plan.eval_off[0]:plan.eval_off[1]]
+        want = roc_auc_score(y[ev], -dec.numpy().ravel())
+        check(folds[0][0] == want,
+              "cv_nci1scale_auc: the first outer fold's refit score %r == "
+              "roc_auc of vote_plain's decision values on the CPU %r"
+              % (float(folds[0][0]), float(want)))
+        paths["cv_nci1scale_auc"] = {
+            "wall_s": secs, "wall_s_accuracy": paths["cv_nci1scale"][
+                "wall_s"], "launches": launches, "k15_routes": taken,
+            "scores": [float(s) for s in auc[0]],
+            "first_fold_refit": float(folds[0][0])}
+        print("cv_nci1scale_auc: %.3f s (cv_nci1scale, accuracy: %.3f s); "
+              "scores %s" % (secs, paths["cv_nci1scale"]["wall_s"],
+                             paths["cv_nci1scale_auc"]["scores"]),
+              flush=True)
+        del stages, st2, sub2, Kn
+        cv.last = None
+        torch.cuda.empty_cache()
+
         # -------------- cv_mutag: the JAX package's scores ------------- #
         scores, stages = card_path("cv_mutag", Km, ym, "block",
                                    **CV_PROTOCOL)
@@ -3372,6 +3492,57 @@ def cv_phase(run_path, check, paths, train):
             cpu = cv([Km], ym, **CV_PROTOCOL)
         paths["cv_mutag"]["cpu_route_s"] = time.perf_counter() - t
         check(cpu == scores, "cv_mutag == the CPU route exactly")
+
+        # -------------- cv_mutag_scorers: the other 30 names ------------ #
+        # cv_mutag's Gram and protocol at n_iter=1, a call a name: its
+        # scores, or its error, as the JAX package's (CV_MUTAG_SCORERS_JAX)
+        one = dict(CV_PROTOCOL, n_iter=1)
+        by_name = {}
+
+        def every_scorer():
+            for name in CV_MUTAG_SCORERS_JAX:
+                l0 = (csvc.smo_cuda.launches, csvc.vote_cuda.launches,
+                      dict(csvc.smo_cuda.route_launches))
+                t = time.perf_counter()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    try:
+                        got = [float(s) for s in
+                               cv([Km], ym, scoring=name, **one)[0]]
+                    except Exception as e:   # held to the JAX package's
+                        got = (type(e).__name__, str(e))
+                torch.cuda.synchronize()
+                by_name[name] = {
+                    "scores": got, "s": time.perf_counter() - t,
+                    "launches": (csvc.smo_cuda.launches - l0[0],
+                                 csvc.vote_cuda.launches - l0[1]),
+                    "routes": {r: n - l0[2][r] for r, n in
+                               csvc.smo_cuda.route_launches.items()
+                               if n > l0[2][r]}}
+
+        _, secs, launches = run_path("cv_mutag_scorers", every_scorer)
+        for name, want in CV_MUTAG_SCORERS_JAX.items():
+            got = by_name[name]
+            rtol = CV_MUTAG_SCORERS_RTOL.get(name)
+            same = got["scores"] == want or (
+                rtol is not None and isinstance(want, list)
+                and isinstance(got["scores"], list)
+                and np.allclose(got["scores"], want, rtol=rtol, atol=0))
+            check(same, "cv_mutag_scorers: %s == the JAX package's %r (%r)"
+                  % (name, want, got["scores"]))
+            # a stage a K16 launch and a block-route K15 launch: two
+            # stages, or one where the first stage's scorer raises
+            n_st = 2 if isinstance(want, list) else 1
+            check(got["launches"] == (n_st, n_st)
+                  and got["routes"] == {"block": n_st},
+                  "cv_mutag_scorers: %s launched K15 once a stage on its "
+                  "block route and K16 once a stage (%d stages; K15, K16 "
+                  "%s, routes %s)" % (name, n_st, got["launches"],
+                                      got["routes"]))
+        paths["cv_mutag_scorers"] = {"wall_s": secs, "launches": launches,
+                                     "by_name": by_name}
+        print("cv_mutag_scorers: %.3f s for the %d names; %s"
+              % (secs, len(by_name), by_name), flush=True)
 
         # -------------- cv_cuneiform against the CPU route ------------- #
         # the CPU route runs libsvm's steps in torch, the problems of a

@@ -18,7 +18,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["clique_values", "ap_hash_batch", "connected_subsets_native",
+__all__ = ["have_native", "clique_values", "ap_hash_batch",
+           "connected_subsets_native",
            "nspd_hash_graph", "canonical_labeling_native",
            "odd_sth_decompose_native", "sp_bfs_counts_native"]
 
@@ -84,6 +85,16 @@ def _load():
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def have_native():
+    """Whether the engines build and load here: a query only (every
+    engine still raises with the compiler's output when they cannot)."""
+    try:
+        _load()
+    except Exception:
+        return False
+    return True
 
 
 def _clique_values_py(nv, kmax, cv, ce, tv):

@@ -72,6 +72,15 @@ def _ovr_decision(predictions, confidences, n_classes):
     return votes + conf / (3 * (np.abs(conf) + 1))
 
 
+def _decision_scores(dec, n_classes):
+    """``decision_function``'s values from K16's one-vs-one decision
+    values ``dec`` [m, pairs]: [m] for two classes (positive: the second
+    class), else their one-vs-rest transform [m, n_classes]."""
+    if n_classes == 2:
+        return -dec.ravel()
+    return _ovr_decision(dec < 0, -dec, n_classes)
+
+
 class SVC(BaseEstimator):
     """C-Support Vector Classification on a precomputed Gram.
 
@@ -206,8 +215,5 @@ class SVC(BaseEstimator):
         """[m] for two classes (positive: ``classes_[1]``), else the
         one-vs-one decision values' one-vs-rest transform [m, classes],
         as scikit-learn's default ``decision_function_shape="ovr"``."""
-        dec = self._decision(X)[0]
-        k = self.classes_.shape[0]
-        if k == 2:
-            return -dec.ravel()
-        return _ovr_decision(dec < 0, -dec, k)
+        return _decision_scores(self._decision(X)[0],
+                                self.classes_.shape[0])

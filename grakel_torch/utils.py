@@ -125,11 +125,12 @@ class _NonFinite:
         return None
 
 
-def _solve_stage(fits, evals, grams, dev):
+def _solve_stage(fits, evals, grams, dev, want_dec=False):
     """Every fit of a stage (a list of (gram index, train ids, labels, C)
     with its eval ids) in one K15 launch and one K16 launch on ``dev``.
-    Returns (plan, coef on ``dev``, and rho, iters and pred as host
-    arrays), plus the stage's record: its problems, iterations and
+    Returns (plan, coef on ``dev``, and rho, iters, pred and, with
+    ``want_dec``, K16's decision values (else None) as host arrays), plus
+    the stage's record: its problems, iterations and
     active rows summed over the problems, largest problem and, on a
     card, K15's routes; with ``cross_validate_Kfold_SVM.keep_last`` set,
     also its plan and the kernels' inputs and outputs on ``dev``."""
@@ -156,8 +157,8 @@ def _solve_stage(fits, evals, grams, dev):
         record.update(plan=plan, smo_inputs=smo_in,
                       smo_out=(coef, rho, iters), vote_inputs=vote_in,
                       vote_out=(dec, pred))
-    return (plan, coef, rho.cpu().numpy(), iters_h,
-            pred.cpu().numpy()), record
+    return (plan, coef, rho.cpu().numpy(), iters_h, pred.cpu().numpy(),
+            dec.cpu().numpy() if want_dec else None), record
 
 
 def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
@@ -176,8 +177,14 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
     ``C_grid`` defaults to ``10 ** [-7, -5, ..., 5] / len(y)``;
     ``scoring`` is a name :func:`grakel_torch.metrics.get_scorer` knows
     or a callable ``scorer(estimator, X, y)``, which receives a fitted
-    :class:`grakel_torch.svm.SVC`.  Returns one list of ``n_iter``
-    reduced scores per element of ``K``.
+    :class:`grakel_torch.svm.SVC`.  A named scorer reads each fit's
+    predictions or, for ``"roc_auc"``, ``"average_precision"`` and
+    ``"top_k_accuracy"``, its decision values as
+    ``SVC.decision_function`` gives them, both from the stage's K16
+    output; a fit whose score is NaN is never picked, and a fold whose
+    inner fits all score NaN raises ``TypeError`` as the JAX function
+    does.  Returns one list of ``n_iter`` reduced scores per element of
+    ``K``.
 
     Every draw comes from ``check_random_state(random_state)`` in the
     JAX function's order (the ``n_iter`` KFold shuffles, then a
@@ -197,9 +204,9 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
     it (its fit block, then its eval block; NaN before infinity), checked
     on the host before any launch."""
     import torch
-    from .metrics import _PredictScorer, get_scorer
+    from .metrics import _DecisionScorer, _PredictScorer, get_scorer
     from .model_selection import KFold, ShuffleSplit
-    from .svm import SVC
+    from .svm import SVC, _decision_scores
 
     y = np.asarray(y)
     if C_grid is None:
@@ -268,17 +275,30 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
     records = []
 
     def scores_of(fits, evals):
-        (plan, coef, rho, iters, pred), rec = _solve_stage(
-            fits, evals, grams, dev)
-        records.append(rec)
         by_name = isinstance(scorer, _PredictScorer)
+        by_dec = isinstance(scorer, _DecisionScorer)
+        (plan, coef, rho, iters, pred, dec), rec = _solve_stage(
+            fits, evals, grams, dev, want_dec=by_dec)
+        records.append(rec)
         coef_h = None if by_name else coef.cpu().numpy()
+        if by_dec:                       # each fit's first decision value
+            d0 = plan.models()[0][:, 3]
         out = []
         for f, ((g, tr, _, C), ev) in enumerate(zip(fits, evals)):
             if by_name:
+                classes = plan.fits[f]["classes"]
+                scorer.check_classes(classes)
                 e0, e1 = plan.eval_off[f], plan.eval_off[f + 1]
-                out.append(scorer.score(
-                    y[ev], plan.fits[f]["classes"][pred[e0:e1]]))
+                if not by_dec:
+                    out.append(scorer.score(y[ev], classes[pred[e0:e1]]))
+                    continue
+                # the fit's [points, pairs] block of K16's output
+                npair = plan.fits[f]["n_pairs"]
+                block = dec[d0[f]:d0[f] + (e1 - e0) * npair].reshape(
+                    e1 - e0, npair)
+                y_score = _decision_scores(block, classes.shape[0])
+                out.append(scorer.score_dec(
+                    y[ev], scorer.oriented(classes, y_score)))
             else:
                 est = SVC(C=C)._set_solution(plan, f, coef_h, rho, iters,
                                              dev, tr.shape[0])

@@ -2957,6 +2957,47 @@ def test_cross_validate_on_card_matches_cpu(cuda, k, scoring):
     assert csvc.vote_cuda.launches == v0 + 2
 
 
+@pytest.mark.parametrize("scoring", ["roc_auc", "average_precision",
+                                     "top_k_accuracy", "matthews_corrcoef"])
+@pytest.mark.parametrize("k,seed", [(2, 0), (3, 1)])
+def test_cross_validate_decision_scorers_on_card_match_cpu(cuda, k, seed,
+                                                            scoring):
+    """The scorers of K16's decision values (and MCC, of its votes) on
+    the card equal the CPU route exactly, one K16 launch a stage; on three
+    classes roc_auc raises scikit-learn's error after the first stage on
+    both routes."""
+    import warnings
+    from grakel_torch.ops import csvc
+    K = _csvc_gram(90, 20 + seed, dup=3)
+    y = np.random.RandomState(30 + seed).randint(0, k, 90)
+    kw = dict(n_iter=2, n_splits=3, random_state=5, scoring=scoring,
+              C_grid=10.0 ** np.arange(-2, 3))
+
+    def run():
+        try:
+            return grakel_torch.cross_validate_Kfold_SVM([K], y, **kw)
+        except ValueError as e:
+            return str(e)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with use_device("cpu"):
+            want = run()
+        l0, v0 = csvc.smo_cuda.launches, csvc.vote_cuda.launches
+        with use_device("cuda"):
+            got = run()
+    assert got == want
+    assert isinstance(got, str) == (k == 3 and scoring == "roc_auc")
+    if isinstance(got, str):
+        assert got == "multi_class must be in ('ovo', 'ovr')"
+        assert csvc.vote_cuda.launches == v0 + 1
+        return
+    stages = grakel_torch.cross_validate_Kfold_SVM.last["stages"]
+    assert csvc.smo_cuda.launches == l0 + sum(len(s["route"])
+                                              for s in stages)
+    assert csvc.vote_cuda.launches == v0 + 2
+
+
 def test_svc_and_cross_validate_raise_before_any_launch(cuda):
     """A NaN or an infinity: scikit-learn's error on the host, and no
     K15 or K16 launch."""

@@ -114,15 +114,97 @@ def test_cv_equals_jax_random_state_inputs(seed):
     assert runs[0][1] == runs[1][1]
 
 
+# the names whose scorer needs two classes (a binary average, the
+# likelihood ratios, the decision values of a binary fit); the others run
+# on three
+BINARY_ONLY = ("precision", "recall", "f1", "jaccard", "roc_auc",
+               "average_precision", "top_k_accuracy",
+               "positive_likelihood_ratio", "neg_negative_likelihood_ratio")
+# the names that score a number only where every inner eval block holds
+# both classes (else the likelihood ratios and top_k_accuracy raise and
+# roc_auc is NaN, in both packages): 90 points, blocks of 6
+BOTH_IN_EVERY_BLOCK = ("roc_auc", "average_precision", "top_k_accuracy",
+                       "positive_likelihood_ratio",
+                       "neg_negative_likelihood_ratio")
+
+
 @pytest.mark.parametrize("scoring", get_scorer_names())
 def test_cv_equals_jax_every_scorer(scoring):
-    k = 2 if scoring in ("precision", "recall", "f1") else 3
-    K, y = _gram(30, 21, k)
+    k = 2 if scoring in BINARY_ONLY else 3
+    K, y = _gram(90 if scoring in BOTH_IN_EVERY_BLOCK else 30, 21, k)
     kw = dict(n_iter=1, n_splits=3, random_state=2, scoring=scoring,
               C_grid=[1e-3, 1.0, 1e2])
     with warnings.catch_warnings():       # zero divisions warn in both
         warnings.simplefilter("ignore")
-        _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
+        got, want = _cv_port([K], y, **kw), cv_jax([K], y, **kw)
+    if scoring == "adjusted_mutual_info_score":
+        # the expected mutual information: numpy's exp and gammaln against
+        # scikit-learn's libm exp and lgamma
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    else:
+        _same(got, want)
+
+
+@pytest.mark.parametrize("scoring", ["jaccard", "roc_auc",
+                                     "positive_likelihood_ratio",
+                                     "neg_negative_likelihood_ratio",
+                                     "average_precision", "top_k_accuracy"])
+def test_cv_three_classes_raise_as_jax(scoring):
+    """The six names that fail on three classes in the reference: the
+    binary ones on any eval block, average_precision and top_k_accuracy
+    where an eval block lacks a class (here every one: 2 points)."""
+    K, y = _gram(30, 21, 3)
+    kw = dict(n_iter=1, n_splits=3, random_state=2, scoring=scoring,
+              C_grid=[1e-3, 1.0])
+    outcomes = []
+    for cv in (_cv_port, cv_jax):
+        with pytest.raises(Exception) as e:
+            cv([K], y, **kw)
+        outcomes.append((type(e.value), str(e.value)))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0] is ValueError
+
+
+def test_cv_fold_of_nan_scores_raises_type_error_as_jax():
+    """roc_auc on eval blocks of one point is NaN for every inner fit of
+    a fold: no fit is picked, and both packages fail at the unpacking of
+    the fold's best model."""
+    K, y = _gram(10, 4, 2)
+    kw = dict(n_iter=1, n_splits=2, random_state=0, scoring="roc_auc",
+              C_grid=[0.1, 10.0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for cv in (_cv_port, cv_jax):
+            with pytest.raises(TypeError):
+                cv([K], y, **kw)
+
+
+@pytest.mark.parametrize("scoring,k", [
+    ("roc_auc", 2), ("average_precision", 2), ("average_precision", 3),
+    ("top_k_accuracy", 3)])
+def test_cv_decision_scorers_read_the_stages_vote(scoring, k, monkeypatch):
+    """A decision-value scorer reads K16's output (a binary fit's
+    negated, a multiclass fit's one-vs-rest transform): one vote a stage,
+    as with accuracy, and no per-fit SVC."""
+    from grakel_torch import svm
+    from grakel_torch.ops import csvc
+    K, y = _gram(90, 7, k)
+    kw = dict(n_iter=1, n_splits=3, random_state=1, C_grid=[0.1, 10.0])
+    votes = []
+    vote = csvc.vote
+    monkeypatch.setattr(csvc, "vote",
+                        lambda *a, **k: votes.append(1) or vote(*a, **k))
+    _cv_port([K], y, scoring="accuracy", **kw)
+    stages = [s["problems"] for s in
+              grakel_torch.cross_validate_Kfold_SVM.last["stages"]]
+    monkeypatch.setattr(svm, "SVC", None)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = _cv_port([K], y, scoring=scoring, **kw)
+        _same(got, cv_jax([K], y, scoring=scoring, **kw))
+    assert votes == [1] * 4
+    assert [s["problems"] for s in grakel_torch.cross_validate_Kfold_SVM
+            .last["stages"]] == stages
 
 
 def test_cv_equals_jax_callable_scorer_and_fold_reduce():
@@ -153,9 +235,76 @@ def test_cv_equals_jax_mutag_protocol():
     _same(_cv_port([K], y, **kw), cv_jax([K], y, **kw))
 
 
+def _chip_smoke():
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def mutag_gram():
+    from grakel_tpu import WeisfeilerLehman
+    from grakel_tpu.datasets import read_data
+    b = read_data("MUTAG", path=DATA)
+    return (np.asarray(WeisfeilerLehman(n_iter=5, normalize=True)
+                       .fit_transform(b.data), np.float64),
+            np.asarray(b.target))
+
+
+def _scores_or_error(cv, *args, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            return [float(s) for s in cv(*args, **kw)[0]]
+        except Exception as e:
+            return (type(e).__name__, str(e))
+
+
+SMOKE = _chip_smoke()
+
+
+@pytest.mark.parametrize("scoring", sorted(SMOKE.CV_MUTAG_SCORERS_JAX))
+def test_chip_smoke_mutag_scorers_equal_jax(scoring, mutag_gram):
+    """chip_smoke.py's pinned CV_MUTAG_SCORERS_JAX (the card's scores
+    must equal it) is the JAX function's output; for the names that read
+    decision values and for the two that raise on MUTAG's labels -1 and
+    1, the port's CPU route gives it too."""
+    K, y = mutag_gram
+    kw = dict(SMOKE.CV_PROTOCOL, n_iter=1, scoring=scoring)
+    want = SMOKE.CV_MUTAG_SCORERS_JAX[scoring]
+    runs = [cv_jax]
+    if scoring in ("roc_auc", "average_precision", "top_k_accuracy",
+                   "neg_mean_squared_log_error",
+                   "neg_root_mean_squared_log_error"):
+        runs.append(_cv_port)
+    for cv in runs:
+        got = _scores_or_error(cv, [K], y, **kw)
+        rtol = SMOKE.CV_MUTAG_SCORERS_RTOL.get(scoring)
+        if rtol and isinstance(want, list):
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+        else:
+            assert got == want, (cv, got, want)
+
+
+def test_chip_smoke_scorer_names_are_the_ports_new_ones():
+    """The smoke's 30 names: every name the port supports but the first
+    14 (accuracy, balanced_accuracy, precision, recall, f1 and their
+    averages)."""
+    first = {"accuracy", "balanced_accuracy"} | {
+        "%s%s" % (m, a) for m in ("precision", "recall", "f1")
+        for a in ("", "_micro", "_macro", "_weighted")}
+    assert sorted(SMOKE.CV_MUTAG_SCORERS_JAX) == sorted(
+        set(get_scorer_names()) - first)
+    assert len(SMOKE.CV_MUTAG_SCORERS_JAX) == 30
+
+
 def test_cv_errors_raise_value_error():
     K, y = _gram(20, 1, 2)
-    for kw in (dict(fold_reduce=3), dict(scoring="roc_auc"),
+    for kw in (dict(fold_reduce=3), dict(scoring="neg_log_loss"),
                dict(scoring="no_such_scorer")):
         with pytest.raises(ValueError):
             _cv_port([K], y, n_iter=1, n_splits=2, **kw)

@@ -198,3 +198,43 @@ def test_native_builds_without_openmp(tmp_path, monkeypatch):
                                          labs.astype(np.int32), 4, 64),
                  jn.sp_bfs_counts_native(node_off, adj_off, adj,
                                          labs.astype(np.int32), 4, 64))
+
+
+def test_have_native_true_here_and_as_jax():
+    assert tn.have_native() is True
+    assert tn.have_native() == jn.have_native()
+
+
+def test_have_native_false_when_the_build_fails(tmp_path, monkeypatch):
+    """A query only: False when the engines cannot build, and the engines
+    still raise with the compiler's output."""
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "broken.cpp").write_text("int f() { return undeclared_name; }\n")
+    monkeypatch.setattr(_build, "NATIVE_SRC", str(src))
+    monkeypatch.setattr(_build, "NATIVE_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(tn, "_lib", None)
+    assert tn.have_native() is False
+    with pytest.raises(RuntimeError, match="native build failed"):
+        tn.clique_values(np.ones(3), np.ones((3, 3)), 3)
+
+
+def test_no_module_picks_a_route_by_have_native():
+    """No module of grakel_torch reads have_native: the engines raise
+    when they cannot build, and no path falls back on Python."""
+    import ast
+    pkg = os.path.join(ROOT, "grakel_torch")
+    for d, _, fs in os.walk(pkg):
+        for f in fs:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            tree = ast.parse(open(path).read(), path)
+            for node in ast.walk(tree):
+                used = (isinstance(node, ast.Name) and node.id == "have_native"
+                        or isinstance(node, ast.Attribute)
+                        and node.attr == "have_native"
+                        or isinstance(node, ast.alias)
+                        and node.name == "have_native")
+                assert not used, "%s:%d reads have_native" % (
+                    os.path.relpath(path, ROOT), node.lineno)
