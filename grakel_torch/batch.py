@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .profiling import host_span
 
 __all__ = ["GraphBatch", "bucket_size", "enumerate_labels"]
 
@@ -123,82 +124,90 @@ class GraphBatch:
         raw labels to compact ids (see :func:`enumerate_labels`); pass the
         fit-time dicts at transform time for consistent ids.
         """
-        n = len(graphs)
-        n_nodes = np.array([g.n for g in graphs], dtype=np.int64)
-        n_edges = np.array([len(g.senders) for g in graphs], dtype=np.int64)
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(n_nodes, out=offsets[1:])
-        N = int(offsets[-1])
-        E = int(n_edges.sum())
-        N_pad = node_pad or bucket_size(N + 1)  # +1: reserve a sink pad node
-        E_pad = edge_pad or bucket_size(max(E, 1))
+        # the host's build, ending before the upload
+        with host_span("batch"):
+            n = len(graphs)
+            n_nodes = np.array([g.n for g in graphs], dtype=np.int64)
+            n_edges = np.array([len(g.senders) for g in graphs],
+                               dtype=np.int64)
+            offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(n_nodes, out=offsets[1:])
+            N = int(offsets[-1])
+            E = int(n_edges.sum())
+            # +1: reserve a sink pad node
+            N_pad = node_pad or bucket_size(N + 1)
+            E_pad = edge_pad or bucket_size(max(E, 1))
 
-        node_gid = np.full(N_pad, n, dtype=np.int32)
-        node_msk = np.zeros(N_pad, dtype=bool)
-        send = np.full(E_pad, N_pad - 1, dtype=np.int32)
-        recv = np.full(E_pad, N_pad - 1, dtype=np.int32)
-        ew = np.zeros(E_pad, dtype=np.float32)
-        edge_gid = np.full(E_pad, n, dtype=np.int32)
-        edge_msk = np.zeros(E_pad, dtype=bool)
+            node_gid = np.full(N_pad, n, dtype=np.int32)
+            node_msk = np.zeros(N_pad, dtype=bool)
+            send = np.full(E_pad, N_pad - 1, dtype=np.int32)
+            recv = np.full(E_pad, N_pad - 1, dtype=np.int32)
+            ew = np.zeros(E_pad, dtype=np.float32)
+            edge_gid = np.full(E_pad, n, dtype=np.int32)
+            edge_msk = np.zeros(E_pad, dtype=bool)
 
-        node_gid[:N] = np.repeat(np.arange(n, dtype=np.int32), n_nodes)
-        node_msk[:N] = True
-        edge_off = np.repeat(offsets[:-1], n_edges).astype(np.int32)
-        if E:
-            send[:E] = np.concatenate(
-                [g.senders for g in graphs]) + edge_off
-            recv[:E] = np.concatenate(
-                [g.receivers for g in graphs]) + edge_off
-            ew[:E] = np.concatenate([g.weights for g in graphs])
-            edge_gid[:E] = np.repeat(np.arange(n, dtype=np.int32), n_edges)
-            edge_msk[:E] = True
-        csr_offsets, csr_targets = _sender_csr(send[:E], recv[:E], N, N_pad)
-        # no edge leaves its graph (K4 holds whole graphs in a block)
-        own_end = edge_off + np.repeat(n_nodes, n_edges)
-        for name, x in (("sender", send[:E]), ("receiver", recv[:E])):
-            if not ((x >= edge_off) & (x < own_end)).all():
-                raise ValueError("GraphBatch: an edge %s lies outside its "
-                                 "graph's nodes" % name)
-        if node_label_enum is None:
-            node_label_enum = {}
-        if edge_label_enum is None:
-            edge_label_enum = {}
+            node_gid[:N] = np.repeat(np.arange(n, dtype=np.int32), n_nodes)
+            node_msk[:N] = True
+            edge_off = np.repeat(offsets[:-1], n_edges).astype(np.int32)
+            if E:
+                send[:E] = np.concatenate(
+                    [g.senders for g in graphs]) + edge_off
+                recv[:E] = np.concatenate(
+                    [g.receivers for g in graphs]) + edge_off
+                ew[:E] = np.concatenate([g.weights for g in graphs])
+                edge_gid[:E] = np.repeat(np.arange(n, dtype=np.int32),
+                                         n_edges)
+                edge_msk[:E] = True
+            csr_offsets, csr_targets = _sender_csr(send[:E], recv[:E], N,
+                                                   N_pad)
+            # no edge leaves its graph (K4 holds whole graphs in a block)
+            own_end = edge_off + np.repeat(n_nodes, n_edges)
+            for name, x in (("sender", send[:E]), ("receiver", recv[:E])):
+                if not ((x >= edge_off) & (x < own_end)).all():
+                    raise ValueError("GraphBatch: an edge %s lies outside "
+                                     "its graph's nodes" % name)
+            if node_label_enum is None:
+                node_label_enum = {}
+            if edge_label_enum is None:
+                edge_label_enum = {}
 
-        # vectorized fast path: fresh enums + all-integer node labels +
-        # no edge labels -> one np.unique instead of per-item dict ops
-        # (ids come out value-ordered; Grams are id-permutation invariant)
-        nl = el = None
-        if extend_enums and not node_label_enum and not edge_label_enum \
-                and all(not g.edge_labels for g in graphs):
-            arrs = [g.numeric_node_label_array() for g in graphs]
-            if all(a is not None for a in arrs):
-                raw = (np.concatenate(arrs) if arrs
-                       else np.zeros(0, np.int64))
-                uniq, nl = np.unique(raw, return_inverse=True)
-                nl = nl.astype(np.int32)
-                node_label_enum.update(
-                    {int(u): i for i, u in enumerate(uniq)})
-                el = np.zeros(E, dtype=np.int32)
-                if E:
-                    edge_label_enum[0] = 0
-        if nl is None:
-            node_lab_raw = []
-            edge_lab_raw = []
-            for g in graphs:
-                labs = g.node_labels
-                node_lab_raw.extend(labs.get(v, 0) for v in range(g.n))
-                elabs = g.edge_labels
-                edge_lab_raw.extend(
-                    elabs.get((int(s), int(r)), 0)
-                    for s, r in zip(g.senders, g.receivers))
-            nl = enumerate_labels(node_lab_raw, node_label_enum,
-                                  extend_enums)
-            el = enumerate_labels(edge_lab_raw, edge_label_enum,
-                                  extend_enums)
-        node_lab = np.zeros(N_pad, dtype=np.int32)
-        node_lab[:N] = nl
-        edge_lab = np.zeros(E_pad, dtype=np.int32)
-        edge_lab[:E] = el
+            # vectorized fast path: fresh enums + all-integer node labels
+            # + no edge labels -> one np.unique instead of per-item dict
+            # ops (ids come out value-ordered; Grams are id-permutation
+            # invariant)
+            nl = el = None
+            if extend_enums and not node_label_enum \
+                    and not edge_label_enum \
+                    and all(not g.edge_labels for g in graphs):
+                arrs = [g.numeric_node_label_array() for g in graphs]
+                if all(a is not None for a in arrs):
+                    raw = (np.concatenate(arrs) if arrs
+                           else np.zeros(0, np.int64))
+                    uniq, nl = np.unique(raw, return_inverse=True)
+                    nl = nl.astype(np.int32)
+                    node_label_enum.update(
+                        {int(u): i for i, u in enumerate(uniq)})
+                    el = np.zeros(E, dtype=np.int32)
+                    if E:
+                        edge_label_enum[0] = 0
+            if nl is None:
+                node_lab_raw = []
+                edge_lab_raw = []
+                for g in graphs:
+                    labs = g.node_labels
+                    node_lab_raw.extend(labs.get(v, 0) for v in range(g.n))
+                    elabs = g.edge_labels
+                    edge_lab_raw.extend(
+                        elabs.get((int(s), int(r)), 0)
+                        for s, r in zip(g.senders, g.receivers))
+                nl = enumerate_labels(node_lab_raw, node_label_enum,
+                                      extend_enums)
+                el = enumerate_labels(edge_lab_raw, edge_label_enum,
+                                      extend_enums)
+            node_lab = np.zeros(N_pad, dtype=np.int32)
+            node_lab[:N] = nl
+            edge_lab = np.zeros(E_pad, dtype=np.int32)
+            edge_lab[:E] = el
 
         device = resolve_device(device)
 

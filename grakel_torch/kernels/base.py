@@ -22,6 +22,7 @@ Entry points return numpy arrays, as the JAX package's do.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import warnings
 
@@ -32,6 +33,7 @@ from ..device import resolve_device, use_device
 from ..estimator import BaseEstimator, NotFittedError, check_random_state
 from ..graph import Graph
 from ..ops.gram import active_mesh, gram_gemm, gram_rect, use_mesh
+from ..profiling import StageTimer, host_span
 
 __all__ = ["Kernel", "normalize_input", "parallel_sum"]
 
@@ -155,6 +157,10 @@ class Kernel(BaseEstimator):
     # subclasses may flip this to request normalized-by-construction output
     _inherently_normalized = False
 
+    # True where ``parse_input`` is host work only: its stage is then
+    # also the host span ``parse`` (see :mod:`grakel_torch.profiling`)
+    _host_parse = False
+
     # The device the kernel runs on: a torch.device or string, or None
     # for the ambient use_device device, else cuda.  An attribute, not a
     # constructor argument, so the kernel signatures stay at reference
@@ -233,10 +239,8 @@ class Kernel(BaseEstimator):
         self.initialize()
         if X is None:
             raise ValueError("fit input cannot be None")
-        from ..profiling import StageTimer
         self.timer_ = StageTimer()
-        with self.timer_.stage("parse"):
-            self.X = self.parse_input(X)
+        self.X = self._parse_timed(X, "parse")
         self._X_diag = None
         return self
 
@@ -244,13 +248,12 @@ class Kernel(BaseEstimator):
         self._method_calling = 2
         self.fit(X)
         if not hasattr(self, "timer_"):  # subclass-overridden fit
-            from ..profiling import StageTimer
             self.timer_ = StageTimer()
         with self.timer_.stage("gram"):
             K = _to_numpy(self._compute_symmetric(self.X))
         self._K_fit = K
         if self.normalize and not self._inherently_normalized:
-            with self.timer_.stage("normalize"):
+            with host_span("normalize", self.timer_):
                 d = np.diagonal(K).copy()
                 self._X_diag = d
                 # plain division — zero self-kernels yield NaN like the
@@ -266,11 +269,9 @@ class Kernel(BaseEstimator):
             raise NotFittedError("call fit before transform")
         if X is None:
             raise ValueError("transform input cannot be None")
-        from ..profiling import StageTimer
         if not hasattr(self, "timer_"):
             self.timer_ = StageTimer()
-        with self.timer_.stage("parse_y"):
-            Y = self.parse_input(X)
+        Y = self._parse_timed(X, "parse_y")
         with self.timer_.stage("gram_y"):
             K = _to_numpy(self._compute_rectangular(Y, self.X))
         self._Y = Y
@@ -283,6 +284,14 @@ class Kernel(BaseEstimator):
                         np.outer(Yd, Xd))
         self._report_stages()
         return np.asarray(K)
+
+    def _parse_timed(self, X, stage):
+        """``parse_input(X)`` timed as ``stage``; for a kernel whose
+        parse is host work only, also the host span ``parse``."""
+        span = host_span("parse") if self._host_parse \
+            else contextlib.nullcontext()
+        with self.timer_.stage(stage), span:
+            return self.parse_input(X)
 
     def _report_stages(self):
         if self.verbose:

@@ -30,6 +30,7 @@ class _HistogramKernel(Kernel):
     """Shared machinery; subclass picks vertex vs edge labels."""
 
     _label_type = "vertex"
+    _host_parse = True
 
     def __init__(self, n_jobs=None, normalize=False, verbose=False,
                  sparse="auto"):

@@ -157,6 +157,8 @@ def _flat(parts):
 class ShortestPath(Kernel):
     """Labeled/unlabeled shortest-path kernel."""
 
+    _host_parse = True
+
     # direct-index feature-space cap: L^2 * D label-distance cells;
     # larger spaces use hash compaction
     _DIRECT_MAX_WIDTH = 1 << 18
@@ -633,6 +635,8 @@ class ShortestPath(Kernel):
 class ShortestPathAttr(Kernel):
     """Attributed shortest-path kernel (reference
     shortest_path.py:131-165), reformulated as per-distance products."""
+
+    _host_parse = True
 
     def __init__(self, n_jobs=None, normalize=False, verbose=False,
                  algorithm_type="auto", metric=np.dot):

@@ -45,12 +45,15 @@ from ..ops import wl as wl_ops
 from ..ops.gram import (active_mesh, chunk_plan, chunked_counts_gram_raw,
                         coo_counts_gram_rect, count_dtype, counts_diag,
                         normalize_gram)
+from ..profiling import StageTimer
 
 __all__ = ["WeisfeilerLehman"]
 
 
 class WeisfeilerLehman(Kernel):
     """WL subtree kernel framework."""
+
+    _host_parse = True
 
     def __init__(self, n_jobs=None, normalize=False, verbose=False,
                  n_iter=5, base_graph_kernel=None):
@@ -85,56 +88,67 @@ class WeisfeilerLehman(Kernel):
         self._method_calling = 1
         self._is_transformed = False
         self.initialize()
-        self.X = self.parse_input(X)
+        self.timer_ = StageTimer()
+        self.X = self._parse_timed(X, "parse")
         self._X_diag = None
         if not self._fast:
-            self._host_fit(self.X, with_gram=False)
+            with self.timer_.stage("gram"):
+                self._host_fit(self.X, with_gram=False)
         return self
 
     def fit_transform(self, X, y=None):
         self._method_calling = 2
         self._is_transformed = False
         self.initialize()
-        self.X = self.parse_input(X)
+        self.timer_ = StageTimer()
+        self.X = self._parse_timed(X, "parse")
         self._X_diag = None
         mesh = active_mesh()
-        if self._fast and mesh is not None:
-            # the mesh route: graph-sharded refinement and ring-tiled
-            # Grams (parallel.wl) on the mesh's device, which must be the
-            # kernel's
-            from ..parallel import distributed_wl_gram
-            from ..parallel.mesh import check_tensor
-            check_tensor(mesh, torch.empty(0, device=self._device()))
-            K = distributed_wl_gram(self.X, self.n_iter, mesh)
-        elif self._fast:
-            K = self._device_sym(self.X).cpu().numpy()
-        else:
-            K = np.asarray(self._host_fit(self.X, with_gram=True))
+        with self.timer_.stage("gram"):
+            if self._fast and mesh is not None:
+                # the mesh route: graph-sharded refinement and ring-tiled
+                # Grams (parallel.wl) on the mesh's device, which must be
+                # the kernel's
+                from ..parallel import distributed_wl_gram
+                from ..parallel.mesh import check_tensor
+                check_tensor(mesh, torch.empty(0, device=self._device()))
+                K = distributed_wl_gram(self.X, self.n_iter, mesh)
+            elif self._fast:
+                K = self._device_sym(self.X).cpu().numpy()
+            else:
+                K = np.asarray(self._host_fit(self.X, with_gram=True))
         self._X_diag = np.diagonal(K).copy()
         self._K_fit = K
         if self.normalize:
-            K = normalize_gram(K, self._X_diag, self._X_diag)
+            with self.timer_.stage("normalize"):
+                K = normalize_gram(K, self._X_diag, self._X_diag)
+        self._report_stages()
         return K
 
     def transform(self, X):
         self._method_calling = 3
         if not hasattr(self, "X") or self.X is None:
             raise NotFittedError("call fit before transform")
-        Y = self.parse_input(X)
-        if self._fast:
-            K, xd, yd = (t.cpu().numpy()
-                         for t in self._device_rect(self.X, Y))
-            if self._X_diag is None:
-                self._X_diag = xd
-        else:
-            K = np.asarray(self._host_transform(Y))
-            yd = self._host_diag_y(Y)
-            if self._X_diag is None:
-                self._X_diag = self._host_diag_x()
+        if not hasattr(self, "timer_"):
+            self.timer_ = StageTimer()
+        Y = self._parse_timed(X, "parse_y")
+        with self.timer_.stage("gram_y"):
+            if self._fast:
+                K, xd, yd = (t.cpu().numpy()
+                             for t in self._device_rect(self.X, Y))
+                if self._X_diag is None:
+                    self._X_diag = xd
+            else:
+                K = np.asarray(self._host_transform(Y))
+                yd = self._host_diag_y(Y)
+                if self._X_diag is None:
+                    self._X_diag = self._host_diag_x()
         self._Y_diag = yd
         self._is_transformed = True
         if self.normalize:
-            K = normalize_gram(K, self._Y_diag, self._X_diag)
+            with self.timer_.stage("normalize_y"):
+                K = normalize_gram(K, self._Y_diag, self._X_diag)
+        self._report_stages()
         return K
 
     def diagonal(self):

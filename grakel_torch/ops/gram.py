@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..profiling import host_span
 
 __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
            "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
@@ -198,12 +199,14 @@ def normalize_gram(K, diag_rows, diag_cols):
     as float64 numpy on the host (the Gram's last step before it is
     returned; numpy's sqrt is correctly rounded, the CPU build of
     torch's is not, and the JAX package normalizes in numpy)."""
-    K = np.asarray(_host(K), dtype=np.float64)
-    dr = np.asarray(_host(diag_rows), dtype=np.float64)
-    dc = np.asarray(_host(diag_cols), dtype=np.float64)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        out = K / np.sqrt(np.outer(dr, dc))
-    return np.nan_to_num(out)
+    K, dr, dc = _host(K), _host(diag_rows), _host(diag_cols)
+    with host_span("normalize"):
+        K = np.asarray(K, dtype=np.float64)
+        dr = np.asarray(dr, dtype=np.float64)
+        dc = np.asarray(dc, dtype=np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = K / np.sqrt(np.outer(dr, dc))
+        return np.nan_to_num(out)
 
 
 # --------------------------------------------------------------------- #

@@ -1,10 +1,38 @@
 """Lightweight tracing/observability.
 
 * :class:`StageTimer` — wall-time per named pipeline stage, queryable
-  and printable; used with ``with timer.stage("parse"): ...``;
-* :func:`trace` — context manager around ``torch.profiler`` writing a
-  TensorBoard-loadable trace (host and, with a card, CUDA activity)
-  when a directory is given.
+  and printable (``verbose`` prints it); ``with timer.stage("gram"):
+  ...`` times a stage that launches device work;
+* :func:`host_span` — a stage of host work only: timed on a
+  :class:`StageTimer` when one is given and, while a torch profiler
+  records, a ``record_function`` range ``grakel_torch.<name>`` on the
+  profiler's clock, the clock of the device's records, so that an idle
+  gap of the device carries the name of the host stage that held it.
+
+A host span encloses no kernel launch, no copy and no ``.cpu()``: a
+``record_function`` range over device work shows on the device's
+timeline too, as an annotation from its first device record to its last,
+and would read as device activity there.  Stages over device work keep a
+timer-only ``stage``.
+
+The spans, one a name where the work happens (``cv.plan`` and
+``cv.score`` once a stage of the CV):
+
+* ``parse``: ``Kernel.fit`` / ``transform`` of a kernel whose
+  ``parse_input`` is host work only (``Kernel._host_parse``:
+  ShortestPath's V-buckets, ShortestPathAttr, the vertex and edge
+  histograms, WeisfeilerLehman's ``normalize_input``).  NeighborhoodHash,
+  HadamardCode, GraphletSampling, LovaszTheta, SvmTheta and PyramidMatch
+  launch device work in their parse, and the other kernels' parses are
+  not held to host work, so theirs stays a timer-only stage;
+* ``batch``: ``GraphBatch.from_graphs``' numpy build, ending before its
+  upload;
+* ``normalize``: ``ops.gram.normalize_gram`` and the base class's
+  normalization of a fit's Gram, float64 on the host;
+* ``cv.draws``, ``cv.check``, ``cv.plan``, ``cv.score``:
+  ``utils.cross_validate_Kfold_SVM``'s splitter draws, its Grams' finite
+  check and stack, each stage's fit lists and K15 / K16 plan, and each
+  stage's scorers.
 """
 
 from __future__ import annotations
@@ -13,7 +41,12 @@ import contextlib
 import time
 from collections import OrderedDict
 
-__all__ = ["StageTimer", "trace"]
+import torch
+from torch.profiler import record_function
+
+__all__ = ["StageTimer", "host_span", "SPAN_PREFIX"]
+
+SPAN_PREFIX = "grakel_torch."
 
 
 class StageTimer:
@@ -45,18 +78,15 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir=None):
-    """Trace via ``torch.profiler`` when ``log_dir`` is given; no-op
-    otherwise.  Yields the profiler (or None)."""
-    if log_dir is None:
-        yield None
-        return
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+def host_span(name, timer=None):
+    """The host stage ``name``: its wall time added to ``timer`` (a
+    :class:`StageTimer`, or None) and, while a torch profiler records, a
+    ``record_function("grakel_torch." + name)`` range; with no profiler,
+    no range is made.  Enclose host work only (see the module
+    docstring)."""
+    timed = timer.stage(name) if timer is not None \
+        else contextlib.nullcontext()
+    traced = record_function(SPAN_PREFIX + name) \
+        if torch.autograd._profiler_enabled() else contextlib.nullcontext()
+    with timed, traced:
+        yield

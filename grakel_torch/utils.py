@@ -22,6 +22,7 @@ import numpy as np
 from .device import resolve_device
 from .estimator import BaseEstimator, NotFittedError, check_random_state
 from .graph import Graph
+from .profiling import host_span
 
 __all__ = ["KMTransformer", "cross_validate_Kfold_SVM",
            "graph_from_networkx", "graph_from_pandas", "graph_from_csv",
@@ -125,31 +126,41 @@ class _NonFinite:
         return None
 
 
-def _solve_stage(fits, evals, grams, dev, want_dec=False):
-    """Every fit of a stage (a list of (gram index, train ids, labels, C)
-    with its eval ids) in one K15 launch and one K16 launch on ``dev``.
+def _plan_stage(fits, evals):
+    """The K15 / K16 plan of a stage's fits (a list of (gram index, train
+    ids, labels, C) with its eval ids) and K16's model table: (plan,
+    models, model grams).  Host work only."""
+    from .ops import csvc
+    plan = csvc.plan_fits(fits, evals)
+    return (plan,) + plan.models()
+
+
+def _solve_stage(planned, grams, dev, want_dec=False):
+    """Every fit of a stage (``planned``, from :func:`_plan_stage`) in one
+    K15 launch and one K16 launch on ``dev``.
     Returns (plan, coef on ``dev``, and rho, iters, pred and, with
     ``want_dec``, K16's decision values (else None) as host arrays), plus
     the stage's record: its problems, iterations and
-    active rows summed over the problems, largest problem and, on a
+    active rows summed over the problems, the iterations of its longest
+    problem, largest problem and, on a
     card, K15's routes; with ``cross_validate_Kfold_SVM.keep_last`` set,
     also its plan and the kernels' inputs and outputs on ``dev``."""
     import torch
     from .ops import csvc
     Kf, diag, K64 = grams
-    plan = csvc.plan_fits(fits, evals)
+    plan, models, mgram = planned
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     smo_in = (Kf, diag, t(plan.ids), t(plan.sign), t(plan.off), t(plan.C),
               t(plan.gram))
     work = torch.zeros(plan.n_problems, dtype=torch.int64, device=dev)
     coef, rho, iters = csvc.smo(*smo_in, work=work)
-    models, mgram = plan.models()
     vote_in = (K64, t(plan.eval_ids), smo_in[2], coef, smo_in[4], rho,
                t(models), t(mgram))
     dec, pred = csvc.vote(*vote_in, groups=plan.vote_groups())
     iters_h = iters.cpu().numpy()
     record = {"problems": plan.n_problems, "max_rows": plan.max_rows,
               "iterations": int(iters_h.astype(np.int64).sum()),
+              "max_iterations": int(iters_h.max(initial=0)),
               "active_rows": int(work.sum()),
               "route": (dict(csvc.smo_cuda.last_route)
                         if dev.type == "cuda" and plan.n_problems else None)}
@@ -231,61 +242,74 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
         raise ValueError("Not a valid object for kernel matrix/ces")
 
     grids = [variants_of(ks) for ks in K]
-    folds = [list(KFold(n_splits=n_splits, shuffle=True,
-                        random_state=rng).split(y)) for _ in range(n_iter)]
     n = y.shape[0]
-    global_rng = check_random_state(None)
-    seed_max = np.iinfo("i").max
-    inner = []                     # [element][iteration][fold]
-    for variants in grids:
-        per_iter = []
-        for splits in folds:
-            per_fold = []
-            for train, _ in splits:
-                pos_tr, pos_val = next(iter(ShuffleSplit(
-                    n_splits=1, test_size=0.1,
-                    random_state=rng).split(train)))
-                per_fold.append((train[pos_tr], train[pos_val]))
-                for _ in range(len(variants) * len(Cs) + 1):
-                    global_rng.randint(seed_max)
-            per_iter.append(per_fold)
-        inner.append(per_iter)
+    with host_span("cv.draws"):
+        folds = [list(KFold(n_splits=n_splits, shuffle=True,
+                            random_state=rng).split(y))
+                 for _ in range(n_iter)]
+        global_rng = check_random_state(None)
+        seed_max = np.iinfo("i").max
+        inner = []                 # [element][iteration][fold]
+        for variants in grids:
+            per_iter = []
+            for splits in folds:
+                per_fold = []
+                for train, _ in splits:
+                    pos_tr, pos_val = next(iter(ShuffleSplit(
+                        n_splits=1, test_size=0.1,
+                        random_state=rng).split(train)))
+                    per_fold.append((train[pos_tr], train[pos_val]))
+                    for _ in range(len(variants) * len(Cs) + 1):
+                        global_rng.randint(seed_max)
+                per_iter.append(per_fold)
+            inner.append(per_iter)
 
     dev = resolve_device()
-    mats, index = [], {}
-    for variants in grids:
-        for M in variants:
-            if id(M) not in index:
-                if M.shape[0] < n or M.shape[1] < n:
-                    raise IndexError("a kernel matrix of shape %s for %d "
-                                     "labels" % (M.shape, n))
-                index[id(M)] = len(mats)
-                mats.append(np.ascontiguousarray(M[:n, :n]))
-    gid = [[index[id(M)] for M in variants] for variants in grids]
-    # a Gram's NaN and infinite entries: the fits and evaluations that read
-    # one raise scikit-learn's error below, before any launch; the others
-    # never read them, so the upload holds 0 in their place
-    bad = [_NonFinite(M) for M in mats]
-    up = [np.where(np.isfinite(M), M, 0.0) if b.any else M
-          for M, b in zip(mats, bad)]
-    K64 = torch.from_numpy(np.stack(up) if up else
-                           np.zeros((0, n, n))).to(dev)
+    with host_span("cv.check"):
+        mats, index = [], {}
+        for variants in grids:
+            for M in variants:
+                if id(M) not in index:
+                    if M.shape[0] < n or M.shape[1] < n:
+                        raise IndexError("a kernel matrix of shape %s for "
+                                         "%d labels" % (M.shape, n))
+                    index[id(M)] = len(mats)
+                    mats.append(np.ascontiguousarray(M[:n, :n]))
+        gid = [[index[id(M)] for M in variants] for variants in grids]
+        # a Gram's NaN and infinite entries: the fits and evaluations that
+        # read one raise scikit-learn's error below, before any launch;
+        # the others never read them, so the upload holds 0 in their place
+        bad = [_NonFinite(M) for M in mats]
+        up = [np.where(np.isfinite(M), M, 0.0) if b.any else M
+              for M, b in zip(mats, bad)]
+        up = np.stack(up) if up else np.zeros((0, n, n))
+    K64 = torch.from_numpy(up).to(dev)
     grams = (K64.float(), torch.diagonal(K64, dim1=1, dim2=2).contiguous(),
              K64)
     records = []
 
-    def scores_of(fits, evals):
+    def scores_of(fits, evals, planned=None):
+        if planned is None:
+            with host_span("cv.plan"):
+                planned = _plan_stage(fits, evals)
         by_name = isinstance(scorer, _PredictScorer)
         by_dec = isinstance(scorer, _DecisionScorer)
         (plan, coef, rho, iters, pred, dec), rec = _solve_stage(
-            fits, evals, grams, dev, want_dec=by_dec)
+            planned, grams, dev, want_dec=by_dec)
         records.append(rec)
-        coef_h = None if by_name else coef.cpu().numpy()
-        if by_dec:                       # each fit's first decision value
-            d0 = plan.models()[0][:, 3]
+        if not by_name:
+            # a callable scorer gets a fitted SVC, which predicts on the
+            # device
+            coef_h = coef.cpu().numpy()
+            return [scorer(SVC(C=C)._set_solution(plan, f, coef_h, rho,
+                                                  iters, dev, tr.shape[0]),
+                           mats[g][np.ix_(ev, tr)], y[ev])
+                    for f, ((g, tr, _, C), ev) in enumerate(zip(fits,
+                                                                evals))]
+        d0 = planned[1][:, 3]            # each fit's first decision value
         out = []
-        for f, ((g, tr, _, C), ev) in enumerate(zip(fits, evals)):
-            if by_name:
+        with host_span("cv.score"):
+            for f, ev in enumerate(evals):
                 classes = plan.fits[f]["classes"]
                 scorer.check_classes(classes)
                 e0, e1 = plan.eval_off[f], plan.eval_off[f + 1]
@@ -299,22 +323,8 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
                 y_score = _decision_scores(block, classes.shape[0])
                 out.append(scorer.score_dec(
                     y[ev], scorer.oriented(classes, y_score)))
-            else:
-                est = SVC(C=C)._set_solution(plan, f, coef_h, rho, iters,
-                                             dev, tr.shape[0])
-                out.append(scorer(est, mats[g][np.ix_(ev, tr)], y[ev]))
         return out
 
-    fits1, evals1, keys = [], [], []
-    for e, variants in enumerate(grids):
-        for t, splits in enumerate(folds):
-            for f in range(len(splits)):
-                sub_tr, sub_val = inner[e][t][f]
-                for v in range(len(variants)):
-                    for C in Cs:
-                        fits1.append((gid[e][v], sub_tr, y[sub_tr], C))
-                        evals1.append(sub_val)
-                        keys.append((e, t, f, v, C))
     def pick(keys, scores):
         best = {}
         for key, s in zip(keys, scores):
@@ -323,8 +333,23 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
                 best[key[:3]] = (s, key[3:])
         return best
 
+    with host_span("cv.plan"):
+        fits1, evals1, keys = [], [], []
+        for e, variants in enumerate(grids):
+            for t, splits in enumerate(folds):
+                for f in range(len(splits)):
+                    sub_tr, sub_val = inner[e][t][f]
+                    for v in range(len(variants)):
+                        for C in Cs:
+                            fits1.append((gid[e][v], sub_tr, y[sub_tr], C))
+                            evals1.append(sub_val)
+                            keys.append((e, t, f, v, C))
+        # with a non-finite Gram, its errors come before any plan's
+        planned1 = None if any(b.any for b in bad) \
+            else _plan_stage(fits1, evals1)
+
     scores1 = None
-    if any(b.any for b in bad):
+    if planned1 is None:
         # the reference's order: a fold's inner fits (each its fit block,
         # then its eval block), then its refit on the chosen variant
         fail, n1 = None, len(fits1)
@@ -356,16 +381,18 @@ def cross_validate_Kfold_SVM(K, y, n_iter=10, n_splits=10, C_grid=None,
         if fail is not None:
             raise ValueError(fail)
     if scores1 is None:
-        scores1 = scores_of(fits1, evals1)
-    best = pick(keys, scores1)
-    fits2, evals2 = [], []
-    for e, variants in enumerate(grids):
-        for t, splits in enumerate(folds):
-            for f, (train, test) in enumerate(splits):
-                v, C = best[(e, t, f)][1]
-                fits2.append((gid[e][v], train, y[train], C))
-                evals2.append(test)
-    scores2 = iter(scores_of(fits2, evals2))
+        scores1 = scores_of(fits1, evals1, planned1)
+    with host_span("cv.plan"):
+        best = pick(keys, scores1)
+        fits2, evals2 = [], []
+        for e, variants in enumerate(grids):
+            for t, splits in enumerate(folds):
+                for f, (train, test) in enumerate(splits):
+                    v, C = best[(e, t, f)][1]
+                    fits2.append((gid[e][v], train, y[train], C))
+                    evals2.append(test)
+        planned2 = _plan_stage(fits2, evals2)
+    scores2 = iter(scores_of(fits2, evals2, planned2))
     cross_validate_Kfold_SVM.last = {"stages": records, "device": dev}
     results = []
     for e in range(len(grids)):

@@ -3023,3 +3023,37 @@ def test_svc_and_cross_validate_raise_before_any_launch(cuda):
                     np.arange(30) == 2, value, 1.0))
         assert csvc.vote_cuda.launches == v1 == v0
         assert csvc.smo_cuda.launches == l1 == l0 + 1
+
+
+def test_host_spans_stay_off_the_device_timeline(cuda):
+    """A traced WL fit and CV on the card: the program's host spans
+    (``profiling.host_span``) are host records only, and no device record
+    carries their names (a range over device work would show there as an
+    annotation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    train, _ = generate_dataset(n_graphs=60, n_graphs_test=1,
+                                r_vertices=(5, 15), random_state=3,
+                                features=("nl", 4))
+    kw = dict(n_iter=2, n_splits=3, random_state=0)
+    with use_device("cuda"):
+        K = grakel_torch.WeisfeilerLehman(
+            n_iter=3, normalize=True).fit_transform(train)
+        y = np.arange(K.shape[0]) % 2
+        grakel_torch.cross_validate_Kfold_SVM([K], y, **kw)   # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            grakel_torch.WeisfeilerLehman(
+                n_iter=3, normalize=True).fit_transform(train)
+            grakel_torch.cross_validate_Kfold_SVM([K], y, **kw)
+            torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("grakel_torch.")}
+    assert host == {"grakel_torch." + n for n in (
+        "parse", "batch", "normalize", "cv.draws", "cv.check", "cv.plan",
+        "cv.score")}
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert any("csvc_smo" in n for n in device)
+    assert [n for n in device if "grakel_torch." in n] == []

@@ -105,20 +105,83 @@ def test_graph_batch_flat_layout_matches(features):
     assert tb.max_nodes == jb.max_nodes and tb.total_edges == jb.total_edges
 
 
-def test_stage_timer_and_trace(tmp_path):
-    import torch
-    from grakel_torch.profiling import StageTimer, trace
+def test_stage_timer_and_trace():
+    """StageTimer sums each stage's calls; host_span adds its stage to
+    the timer it is given, and to none without one."""
+    from grakel_torch.profiling import StageTimer, host_span
     timer = StageTimer()
     with timer.stage("parse"):
         pass
     with timer.stage("parse"):
         pass
-    assert timer.counts["parse"] == 2 and "parse" in timer.report()
-    with trace(None) as prof:
-        assert prof is None
-    with trace(str(tmp_path)) as prof:
-        torch.ones(8).sum()
-    assert any(p.name.endswith(".json") for p in tmp_path.iterdir())
+    with host_span("normalize", timer):
+        pass
+    with host_span("batch"):
+        pass
+    assert timer.counts == {"parse": 2, "normalize": 1}
+    assert all(t >= 0 for t in timer.times.values())
+    assert "parse" in timer.report() and "normalize" in timer.report()
+
+
+def _cpu_events(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()]
+
+
+def test_host_span_records_one_range_under_the_profiler():
+    from grakel_torch.profiling import StageTimer, host_span
+    timer = StageTimer()
+
+    def spans():
+        with host_span("normalize", timer):
+            sum(range(1000))
+
+    events = _cpu_events(spans)
+    mine = [e for e in events if e[0].startswith("grakel_torch.")]
+    assert [e[0] for e in mine] == ["grakel_torch.normalize"]
+    assert mine[0][2] > mine[0][1]
+    assert timer.counts == {"normalize": 1}
+
+
+def test_host_span_makes_no_range_without_a_profiler(monkeypatch):
+    from grakel_torch import profiling
+    from grakel_torch.profiling import StageTimer, host_span
+
+    def refuse(name):
+        raise AssertionError("record_function entered for " + name)
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    timer = StageTimer()
+    with host_span("parse", timer):
+        pass
+    with host_span("parse"):
+        pass
+    assert timer.counts == {"parse": 1}
+    # under a profiler the span does reach record_function
+    with pytest.raises(AssertionError, match="grakel_torch.parse"):
+        _cpu_events(lambda: host_span("parse").__enter__())
+
+
+def test_host_span_closes_on_an_error():
+    """An exception inside the span leaves it closed on the profiler and
+    timed on the timer, and goes on to the caller."""
+    from grakel_torch.profiling import StageTimer, host_span
+    timer = StageTimer()
+
+    def fails():
+        with pytest.raises(KeyError):
+            with host_span("cv.check", timer):
+                raise KeyError("x")
+        with host_span("cv.plan"):
+            pass
+
+    names = [e[0] for e in _cpu_events(fails)
+             if e[0].startswith("grakel_torch.")]
+    assert names == ["grakel_torch.cv.check", "grakel_torch.cv.plan"]
+    assert timer.counts == {"cv.check": 1}
 
 
 @pytest.mark.parametrize("seed", [0, 1])
