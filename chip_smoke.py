@@ -169,6 +169,13 @@ main paths through the public entry points, at full data size:
   mutual information to rtol 1e-12), with K15 and K16 once a stage.
   ``python3 chip_smoke.py --phase cv`` runs the build and this phase
   alone.
+* the float64 normalization on the card (``gram_norm_phase``, K17):
+  ``wl_norm_nci1scale`` (WL-VH h=5 normalized on the 4110 NCI1-scale
+  graphs) launches K17 once and equals its f32 Gram normalized on the
+  host bit for bit; K17 alone on that Gram in f32 and f64 against the
+  host route, timed beside its bytes bound, the host route and the
+  pageable fetch of both widths.  ``python3 chip_smoke.py --phase
+  gram_norm`` runs the build and this phase alone.
 
 Every kernel's launch count is set to 0 just before a path and read just
 after it.  WL-VH must launch K2 (``wl_hash_refine``), unlabeled PM the
@@ -3600,6 +3607,88 @@ def cv_phase(run_path, check, paths, train):
          **common, **k16}]
 
 
+def gram_norm_phase(run_path, check, paths, train):
+    """The float64 normalization on the card (K17, ``csrc/gram_norm.cu``):
+    ``wl_norm_nci1scale`` (``WeisfeilerLehman(n_iter=5,
+    normalize=True)`` on the 4110 NCI1-scale graphs) must launch K17
+    exactly once and equal the unnormalized Gram's host normalization
+    (``ops.gram.normalize_gram`` on numpy) bit for bit; then K17 alone on
+    that Gram, f32 as the path hands it and f64, against the host route
+    bit for bit and timed beside its bound (bytes: K read once, the f64
+    Gram written once, the diagonals once), the host route (plain ms,
+    host clock) and the pageable fetch of the f32 Gram and of the f64
+    result.  Returns K17's kernel row."""
+    import torch
+    from grakel_torch import WeisfeilerLehman
+    from grakel_torch.ops import gram as gram_ops
+    t0 = time.perf_counter()
+    K, secs, launches = run_path(
+        "wl_norm_nci1scale",
+        lambda: WeisfeilerLehman(n_iter=5, normalize=True).fit_transform(
+            train))
+    check(launches["gram_normalize"] == 1,
+          "wl_norm_nci1scale launched K17 once (%d)"
+          % launches["gram_normalize"])
+    raw = WeisfeilerLehman(n_iter=5).fit_transform(train)
+    d = np.diagonal(raw).copy()
+    want = gram_ops.normalize_gram(raw, d, d)
+    check(K.dtype == np.float64 and np.array_equal(K, want),
+          "wl_norm_nci1scale == its f32 Gram normalized on the host, bit "
+          "for bit")
+    paths["wl_norm_nci1scale"] = {"graphs": len(train), "wall_s": secs,
+                                  "launches": launches}
+    m = raw.shape[0]
+    dd = torch.from_numpy(d.astype(np.float64)).cuda()
+    shapes = []
+    for dt in (torch.float32, torch.float64):
+        Kc = torch.from_numpy(raw).cuda().to(dt)
+        host = raw.astype(np.float64 if dt == torch.float64 else np.float32)
+        t = time.perf_counter()
+        ref = gram_ops.normalize_gram(host, d, d)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        out = gram_ops.normalize_gram_cuda(Kc, dd, dd)
+        torch.cuda.synchronize()
+        ok = np.array_equal(out.cpu().numpy(), ref)
+        check(ok, "K17 %s %dx%d == the host route bit for bit"
+              % (str(dt)[6:], m, m))
+        ms = cuda_ms(lambda: gram_ops.normalize_gram_cuda(Kc, dd, dd), 50)
+        nbytes = m * m * (Kc.element_size() + 8) + 2 * m * 8
+        shapes.append({"dtype": str(dt)[6:], "m": m, "n": m, "ms": ms,
+                       "plain_ms": plain_ms, "bit_equal": ok,
+                       **bound(nbytes, 3 * m * m, FP64_VECTOR_OPS_PER_S)})
+        print("K17 %s %dx%d: %.4f ms (bound %.4f, %s), host route %.1f ms"
+              % (str(dt)[6:], m, m, ms, shapes[-1]["bound_ms"],
+                 shapes[-1]["bound_by"], plain_ms), flush=True)
+        del Kc, out
+    fetch = {}
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        X = torch.from_numpy(raw).cuda().to(dt)
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            X.cpu()
+            runs.append((time.perf_counter() - t) * 1e3)
+        fetch[name] = sorted(runs)[2]
+    print("pageable fetch of the %dx%d Gram (median of 5, host ms): %s"
+          % (m, m, fetch), flush=True)
+    paths["wl_norm_nci1scale"]["phase_s"] = time.perf_counter() - t0
+    main = shapes[0]
+    return [{"name": "gram_normalize", "route": "cuda",
+             "source": "grakel_torch/csrc/gram_norm.cu",
+             "replaces": "none: the host's float64 normalization "
+                         "(grakel_tpu/ops/gram.py normalize_gram, numpy)",
+             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bytes")},
+             "max_abs_err": 0.0 if all(c["bit_equal"] for c in shapes)
+             else None,
+             "library_ms": None,
+             "library": "none: one PyTorch call does not compute it, and "
+                        "torch's CPU sqrt is not numpy's",
+             "fetch_ms": fetch,
+             "shapes": shapes}]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3740,6 +3829,14 @@ def main():
         "K15's 8 kernels (route warp; route block at 1, 2, 3, 4, 6 and 8 "
         "rows a thread; route global) and K16's built without spills: %s"
         % k1516_ptxas)
+    from grakel_torch.ops import gram as gram_ops
+    k17_ptxas = {k: v for k, v in ptxas_info(nvcc_out).items()
+                 if "gram_normalize" in k}
+    check(len(k17_ptxas) == 2 and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+        for v in k17_ptxas.values()),
+        "K17's 2 kernels (f32 and f64 K) built without spills: %s"
+        % k17_ptxas)
     counters = {"min_gram": intersect.min_gram_cuda,
                 "min_gram_tc": intersect.min_gram_tc_cuda,
                 "threshold_expand": intersect.threshold_expand_cuda,
@@ -3761,7 +3858,8 @@ def main():
                 "lovasz_min_cone": lovasz_ops.min_cone_cuda,
                 "lovasz_jacobi_eigh": lovasz_ops.jacobi_eigh_cuda,
                 "csvc_smo": csvc_ops.smo_cuda,
-                "csvc_vote": csvc_ops.vote_cuda}
+                "csvc_vote": csvc_ops.vote_cuda,
+                "gram_normalize": gram_ops.normalize_gram_cuda}
 
     k3_routes = fw_ops.floyd_warshall_cuda.route_launches
     k5_routes = intersect.jaccard_fold_cuda.route_launches
@@ -3793,14 +3891,16 @@ def main():
         n_graphs=N_GRAPHS + N_HELD, n_graphs_test=N_HELD,
         r_vertices=(10, 50), r_connectivity=(0.07, 0.15),
         random_state=SEED, features=("nl", N_LABELS))
-    if sys.argv[1:] == ["--phase", "cv"]:
-        # the cross-validation phase alone (K15, K16): its paths, holds,
-        # sweeps and kernel rows
-        rows = cv_phase(run_path, check, paths, train)
+    alone = {"cv": cv_phase, "gram_norm": gram_norm_phase}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" \
+            and sys.argv[2] in alone:
+        # one phase alone (cv: K15, K16; gram_norm: K17): its paths,
+        # holds, sweeps and kernel rows
+        rows = alone[sys.argv[2]](run_path, check, paths, train)
         for row in rows:
             row["launches"] = sum(p["launches"][row["name"]]
                                   for p in paths.values())
-            row["ptxas"] = {k: v for k, v in k1516_ptxas.items()
+            row["ptxas"] = {k: v for k, v in ptxas_info(nvcc_out).items()
                             if row["name"] in k}
         print(json.dumps({"paths": paths}), flush=True)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -3812,7 +3912,7 @@ def main():
                   % (len(check.failed), "; ".join(check.failed)),
                   file=sys.stderr)
             return 1
-        print(json.dumps({"ok": True, "phase": "cv"}))
+        print(json.dumps({"ok": True, "phase": sys.argv[2]}))
         return 0
 
     def wl_path():
@@ -4338,6 +4438,7 @@ def main():
     k1516 = cv_phase(run_path, check, paths, train)
     print("chip_smoke: %.1f s after the cross-validation phase"
           % (time.perf_counter() - t_start), flush=True)
+    k17 = gram_norm_phase(run_path, check, paths, train)
     print(json.dumps({"paths": paths}), flush=True)
 
     # ---------------- K1 against its plain version ---------------------- #
@@ -5607,6 +5708,10 @@ def main():
         row["ptxas"] = {k: v for k, v in k1516_ptxas.items()
                         if row["name"] in k}
     kernels += k1516
+    for row in k17:
+        row["launches"] = launches[row["name"]]
+        row["ptxas"] = k17_ptxas
+    kernels += k17
     check(all(r["launches"] > 0 for r in kernels),
           "every kernel of the line launched on the paths: %s"
           % {r["name"]: r["launches"] for r in kernels})

@@ -99,6 +99,7 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P],
     "grakel_csvc_vote": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P, _P, _P, _P],
+    "grakel_normalize_gram": [_P, _I, _P, _P, _P, _I, _I, _P],
 }
 
 

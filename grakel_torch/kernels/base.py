@@ -118,6 +118,14 @@ def _to_numpy(K):
     return np.asarray(K)
 
 
+def _diagonal_of(K):
+    """The diagonal of a Gram (a tensor or a numpy array) as a view of the
+    same kind, on the Gram's device."""
+    if isinstance(K, torch.Tensor):
+        return torch.diagonal(K)
+    return np.diagonal(K)
+
+
 def _device_entry(fn):
     """Entry-point wrapper: resolve ``self.device`` (instance attribute,
     else the ambient device, else cuda) and install it as the ambient

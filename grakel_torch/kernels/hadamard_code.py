@@ -42,7 +42,8 @@ import numpy as np
 import torch
 from scipy.linalg import hadamard
 
-from .base import Kernel, normalize_input, parallel_sum
+from .base import (Kernel, _diagonal_of, _to_numpy, normalize_input,
+                   parallel_sum)
 from .histogram import VertexHistogram
 from ..batch import GraphBatch
 from ..estimator import NotFittedError
@@ -107,14 +108,15 @@ class HadamardCode(Kernel):
         self._collect_labels(self.X)
         self._X_diag = None
         if self._fast:
-            K = self._device_sym(self.X).cpu().numpy()
+            K = self._device_sym(self.X)
         else:
             K = np.asarray(self._host_fit(with_gram=True))
-        self._K_fit = K
-        self._X_diag = np.diagonal(K).copy()
+        # a Gram on the card is normalized there (K17) before its fetch
+        d = _diagonal_of(K)
         if self.normalize:
-            K = normalize_gram(K, self._X_diag, self._X_diag)
-        return K
+            K = normalize_gram(K, d, d)
+        self._X_diag = _to_numpy(d).copy()
+        return _to_numpy(K)
 
     def transform(self, X):
         self._method_calling = 3
@@ -125,20 +127,19 @@ class HadamardCode(Kernel):
         enum_t = dict(self._enum)
         self._collect_labels(Y, enum_t)
         if self._fast:
-            K, xd, yd = (t.cpu().numpy() for t in self._device_rect(
-                self.X, Y, n_fit_labels, enum_t))
-            if self._X_diag is None:
-                self._X_diag = xd
+            K, xd, yd = self._device_rect(self.X, Y, n_fit_labels, enum_t)
         else:
             K = np.asarray(self._host_transform(Y, enum_t))
             yd = self._host_diag(side=1)
-            if self._X_diag is None:
-                self._X_diag = self._host_diag(side=0)
-        self._Y_diag = yd
-        self._is_transformed = True
+            xd = self._X_diag if self._X_diag is not None \
+                else self._host_diag(side=0)
         if self.normalize:
-            K = normalize_gram(K, self._Y_diag, self._X_diag)
-        return K
+            K = normalize_gram(K, yd, xd)
+        if self._X_diag is None:
+            self._X_diag = _to_numpy(xd)
+        self._Y_diag = _to_numpy(yd)
+        self._is_transformed = True
+        return _to_numpy(K)
 
     def diagonal(self):
         if not hasattr(self, "X") or self.X is None:

@@ -36,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Kernel, normalize_input, parallel_sum
+from .base import (Kernel, _diagonal_of, _to_numpy, normalize_input,
+                   parallel_sum)
 from .histogram import VertexHistogram
 from ..batch import GraphBatch, bucket_size
 from ..estimator import NotFittedError
@@ -114,16 +115,18 @@ class WeisfeilerLehman(Kernel):
                 check_tensor(mesh, torch.empty(0, device=self._device()))
                 K = distributed_wl_gram(self.X, self.n_iter, mesh)
             elif self._fast:
-                K = self._device_sym(self.X).cpu().numpy()
+                K = self._device_sym(self.X)
             else:
                 K = np.asarray(self._host_fit(self.X, with_gram=True))
-        self._X_diag = np.diagonal(K).copy()
-        self._K_fit = K
+        # a Gram on the card is normalized there (K17), so only the f64
+        # result and the diagonal cross to the host
+        d = _diagonal_of(K)
         if self.normalize:
             with self.timer_.stage("normalize"):
-                K = normalize_gram(K, self._X_diag, self._X_diag)
+                K = normalize_gram(K, d, d)
+        self._X_diag = _to_numpy(d).copy()
         self._report_stages()
-        return K
+        return _to_numpy(K)
 
     def transform(self, X):
         self._method_calling = 3
@@ -134,22 +137,21 @@ class WeisfeilerLehman(Kernel):
         Y = self._parse_timed(X, "parse_y")
         with self.timer_.stage("gram_y"):
             if self._fast:
-                K, xd, yd = (t.cpu().numpy()
-                             for t in self._device_rect(self.X, Y))
-                if self._X_diag is None:
-                    self._X_diag = xd
+                K, xd, yd = self._device_rect(self.X, Y)
             else:
                 K = np.asarray(self._host_transform(Y))
                 yd = self._host_diag_y(Y)
-                if self._X_diag is None:
-                    self._X_diag = self._host_diag_x()
-        self._Y_diag = yd
-        self._is_transformed = True
+                xd = self._X_diag if self._X_diag is not None \
+                    else self._host_diag_x()
         if self.normalize:
             with self.timer_.stage("normalize_y"):
-                K = normalize_gram(K, self._Y_diag, self._X_diag)
+                K = normalize_gram(K, yd, xd)
+        if self._X_diag is None:
+            self._X_diag = _to_numpy(xd)
+        self._Y_diag = _to_numpy(yd)
+        self._is_transformed = True
         self._report_stages()
-        return K
+        return _to_numpy(K)
 
     def diagonal(self):
         if not hasattr(self, "X") or self.X is None:

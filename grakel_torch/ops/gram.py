@@ -13,7 +13,9 @@ GEMM (its dense block of the most-shared columns multiplied on the
 caller's device, or the host).  :func:`split_weighted_singletons` splits
 a weighted count matrix's singleton columns into the diagonal, and
 :func:`shared_cols_gram_rect` restricts a rectangular Gram to the
-columns both sides hold.
+columns both sides hold.  :func:`normalize_gram` normalizes a Gram in
+float64 where it lies: a CUDA tensor on its card by K17
+(:func:`normalize_gram_cuda`), anything else in numpy on the host.
 
 While a mesh is installed (:func:`use_mesh`), :func:`gram_gemm`,
 :func:`gram_rect`, :func:`coo_counts_gram` and
@@ -39,8 +41,8 @@ from ..device import resolve_device
 from ..profiling import host_span
 
 __all__ = ["gram_gemm", "gram_rect", "normalize_gram",
-           "coo_counts_gram", "coo_counts_gram_rect", "counts_diag",
-           "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
+           "normalize_gram_cuda", "coo_counts_gram", "coo_counts_gram_rect",
+           "counts_diag", "chunked_counts_gram_raw", "chunk_plan", "full_fp32",
            "sparse_counts_gram", "count_dtype", "split_weighted_singletons",
            "shared_cols_gram_rect", "use_mesh", "active_mesh"]
 
@@ -195,10 +197,24 @@ def _host(x):
 
 
 def normalize_gram(K, diag_rows, diag_cols):
-    """K / sqrt(outer(diag_rows, diag_cols)) with 0/0 and x/0 mapped to 0,
-    as float64 numpy on the host (the Gram's last step before it is
-    returned; numpy's sqrt is correctly rounded, the CPU build of
-    torch's is not, and the JAX package normalizes in numpy)."""
+    """K / sqrt(outer(diag_rows, diag_cols)) in float64, with numpy's
+    ``nan_to_num`` after it: 0/0 maps to 0 and x/0 to the largest double
+    of x's sign (the Gram's last step before it is returned).
+
+    The route follows K.  A CUDA tensor is normalized on its card by K17
+    (:func:`normalize_gram_cuda`, the diagonals moved there as f64) and
+    comes back as an f64 CUDA tensor; no host span is opened around the
+    launch.  A numpy array or a CPU tensor is normalized in float64 numpy
+    on the host inside the host span ``normalize`` and comes back as a
+    numpy array.  Both give numpy's bits: numpy's sqrt and division are
+    correctly rounded and so are K17's ``__dsqrt_rn`` / ``__ddiv_rn``,
+    while the CPU build of torch's sqrt is not; the JAX package
+    normalizes in numpy."""
+    if isinstance(K, torch.Tensor) and K.is_cuda:
+        if not (K.is_contiguous() and K.data_ptr() % 16 == 0):
+            K = K.clone(memory_format=torch.contiguous_format)
+        return normalize_gram_cuda(K, _f64_on(diag_rows, K.device),
+                                   _f64_on(diag_cols, K.device))
     K, dr, dc = _host(K), _host(diag_rows), _host(diag_cols)
     with host_span("normalize"):
         K = np.asarray(K, dtype=np.float64)
@@ -207,6 +223,47 @@ def normalize_gram(K, diag_rows, diag_cols):
         with np.errstate(divide="ignore", invalid="ignore"):
             out = K / np.sqrt(np.outer(dr, dc))
         return np.nan_to_num(out)
+
+
+def _f64_on(d, device):
+    """A diagonal (numpy or tensor) as a contiguous f64 tensor on
+    ``device``."""
+    return torch.as_tensor(d, dtype=torch.float64,
+                           device=device).contiguous()
+
+
+def normalize_gram_cuda(K, dr, dc):
+    """Launch K17 (``csrc/gram_norm.cu``): ``out = K / sqrt(dr_i dc_j)``
+    with numpy's ``nan_to_num`` mapping, bit-equal to the host route of
+    :func:`normalize_gram`.  K: a contiguous, 16-byte aligned f32 or f64
+    CUDA tensor [m, n]; dr [m], dc [n]: contiguous f64 on K's device.
+    Returns a fresh f64 [m, n] on the current stream, with no
+    synchronization (one launch; none when K is empty)."""
+    from .. import _build
+    dev = K.device
+    ok = (dev.type == "cuda" and K.dim() == 2
+          and K.dtype in (torch.float32, torch.float64)
+          and K.is_contiguous() and K.data_ptr() % 16 == 0
+          and max(K.shape) < 1 << 31)
+    if ok:
+        m, n = K.shape
+        ok = all(d.device == dev and d.dtype == torch.float64
+                 and d.is_contiguous() and d.shape == (size,)
+                 for d, size in ((dr, m), (dc, n)))
+    if not ok:
+        raise ValueError("normalize_gram_cuda: need a contiguous, 16-byte "
+                         "aligned f32 or f64 CUDA tensor K [m, n] and "
+                         "contiguous f64 diagonals [m], [n] on its device")
+    out = torch.empty((m, n), dtype=torch.float64, device=dev)
+    if m and n:
+        _build.launch("grakel_normalize_gram", dev, K.data_ptr(),
+                      int(K.dtype == torch.float64), dr.data_ptr(),
+                      dc.data_ptr(), out.data_ptr(), m, n)
+        normalize_gram_cuda.launches += 1
+    return out
+
+
+normalize_gram_cuda.launches = 0
 
 
 # --------------------------------------------------------------------- #

@@ -27,8 +27,12 @@ The spans, one a name where the work happens (``cv.plan`` and
   not held to host work, so theirs stays a timer-only stage;
 * ``batch``: ``GraphBatch.from_graphs``' numpy build, ending before its
   upload;
-* ``normalize``: ``ops.gram.normalize_gram`` and the base class's
-  normalization of a fit's Gram, float64 on the host;
+* ``normalize``: the host route of ``ops.gram.normalize_gram`` (a numpy
+  array or a CPU tensor) and the base class's normalization of a fit's
+  Gram, float64 on the host.  A CUDA Gram is normalized on its card by
+  K17 (``ops.gram.normalize_gram_cuda``), which opens no span: WL's fit
+  times it as the timer-only stage ``normalize``, and the kernel's own
+  profiler record gives its device time;
 * ``cv.draws``, ``cv.check``, ``cv.plan``, ``cv.score``:
   ``utils.cross_validate_Kfold_SVM``'s splitter draws, its Grams' finite
   check and stack, each stage's fit lists and K15 / K16 plan, and each

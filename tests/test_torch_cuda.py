@@ -18,6 +18,7 @@ from grakel_torch.ops import floyd_warshall as fw
 from grakel_torch.batch import GraphBatch
 from grakel_torch.graph import Graph
 from grakel_torch.ops import canonical, hadamard, intersect, nh, wl
+from grakel_torch.ops import gram as gram_ops
 from grakel_torch.ops import random_walk as rw_ops
 
 pytestmark = pytest.mark.cuda
@@ -3025,11 +3026,129 @@ def test_svc_and_cross_validate_raise_before_any_launch(cuda):
         assert csvc.smo_cuda.launches == l1 == l0 + 1
 
 
+def _k17_case(rng, m, n, dtype, sym):
+    """K [m, n] in ``dtype`` and its f64 diagonals: a symmetric count
+    Gram with zero self-kernels (0/0), or rectangular counts against
+    real-valued diagonals with zero rows (x/0, 0/0)."""
+    if sym:
+        A = rng.randint(0, 4, (m, 7)).astype(np.float64)
+        A[::5] = 0
+        K = A @ A.T
+        dr = dc = np.diagonal(K).copy()
+    else:
+        K = rng.randint(0, 50, (m, n)).astype(np.float64)
+        K[::7, ::3] = 0
+        dr = rng.uniform(0.5, 4000.0, m)
+        dc = rng.uniform(0.5, 4000.0, n)
+        dr[::7] = 0.0
+    return K.astype(dtype), dr, dc
+
+
+# off the tile (1024 columns a block) and off 16-byte rows, 1 x 1, empty
+@pytest.mark.parametrize("m,n,sym", [
+    (1, 1, True), (0, 0, True), (0, 5, False), (5, 0, False), (7, 7, True),
+    (257, 257, True), (1024, 1024, True), (3, 1025, False),
+    (1030, 3, False), (13, 2049, False), (301, 1031, False)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gram_normalize_kernel_bit_equal_to_numpy(cuda, m, n, sym, dtype):
+    """K17 through ``normalize_gram`` equals its host route (numpy) bit
+    for bit and stays on the card; one launch a nonempty Gram, none for
+    an empty one."""
+    rng = np.random.RandomState(m * 31 + n)
+    K, dr, dc = _k17_case(rng, m, n, dtype, sym)
+    want = gram_ops.normalize_gram(K, dr, dc)
+    before = gram_ops.normalize_gram_cuda.launches
+    got = gram_ops.normalize_gram(torch.from_numpy(K).to(cuda),
+                                  torch.from_numpy(dr).to(cuda), dc)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float64
+    assert tuple(got.shape) == (m, n)
+    assert gram_ops.normalize_gram_cuda.launches == before + (m * n > 0)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gram_normalize_kernel_large_products_and_infinities(cuda, dtype):
+    """Diagonal products far past 2^24 (to 2^60), real-valued diagonals,
+    +-inf and NaN in K, x/0, a negative product (NaN) and an infinite
+    diagonal, against numpy's ``nan_to_num`` bit for bit."""
+    rng = np.random.RandomState(9)
+    m, n = 67, 133
+    K = rng.randint(0, 1 << 24, (m, n)).astype(dtype)
+    dr = rng.uniform(1 << 20, 1 << 30, m)
+    dc = rng.uniform(1 << 20, 1 << 30, n)
+    K[0, :4] = [np.inf, -np.inf, np.nan, -5]
+    dr[1] = 0.0
+    K[1, :3] = [3, -3, 0]
+    dr[2] = -4.0
+    dc[5] = np.inf
+    K[3, 5] = np.inf
+    with np.errstate(all="ignore"):
+        want = np.nan_to_num(K.astype(np.float64) / np.sqrt(np.outer(dr, dc)))
+    got = gram_ops.normalize_gram(torch.from_numpy(K).to(cuda),
+                                  torch.from_numpy(dr).to(cuda),
+                                  torch.from_numpy(dc).to(cuda))
+    got = got.cpu().numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, gram_ops.normalize_gram(K, dr, dc))
+    big = np.finfo(np.float64).max
+    assert list(got[0, :3]) == [big, -big, 0.0]
+    assert list(got[1, :3]) == [big, -big, 0.0]
+    assert not got[2].any() and got[3, 5] == 0.0
+
+
+def test_gram_normalize_views_and_wrapper_checks(cuda):
+    """``normalize_gram`` copies a view off 16-byte alignment or
+    contiguity (a mesh's rectangular Gram is a slice); K17's wrapper
+    refuses such views and what it does not take."""
+    base = torch.arange(1, 64, dtype=torch.float32, device=cuda).view(7, 9)
+    dr = torch.arange(1, 8, dtype=torch.float64, device=cuda)
+    dc = torch.arange(1, 10, dtype=torch.float64, device=cuda)
+    for K, r, c in ((base[1:], dr[1:], dc), (base.t(), dc, dr)):
+        got = gram_ops.normalize_gram(K, r, c)
+        want = gram_ops.normalize_gram(K.cpu(), r.cpu(), c.cpu())
+        assert np.array_equal(got.cpu().numpy(), want)
+    for K, r, c in ((base.cpu(), dr.cpu(), dc.cpu()), (base[1:], dr[1:], dc),
+                    (base.t(), dc, dr), (base.half(), dr, dc),
+                    (base, dr.float(), dc), (base, dr[:6], dc),
+                    (base, dr, dc.cpu())):
+        with pytest.raises(ValueError, match="normalize_gram_cuda"):
+            gram_ops.normalize_gram_cuda(K, r, c)
+
+
+@pytest.mark.parametrize("name", ["WeisfeilerLehman", "HadamardCode"])
+def test_normalized_fast_paths_take_k17_and_match_cpu(cuda, name):
+    """WL's and HadamardCode's fast paths with ``normalize=True``
+    normalize on the card, one K17 launch a ``fit_transform`` and one a
+    ``transform``, and equal their CPU runs bit for bit; without
+    normalization K17 stays off."""
+    train, test = generate_dataset(n_graphs=80, n_graphs_test=10,
+                                   r_vertices=(5, 30), random_state=4,
+                                   features=("nl", 6))
+    k = getattr(grakel_torch, name)(n_iter=3, normalize=True)
+    before = gram_ops.normalize_gram_cuda.launches
+    K = k.fit_transform(train)
+    assert gram_ops.normalize_gram_cuda.launches == before + 1
+    T = k.transform(test)
+    d = k.diagonal()
+    assert gram_ops.normalize_gram_cuda.launches == before + 2
+    with use_device("cpu"):
+        kc = getattr(grakel_torch, name)(n_iter=3, normalize=True)
+        Kc, Tc, dc = kc.fit_transform(train), kc.transform(test), \
+            kc.diagonal()
+    assert K.dtype == T.dtype == np.float64
+    assert np.array_equal(K, Kc) and np.array_equal(T, Tc)
+    assert all(np.array_equal(a, b) for a, b in zip(d, dc))
+    getattr(grakel_torch, name)(n_iter=3).fit_transform(train)
+    assert gram_ops.normalize_gram_cuda.launches == before + 2
+
+
 def test_host_spans_stay_off_the_device_timeline(cuda):
     """A traced WL fit and CV on the card: the program's host spans
     (``profiling.host_span``) are host records only, and no device record
     carries their names (a range over device work would show there as an
-    annotation)."""
+    annotation).  WL's normalization runs on the card as K17, with no
+    ``normalize`` span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     train, _ = generate_dataset(n_graphs=60, n_graphs_test=1,
@@ -3052,8 +3171,8 @@ def test_host_spans_stay_off_the_device_timeline(cuda):
     host = {e.name for e in events if e.device_type == DeviceType.CPU
             and e.name.startswith("grakel_torch.")}
     assert host == {"grakel_torch." + n for n in (
-        "parse", "batch", "normalize", "cv.draws", "cv.check", "cv.plan",
-        "cv.score")}
+        "parse", "batch", "cv.draws", "cv.check", "cv.plan", "cv.score")}
     device = [e.name for e in events if e.device_type == DeviceType.CUDA]
     assert any("csvc_smo" in n for n in device)
+    assert any("gram_normalize" in n for n in device)   # K17, no span
     assert [n for n in device if "grakel_torch." in n] == []

@@ -77,6 +77,47 @@ def test_normalize_gram_and_chunk_plan_equal():
         assert t_gram.chunk_plan(L) == j_gram.chunk_plan(L)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("as_tensor", [False, True],
+                         ids=["numpy", "cpu_tensor"])
+def test_normalize_gram_host_route_unchanged(as_tensor, dtype):
+    """A numpy array or a CPU tensor takes the host route: numpy's float64
+    K / sqrt(outer(dr, dc)) and ``nan_to_num`` bit for bit (0/0 -> 0, x/0
+    and inf -> the largest double of their sign), returned as numpy, in
+    one ``normalize`` host span."""
+    from torch.profiler import ProfilerActivity, profile
+    from grakel_torch.profiling import SPAN_PREFIX
+    rng = np.random.RandomState(6)
+    K = rng.randint(0, 1 << 20, (11, 6)).astype(dtype)
+    dr = rng.uniform(1.0, 1e9, 11)
+    dc = rng.uniform(1.0, 1e9, 6).astype(dtype)
+    dr[2] = 0.0
+    K[2, :3] = [5, -5, 0]
+    K[4, 1], K[5, 2] = np.inf, np.nan
+    with np.errstate(all="ignore"):
+        want = np.nan_to_num(K.astype(np.float64) / np.sqrt(
+            np.outer(dr, dc.astype(np.float64))))
+    args = _t(K, dr, dc) if as_tensor else (K, dr, dc)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        got = t_gram.normalize_gram(*args)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    assert np.array_equal(got, want)
+    big = np.finfo(np.float64).max
+    assert (got[2, 0], got[2, 1], got[2, 2], got[4, 1], got[5, 2]) == (
+        big, -big, 0.0, big, 0.0)
+    assert [e.name for e in p.events() if e.name.startswith(SPAN_PREFIX)] \
+        == [SPAN_PREFIX + "normalize"]
+
+
+def test_normalize_gram_cuda_refuses_host_tensors():
+    """K17's wrapper takes CUDA tensors only; the host route is
+    ``normalize_gram``'s own."""
+    K = torch.ones((4, 4))
+    d = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_gram.normalize_gram_cuda(K, d, d)
+
+
 def test_gemm_grams_full_fp32_and_tf32_restored():
     rng = np.random.RandomState(5)
     phi = rng.randint(0, 30, (12, 40)).astype(np.float32)
